@@ -1,0 +1,106 @@
+"""Flash-attention forward on Hopper: the ctypes wrapper around
+``csrc/flash_attention.cu`` (the port of the Pallas kernel
+``repro/kernels/flash_attention.py:flash_attention_fwd``).
+
+``flash_attention_cuda`` launches the kernel and takes CUDA tensors only.
+``flash_attention_fwd`` is the entry the model reaches (through
+``ops.FlashAttention``): it launches the kernel for CUDA tensors and runs
+the plain version (``ref.flash_attention``) for CPU tensors, and for
+nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+MAX_HEAD_DIM = 256
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class LaunchCounter:
+    """Counts kernel launches, so a run can show that its main path went
+    through the kernel."""
+
+    def __init__(self):
+        self.count = 0
+
+
+LAUNCHES = LaunchCounter()
+
+
+@functools.cache
+def _entry():
+    fn = build.load("flash_attention").repro_flash_attention_fwd
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I] + [L] * 12 + \
+        [I, I, F, I, F, P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0,
+                         q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D|Dv), CUDA, float32 or bfloat16,
+    last dim contiguous, D and Dv <= 256, H % KV == 0.  Returns
+    (B, Sq, H, Dv) in q's dtype."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"flash_attention_cuda: {name} is on {t.device}, "
+                             f"not on a CUDA device")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention_cuda: {name} must be 4-D, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPE_CODE:
+            raise ValueError(f"flash_attention_cuda: {name} has dtype "
+                             f"{t.dtype}; q, k, v must share float32 or "
+                             f"bfloat16")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention_cuda: {name}'s last dim must "
+                             f"be contiguous")
+        if t.device != q.device:
+            raise ValueError("flash_attention_cuda: q, k, v on different "
+                             "devices")
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape != (B, Sk, KV, D) or v.shape[:3] != (B, Sk, KV):
+        raise ValueError(f"flash_attention_cuda: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if H % KV or D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_cuda: needs H % KV == 0 and "
+                         f"D, Dv <= {MAX_HEAD_DIM}; got H={H} KV={KV} D={D} "
+                         f"Dv={Dv}")
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, Sq, Sk, H, KV, D, Dv,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        int(causal), int(window), float(softcap or 0.0), int(q_offset),
+        1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES.count += 1
+    return out
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")

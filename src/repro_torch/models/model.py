@@ -1,0 +1,161 @@
+"""Model builder (dense decoder subset of ``repro/models/model.py``).
+
+``build_model(cfg, device)`` returns a :class:`Model` bundle of functions:
+
+  init(seed)                 -> params
+  forward(params, batch)     -> (logits, extras)
+  loss(params, batch)        -> (scalar, metrics)
+
+Params keep the reference's tree: per segment a list of slots, each a dict
+whose leaves carry a leading ``count`` axis over the stacked layers, so JAX
+key paths map 1:1 onto the port's (see ``repro_torch.bridge``).  The
+reference's ``lax.scan`` over that axis is a Python loop here, and
+``remat=True`` wraps each scan step in ``torch.utils.checkpoint``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks, layers
+
+# ---------------------------------------------------------------------------
+# Segment plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Segment:
+    kind: str
+    count: int                 # scan length (number of periods)
+    inner: int                 # layers per scan step
+    locality: Tuple[bool, ...]  # per-slot sliding-window flag
+
+    @property
+    def n_layers(self) -> int:
+        return self.count * self.inner
+
+
+def segment_plan(cfg: ArchConfig) -> List[Segment]:
+    segs: List[Segment] = []
+    for kind, count in cfg.block_pattern:
+        if count == 0:
+            continue
+        a = cfg.attn
+        if a is not None and a.window and a.local_ratio[0] > 0:
+            loc, glob = a.local_ratio
+            period = loc + glob
+            pattern = (True,) * loc + (False,) * glob
+            if count < period:
+                segs.append(Segment(kind, 1, count, pattern[:count]))
+                continue
+            groups, rem = divmod(count, period)
+            segs.append(Segment(kind, groups, period, pattern))
+            if rem:
+                segs.append(Segment(kind, 1, rem, pattern[:rem]))
+            continue
+        segs.append(Segment(kind, count, 1, (False,)))
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# Model bundle
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Model:
+    cfg: ArchConfig
+    init: Callable
+    forward: Callable
+    loss: Callable
+    segments: List[Segment]
+    device: torch.device
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None):
+    """Mean masked token cross-entropy.  logits f32 (..., V)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def build_model(cfg: ArchConfig, device="cuda") -> Model:
+    device = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+    segs = segment_plan(cfg)
+
+    def init(seed: int = 0) -> dict:
+        """Random params of the reference's shapes and dtypes, drawn from a
+        ``torch.Generator`` seeded with ``seed`` (not JAX's bits)."""
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params: dict = {"embed": layers.init_embed(gen, cfg.vocab,
+                                                   cfg.d_model, dtype,
+                                                   device)}
+        params["segments"] = [
+            [blocks.init_block(gen, seg.count, cfg, seg.kind, dtype, device)
+             for _ in range(seg.inner)] for seg in segs]
+        params["final_norm"] = layers.init_norm(cfg.d_model, cfg.norm,
+                                                dtype, device)
+        if not cfg.tie_embeddings:
+            params["head"] = {"w": layers.init_dense(
+                gen, (cfg.d_model, cfg.vocab), dtype, device).T.contiguous()}
+        return params
+
+    def _head_w(params):
+        return params["embed"]["w"] if cfg.tie_embeddings \
+            else params["head"]["w"]
+
+    def _unstack(tree, count):
+        """Per-layer views of a stacked slot: ``count`` trees of slices.
+        ``unbind`` keeps the backward one stack per leaf."""
+        if isinstance(tree, dict):
+            parts = {k: _unstack(v, count) for k, v in tree.items()}
+            return [{k: parts[k][i] for k in tree} for i in range(count)]
+        return list(tree.unbind(0))
+
+    def _run_segments(params, x, positions, remat):
+        for seg, slot_params in zip(segs, params["segments"]):
+            per_slot = [_unstack(sp, seg.count) for sp in slot_params]
+            for c in range(seg.count):
+                def body(h, c=c, seg=seg, per_slot=per_slot):
+                    for j in range(seg.inner):
+                        h = blocks.block_apply(
+                            per_slot[j][c], cfg, h, positions,
+                            layer_is_local=seg.locality[j])
+                    return h
+                x = checkpoint(body, x, use_reentrant=False) if remat \
+                    else body(x)
+        return x
+
+    def forward(params, batch, *, remat: bool = False):
+        x = layers.embed_apply(params["embed"], batch["tokens"],
+                               cfg.embed_scale, cfg.d_model)
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        x = _run_segments(params, x, positions, remat)
+        h = layers.norm_apply(params["final_norm"], x, cfg.norm)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return layers.logits_apply(_head_w(params), h), {"aux": aux}
+
+    def loss(params, batch, *, remat: bool = False):
+        logits, extras = forward(params, batch, remat=remat)
+        toks = batch["tokens"]
+        mask = batch.get("loss_mask")
+        ce = cross_entropy(logits[:, :-1], toks[:, 1:],
+                           None if mask is None else mask[:, 1:])
+        total = ce + extras["aux"]
+        return total, {"ce": ce, "aux": extras["aux"], "loss": total}
+
+    return Model(cfg=cfg, init=init, forward=forward, loss=loss,
+                 segments=segs, device=device)

@@ -1,0 +1,92 @@
+"""The port stands alone: it imports no JAX and nothing of ``repro``, its
+entry points run on the card unless asked for the CPU, and the CUDA
+kernel's wrapper raises rather than falling back."""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.launch import self_healing  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [(p.name, m) for p in files for m in _imported_modules(p)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def _needs_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _needs_no_cuda()
+    cfg = get_arch("gemma-2b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(cfg, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        self_healing.run(1)
+
+
+def test_cuda_wrapper_raises_on_cpu_tensors_and_does_not_fall_back():
+    q = torch.zeros(1, 8, 2, 16)
+    before = tfa.LAUNCHES.count
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        tfa.flash_attention_cuda(q, q, q)
+    assert tfa.LAUNCHES.count == before
+
+
+def test_cuda_wrapper_checks_its_inputs_before_building():
+    class _Fake:
+        """Only what the checks read: is_cuda, dim, dtype, stride, device."""
+        is_cuda = True
+        device = "cuda:0"
+
+        def __init__(self, shape, dtype=torch.float32, last_stride=1):
+            self.shape, self.dtype, self._s = shape, dtype, last_stride
+
+        def dim(self):
+            return len(self.shape)
+
+        def stride(self, i):
+            return self._s
+
+    ok = _Fake((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="float32 or"):
+        tfa.flash_attention_cuda(_Fake((1, 8, 2, 16), torch.float16), ok, ok)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_cuda(ok, _Fake((1, 8, 2, 16), last_stride=2), ok)
+    with pytest.raises(ValueError, match="4-D"):
+        tfa.flash_attention_cuda(ok, _Fake((8, 2, 16)), ok)
+    with pytest.raises(ValueError, match="D, Dv <= 256"):
+        big = _Fake((1, 8, 2, 512))
+        tfa.flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="H % KV"):
+        tfa.flash_attention_cuda(_Fake((1, 8, 3, 16)), ok, ok)
