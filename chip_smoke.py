@@ -10,6 +10,17 @@ Phases, each printing one JSON line:
                     the Hopper flash-attention kernel against its plain
                     PyTorch version on the card, at the reference's test
                     cases and at gemma-2b's training shape, with times
+  kernel:maxplus    the three max-plus kernels against their plain
+                    versions on the card, bitwise in float32 and float64,
+                    at the reference's test cases and the planner's
+                    sizes, with times at n=1024
+  plan              launch.plan.replan: the coordinator's replans on the
+                    first SEV1 events of trace-b on the Fig. 11 fleet (128
+                    GPUs) and a 12-step churn walk at 1024 workers / 64
+                    tasks, on the batched and fused engines, every plan
+                    and scenario total bitwise equal to the same run on
+                    the CPU (plain versions); the fused churn walk again
+                    in float32
   train             launch.train.train() on gemma-2b at full width (depth
                     cut 18 -> 4 layers): fused steps, one injected DP-rank
                     failure recovered through micro-batch redistribution
@@ -38,12 +49,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernel", "train", "self_heal", "profile")
+PHASES = ("device", "build", "kernel", "plan", "train", "self_heal",
+          "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
+                  "float64": 33.5e12}
 
 # (B, Sq, Sk, H, KV, D, Dv, causal, window, softcap, q_offset, dtype)
 ATTN_CASES = [
@@ -216,6 +229,325 @@ def phase_kernel(ctx) -> None:
     ctx["kernels"]["flash_attention"] = rec
     emit({"phase": "kernel:flash_attention", "shape": "gemma-2b B=2 S=1024 "
           "H=8 KV=1 D=256 causal bf16", **rec, "nvidia_smi": ctx["smi"]})
+    phase_kernel_maxplus(ctx)
+
+
+# ---------------------------------------------------------------------------
+# max-plus kernels (the planner's DP step)
+# ---------------------------------------------------------------------------
+
+MAXPLUS = ("maxplus_conv", "maxplus_conv_batched", "maxplus_scan_chunk")
+MAXPLUS_REPLACES = {
+    "maxplus_conv": "src/repro/kernels/maxplus.py:85",
+    "maxplus_conv_batched": "src/repro/kernels/maxplus.py:164",
+    "maxplus_scan_chunk": "src/repro/kernels/maxplus.py:240"}
+NEG = float("-inf")
+
+
+def _maxplus_case(seed, monotone=False, cap=None):
+    """tests/test_kernels.py's ``_maxplus_case``: the same generator."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n = rng.randint(0, 200)
+    prev = rng.uniform(-50.0, 50.0, n + 1)
+    if monotone:
+        prev = np.maximum.accumulate(prev)
+    g = rng.uniform(-50.0, 50.0, n + 1)
+    band = None
+    if cap is not None:
+        band = min(cap, n)
+        g[band:] = g[band]
+    return prev, g, band
+
+
+def _capped_rows(rng, B, n, bands):
+    """A (B, n+1) stack of monotone prev rows and reward rows flat past
+    each row's band (the planner's band contract)."""
+    import numpy as np
+    prev = np.maximum.accumulate(rng.uniform(-50.0, 50.0, (B, n + 1)), axis=1)
+    g = rng.uniform(-50.0, 50.0, (B, n + 1))
+    for r, b in enumerate(bands):
+        if b is not None:
+            g[r, b:] = g[r, min(b, n)]
+    return prev, g
+
+
+def maxplus_cases():
+    """(kernel, args) cases in numpy float64: the shapes of
+    tests/test_kernels.py's max-plus tests, then the planner's sizes."""
+    import numpy as np
+    cases = []
+    for seed in range(8):                         # dense
+        prev, g, _ = _maxplus_case(seed)
+        cases.append(("maxplus_conv", (prev, g, None)))
+    for seed, cap in [(0, 0), (1, 1), (2, 7), (3, 32), (4, 100)]:
+        cases.append(("maxplus_conv", _maxplus_case(seed, True, cap)))
+    for seed in range(6):                         # batched, mixed bands
+        rng = np.random.RandomState(seed)
+        B, n = rng.randint(1, 5), rng.randint(0, 120)
+        bands = [None if rng.rand() < 0.5 else int(rng.randint(0, n + 1))
+                 for _ in range(B)]
+        cases.append(("maxplus_conv_batched",
+                      _capped_rows(rng, B, n, bands) + (bands,)))
+    rng = np.random.RandomState(11)
+    cases.append(("maxplus_conv_batched", _capped_rows(rng, 3, 32, [8] * 3)
+                  + (8,)))
+    for seed in range(6):                         # scan chunk, -inf holes
+        rng = np.random.RandomState(seed)
+        B, K, n1 = rng.randint(1, 6), rng.randint(1, 33), rng.randint(1, 200)
+        wins = rng.uniform(-50.0, 50.0, (B, n1 + K - 1))
+        gs = rng.uniform(-50.0, 50.0, (B, K))
+        gs[rng.uniform(size=gs.shape) < 0.2] = NEG
+        cases.append(("maxplus_scan_chunk", (wins, gs)))
+    rng = np.random.RandomState(1024)
+    for band in (None, 16):                       # n = 1024 rows
+        prev, g = _capped_rows(rng, 1, 1024, [band])
+        cases.append(("maxplus_conv", (prev[0], g[0], band)))
+    bands = [None, 0, 16, 1024, 3, 512] + [16] * 58
+    prev, g = _capped_rows(rng, 64, 1024, bands)
+    prev[5] = NEG                                 # an all -inf prev row
+    cases.append(("maxplus_conv_batched", (prev, g, bands)))
+    cases.append(("maxplus_conv", (np.full(1025, NEG), g[1], 16)))
+    # the fused engine's scan step at K=17, G=32 (planner.py:624), with
+    # its dummy rows: all -inf reward chunks
+    wins = rng.uniform(-50.0, 50.0, (32, 1033 + 16))
+    gs = rng.uniform(-50.0, 50.0, (32, 17))
+    gs[28:] = NEG
+    cases.append(("maxplus_scan_chunk", (wins, gs)))
+    return cases
+
+
+def maxplus_bound(kernel, dtype, *args):
+    """Least time for one call: every input read once and the output
+    written once, against the add+max pairs its candidates need (cell j of
+    a conv row has min(j, band)+1 real candidates; a scan cell K)."""
+    elt = 8 if dtype == "float64" else 4
+    if kernel == "maxplus_scan_chunk":
+        (B, w), K = args[0].shape, args[1].shape[1]
+        n1 = w - (K - 1)
+        ops = 2.0 * B * n1 * K
+        nbytes = elt * B * (w + K + n1)
+    else:
+        prev, bands = args[0], args[2]
+        rows = 1 if prev.ndim == 1 else prev.shape[0]
+        n1 = prev.shape[-1]
+        if bands is None or isinstance(bands, int):
+            bands = [bands] * rows
+        ops = nbytes = 0.0
+        for b in bands:
+            b = n1 - 1 if b is None else min(b, n1 - 1)
+            ops += 2.0 * (n1 * (b + 1) - b * (b + 1) / 2)
+            nbytes += elt * (2 * n1 + b + 1)
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernel_maxplus(ctx) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import maxplus, ref
+
+    def on_card(args, dt):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
+                     if isinstance(a, np.ndarray) else a for a in args)
+
+    n_cases = 0
+    for dtype in ("float32", "float64"):
+        dt = getattr(torch, dtype)
+        for kernel, args in maxplus_cases():
+            t_args = on_card(args, dt)
+            got = getattr(maxplus, kernel + "_cuda")(*t_args)
+            torch.cuda.synchronize()
+            want = getattr(ref, kernel)(*t_args)
+            if got.dtype != dt or got.shape != want.shape \
+                    or not torch.equal(got, want):
+                diff = (got - want).abs().nan_to_num(nan=float("inf"))
+                raise AssertionError(
+                    f"{kernel} {dtype} {tuple(got.shape)}: not bitwise equal "
+                    f"to the plain version (max |diff| {diff.max().item()})")
+            n_cases += 1
+    emit({"phase": "kernel:maxplus", "cases": n_cases,
+          "tol": "bitwise (torch.equal)", "dtypes": ["float32", "float64"]})
+
+    # times at n = 1024 (B = 64 for the stacked kernels)
+    rng = np.random.RandomState(7)
+    prev, g = _capped_rows(rng, 64, 1024, [16] * 64)
+    wins = rng.uniform(-50.0, 50.0, (64, 1025 + 16))
+    gs = rng.uniform(-50.0, 50.0, (64, 17))
+    shapes = {
+        "maxplus_conv": ("n=1024 dense", (prev[0], g[0], None)),
+        "maxplus_conv_batched": ("B=64 n=1024 band 16", (prev, g, 16)),
+        "maxplus_scan_chunk": ("B=64 n1=1025 K=17", (wins, gs))}
+    print("maxplus library_ms: null — no single PyTorch call computes a "
+          "max-plus (tropical) convolution", flush=True)
+    for dtype in ("float32", "float64"):
+        dt = getattr(torch, dtype)
+        for kernel, (shape, args) in shapes.items():
+            t_args = on_card(args, dt)
+            fn = getattr(maxplus, kernel + "_cuda")
+            plain = getattr(ref, kernel)
+            err = (fn(*t_args) - plain(*t_args)).abs().max().item()
+            kernel_ms = cuda_ms(lambda: fn(*t_args), iters=50)
+            plain_ms = cuda_ms(lambda: plain(*t_args), iters=50)
+            bound_ms, bound_by = maxplus_bound(kernel, dtype, *args)
+            rec = {"name": kernel, "route": "cuda",
+                   "source": "src/repro_torch/csrc/maxplus.cu",
+                   "replaces": MAXPLUS_REPLACES[kernel], "launches": None,
+                   "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+            emit({"phase": "kernel:maxplus", "shape": shape, "dtype": dtype,
+                  **rec, "nvidia_smi": ctx["smi"]})
+            if dtype == "float64":           # the planner's precision
+                ctx["kernels"][kernel] = rec
+
+
+def _bits(x: float) -> str:
+    return float(x).hex()
+
+
+def _plans_equal(a, b) -> bool:
+    """Two replan results hold the same plans and totals, bit for bit."""
+    for e in a.get("fig11", {}):
+        for x, y in zip(a["fig11"][e], b["fig11"][e], strict=True):
+            if x["assignment"] != y["assignment"] or \
+                    _bits(x["waf"]) != _bits(y["waf"]) or \
+                    _bits(x["total_reward"]) != _bits(y["total_reward"]):
+                return False
+    for e in a["churn"]:
+        for x, y in zip(a["churn"][e], b["churn"][e], strict=True):
+            if x["assignment"] != y["assignment"] or \
+                    x["totals"].keys() != y["totals"].keys() or \
+                    x["lookups"].keys() != y["lookups"].keys():
+                return False
+            if any(_bits(x["totals"][k]) != _bits(y["totals"][k])
+                   for k in x["totals"]):
+                return False
+            for k, p in x["lookups"].items():
+                q = y["lookups"][k]
+                if p["assignment"] != q["assignment"] or \
+                        _bits(p["total_reward"]) != _bits(q["total_reward"]):
+                    return False
+    return True
+
+
+def _engine_view(result, engine):
+    return {w: {"x": recs[engine]} for w, recs in result.items()}
+
+
+def _profile_rebuild(engine: str) -> dict:
+    """Device busy time over one whole-table rebuild of the churn walk's
+    fleet (1024 workers, 64 tasks) after a three-task change, with reward
+    rows, node vectors and the fused program warm — the walk's steady
+    step — traced with torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.costmodel import A800
+    from repro_torch.core.planner import PlannerCache
+    from repro_torch.launch import plan
+
+    tasks = plan.fleet_tasks(64, max_workers=16)
+    cache = PlannerCache()
+
+    def table(assignment):
+        return cache.table(tasks, assignment, A800, plan.D_RUNNING,
+                           plan.D_TRANSITION, n_budget=1032, engine=engine,
+                           device="cuda")
+    table([16] * 64).rebuild_values()
+    state = [16] * 64
+    state[3], state[17], state[40] = 8, 12, 4
+    warm = table([12 if i == 3 else x for i, x in enumerate(state)])
+    warm.rebuild_values()
+    t = table(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t.rebuild_values()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"rebuild_ms": wall_ms,
+            "device_busy_ms": busy if rows else None,
+            "device_idle_share": 1 - busy / wall_ms if rows else None,
+            "top": [{"name": k[:80], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:8]]}
+
+
+def phase_plan(ctx) -> None:
+    import statistics
+    import torch
+    from repro_torch.kernels import maxplus
+    from repro_torch.launch import plan
+
+    for c in maxplus.LAUNCHES.values():
+        c.count = 0
+    t0 = time.perf_counter()
+    gpu = plan.replan("cuda")
+    gpu_s = time.perf_counter() - t0
+    launches = {k: c.count for k, c in maxplus.LAUNCHES.items()}
+    t0 = time.perf_counter()
+    cpu = plan.replan("cpu")
+    cpu_s = time.perf_counter() - t0
+    if not _plans_equal(gpu, cpu):
+        raise AssertionError("plan: the card's plans or totals differ from "
+                             "the CPU run's")
+    if not _plans_equal(_engine_view(gpu, "batched"),
+                        _engine_view(gpu, "fused")):
+        raise AssertionError("plan: the batched and fused engines differ")
+
+    per_engine = {}
+    for engine in plan.ENGINES:
+        recs = gpu["churn"][engine] + gpu["fig11"][engine]
+        used = {k: sum(r["launches"][k] for r in recs) for k in MAXPLUS}
+        disp = [r["device_dispatches"] for r in recs]
+        per_engine[engine] = {
+            "rebuild_s_median": statistics.median(
+                r["rebuild_s"] for r in gpu["churn"][engine]),
+            "rebuild_s": [r["rebuild_s"] for r in gpu["churn"][engine]],
+            "fig11_rebuild_s": [r["rebuild_s"] for r in gpu["fig11"][engine]],
+            "launches_per_rebuild": {
+                k: [r["launches"][k] for r in gpu["churn"][engine]]
+                for k in MAXPLUS},
+            "fig11_launches": [r["launches"] for r in gpu["fig11"][engine]],
+            "device_dispatches": disp, "launches_total": used}
+        if engine == "batched" and not (used["maxplus_conv"]
+                                        and used["maxplus_conv_batched"]):
+            raise AssertionError(f"plan: batched engine launched {used}")
+        if engine == "fused" and (not used["maxplus_scan_chunk"]
+                                  or any(d != 1 for d in disp)):
+            raise AssertionError(f"plan: fused engine launched {used}, "
+                                 f"dispatches {disp} (want 1 per rebuild)")
+
+    # float32 kernels (the reference's Pallas precision), fused churn walk
+    gpu32 = plan.churn("cuda", "fused", dtype=torch.float32)
+    cpu32 = plan.churn("cpu", "fused", dtype=torch.float32)
+    if not _plans_equal({"churn": {"fused": gpu32}},
+                        {"churn": {"fused": cpu32}}):
+        raise AssertionError("plan: float32 fused walk differs from the CPU")
+    for k in MAXPLUS:
+        if k in ctx["kernels"]:
+            ctx["kernels"][k]["launches"] = launches[k]
+    profiled = {e: _profile_rebuild(e) for e in plan.ENGINES}
+    fig = gpu["fig11"]["batched"]
+    emit({"phase": "plan", "ok": True, "seconds_cuda": gpu_s,
+          "seconds_cpu": cpu_s, "launches": launches,
+          "fig11": {"workers": plan.FIG11_WORKERS,
+                    "plans": [r["assignment"] for r in fig],
+                    "waf_tflops": [r["waf"] / 1e12 for r in fig]},
+          "churn": {"workers": 1024, "tasks": 64,
+                    "steps": len(gpu["churn"]["batched"])},
+          "engines": per_engine,
+          "float32_fused_rebuild_s_median": statistics.median(
+              r["rebuild_s"] for r in gpu32),
+          "profiled_rebuild": profiled, "nvidia_smi": ctx["smi"]})
 
 
 TRAIN = dict(steps=4, seq=1024, batch=8, n_micro=4, dp=4, inject_fail=2)
@@ -395,7 +727,7 @@ def main() -> int:
         return 1
     ctx = {"kernels": {}, "smi": None}
     fns = {"device": phase_device, "build": phase_build,
-           "kernel": phase_kernel, "train": phase_train,
+           "kernel": phase_kernel, "plan": phase_plan, "train": phase_train,
            "self_heal": phase_self_heal, "profile": phase_profile}
     if "device" not in phases:
         phases.insert(0, "device")

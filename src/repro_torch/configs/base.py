@@ -115,7 +115,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def get_arch(name: str) -> ArchConfig:
-    from repro_torch.configs import gemma_2b  # noqa: F401  (registers)
+    from repro_torch.configs import gemma_2b, gpt3  # noqa: F401  (register)
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet; ported: "
                        f"{sorted(_REGISTRY)}")

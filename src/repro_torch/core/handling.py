@@ -1,7 +1,8 @@
 """Error handling workflow (§4.2, Figure 7): severity-driven actions with
 escalation, SEV3 -> reattempt, SEV2 -> restart, SEV1 -> reconfigure.
 
-Copied from ``repro/core/handling.py`` (``Action`` and ``FailureCase``).
+Copied from ``repro/core/handling.py``: actions, the reconfiguration
+triggers, escalation, ``FailureCase`` and the coordinator's ``decide``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,13 @@ class Action(enum.Enum):
     RESTART = "restart_process"            # (2) SEV2
     RECONFIGURE = "reconfigure_cluster"    # (3) SEV1
     RESUME = "resume_training"             # reattempt succeeded
+
+
+class Trigger(enum.Enum):
+    ERROR = "error"
+    NODE_JOIN = "node_join"                # (4)
+    TASK_FINISHED = "task_finished"        # (5)
+    TASK_LAUNCHED = "task_launched"        # (6)
 
 
 def action_for(severity: Severity) -> Action:
@@ -50,3 +58,21 @@ class FailureCase:
         self.attempts += 1
         self.severity = escalate(self.severity)
         return self.next_action()
+
+
+@dataclass
+class HandlingDecision:
+    action: Action
+    severity: Severity
+    isolate_node: bool                 # SEV1: drain the faulty node
+    replan_all_tasks: bool             # Unicron replans the whole cluster
+
+
+def decide(case: FailureCase, *, multi_task: bool = True) -> HandlingDecision:
+    act = case.next_action()
+    return HandlingDecision(
+        action=act,
+        severity=case.severity,
+        isolate_node=(act is Action.RECONFIGURE),
+        replan_all_tasks=(act is Action.RECONFIGURE and multi_task),
+    )

@@ -2,12 +2,17 @@
 get and TTL leases driven by the caller's clock.
 
 A plain-dict subset of ``repro/core/kvstore.py`` (whose ``LegacyKVStore``
-has the same semantics); the sharded fleet-scale layout is not needed by
-the training loop.
+has the same semantics); the sharded fleet-scale layout is needed by
+neither the training loop nor the coordinator.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
+
+# The coordinator's task-set epoch: bumped whenever the entry list mutates
+# (finish/launch), so positional task indices in agent churn reports can be
+# checked for freshness.
+PLAN_EPOCH_KEY = "/plan/epoch"
 
 # The control loop acknowledges a consumed record by writing
 # ``CONSUMED_PREFIX + key``; agents poll the marker to retire outbox entries.

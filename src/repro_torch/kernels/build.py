@@ -26,6 +26,14 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+class LaunchCounter:
+    """Counts a kernel's launches, so a run can show that its main path
+    went through the kernel.  The wrapper adds one where it launches."""
+
+    def __init__(self):
+        self.count = 0
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -22,15 +22,7 @@ MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-class LaunchCounter:
-    """Counts kernel launches, so a run can show that its main path went
-    through the kernel."""
-
-    def __init__(self):
-        self.count = 0
-
-
-LAUNCHES = LaunchCounter()
+LAUNCHES = build.LaunchCounter()
 
 
 @functools.cache

@@ -1,0 +1,146 @@
+"""Max-plus (tropical) convolutions on Hopper: the ctypes wrappers around
+``csrc/maxplus.cu``, the port of the three Pallas kernels of
+``repro/kernels/maxplus.py`` (``maxplus_conv``, ``maxplus_conv_batched``,
+``maxplus_scan_chunk``) that the planner's batched and fused engines run.
+
+Each public function launches its kernel for CUDA tensors and runs the
+plain version (``ref.maxplus_*``) for CPU tensors, and for nothing else.
+Both compute every candidate as one add and reduce with an exact max, so
+the kernel equals the plain version bit for bit, in float32 and float64.
+``LAUNCHES[name].count`` counts each kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import numbers
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = {name: build.LaunchCounter() for name in
+            ("maxplus_conv", "maxplus_conv_batched", "maxplus_scan_chunk")}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_MAX_ROWS = 65535                      # the kernels' grid y dimension
+
+
+@functools.cache
+def _entry(name: str, dtype: torch.dtype):
+    fn = getattr(build.load("maxplus"), f"repro_{name}_{_SUFFIX[dtype]}")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = {"maxplus_conv": [P, P, P, I, I, P],
+                   "maxplus_conv_batched": [P, P, P, P, I, I, P],
+                   "maxplus_scan_chunk": [P, P, P, I, I, I, P]}[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, ndim: int, *ts) -> None:
+    for t in ts:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: input is on {t.device}, not on a CUDA "
+                             f"device")
+        if t.dim() != ndim:
+            raise ValueError(f"{name}: inputs must be {ndim}-D, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != ts[0].dtype or t.dtype not in _SUFFIX:
+            raise ValueError(f"{name}: inputs have dtype {t.dtype}; they "
+                             f"must share float32 or float64")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if t.device != ts[0].device:
+            raise ValueError(f"{name}: inputs on different devices")
+
+
+def _launch(name: str, x: torch.Tensor, *args) -> None:
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _entry(name, x.dtype)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name].count += 1
+
+
+def _bands(bands, B: int, n: int):
+    if bands is None or isinstance(bands, numbers.Integral):
+        bands = [bands] * B
+    bs = [n if b is None else max(0, min(int(b), n)) for b in bands]
+    if len(bs) != B:
+        raise ValueError(f"got {len(bs)} bands for a batch of {B}")
+    return bs
+
+
+def maxplus_conv_cuda(prev, g, band=None) -> torch.Tensor:
+    """Kernel 3 on CUDA tensors: ``prev``, ``g`` 1-D of length n+1."""
+    _check("maxplus_conv", 1, prev, g)
+    if prev.shape != g.shape:
+        raise ValueError(f"maxplus_conv: prev {tuple(prev.shape)} and g "
+                         f"{tuple(g.shape)} differ")
+    n1 = prev.shape[0]
+    out = torch.empty_like(prev)
+    if n1:
+        _launch("maxplus_conv", prev, prev.data_ptr(), g.data_ptr(),
+                out.data_ptr(), n1, _bands([band], 1, n1 - 1)[0])
+    return out
+
+
+def maxplus_conv_batched_cuda(prev, g, bands=None) -> torch.Tensor:
+    """Kernel 4 on CUDA tensors: ``prev``, ``g`` (B, n+1), per-row bands
+    (a sequence, or one band or ``None`` for every row)."""
+    _check("maxplus_conv_batched", 2, prev, g)
+    if prev.shape != g.shape:
+        raise ValueError(f"maxplus_conv_batched: prev {tuple(prev.shape)} "
+                         f"and g {tuple(g.shape)} differ")
+    B, n1 = prev.shape
+    if B > _MAX_ROWS:
+        raise ValueError(f"maxplus_conv_batched: {B} rows > {_MAX_ROWS}")
+    bs = _bands(bands, B, n1 - 1)
+    out = torch.empty_like(prev)
+    if B and n1:
+        dev_bands = torch.tensor(bs, dtype=torch.int32).to(prev.device)
+        _launch("maxplus_conv_batched", prev, prev.data_ptr(),
+                g.data_ptr(), dev_bands.data_ptr(), out.data_ptr(), B, n1)
+    return out
+
+
+def maxplus_scan_chunk_cuda(wins, gs) -> torch.Tensor:
+    """Kernel 5 on CUDA tensors: ``wins`` (B, n1+K-1), ``gs`` (B, K)."""
+    _check("maxplus_scan_chunk", 2, wins, gs)
+    B, K = gs.shape
+    n1 = wins.shape[1] - (K - 1)
+    if wins.shape[0] != B or K < 1 or n1 < 1:
+        raise ValueError(f"maxplus_scan_chunk: wins {tuple(wins.shape)} and "
+                         f"gs {tuple(gs.shape)} are not (B, n1+K-1), (B, K)")
+    if B > _MAX_ROWS:
+        raise ValueError(f"maxplus_scan_chunk: {B} rows > {_MAX_ROWS}")
+    out = torch.empty((B, n1), dtype=wins.dtype, device=wins.device)
+    if B:
+        _launch("maxplus_scan_chunk", wins, wins.data_ptr(),
+                gs.data_ptr(), out.data_ptr(), B, n1, K)
+    return out
+
+
+def _route(cuda_fn, plain_fn, x, *args):
+    if x.is_cuda:
+        return cuda_fn(x, *args)
+    if x.device.type == "cpu":
+        return plain_fn(x, *args)
+    raise ValueError(f"max-plus: no kernel for device {x.device}")
+
+
+def maxplus_conv(prev, g, band=None) -> torch.Tensor:
+    """``out[j] = max_{0 <= k <= min(j, band)} prev[j-k] + g[k]``: the
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    return _route(maxplus_conv_cuda, ref.maxplus_conv, prev, g, band)
+
+
+def maxplus_conv_batched(prev, g, bands=None) -> torch.Tensor:
+    """B independent banded convolutions; row r equals ``maxplus_conv(
+    prev[r], g[r], bands[r])``."""
+    return _route(maxplus_conv_batched_cuda, ref.maxplus_conv_batched, prev,
+                  g, bands)
+
+
+def maxplus_scan_chunk(wins, gs) -> torch.Tensor:
+    """``out[r, j] = max_{0 <= k < K} wins[r, j+K-1-k] + gs[r, k]``."""
+    return _route(maxplus_scan_chunk_cuda, ref.maxplus_scan_chunk, wins, gs)

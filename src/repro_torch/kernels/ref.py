@@ -9,6 +9,7 @@ oracles of ``repro/models/layers.py``.
 from __future__ import annotations
 
 import math
+import numbers
 
 import torch
 
@@ -117,3 +118,62 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                  softcap=softcap, q_offset=q_offset)
     return simple_attention(q, k, v, causal=causal, window=window,
                             softcap=softcap, q_offset=q_offset)
+
+
+# ---------------------------------------------------------------------------
+# Max-plus (tropical) convolutions: the planner's DP step (the plain
+# versions of ``repro/kernels/maxplus.py``'s three kernels).  Generic in
+# dtype; each candidate is one add and max is order-free, so a float64 run
+# equals the reference's numpy kernels bit for bit and a float32 run its
+# float32 Pallas kernels.  The band is folded by a loop over k — the
+# (n+1, band+1) candidate matrix is never built.
+# ---------------------------------------------------------------------------
+
+
+def _clamp_band(band, n: int) -> int:
+    return n if band is None else max(0, min(int(band), n))
+
+
+def maxplus_conv(prev, g, band=None) -> torch.Tensor:
+    """``out[j] = max_{0 <= k <= min(j, band)} prev[j-k] + g[k]`` for 1-D
+    ``prev`` and ``g`` of length n+1; ``band=None`` is dense."""
+    n = prev.shape[0] - 1
+    out = prev + g[0]
+    for k in range(1, _clamp_band(band, n) + 1):
+        out[k:] = torch.maximum(out[k:], prev[:n + 1 - k] + g[k])
+    return out
+
+
+def maxplus_conv_batched(prev, g, bands=None) -> torch.Tensor:
+    """Row r of the (B, n+1) result is ``maxplus_conv(prev[r], g[r],
+    bands[r])``: ``g`` is masked to -inf past each row's band, as the
+    reference does (a masked candidate never beats the finite k=0 one).
+    ``bands``: a sequence of per-row bands (``None`` = dense), or one band
+    (or ``None``) for every row."""
+    B, n1 = prev.shape
+    n = n1 - 1
+    if bands is None or isinstance(bands, numbers.Integral):
+        bands = [bands] * B
+    bs = torch.tensor([_clamp_band(b, n) for b in bands], dtype=torch.long,
+                      device=prev.device)
+    if bs.shape[0] != B:
+        raise ValueError(f"got {bs.shape[0]} bands for a batch of {B}")
+    ks = torch.arange(n1, device=prev.device)
+    gm = torch.where(ks[None, :] > bs[:, None], -math.inf, g)
+    out = prev + gm[:, :1]
+    for k in range(1, int(bs.max()) + 1 if B else 0):
+        out[:, k:] = torch.maximum(out[:, k:], prev[:, :n1 - k] + gm[:, k:k + 1])
+    return out
+
+
+def maxplus_scan_chunk(wins, gs) -> torch.Tensor:
+    """The fused planner engine's chunk step over pre-gathered windows:
+    ``out[r, j] = max_{0 <= k < K} wins[r, j + K-1-k] + gs[r, k]`` for
+    ``wins`` (B, n1+K-1) and ``gs`` (B, K); returns (B, n1)."""
+    B, K = gs.shape
+    n1 = wins.shape[1] - (K - 1)
+    out = torch.full((B, n1), -math.inf, dtype=wins.dtype, device=wins.device)
+    for k in range(K):
+        out = torch.maximum(out, wins[:, K - 1 - k:K - 1 - k + n1]
+                            + gs[:, k:k + 1])
+    return out

@@ -9,6 +9,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.core import planner  # noqa: E402
+from repro_torch.core.coordinator import UnicronCoordinator  # noqa: E402
+from repro_torch.core.costmodel import A800  # noqa: E402
+from repro_torch.launch import plan  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.launch import self_healing  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -33,7 +37,8 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = _port_files()
-    assert len(files) > 20
+    assert len(files) > 30
+    assert any(p.name == "maxplus.py" for p in files)
     bad = [(p.name, m) for p in files for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -53,6 +58,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         self_healing.run(1)
+
+
+def test_planner_entry_points_default_to_cuda_and_raise_without_it():
+    _needs_no_cuda()
+    tasks = plan.fig11_tasks()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        UnicronCoordinator(tasks, plan.FIG11_ASSIGNMENT, A800)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        planner.PlanTable(tasks, plan.FIG11_ASSIGNMENT, A800, 3600.0, 120.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        planner.PlannerCache().table(tasks, plan.FIG11_ASSIGNMENT, A800,
+                                     3600.0, 120.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        plan.replan()
 
 
 def test_cuda_wrapper_raises_on_cpu_tensors_and_does_not_fall_back():
