@@ -14,6 +14,12 @@ Phases, each printing one JSON line:
                     versions on the card, bitwise in float32 and float64,
                     at the reference's test cases and the planner's
                     sizes, with times at n=1024
+  kernel:ssd_scan   the Mamba2 SSD scan kernel against its plain version
+                    on the card (atol = rtol = 1e-4): the reference's test
+                    cases, the token-serial recurrence, chunk invariance, a
+                    ragged S = 1000 at mamba2's widths and with two groups,
+                    a chunk whose dt sum overflows exp, and the training
+                    shapes of mamba2-780m and zamba2-1.2b, with times
   plan              launch.plan.replan: the coordinator's replans on the
                     first SEV1 events of trace-b on the Fig. 11 fleet (128
                     GPUs) and a 12-step churn walk at 1024 workers / 64
@@ -26,10 +32,16 @@ Phases, each printing one JSON line:
                     failure recovered through micro-batch redistribution
                     and checked against the fault-free gradient, and one
                     in-memory and one persistent checkpoint restored bitwise
+  train_ssm         the same on mamba2-780m at full width and full depth
+                    (48 layers): every layer through the SSD scan kernel
+  train_hybrid      zamba2-1.2b at full width (depth cut 38 -> 12, two
+                    applications of the shared attention block): two fused
+                    steps through both kernels
   self_heal         launch.self_healing: three injected failures and the
                     strict-semantics check against a fault-free shadow run
   profile           device time by kernel over one traced steady step of
-                    the train phase's configuration, and the idle share
+                    the train and train_ssm phases' configurations, and the
+                    idle share
 
 Then a line with the card's name and power limit, a line with every
 kernel's numbers, and the result line.  Any failure exits non-zero before
@@ -49,8 +61,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernel", "plan", "train", "self_heal",
-          "profile")
+PHASES = ("device", "build", "kernel", "plan", "train", "train_ssm",
+          "train_hybrid", "self_heal", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
@@ -86,6 +98,9 @@ ATTN_CASES = [
 ATTN_CASES = [c[:-1] + (dt,) for c in ATTN_CASES
               for dt in ("float32", "bfloat16")]
 GEMMA_SHAPE = (2, 1024, 1024, 8, 1, 256, 256, True, 0, 0.0, 0, "bfloat16")
+# zamba2-1.2b's shared block at the train_hybrid phase's micro-batch
+ZAMBA2_ATTN_SHAPE = (2, 1024, 1024, 32, 32, 64, 64, True, 0, 0.0, 0,
+                     "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -179,7 +194,7 @@ def phase_kernel(ctx) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = 0.0
-    for case in ATTN_CASES + [GEMMA_SHAPE]:
+    for case in ATTN_CASES + [GEMMA_SHAPE, ZAMBA2_ATTN_SHAPE]:
         _, _, _, _, _, _, _, causal, window, softcap, q_off, dtype = case
         q, k, v = attn_inputs(case)
         opts = dict(causal=causal, window=window, softcap=softcap,
@@ -203,33 +218,39 @@ def phase_kernel(ctx) -> None:
             if got.abs().max().item() != 0.0:
                 raise AssertionError(f"{case}: masked rows not zero")
         worst = max(worst, err.max().item())
-    emit({"phase": "kernel:flash_attention", "cases": len(ATTN_CASES) + 1,
+    emit({"phase": "kernel:flash_attention", "cases": len(ATTN_CASES) + 2,
           "tol": TOL,
           "max_abs_err_all_cases": worst})
 
-    # gemma-2b's training shape: times and the bound
-    case = GEMMA_SHAPE
-    q, k, v = attn_inputs(case, seed=1)
-    opts = dict(causal=True, window=0, softcap=0.0, q_offset=0)
-    got = flash_attention_cuda(q, k, v, **opts)
-    want = ref.flash_attention(q, k, v, **opts)
-    err = (got.float() - want.float()).abs().max().item()
-    kernel_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **opts))
-    plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, **opts))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    bound_ms, bound_by = attn_bound(case)
-    rec = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/csrc/flash_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention.py:94",
-           "launches": None, "max_abs_err": err, "ms": kernel_ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms}
-    ctx["kernels"]["flash_attention"] = rec
-    emit({"phase": "kernel:flash_attention", "shape": "gemma-2b B=2 S=1024 "
-          "H=8 KV=1 D=256 causal bf16", **rec, "nvidia_smi": ctx["smi"]})
+    # the training shapes: times and the bound; the kernels line keeps
+    # gemma-2b's
+    shapes = {"gemma-2b B=2 S=1024 H=8 KV=1 D=256 causal bf16": GEMMA_SHAPE,
+              "zamba2-1.2b B=2 S=1024 H=KV=32 D=64 causal bf16":
+                  ZAMBA2_ATTN_SHAPE}
+    for i, (label, case) in enumerate(shapes.items()):
+        q, k, v = attn_inputs(case, seed=1)
+        opts = dict(causal=True, window=0, softcap=0.0, q_offset=0)
+        got = flash_attention_cuda(q, k, v, **opts)
+        want = ref.flash_attention(q, k, v, **opts)
+        err = (got.float() - want.float()).abs().max().item()
+        kernel_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **opts))
+        plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, **opts))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=case[3] != case[4]))
+        bound_ms, bound_by = attn_bound(case)
+        rec = {"name": "flash_attention", "route": "cuda",
+               "source": "src/repro_torch/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:94",
+               "launches": None, "max_abs_err": err, "ms": kernel_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms}
+        if i == 0:
+            ctx["kernels"]["flash_attention"] = rec
+        emit({"phase": "kernel:flash_attention", "shape": label, **rec,
+              "nvidia_smi": ctx["smi"]})
     phase_kernel_maxplus(ctx)
+    phase_kernel_ssd(ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +425,161 @@ def phase_kernel_maxplus(ctx) -> None:
                 ctx["kernels"][kernel] = rec
 
 
+# ---------------------------------------------------------------------------
+# SSD scan kernel (every Mamba2 layer)
+# ---------------------------------------------------------------------------
+
+# (B, S, H, P, G, N, chunk)
+SSD_CASES = [
+    # tests/test_kernels.py:86-92
+    (2, 64, 4, 16, 1, 8, 16),
+    (1, 100, 2, 32, 1, 16, 32),
+    (1, 128, 4, 8, 2, 8, 128),
+    (2, 37, 2, 8, 1, 4, 16),
+    # ragged S = 1000 at mamba2's widths, and with two B/C groups
+    (1, 1000, 48, 64, 1, 128, 128),
+    (1, 1000, 8, 64, 2, 128, 128),
+]
+SSD_SERIAL = (1, 24, 2, 4, 1, 4, 8)       # tests/test_kernels.py:109-128
+SSD_INVARIANCE = (1, 96, 2, 8, 1, 8)      # tests/test_kernels.py:131-141
+SSD_LARGE_DT = (1, 256, 2, 8, 1, 8, 128)  # A = -1: chunk dt sums past 88
+# one micro-batch of the train_ssm / train_hybrid phases
+SSD_SHAPES = {"mamba2-780m": (2, 1024, 48, 64, 1, 128, 128),
+              "zamba2-1.2b": (2, 1024, 64, 64, 1, 64, 128)}
+SSD_TOL = 1e-4                            # tests/test_kernels.py:105
+
+
+def ssd_inputs(case, seed: int = 0):
+    """x, dt = softplus(normal), A = -exp(0.3 normal), Bm, Cm on the card,
+    float32 (the inputs of tests/test_torch_ssd.py)."""
+    import numpy as np
+    import torch
+    B, S, H, P, G, N = case[:6]
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+    arrays = (f(B, S, H, P), np.log1p(np.exp(f(B, S, H))),
+              -np.exp(0.3 * f(H)), f(B, S, G, N), f(B, S, G, N))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to("cuda")
+                 for a in arrays)
+
+
+def _ssd_err(name, got, want) -> float:
+    """Largest difference of (y, final state) from the plain version's;
+    raises past atol = rtol = SSD_TOL or on a non-finite value."""
+    import torch
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.dtype != torch.float32 or a.shape != b.shape \
+                or not torch.isfinite(a).all():
+            raise AssertionError(f"ssd_scan {name}: got {a.dtype} "
+                                 f"{tuple(a.shape)}, finite "
+                                 f"{bool(torch.isfinite(a).all())}")
+        d = (a - b).abs()
+        over = d - SSD_TOL * b.abs()
+        if over.max().item() > SSD_TOL:
+            i = int(over.argmax())
+            raise AssertionError(
+                f"ssd_scan {name}: |diff| {d.flatten()[i].item():.3e} at a "
+                f"value of {b.flatten()[i].item():.4e} is over atol = rtol "
+                f"= {SSD_TOL} (max abs err {d.max().item():.3e})")
+        worst = max(worst, d.max().item())
+    return worst
+
+
+def ssd_bound(case):
+    """Least time for one scan: every input read once and both outputs
+    written once, against the multiply-adds of the chunked algorithm for
+    these shapes: C.B^T once per group (causal half), the (L,L)x(L,P)
+    product per head (causal half), C.S_prev for chunks after the first
+    and the state update, each over the chunk's live tokens."""
+    B, S, H, P, G, N, chunk = case
+    L = min(chunk, S)
+    ops = 0.0
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        pairs = n * (n + 1) / 2
+        ops += 2.0 * B * (G * pairs * N + H * pairs * P
+                          + H * n * N * P * (2 if c0 else 1))
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * G * N
+                  + B * H * P * N)
+    t_ops = ops / PEAK_OPS_PER_S["float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernel_ssd(ctx) -> None:
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.models.ssm import ssd_decode_step
+
+    print("ssd_scan library_ms: null — no PyTorch call computes the SSD "
+          "scan", flush=True)
+    worst = 0.0
+    cases = [("case", c) for c in SSD_CASES] + list(SSD_SHAPES.items())
+    for i, (label, case) in enumerate(cases):
+        args, chunk = ssd_inputs(case, seed=i), case[-1]
+        got = ssd_scan_cuda(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        err = _ssd_err(case, got, ref.ssd_scan(*args, chunk=chunk))
+        worst = max(worst, err)
+        kernel_ms = cuda_ms(lambda: ssd_scan_cuda(*args, chunk=chunk))
+        plain_ms = cuda_ms(lambda: ref.ssd_scan(*args, chunk=chunk))
+        bound_ms, bound_by = ssd_bound(case)
+        rec = {"name": "ssd_scan", "route": "cuda",
+               "source": "src/repro_torch/csrc/ssd_scan.cu",
+               "replaces": "src/repro/kernels/ssd_scan.py:86",
+               "launches": None, "max_abs_err": err, "ms": kernel_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None}
+        emit({"phase": "kernel:ssd_scan", "shape": f"{label} B={case[0]} "
+              f"S={case[1]} H={case[2]} P={case[3]} G={case[4]} "
+              f"N={case[5]} chunk={case[6]}", **rec,
+              "nvidia_smi": ctx["smi"]})
+        if label == "mamba2-780m":                # the train_ssm path
+            ctx["kernels"]["ssd_scan"] = rec
+
+    # the token-serial recurrence (the port's ssd_decode_step, on the card)
+    x, dt, A, Bm, Cm = ssd_inputs(SSD_SERIAL, seed=20)
+    got = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=SSD_SERIAL[-1])
+    state = torch.zeros_like(got[1])
+    ys = []
+    for t in range(x.shape[1]):
+        yt, state = ssd_decode_step(state, x[:, t], dt[:, t], A, Bm[:, t],
+                                    Cm[:, t])
+        ys.append(yt)
+    worst = max(worst, _ssd_err("serial", got,
+                                (torch.stack(ys, dim=1), state)))
+
+    # chunk invariance: chunks of 16 and 48 give the same scan
+    args = ssd_inputs(SSD_INVARIANCE, seed=21)
+    worst = max(worst, _ssd_err("chunk 16 vs 48", ssd_scan_cuda(
+        *args, chunk=16), ssd_scan_cuda(*args, chunk=48)))
+
+    # a chunk whose dt sum passes 88: exp(dt sum) overflows f32 there, and
+    # the kernel never forms it; the plain version's gradient stays finite
+    x, dt, _, Bm, Cm = ssd_inputs(SSD_LARGE_DT, seed=22)
+    A = -torch.ones(SSD_LARGE_DT[2], device="cuda")
+    sums = dt.reshape(1, -1, 128, SSD_LARGE_DT[2]).sum(dim=2)
+    if not sums.max().item() > 88.0:
+        raise AssertionError(f"large-dt case: chunk dt sums {sums.tolist()}")
+    args = (x, dt, A, Bm, Cm)
+    worst = max(worst, _ssd_err("large dt", ssd_scan_cuda(*args, chunk=128),
+                                ref.ssd_scan(*args, chunk=128)))
+    inputs = tuple(t.clone().requires_grad_(True) for t in args)
+    y, _ = ref.ssd_scan(*inputs, chunk=128)
+    grads = torch.autograd.grad((y * torch.randn_like(y)).sum(), inputs)
+    if not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError("large-dt case: the plain version's gradient "
+                             "is not finite")
+    emit({"phase": "kernel:ssd_scan", "cases": len(cases) + 3,
+          "tol": SSD_TOL, "large_dt_chunk_sum_max": sums.max().item(),
+          "max_abs_err_all_cases": worst})
+
+
 def _bits(x: float) -> str:
     return float(x).hex()
 
@@ -552,6 +728,8 @@ def phase_plan(ctx) -> None:
 
 TRAIN = dict(steps=4, seq=1024, batch=8, n_micro=4, dp=4, inject_fail=2)
 N_LAYERS = 4                    # gemma-2b has 18; the only reduction
+HYBRID = dict(steps=2, seq=1024, batch=8, n_micro=4, dp=4)
+HYBRID_LAYERS = 12              # zamba2-1.2b has 38: two shared-block periods
 # The recovered gradient sums the redistributed micro-batches in another
 # order than the fault-free one; f32 accumulators over bf16 gradients of
 # magnitude <= max|g| differ by a few f32 ulps of that magnitude.
@@ -567,29 +745,55 @@ def _tree_equal(a, b) -> bool:
         for x, y in zip(la, lb))
 
 
-def phase_train(ctx) -> None:
+def launches_per_pass(cfg) -> dict:
+    """Launches of each kernel in one forward pass of ``cfg``, from the
+    config alone (not from the model's segment plan): one attention per
+    dense layer, one SSD scan per Mamba2 layer, and one attention per
+    shared-block application, after every ``shared_period`` layers of a
+    hybrid stack.  The backward recomputes through the plain versions and
+    launches nothing."""
+    if cfg.arch_type == "dense":
+        return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+    shared = cfg.n_layers // cfg.shared_period if cfg.arch_type == "hybrid" \
+        else 0
+    return {"flash_attention": shared, "ssd_scan": cfg.n_layers}
+
+
+def _model_fields(cfg) -> dict:
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "param_dtype": cfg.param_dtype, "params": cfg.param_count()}
+    if cfg.attn is not None:
+        out.update(heads=cfg.attn.n_heads, kv_heads=cfg.attn.n_kv_heads,
+                   head_dim=cfg.attn.head_dim)
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        out.update(ssm_heads=s.n_heads(cfg.d_model), ssm_head_dim=s.head_dim,
+                   d_state=s.d_state, chunk=s.chunk,
+                   shared_period=cfg.shared_period)
+    return out
+
+
+def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool) -> dict:
+    """launch.train.train() on ``cfg`` with ``opts``; every step's launches
+    of each kernel checked against ``launches_per_pass`` (twice on the
+    verified recovered step), losses and gradient norms finite, the
+    recovered gradient within RECOVERY_RTOL of the fault-free one and, with
+    ``checkpoint``, the step-0 in-memory and persistent saves restored
+    bitwise.  Returns the run's launches of each kernel."""
     import torch
     from repro_torch.checkpoint import persistent
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.train import train
+    from repro_torch.launch.train import KERNEL_LAUNCHES, train
 
-    full = get_arch("gemma-2b")
-    cfg = dataclasses.replace(full, n_layers=N_LAYERS)
-    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    ckpt_dir = ROOT / "build" / f"chip_smoke_{phase}_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    emit({"phase": "train", "arch": cfg.name, "d_model": cfg.d_model,
-          "heads": cfg.attn.n_heads, "kv_heads": cfg.attn.n_kv_heads,
-          "head_dim": cfg.attn.head_dim, "d_ff": cfg.d_ff,
-          "vocab": cfg.vocab, "param_dtype": cfg.param_dtype,
-          "params": cfg.param_count(),
-          "reduced": {"n_layers": [full.n_layers, N_LAYERS]}, **TRAIN})
+    emit({"phase": phase, **_model_fields(cfg), "reduced": reduced, **opts})
     ckpt = {}
 
     def on_step(result) -> None:
         rec = result.history[-1]
-        emit({"phase": "train", **rec})
-        if rec["step"] != 0:
+        emit({"phase": phase, **rec})
+        if not checkpoint or rec["step"] != 0:
             return
         # the one in-memory and one persistent save happen at step 0
         state, mgr = result.state, result.manager
@@ -603,48 +807,89 @@ def phase_train(ctx) -> None:
         torch.cuda.empty_cache()
         ckpt["restore_seconds"] = time.perf_counter() - t0
 
-    fa.LAUNCHES.count = 0
+    for counter in KERNEL_LAUNCHES.values():
+        counter.count = 0
     t0 = time.perf_counter()
-    result = train(cfg, **TRAIN, ckpt_dir=str(ckpt_dir),
-                   ckpt_every=TRAIN["steps"], verify_recovery=True,
-                   device="cuda", on_step=on_step, log=lambda s: None)
-    launches = fa.LAUNCHES.count
+    result = train(cfg, **opts, ckpt_dir=str(ckpt_dir),
+                   ckpt_every=opts["steps"] if checkpoint else 0,
+                   verify_recovery="inject_fail" in opts, device="cuda",
+                   on_step=on_step, log=lambda s: None)
+    launches = {k: c.count for k, c in KERNEL_LAUNCHES.items()}
     secs = time.perf_counter() - t0
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    per_pass = cfg.n_layers * TRAIN["n_micro"]
-    want = {r["step"]: per_pass * (2 if r["kind"] == "recovered" else 1)
-            for r in result.history}
+    per_pass = {k: n * opts["n_micro"]
+                for k, n in launches_per_pass(cfg).items()}
+    total = dict.fromkeys(per_pass, 0)
     for r in result.history:
-        if r["launches"] != want[r["step"]]:
-            raise AssertionError(f"step {r['step']}: {r['launches']} kernel "
-                                 f"launches, expected {want[r['step']]}")
+        times = 2 if r["kind"] == "recovered" else 1
+        want = {k: n * times for k, n in per_pass.items()}
+        if r["launches"] != want:
+            raise AssertionError(f"{phase} step {r['step']}: kernel launches "
+                                 f"{r['launches']}, expected {want}")
+        for k in total:
+            total[k] += want[k]
         for key in ("loss", "grad_norm"):
             if r[key] is not None and not math.isfinite(r[key]):
-                raise AssertionError(f"step {r['step']}: {key}={r[key]}")
-    if launches != sum(want.values()):
-        raise AssertionError(f"{launches} launches in the run, expected "
-                             f"{sum(want.values())}")
-    rec = next(r for r in result.history if r["kind"] == "recovered")
-    tol = RECOVERY_RTOL * rec["grad_sum_max_abs"]
-    if not rec["recovery_max_abs_diff"] <= tol:
-        raise AssertionError(f"recovered gradient off the fault-free one by "
-                             f"{rec['recovery_max_abs_diff']} > {tol}")
-    for tier in ("inmemory", "persistent"):
-        if not ckpt[tier][2]:
-            raise AssertionError(f"{tier} restore differs from the saved "
-                                 f"state")
-    ctx["kernels"]["flash_attention"]["launches"] = launches
+                raise AssertionError(f"{phase} step {r['step']}: "
+                                     f"{key}={r[key]}")
+    if launches != total:
+        raise AssertionError(f"{phase}: {launches} launches in the run, "
+                             f"expected {total}")
+    out = {"phase": phase, "ok": True, "seconds": secs,
+           "launches": launches, "launches_expected": total}
+    rec = next((r for r in result.history if r["kind"] == "recovered"), None)
+    if rec is not None:
+        tol = RECOVERY_RTOL * rec["grad_sum_max_abs"]
+        if not rec["recovery_max_abs_diff"] <= tol:
+            raise AssertionError(f"{phase}: recovered gradient off the "
+                                 f"fault-free one by "
+                                 f"{rec['recovery_max_abs_diff']} > {tol}")
+        out.update(recovery_max_abs_diff=rec["recovery_max_abs_diff"],
+                   recovery_tol=tol, recovered_step_s=rec["seconds"])
+    if checkpoint:
+        for tier in ("inmemory", "persistent"):
+            if not ckpt[tier][2]:
+                raise AssertionError(f"{phase}: {tier} restore differs from "
+                                     f"the saved state")
+        out["checkpoint"] = ckpt
     fused = [r for r in result.history if r["kind"] == "fused"
              and r["step"] > 0]
-    emit({"phase": "train", "ok": True, "seconds": secs,
-          "launches": launches, "launches_expected": sum(want.values()),
-          "recovery_max_abs_diff": rec["recovery_max_abs_diff"],
-          "recovery_tol": tol, "checkpoint": ckpt,
+    emit({**out, "losses": [r["loss"] for r in result.history],
           "steady_step_s": [r["seconds"] for r in fused],
           "steady_tokens_per_s": [r["tokens_per_s"] for r in fused],
           "peak_mem_gb": max(r["peak_mem_gb"] for r in result.history),
           "nvidia_smi": ctx["smi"]})
+    return launches
+
+
+def phase_train(ctx) -> None:
+    from repro_torch.configs import get_arch
+    full = get_arch("gemma-2b")
+    cfg = dataclasses.replace(full, n_layers=N_LAYERS)
+    launches = run_train(ctx, "train", cfg,
+                         {"n_layers": [full.n_layers, N_LAYERS]}, TRAIN,
+                         checkpoint=True)
+    if "flash_attention" in ctx["kernels"]:
+        ctx["kernels"]["flash_attention"]["launches"] = \
+            launches["flash_attention"]
+
+
+def phase_train_ssm(ctx) -> None:
+    from repro_torch.configs import get_arch
+    launches = run_train(ctx, "train_ssm", get_arch("mamba2-780m"), {},
+                         TRAIN, checkpoint=True)
+    if "ssd_scan" in ctx["kernels"]:
+        ctx["kernels"]["ssd_scan"]["launches"] = launches["ssd_scan"]
+
+
+def phase_train_hybrid(ctx) -> None:
+    from repro_torch.configs import get_arch
+    full = get_arch("zamba2-1.2b")
+    cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS)
+    run_train(ctx, "train_hybrid", cfg,
+              {"n_layers": [full.n_layers, HYBRID_LAYERS]}, HYBRID,
+              checkpoint=False)
 
 
 def phase_self_heal(ctx) -> None:
@@ -672,16 +917,14 @@ def phase_self_heal(ctx) -> None:
           "log": lines})
 
 
-def phase_profile(ctx) -> None:
-    """Device time by kernel over one steady fused step of the train
-    phase's configuration (the step after the first, traced with
+def profile_step(cfg) -> dict:
+    """Device time by kernel over one steady fused step of ``cfg`` at the
+    train phase's settings (the step after the first, traced with
     torch.profiler), and the device's idle share of that step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
 
-    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=N_LAYERS)
     opts = {k: v for k, v in TRAIN.items() if k != "inject_fail"}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     secs = []
@@ -702,13 +945,21 @@ def phase_profile(ctx) -> None:
     step_ms = secs[1] * 1e3
     # no device events means the tracer saw no kernels: report that, not
     # an idle device
-    emit({"phase": "profile", "step_ms_traced": step_ms,
-          "n_events": len(events), "n_device_events": len(rows),
-          "device_busy_ms": busy if rows else None,
-          "device_idle_share": 1 - busy / step_ms if rows else None,
-          "top": [{"name": k[:100], "ms": ms, "calls": n,
-                   "share_of_busy": ms / busy} for k, ms, n in rows[:15]],
-          "nvidia_smi": ctx["smi"]})
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "step_ms_traced": step_ms, "n_events": len(events),
+            "n_device_events": len(rows),
+            "device_busy_ms": busy if rows else None,
+            "device_idle_share": 1 - busy / step_ms if rows else None,
+            "top": [{"name": k[:100], "ms": ms, "calls": n,
+                     "share_of_busy": ms / busy} for k, ms, n in rows[:15]]}
+
+
+def phase_profile(ctx) -> None:
+    from repro_torch.configs import get_arch
+    for cfg in (dataclasses.replace(get_arch("gemma-2b"), n_layers=N_LAYERS),
+                get_arch("mamba2-780m")):
+        emit({"phase": "profile", **profile_step(cfg),
+              "nvidia_smi": ctx["smi"]})
 
 
 def main() -> int:
@@ -728,6 +979,7 @@ def main() -> int:
     ctx = {"kernels": {}, "smi": None}
     fns = {"device": phase_device, "build": phase_build,
            "kernel": phase_kernel, "plan": phase_plan, "train": phase_train,
+           "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
            "self_heal": phase_self_heal, "profile": phase_profile}
     if "device" not in phases:
         phases.insert(0, "device")

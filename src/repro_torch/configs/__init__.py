@@ -1,4 +1,4 @@
-from repro_torch.configs.base import (ArchConfig, AttnConfig, get_arch,
-                                     register)
+from repro_torch.configs.base import (ArchConfig, AttnConfig, SSMConfig,
+                                     get_arch, register)
 
-__all__ = ["ArchConfig", "AttnConfig", "get_arch", "register"]
+__all__ = ["ArchConfig", "AttnConfig", "SSMConfig", "get_arch", "register"]

@@ -1,9 +1,9 @@
 """Architecture configs for the port (own copy of ``repro/configs/base.py``,
-trimmed to the dense decoder this slice runs).
+trimmed to the dense, Mamba2 (SSD) and zamba2-hybrid stacks the port runs).
 
 The fields, ``block_pattern``, ``param_count`` and ``reduced()`` match the
-reference for dense archs, so a config built here describes the same model
-as its ``repro`` namesake.
+reference for these archs, so a config built here describes the same
+model as its ``repro`` namesake.
 """
 from __future__ import annotations
 
@@ -12,13 +12,31 @@ from dataclasses import dataclass
 from typing import Tuple
 
 BLOCK_ATTN_DENSE = "attn_dense"        # attention + dense MLP
+BLOCK_MAMBA = "mamba"                  # Mamba2 SSD block
+BLOCK_HYBRID_SHARED = "hybrid_shared"  # zamba2: mamba layers + shared attn
 
 # Features of the reference that later slices of the port bring.
 _LATER = {
     "moe": "the MoE slice",
-    "ssm": "the Mamba2/SSD slice",
     "mla": "the MLA slice",
 }
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) settings."""
+
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 128                   # SSD chunk length
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
@@ -41,7 +59,7 @@ class AttnConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                     # dense (this slice)
+    arch_type: str                     # dense | ssm | hybrid
     source: str                        # citation for the config numbers
     n_layers: int
     d_model: int
@@ -51,6 +69,8 @@ class ArchConfig:
     moe: object = None
     ssm: object = None
     mla: object = None
+    # zamba2: shared attention block applied every `shared_period` layers
+    shared_period: int = 0
     mlp_act: str = "silu"              # silu (SwiGLU) | gelu (GeGLU)
     gated_mlp: bool = True             # False = classic 2-matrix MLP (GPT-3)
     norm: str = "rmsnorm"              # rmsnorm | layernorm
@@ -65,10 +85,6 @@ class ArchConfig:
                 raise NotImplementedError(
                     f"{self.name}: {feat} arrives with {slice_name} of the "
                     f"port")
-        if self.arch_type in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{self.name}: {self.arch_type} arrives with the Mamba2/SSD "
-                f"slice of the port")
         if self.modality != "text":
             raise NotImplementedError(
                 f"{self.name}: modality {self.modality!r} arrives with the "
@@ -76,33 +92,67 @@ class ArchConfig:
 
     @property
     def block_pattern(self) -> Tuple[Tuple[str, int], ...]:
+        if self.arch_type == "ssm":
+            return ((BLOCK_MAMBA, self.n_layers),)
+        if self.arch_type == "hybrid":
+            return ((BLOCK_HYBRID_SHARED, self.n_layers),)
         return ((BLOCK_ATTN_DENSE, self.n_layers),)
 
     def param_count(self) -> int:
         """Parameter count N, as the reference counts it."""
-        d, a = self.d_model, self.attn
+        d = self.d_model
         n = self.vocab * d
         if not self.tie_embeddings:
             n += self.vocab * d
-        attn = d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim \
-            + a.n_heads * a.head_dim * d
-        mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
-        n += self.n_layers * (attn + mlp + 2 * d)
+        for kind, count in self.block_pattern:
+            n += count * self._block_params(kind)
+        if self.shared_period:                # zamba2 shared attn+MLP block
+            n += self._attn_params() + self._mlp_params() + 2 * d
         return n + d
+
+    def _attn_params(self) -> int:
+        d, a = self.d_model, self.attn
+        return d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim \
+            + a.n_heads * a.head_dim * d
+
+    def _mlp_params(self) -> int:
+        return (3 if self.gated_mlp else 2) * self.d_model * self.d_ff
+
+    def _block_params(self, kind: str) -> int:
+        d = self.d_model
+        if kind in (BLOCK_MAMBA, BLOCK_HYBRID_SHARED):
+            # zamba2's per-layer params are the mamba block only; its shared
+            # block is weight-tied and counted once (param_count)
+            s = self.ssm
+            di, nh = s.d_inner(d), s.n_heads(d)
+            p = d * (2 * di + 2 * s.d_state + nh)     # in_proj: z,x,B,C,dt
+            p += s.d_conv * (di + 2 * s.d_state)      # conv1d
+            p += nh * 2 + di + di * d                 # A_log, D; gate norm; out
+            return p + d                              # + pre-norm
+        return self._attn_params() + self._mlp_params() + 2 * d
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant: 2 layers, d_model<=256, float32."""
-        a = self.attn
-        nh = min(a.n_heads, 4)
-        nkv = max(1, min(a.n_kv_heads, nh))
-        if a.n_kv_heads < a.n_heads:
-            nkv = max(1, nh * a.n_kv_heads // a.n_heads)
-        attn = dataclasses.replace(
-            a, n_heads=nh, n_kv_heads=nkv, head_dim=min(a.head_dim, 64),
-            window=min(a.window, 64) if a.window else 0)
+        attn = None
+        if self.attn is not None:
+            a = self.attn
+            nh = min(a.n_heads, 4)
+            nkv = max(1, min(a.n_kv_heads, nh))
+            if a.n_kv_heads < a.n_heads:
+                nkv = max(1, nh * a.n_kv_heads // a.n_heads)
+            attn = dataclasses.replace(
+                a, n_heads=nh, n_kv_heads=nkv, head_dim=min(a.head_dim, 64),
+                window=min(a.window, 64) if a.window else 0)
+        ssm = None
+        if self.ssm is not None:
+            s = self.ssm
+            ssm = dataclasses.replace(
+                s, d_state=min(s.d_state, 16), head_dim=min(s.head_dim, 32),
+                chunk=16)
         return dataclasses.replace(
             self, n_layers=2, d_model=min(self.d_model, 256),
             d_ff=min(self.d_ff, 512), vocab=min(self.vocab, 1024), attn=attn,
+            ssm=ssm, shared_period=2 if self.shared_period else 0,
             param_dtype="float32")
 
 
@@ -115,7 +165,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def get_arch(name: str) -> ArchConfig:
-    from repro_torch.configs import gemma_2b, gpt3  # noqa: F401  (register)
+    from repro_torch.configs import (gemma_2b, gpt3,  # noqa: F401
+                                     mamba2_780m, zamba2_1p2b)
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet; ported: "
                        f"{sorted(_REGISTRY)}")

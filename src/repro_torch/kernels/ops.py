@@ -1,10 +1,11 @@
 """Differentiable wrappers around the port's kernels (counterpart of
 ``repro/kernels/ops.py``).
 
-The forward runs the kernel (``flash_attention_fwd``: the CUDA kernel for
-CUDA tensors, the plain version for CPU tensors).  The backward recomputes
-through the plain version, exactly as the reference's custom VJP
-``_fa_bwd`` differentiates through ``ref.flash_attention``.
+The forward runs the kernel (``flash_attention_fwd``, ``ssd_scan_fwd``:
+the CUDA kernel for CUDA tensors, the plain version for CPU tensors).  The
+backward recomputes through the plain version, exactly as the reference's
+custom VJPs ``_fa_bwd`` and ``_ssd_bwd`` differentiate through
+``ref.flash_attention`` and ``ref.ssd_scan``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
 
 class FlashAttention(torch.autograd.Function):
@@ -35,3 +37,31 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
     return FlashAttention.apply(q, k, v, causal, window, softcap, q_offset)
+
+
+class SsdScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        # a caller that drops the final state leaves its cotangent None
+        ctx.set_materialize_grads(False)
+        return ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        inputs = tuple(t.detach().requires_grad_(True)
+                       for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            outs = ref.ssd_scan(*inputs, chunk=ctx.chunk)
+            pairs = [(o, g) for o, g in zip(outs, (g_y, g_state))
+                     if g is not None]
+            grads = torch.autograd.grad([o for o, _ in pairs], inputs,
+                                        [g for _, g in pairs],
+                                        allow_unused=True)
+        return (*grads, None)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128):
+    """Returns (y (B,S,H,P), final_state (B,H,P,N)); see ``ref.ssd_scan``."""
+    return SsdScan.apply(x, dt, A, Bm, Cm, chunk)

@@ -4,7 +4,8 @@
 They are what the CPU runs, what ``chip_smoke.py`` holds each kernel
 against on the card, and what the kernels' backward passes recompute
 through.  ``simple_attention`` and ``blocked_attention`` port the jnp
-oracles of ``repro/models/layers.py``.
+oracles of ``repro/models/layers.py``; ``ssd_scan`` ports
+``repro/models/ssm.py:ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -118,6 +119,73 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                  softcap=softcap, q_offset=q_offset)
     return simple_attention(q, k, v, causal=causal, window=window,
                             softcap=softcap, q_offset=q_offset)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """Mamba2 SSD chunk scan (port of ``repro/models/ssm.py:ssd_chunked``).
+    x: (B,S,H,P) f32; dt: (B,S,H) f32 (>0); A: (H,) f32 (<0); Bm, Cm:
+    (B,S,G,N) f32 with H % G == 0.  Returns (y (B,S,H,P), final_state
+    (B,H,P,N)).
+
+    The reference's chunking (``L = min(chunk, S)``, zero padding), head ->
+    group mapping (head h reads group h // (H // G)) and inter-chunk loop,
+    with one change: the intra-chunk decay ``exp(acum[l] - acum[s])`` is
+    masked *before* the exponent (``exp(-inf) = 0`` for s > l).  The
+    reference masks after it, and for s > l the exponent is the chunk's sum
+    of ``dt * |A|``: past 88 (f32's ``exp`` limit) that entry is ``inf``.
+    The forward values are the same, but the reference's gradient takes
+    ``0 * inf = NaN`` there (at chunk 128 with mamba2's init it does); this
+    version's gradient is finite.
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    L = min(chunk, S)
+    nc = -(-S // L)
+    pad = nc * L - S
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, 0, 0, pad))
+    xc = x.reshape(Bsz, nc, L, H, P)
+    dtc = dt.reshape(Bsz, nc, L, H)
+    Bc = Bm.reshape(Bsz, nc, L, G, N)
+    Cc = Cm.reshape(Bsz, nc, L, G, N)
+
+    a = dtc * A[None, None, None, :]                    # (B,c,L,H) log-decay
+    acum = torch.cumsum(a, dim=2)                       # inclusive cumsum
+
+    # intra-chunk: Lmat[l,s] = exp(acum[l]-acum[s]) for s<=l, masked first
+    diff = acum[:, :, :, None, :] - acum[:, :, None, :, :]   # (B,c,L,L,H)
+    tri = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
+    lmat = torch.exp(diff.masked_fill(~tri[None, None, :, :, None],
+                                      -math.inf))
+
+    rep = H // G
+    Bh = torch.repeat_interleave(Bc, rep, dim=3)        # (B,c,L,H,N)
+    Ch = torch.repeat_interleave(Cc, rep, dim=3)
+    scores = torch.einsum("bclhn,bcshn->bclsh", Ch, Bh)  # (B,c,L,L,H)
+    w = scores * lmat * dtc[:, :, None, :, :]
+    y_diag = torch.einsum("bclsh,bcshp->bclhp", w, xc)
+
+    # chunk-end states: sum_s exp(acum[-1]-acum[s]) dt_s B_s x_s
+    decay_st = torch.exp(acum[:, :, -1:, :] - acum)     # (B,c,L,H)
+    states = torch.einsum("bcshn,bcshp->bchpn",
+                          Bh * (decay_st * dtc)[..., None], xc)
+    chunk_decay = torch.exp(acum[:, :, -1, :])          # (B,c,H)
+
+    # inter-chunk recurrence: the state BEFORE each chunk
+    carry = torch.zeros((Bsz, H, P, N), dtype=x.dtype, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)              # (B,c,H,P,N)
+
+    y_off = torch.einsum("bclhn,bchpn->bclhp", Ch, prev_states) \
+        * torch.exp(acum)[..., None]
+    y = (y_diag + y_off).reshape(Bsz, nc * L, H, P)[:, :S]
+    return y, carry
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,14 @@ Runs the Unicron-managed loop on one device: deterministic data pipeline
 statistical monitor watching iteration times, the hierarchical checkpoint
 manager (in-memory + persistent tiers) saving state, and optional
 mid-run failure injection through the §6.2 micro-batch redistribution
-path.  Attention runs the Hopper flash-attention kernel on the card.
+path.  On the card, attention runs the Hopper flash-attention kernel and
+every Mamba2 layer the Hopper SSD scan kernel; each step records how many
+times it launched each.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
         --reduced --steps 50 --seq 128 --batch 8 --n-micro 4 --inject-fail 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
+        --steps 10 --seq 1024 --inject-fail 5 --verify-recovery
 """
 from __future__ import annotations
 
@@ -30,12 +34,21 @@ from repro_torch.core.detection import ErrorKind
 from repro_torch.core.kvstore import KVStore
 from repro_torch.core.resumption import run_iteration_with_failure
 from repro_torch.data.pipeline import SyntheticLM, stack_microbatches
-from repro_torch.kernels import flash_attention
+from repro_torch.kernels import flash_attention, ssd_scan
 from repro_torch.models.model import build_model
 from repro_torch.optim import AdamW, cosine_with_warmup
 from repro_torch.train.state import TrainState, init_train_state
 from repro_torch.train.step import (finalize_step, make_grad_fn,
                                     make_train_step)
+
+
+# kernel name -> its launch counter (see chip_smoke.py's kernels line)
+KERNEL_LAUNCHES = {"flash_attention": flash_attention.LAUNCHES,
+                   "ssd_scan": ssd_scan.LAUNCHES}
+
+
+def launch_counts() -> dict:
+    return {k: c.count for k, c in KERNEL_LAUNCHES.items()}
 
 
 @dataclass
@@ -85,7 +98,7 @@ def train(cfg: ArchConfig, *, steps: int = 50, seq: int = 128,
     for step in range(steps):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        launches0 = flash_attention.LAUNCHES.count
+        launches0 = launch_counts()
         t0 = time.perf_counter()
         rec = {"step": step}
         if inject_fail and step == inject_fail:
@@ -119,7 +132,8 @@ def train(cfg: ArchConfig, *, steps: int = 50, seq: int = 128,
         if rec["kind"] == "fused":
             agent.observe_iteration(dt)
         rec.update(seconds=dt, tokens_per_s=batch * seq / dt,
-                   launches=flash_attention.LAUNCHES.count - launches0)
+                   launches={k: n - launches0[k]
+                             for k, n in launch_counts().items()})
         if device.type == "cuda":
             rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         loss = "-" if rec["loss"] is None else f"{rec['loss']:.4f}"

@@ -42,7 +42,7 @@ def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6):
 
 def rms_norm_weighted(x: torch.Tensor, scale: torch.Tensor,
                       eps: float = 1e-6):
-    """RMSNorm with an explicit scale vector (used for qk-norm)."""
+    """RMSNorm with an explicit scale vector (qk-norm, the mamba gate)."""
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)

@@ -1,4 +1,5 @@
-"""Model builder (dense decoder subset of ``repro/models/model.py``).
+"""Model builder (dense, Mamba2 and zamba2-hybrid subset of
+``repro/models/model.py``).
 
 ``build_model(cfg, device)`` returns a :class:`Model` bundle of functions:
 
@@ -10,7 +11,9 @@ Params keep the reference's tree: per segment a list of slots, each a dict
 whose leaves carry a leading ``count`` axis over the stacked layers, so JAX
 key paths map 1:1 onto the port's (see ``repro_torch.bridge``).  The
 reference's ``lax.scan`` over that axis is a Python loop here, and
-``remat=True`` wraps each scan step in ``torch.utils.checkpoint``.
+``remat=True`` wraps each scan step in ``torch.utils.checkpoint``.  zamba2's
+weight-tied attention+MLP block (``params["shared"]``) runs after the slots
+of each period of a ``shared_after`` segment.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, BLOCK_HYBRID_SHARED
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
 
@@ -35,6 +38,7 @@ class Segment:
     count: int                 # scan length (number of periods)
     inner: int                 # layers per scan step
     locality: Tuple[bool, ...]  # per-slot sliding-window flag
+    shared_after: bool = False  # zamba2: apply shared block after slots
 
     @property
     def n_layers(self) -> int:
@@ -45,6 +49,15 @@ def segment_plan(cfg: ArchConfig) -> List[Segment]:
     segs: List[Segment] = []
     for kind, count in cfg.block_pattern:
         if count == 0:
+            continue
+        if kind == BLOCK_HYBRID_SHARED and cfg.shared_period:
+            period = min(cfg.shared_period, count)
+            groups, rem = divmod(count, period)
+            if groups:
+                segs.append(Segment(kind, groups, period,
+                                    (False,) * period, shared_after=True))
+            if rem:
+                segs.append(Segment(kind, 1, rem, (False,) * rem))
             continue
         a = cfg.attn
         if a is not None and a.window and a.local_ratio[0] > 0:
@@ -105,6 +118,9 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         params["segments"] = [
             [blocks.init_block(gen, seg.count, cfg, seg.kind, dtype, device)
              for _ in range(seg.inner)] for seg in segs]
+        if cfg.shared_period:
+            params["shared"] = blocks.init_shared_block(gen, cfg, dtype,
+                                                        device)
         params["final_norm"] = layers.init_norm(cfg.d_model, cfg.norm,
                                                 dtype, device)
         if not cfg.tie_embeddings:
@@ -131,8 +147,11 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
                 def body(h, c=c, seg=seg, per_slot=per_slot):
                     for j in range(seg.inner):
                         h = blocks.block_apply(
-                            per_slot[j][c], cfg, h, positions,
+                            per_slot[j][c], cfg, seg.kind, h, positions,
                             layer_is_local=seg.locality[j])
+                    if seg.shared_after:
+                        h = blocks.shared_block_apply(params["shared"], cfg,
+                                                      h, positions)
                     return h
                 x = checkpoint(body, x, use_reentrant=False) if remat \
                     else body(x)

@@ -1,6 +1,6 @@
 """The port stands alone: it imports no JAX and nothing of ``repro``, its
 entry points run on the card unless asked for the CPU, and the CUDA
-kernel's wrapper raises rather than falling back."""
+kernels' wrappers raise rather than falling back."""
 import ast
 from pathlib import Path
 
@@ -14,6 +14,7 @@ from repro_torch.core.coordinator import UnicronCoordinator  # noqa: E402
 from repro_torch.core.costmodel import A800  # noqa: E402
 from repro_torch.launch import plan  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.launch import self_healing  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -38,7 +39,10 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = _port_files()
     assert len(files) > 30
-    assert any(p.name == "maxplus.py" for p in files)
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"src/repro_torch/kernels/maxplus.py",
+            "src/repro_torch/kernels/ssd_scan.py",
+            "src/repro_torch/models/ssm.py"} <= names
     bad = [(p.name, m) for p in files for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -58,6 +62,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         self_healing.run(1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(get_arch("mamba2-780m").reduced(), steps=1)
 
 
 def test_planner_entry_points_default_to_cuda_and_raise_without_it():
@@ -109,3 +115,34 @@ def test_cuda_wrapper_checks_its_inputs_before_building():
         tfa.flash_attention_cuda(big, big, big)
     with pytest.raises(ValueError, match="H % KV"):
         tfa.flash_attention_cuda(_Fake((1, 8, 3, 16)), ok, ok)
+
+
+def test_ssd_wrapper_checks_its_inputs_before_building():
+    class _Fake:
+        """Only what the checks read: is_cuda, dtype, device, shape, dim."""
+        is_cuda = True
+        device = "cuda:0"
+
+        def __init__(self, shape, dtype=torch.float32):
+            self.shape, self.dtype = torch.Size(shape), dtype
+
+        def dim(self):
+            return len(self.shape)
+
+    def args(B=1, S=8, H=4, P=16, G=1, N=8, dtype=torch.float32):
+        return (_Fake((B, S, H, P), dtype), _Fake((B, S, H)), _Fake((H,)),
+                _Fake((B, S, G, N)), _Fake((B, S, G, N)))
+
+    before = tssd.LAUNCHES.count
+    with pytest.raises(ValueError, match="float32"):
+        tssd.ssd_scan_cuda(*args(dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="H % G"):
+        tssd.ssd_scan_cuda(*args(H=4, G=3))
+    with pytest.raises(ValueError, match="N <= 256"):
+        tssd.ssd_scan_cuda(*args(N=512))
+    with pytest.raises(ValueError, match="chunk of 1..128"):
+        tssd.ssd_scan_cuda(*args(S=512), chunk=256)
+    x, dt, A, Bm, Cm = args()
+    with pytest.raises(ValueError, match="disagree"):
+        tssd.ssd_scan_cuda(x, _Fake((1, 8, 3)), A, Bm, Cm)
+    assert tssd.LAUNCHES.count == before
