@@ -20,6 +20,12 @@ Phases, each printing one JSON line:
                     ragged S = 1000 at mamba2's widths and with two groups,
                     a chunk whose dt sum overflows exp, and the training
                     shapes of mamba2-780m and zamba2-1.2b, with times
+  kernel:rmsnorm    the RMSNorm kernel against its plain version on the card
+                    (atol 2e-2 bf16, 1e-5 f32): the reference's test cases,
+                    every decode and training shape of the port's models,
+                    ragged widths and row counts, mixed dtypes, a
+                    non-contiguous and a misaligned input, with times beside
+                    F.rms_norm's
   plan              launch.plan.replan: the coordinator's replans on the
                     first SEV1 events of trace-b on the Fig. 11 fleet (128
                     GPUs) and a 12-step churn walk at 1024 workers / 64
@@ -39,6 +45,15 @@ Phases, each printing one JSON line:
                     steps through both kernels
   self_heal         launch.self_healing: three injected failures and the
                     strict-semantics check against a fault-free shadow run
+  serve             launch.serve on qwen3-4b at full width and full depth:
+                    a static batch (8 prompts of 128 tokens, 64 new each)
+                    and the continuous batcher (16 requests over 8 lanes,
+                    one evicted mid-decode, slo_stats -> ServingSLO); the
+                    decode path held against the training forward and the
+                    kernel's norms against the plain ones, 145 RMSNorm
+                    launches a decode step, one traced decode step
+  serve_ssm         the static batch on mamba2-780m at full width and full
+                    depth: 97 RMSNorm launches a decode step, finite logits
   profile           device time by kernel over one traced steady step of
                     the train and train_ssm phases' configurations, and the
                     idle share
@@ -62,7 +77,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernel", "plan", "train", "train_ssm",
-          "train_hybrid", "self_heal", "profile")
+          "train_hybrid", "self_heal", "serve", "serve_ssm", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
@@ -251,6 +266,7 @@ def phase_kernel(ctx) -> None:
               "nvidia_smi": ctx["smi"]})
     phase_kernel_maxplus(ctx)
     phase_kernel_ssd(ctx)
+    phase_kernel_rmsnorm(ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -580,6 +596,151 @@ def phase_kernel_ssd(ctx) -> None:
           "max_abs_err_all_cases": worst})
 
 
+# ---------------------------------------------------------------------------
+# RMSNorm kernel (every norm of every model path)
+# ---------------------------------------------------------------------------
+
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}    # tests/test_kernels.py:160
+# (x shape, x dtype, scale dtype): tests/test_kernels.py:151-160, then
+# ragged widths and row counts on both paths (a warp per row up to d = 1024,
+# a block per row above) and mixed dtypes
+RMS_CASES = [(shape, dt, dt) for shape in ((4, 32), (2, 17, 96),
+                                           (1, 5, 7, 64))
+             for dt in ("float32", "bfloat16")] + [
+    ((37, 100), "bfloat16", "bfloat16"), ((13, 1000), "float32", "float32"),
+    ((5, 1500), "bfloat16", "bfloat16"), ((3, 7, 2049), "float32", "float32"),
+    ((9, 1), "float32", "float32"), ((11, 2560), "bfloat16", "float32"),
+    ((6, 128), "float32", "bfloat16")]
+# the port's paths: (label, x shape, dtype); decode rows are the batch of 8
+RMS_SHAPES = [
+    ("qwen3-4b decode block norm", (8, 1, 2560), "bfloat16"),
+    ("qwen3-4b decode q-norm", (8, 1, 32, 128), "bfloat16"),
+    ("qwen3-4b decode k-norm", (8, 1, 8, 128), "bfloat16"),
+    ("mamba2-780m decode block norm", (8, 1, 1536), "bfloat16"),
+    ("mamba2-780m decode gate norm", (8, 1, 3072), "bfloat16"),
+    ("gemma-2b train block norm", (2, 1024, 2048), "bfloat16"),
+    ("mamba2-780m train gate norm", (2, 1024, 3072), "bfloat16"),
+    ("zamba2-1.2b train gate norm", (2, 1024, 4096), "bfloat16"),
+    ("reduced configs (f32)", (2, 1024, 256), "float32"),
+]
+RMS_MAIN = "qwen3-4b decode block norm"        # the kernels line's row
+
+
+def rms_inputs(shape, dtype, sdtype, seed: int = 0):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    s = rng.standard_normal(shape[-1:], dtype=np.float32)
+    return (torch.from_numpy(x).to("cuda", getattr(torch, dtype)),
+            torch.from_numpy(s).to("cuda", getattr(torch, sdtype)))
+
+
+def rms_bound(shape, dtype):
+    """Least time for one call: x read once, out written once, scale read
+    once, against ~4 f32 operations an element (square and add, two
+    products)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    d = shape[-1]
+    n = math.prod(shape)
+    t_bytes = (2 * n * elt + d * elt) / HBM_BYTES_PER_S
+    t_ops = 4.0 * n / PEAK_OPS_PER_S["float32"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Device time per call of ``fn``: the kernels' own time on the card
+    (torch.profiler, summed over every kernel the call launches), without
+    the host's time between launches that ``cuda_ms`` also counts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return busy / 1e3 / iters if busy else None
+
+
+def _rms_check(name, got, want, x) -> float:
+    import torch
+    if got.dtype != x.dtype or got.shape != x.shape:
+        raise AssertionError(f"rmsnorm {name}: got {got.dtype} "
+                             f"{tuple(got.shape)} for x {x.dtype} "
+                             f"{tuple(x.shape)}")
+    err = (got.float() - want.float()).abs().max().item()
+    tol = RMS_TOL[str(x.dtype).split(".")[-1]]
+    if not err <= tol or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"rmsnorm {name}: max abs err {err:.3e} over "
+                             f"atol {tol}")
+    return err
+
+
+def phase_kernel_rmsnorm(ctx) -> None:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    worst, n = 0.0, 0
+    for i, (shape, dt, sdt) in enumerate(RMS_CASES):
+        x, s = rms_inputs(shape, dt, sdt, seed=i)
+        got = rmsnorm_cuda(x, s)
+        torch.cuda.synchronize()
+        worst = max(worst, _rms_check((shape, dt, sdt), got,
+                                      ref.rmsnorm(x, s), x))
+        n += 1
+    # a non-contiguous x (a strided view and a transposed one) and a
+    # contiguous x whose start is not 16-byte aligned (the scalar path)
+    x, s = rms_inputs((64, 512), "bfloat16", "bfloat16", seed=40)
+    views = {"strided": x[:, ::2], "transposed": x.reshape(8, 8, 512)
+             .transpose(0, 1)[..., :256]}
+    flat, s2 = rms_inputs((16 * 128 + 1,), "bfloat16", "bfloat16", seed=41)
+    views["misaligned"] = flat[1:].view(16, 128)
+    for name, v in views.items():
+        sc = s[:v.shape[-1]] if name != "misaligned" else s2[:128]
+        worst = max(worst, _rms_check(name, rmsnorm_cuda(v, sc),
+                                      ref.rmsnorm(v, sc), v))
+        n += 1
+    rows = {}
+    for i, (label, shape, dt) in enumerate(RMS_SHAPES):
+        x, s = rms_inputs(shape, dt, dt, seed=50 + i)
+        got = rmsnorm_cuda(x, s)
+        torch.cuda.synchronize()
+        err = _rms_check(label, got, ref.rmsnorm(x, s), x)
+        worst = max(worst, err)
+        n += 1
+        iters = 200 if x.numel() < 1 << 20 else 50
+        kernel_ms = cuda_ms(lambda: rmsnorm_cuda(x, s), iters=iters)
+        plain_ms = cuda_ms(lambda: ref.rmsnorm(x, s), iters=iters)
+        library_ms = cuda_ms(lambda: F.rms_norm(x, (shape[-1],), s, 1e-6),
+                             iters=iters)
+        bound_ms, bound_by = rms_bound(shape, dt)
+        on_device = {"kernel_device_ms": device_ms(lambda: rmsnorm_cuda(x, s)),
+                     "plain_device_ms": device_ms(lambda: ref.rmsnorm(x, s)),
+                     "library_device_ms": device_ms(
+                         lambda: F.rms_norm(x, (shape[-1],), s, 1e-6))}
+        rec = {"name": "rmsnorm", "route": "cuda",
+               "source": "src/repro_torch/csrc/rmsnorm.cu",
+               "replaces": "src/repro/kernels/rmsnorm.py:27",
+               "launches": None, "max_abs_err": err, "ms": kernel_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms}
+        rows[label] = rec
+        emit({"phase": "kernel:rmsnorm", "shape": f"{label} "
+              f"{'x'.join(map(str, shape))} {dt}", **rec, **on_device,
+              "nvidia_smi": ctx["smi"]})
+    ctx["kernels"]["rmsnorm"] = rows[RMS_MAIN]
+    emit({"phase": "kernel:rmsnorm", "cases": n, "tol": RMS_TOL,
+          "max_abs_err_all_cases": worst})
+
+
 def _bits(x: float) -> str:
     return float(x).hex()
 
@@ -669,6 +830,7 @@ def phase_plan(ctx) -> None:
     gpu = plan.replan("cuda")
     gpu_s = time.perf_counter() - t0
     launches = {k: c.count for k, c in maxplus.LAUNCHES.items()}
+    ctx["phase_launches"]["plan"] = launches
     t0 = time.perf_counter()
     cpu = plan.replan("cpu")
     cpu_s = time.perf_counter() - t0
@@ -750,13 +912,26 @@ def launches_per_pass(cfg) -> dict:
     config alone (not from the model's segment plan): one attention per
     dense layer, one SSD scan per Mamba2 layer, and one attention per
     shared-block application, after every ``shared_period`` layers of a
-    hybrid stack.  The backward recomputes through the plain versions and
-    launches nothing."""
+    hybrid stack; two RMSNorms per attention block (four with qk-norm), two
+    per Mamba2 layer (the block's and the gate's) and the final one.  The
+    backward recomputes through the plain versions and launches nothing."""
+    a = cfg.attn
+    per_attn = 2 + (2 if a is not None and a.qk_norm else 0)
     if cfg.arch_type == "dense":
-        return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+        return {"flash_attention": cfg.n_layers, "ssd_scan": 0,
+                "rmsnorm": per_attn * cfg.n_layers + 1}
     shared = cfg.n_layers // cfg.shared_period if cfg.arch_type == "hybrid" \
         else 0
-    return {"flash_attention": shared, "ssd_scan": cfg.n_layers}
+    return {"flash_attention": shared, "ssd_scan": cfg.n_layers,
+            "rmsnorm": 2 * cfg.n_layers + per_attn * shared + 1}
+
+
+def launches_per_decode_step(cfg) -> dict:
+    """Launches of each kernel in one decode step: the norms of one forward
+    pass (decode attention and the one-token SSM update are plain
+    PyTorch, as in the reference)."""
+    return {"flash_attention": 0, "ssd_scan": 0,
+            "rmsnorm": launches_per_pass(cfg)["rmsnorm"]}
 
 
 def _model_fields(cfg) -> dict:
@@ -816,6 +991,7 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool) -> dict:
                    on_step=on_step, log=lambda s: None)
     launches = {k: c.count for k, c in KERNEL_LAUNCHES.items()}
     secs = time.perf_counter() - t0
+    ctx["phase_launches"][phase] = launches
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     per_pass = {k: n * opts["n_micro"]
@@ -917,6 +1093,243 @@ def phase_self_heal(ctx) -> None:
           "log": lines})
 
 
+# ---------------------------------------------------------------------------
+# serving (prefill by decode steps, greedy decode, continuous batching)
+# ---------------------------------------------------------------------------
+
+SERVE = dict(batch=8, prompt_len=128, n_new=64, lanes=8, n_requests=16,
+             prompt_range=(32, 256), new_range=(16, 64), seed=0)
+# A bf16 stack of 36 layers carries ~2% relative error against float32
+# (2.1% at depth 36 in a CPU run of a narrower qwen3 of this repo); two bf16
+# evaluations in different orders (decode steps against the training
+# forward, other GEMM tilings) differ by up to about twice that.  Relative
+# error is ||a - b|| / ||b|| over all logits.
+DECODE_VS_FORWARD_RTOL = 5e-2
+# One decode step with the kernel's norms against the plain norms: the two
+# differ in the order of the sum of squares only, so in the last bit of an
+# element's norm; held to the bf16 tolerance of the reference's kernel
+# tests (tests/test_kernels.py:160)
+KERNEL_VS_PLAIN_RTOL = 2e-2
+AGREE_REQUESTS = 2              # shortest completed requests re-run alone
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _clone_caches(caches):
+    return [{k: ([{n: t.clone() for n, t in d.items()} for d in v]
+                 if k == "slots" else {n: t.clone() for n, t in v.items()})
+             for k, v in entry.items()} for entry in caches]
+
+
+def _check_steps(phase, part, cfg) -> None:
+    want = {k: [n] for k, n in launches_per_decode_step(cfg).items()}
+    if part["launches_per_step"] != want:
+        raise AssertionError(f"{phase}: kernel launches per decode step "
+                             f"{part['launches_per_step']}, expected {want}")
+    if not part["all_logits_finite"]:
+        raise AssertionError(f"{phase}: a decode step gave non-finite "
+                             f"logits")
+
+
+def _check_continuous(part, n_requests) -> None:
+    stats, done = part["slo_stats"], part["finished"]
+    evicted = [r for r in done if r.req_id == part["evicted"]]
+    completed = [r for r in done if r.req_id != part["evicted"]]
+    ok = (len(done) == n_requests
+          and sorted(r.req_id for r in done) == list(range(n_requests))
+          and stats["lane_failures"] == 1 and len(evicted) == 1
+          and stats["completed"] == n_requests - 1
+          and stats["queue_depth"] == 0 and stats["in_flight"] == 0
+          and all(r.done for r in done)
+          and all(len(r.out) == r.max_new for r in completed)
+          and 0 < len(evicted[0].out) < evicted[0].max_new
+          and part["lane_fail_discount"] == 1.0 / n_requests)
+    if not ok:
+        raise AssertionError(f"serve: continuous batcher counters do not add "
+                             f"up: {stats}, evicted {part['evicted']}, "
+                             f"discount {part['lane_fail_discount']}")
+
+
+def profile_decode(model, params, caches, tokens, pos) -> dict:
+    """Device time by kernel over one traced decode step (after one
+    untraced warm-up step on a copy of the caches), and the idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        model.decode_step(params, _clone_caches(caches), tokens, pos)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.decode_step(params, caches, tokens, pos)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"step_ms_traced": step_ms,
+            "n_device_events": len(rows),
+            "device_kernels": sum(r[2] for r in rows),
+            "device_busy_ms": busy if rows else None,
+            "device_idle_share": 1 - busy / step_ms if rows else None,
+            "top": [{"name": k[:100], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:10]]}
+
+
+def _part_fields(part) -> dict:
+    return {k: v for k, v in part.items()
+            if k not in ("outs", "finished")}
+
+
+def phase_serve(ctx) -> None:
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.launch.train import KERNEL_LAUNCHES
+    from repro_torch.serve.decode import generate, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("qwen3-4b")
+    emit({"phase": "serve", **_model_fields(cfg), "reduced": {},
+          **SERVE})
+    for counter in KERNEL_LAUNCHES.values():
+        counter.count = 0
+    t0 = time.perf_counter()
+    res = serve(cfg, device="cuda", log=lambda s: None, **SERVE)
+    launches = {k: c.count for k, c in KERNEL_LAUNCHES.items()}
+    secs = time.perf_counter() - t0
+    ctx["phase_launches"]["serve"] = launches
+    if launches["rmsnorm"] == 0:
+        raise AssertionError("serve: the RMSNorm kernel never launched")
+    for part in (res.batch, res.continuous):
+        _check_steps("serve", part, cfg)
+    _check_continuous(res.continuous, SERVE["n_requests"])
+    steps = res.batch["steps"] + res.continuous["steps"]
+    if launches != {k: n * steps for k, n in
+                    launches_per_decode_step(cfg).items()}:
+        raise AssertionError(f"serve: {launches} launches over {steps} "
+                             f"decode steps")
+    if "rmsnorm" in ctx["kernels"]:
+        ctx["kernels"]["rmsnorm"]["launches"] = launches["rmsnorm"]
+
+    # 1. the decode path against the training forward: the last prompt
+    # position's logits after prefill by decode steps
+    model, params = res.model, res.params
+    prompts = torch.stack(make_prompts(cfg, SERVE["batch"],
+                                       SERVE["prompt_len"],
+                                       SERVE["seed"])).cuda()
+    S = prompts.shape[1]
+    with torch.no_grad():
+        caches, dec = prefill(model, params, model.init_cache(
+            prompts.shape[0], S + 1), prompts)
+        fwd = model.forward(params, {"tokens": prompts})[0][:, -1]
+    rel_fwd = _rel(dec, fwd)
+    agree_fwd = (dec.argmax(-1) == fwd.argmax(-1)).float().mean().item()
+    del fwd
+    if not rel_fwd <= DECODE_VS_FORWARD_RTOL:
+        raise AssertionError(f"serve: prefill-by-decode logits off the "
+                             f"forward's by {rel_fwd:.3e} (relative) > "
+                             f"{DECODE_VS_FORWARD_RTOL}")
+
+    # 2. one decode step with the kernel's norms against the plain norms,
+    # from the same caches
+    tok = dec.argmax(-1).int()
+    with torch.no_grad():
+        kern, _ = model.decode_step(params, _clone_caches(caches), tok, S)
+        kernel_fwd = ops.rmsnorm_fwd
+        ops.rmsnorm_fwd = lambda x, s, eps: ref.rmsnorm(x, s, eps=eps)
+        try:
+            plain, _ = model.decode_step(params, _clone_caches(caches), tok,
+                                         S)
+        finally:
+            ops.rmsnorm_fwd = kernel_fwd
+    rel_plain = _rel(kern, plain)
+    if not rel_plain <= KERNEL_VS_PLAIN_RTOL:
+        raise AssertionError(f"serve: decode-step logits with the RMSNorm "
+                             f"kernel off the plain norms' by "
+                             f"{rel_plain:.3e} > {KERNEL_VS_PLAIN_RTOL}")
+
+    # greedy agreement of the batcher with sequential generate() (printed,
+    # not required: near-ties may flip with the batch's GEMM tiling)
+    same = total = 0
+    first_diff = {}
+    done = sorted((r for r in res.continuous["finished"]
+                   if r.req_id != res.continuous["evicted"]),
+                  key=lambda r: len(r.prompt) + r.max_new)[:AGREE_REQUESTS]
+    for r in done:
+        want = generate(model, params, r.prompt[None].cuda(), r.max_new,
+                        capacity=len(r.prompt) + r.max_new)[0].tolist()
+        same += sum(a == b for a, b in zip(r.out, want))
+        total += len(want)
+        first_diff[r.req_id] = next((i for i, (a, b) in enumerate(
+            zip(r.out, want)) if a != b), None)
+    prof = profile_decode(model, params, caches, tok, S)
+    emit({"phase": "serve", "ok": True, "seconds": secs,
+          "launches": launches, "decode_steps": steps,
+          "launches_per_decode_step_expected":
+              launches_per_decode_step(cfg),
+          "batch": _part_fields(res.batch),
+          "continuous": _part_fields(res.continuous),
+          "decode_vs_forward_rel": rel_fwd,
+          "decode_vs_forward_rtol": DECODE_VS_FORWARD_RTOL,
+          "decode_vs_forward_argmax_agree": agree_fwd,
+          "kernel_vs_plain_rel": rel_plain,
+          "kernel_vs_plain_max_abs": (kern - plain).abs().max().item(),
+          "kernel_vs_plain_rtol": KERNEL_VS_PLAIN_RTOL,
+          "batcher_vs_generate_agree": same / max(total, 1),
+          "batcher_vs_generate_tokens": total,
+          "batcher_vs_generate_first_diff": first_diff,
+          "profile_decode_step": prof, "nvidia_smi": ctx["smi"]})
+
+
+def phase_serve_ssm(ctx) -> None:
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.launch.train import KERNEL_LAUNCHES
+    from repro_torch.serve.decode import prefill
+
+    cfg = get_arch("mamba2-780m")
+    opts = {k: SERVE[k] for k in ("batch", "prompt_len", "n_new", "seed")}
+    emit({"phase": "serve_ssm", **_model_fields(cfg), "reduced": {},
+          **opts})
+    for counter in KERNEL_LAUNCHES.values():
+        counter.count = 0
+    t0 = time.perf_counter()
+    res = serve(cfg, device="cuda", continuous=False, log=lambda s: None,
+                **opts)
+    launches = {k: c.count for k, c in KERNEL_LAUNCHES.items()}
+    secs = time.perf_counter() - t0
+    ctx["phase_launches"]["serve_ssm"] = launches
+    _check_steps("serve_ssm", res.batch, cfg)
+    steps = res.batch["steps"]
+    if launches != {k: n * steps for k, n in
+                    launches_per_decode_step(cfg).items()}:
+        raise AssertionError(f"serve_ssm: {launches} launches over {steps} "
+                             f"decode steps")
+    # one traced decode step after a short prefill (the state is O(1) in
+    # the sequence, so its length does not change the step)
+    model, params = res.model, res.params
+    prompts = torch.stack(make_prompts(cfg, opts["batch"], 8,
+                                       opts["seed"])).cuda()
+    with torch.no_grad():
+        caches, logits = prefill(model, params, model.init_cache(
+            prompts.shape[0], 9), prompts)
+    prof = profile_decode(model, params, caches, logits.argmax(-1).int(), 8)
+    emit({"phase": "serve_ssm", "ok": True, "seconds": secs,
+          "launches": launches, "decode_steps": steps,
+          "launches_per_decode_step_expected":
+              launches_per_decode_step(cfg),
+          "batch": _part_fields(res.batch), "profile_decode_step": prof,
+          "nvidia_smi": ctx["smi"]})
+
+
 def profile_step(cfg) -> dict:
     """Device time by kernel over one steady fused step of ``cfg`` at the
     train phase's settings (the step after the first, traced with
@@ -976,15 +1389,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    ctx = {"kernels": {}, "smi": None}
+    ctx = {"kernels": {}, "smi": None, "phase_launches": {}}
     fns = {"device": phase_device, "build": phase_build,
            "kernel": phase_kernel, "plan": phase_plan, "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
-           "self_heal": phase_self_heal, "profile": phase_profile}
+           "self_heal": phase_self_heal, "serve": phase_serve,
+           "serve_ssm": phase_serve_ssm, "profile": phase_profile}
     if "device" not in phases:
         phases.insert(0, "device")
     for name in phases:
         fns[name](ctx)
+    for name, rec in ctx["kernels"].items():
+        rec["launches_by_phase"] = {
+            phase: counts[name]
+            for phase, counts in ctx["phase_launches"].items()
+            if counts.get(name)}
     print(ctx["smi"])
     emit({"kernels": list(ctx["kernels"].values())})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -165,8 +165,9 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def get_arch(name: str) -> ArchConfig:
-    from repro_torch.configs import (gemma_2b, gpt3,  # noqa: F401
-                                     mamba2_780m, zamba2_1p2b)
+    from repro_torch.configs import (gemma3_12b, gemma_2b,  # noqa: F401
+                                     gpt3, granite_3_8b, mamba2_780m,
+                                     qwen3_4b, zamba2_1p2b)
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet; ported: "
                        f"{sorted(_REGISTRY)}")

@@ -116,6 +116,15 @@ class ServingSLO(Objective):
         """New objective at a different offered load."""
         return dataclasses.replace(self, rate_rps=float(rate_rps))
 
+    def calibrated(self, stats: dict) -> "ServingSLO":
+        """New objective with ``lane_fail_discount`` refreshed from
+        ``ContinuousBatcher.slo_stats`` counters (lane-failure evictions
+        over all lane completions)."""
+        failed = float(stats.get("lane_failures", 0))
+        done = float(stats.get("completed", 0))
+        frac = failed / max(failed + done, 1.0)
+        return dataclasses.replace(self, lane_fail_discount=frac)
+
 
 #: Module-level default: all instances compare/hash equal.
 TRAINING_WAF = TrainingWAF()

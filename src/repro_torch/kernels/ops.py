@@ -1,11 +1,12 @@
 """Differentiable wrappers around the port's kernels (counterpart of
 ``repro/kernels/ops.py``).
 
-The forward runs the kernel (``flash_attention_fwd``, ``ssd_scan_fwd``:
-the CUDA kernel for CUDA tensors, the plain version for CPU tensors).  The
-backward recomputes through the plain version, exactly as the reference's
-custom VJPs ``_fa_bwd`` and ``_ssd_bwd`` differentiate through
-``ref.flash_attention`` and ``ref.ssd_scan``.
+The forward runs the kernel (``flash_attention_fwd``, ``ssd_scan_fwd``,
+``rmsnorm_fwd``: the CUDA kernel for CUDA tensors, the plain version for
+CPU tensors).  The backward recomputes through the plain version, exactly
+as the reference's custom VJPs ``_fa_bwd``, ``_ssd_bwd`` and ``_rn_bwd``
+differentiate through ``ref.flash_attention``, ``ref.ssd_scan`` and
+``ref.rmsnorm``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
 
@@ -65,3 +67,26 @@ class SsdScan(torch.autograd.Function):
 def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128):
     """Returns (y (B,S,H,P), final_state (B,H,P,N)); see ``ref.ssd_scan``."""
     return SsdScan.apply(x, dt, A, Bm, Cm, chunk)
+
+
+class RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_fwd(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = (t.detach().requires_grad_(True)
+                    for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.rmsnorm(x, scale, eps=ctx.eps)
+            dx, dscale = torch.autograd.grad(out, (x, scale), g)
+        return dx, dscale, None
+
+
+def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
+    """``(x * rsqrt(mean(x^2) + eps)) * scale`` over the last dim, in x's
+    dtype; see ``ref.rmsnorm``."""
+    return RmsNorm.apply(x, scale, eps)

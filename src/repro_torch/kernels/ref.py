@@ -5,7 +5,8 @@ They are what the CPU runs, what ``chip_smoke.py`` holds each kernel
 against on the card, and what the kernels' backward passes recompute
 through.  ``simple_attention`` and ``blocked_attention`` port the jnp
 oracles of ``repro/models/layers.py``; ``ssd_scan`` ports
-``repro/models/ssm.py:ssd_chunked``.
+``repro/models/ssm.py:ssd_chunked``; ``rmsnorm`` is the one of
+``repro/kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -196,6 +197,15 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
 # float32 Pallas kernels.  The band is folded by a loop over k — the
 # (n+1, band+1) candidate matrix is never built.
 # ---------------------------------------------------------------------------
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * scale`` over the last dim, in float32,
+    cast back to x's dtype (port of ``repro/kernels/ref.py:rmsnorm``, the
+    products in its order)."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
 def _clamp_band(band, n: int) -> int:

@@ -1,0 +1,70 @@
+"""RMSNorm forward on Hopper: the ctypes wrapper around ``csrc/rmsnorm.cu``
+(the port of the Pallas kernel ``repro/kernels/rmsnorm.py:rmsnorm_fwd``).
+
+``rmsnorm_cuda`` launches the kernel and takes CUDA tensors only.
+``rmsnorm_fwd`` is the entry the model reaches (through ``ops.RmsNorm``):
+it launches the kernel for CUDA tensors and runs the plain version
+(``ref.rmsnorm``) for CPU tensors, and for nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES = build.LaunchCounter()
+
+
+@functools.cache
+def _entry():
+    fn = build.load("rmsnorm").repro_rmsnorm_fwd
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, ctypes.c_longlong, I, I, I, ctypes.c_float, P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rmsnorm_cuda(x, scale, *, eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., d) and scale: (d,), float32 or bfloat16 each, on one CUDA
+    device.  Returns ``(x * rsqrt(mean(x^2) + eps)) * scale`` over the last
+    dim, computed in float32, in x's dtype and shape.  A non-contiguous x
+    or scale is copied to a contiguous one first."""
+    for name, t in (("x", x), ("scale", scale)):
+        if not t.is_cuda:
+            raise ValueError(f"rmsnorm_cuda: {name} is on {t.device}, not on "
+                             f"a CUDA device")
+        if t.dtype not in _DTYPE_CODE:
+            raise ValueError(f"rmsnorm_cuda: {name} has dtype {t.dtype}; the "
+                             f"kernel takes float32 or bfloat16")
+    if scale.device != x.device:
+        raise ValueError("rmsnorm_cuda: x and scale on different devices")
+    if x.dim() < 1 or scale.shape != x.shape[-1:]:
+        raise ValueError(f"rmsnorm_cuda: scale {tuple(scale.shape)} does not "
+                         f"match the last dim of x {tuple(x.shape)}")
+    x, scale = x.contiguous(), scale.contiguous()
+    out = torch.empty_like(x)
+    d = x.shape[-1]
+    if x.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _entry()(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                   x.numel() // d, d, _DTYPE_CODE[x.dtype],
+                   _DTYPE_CODE[scale.dtype], eps, stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
+    LAUNCHES.count += 1
+    return out
+
+
+def rmsnorm_fwd(x, scale, *, eps: float = 1e-6) -> torch.Tensor:
+    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    if x.is_cuda:
+        return rmsnorm_cuda(x, scale, eps=eps)
+    if x.device.type == "cpu":
+        return ref.rmsnorm(x, scale, eps=eps)
+    raise ValueError(f"rmsnorm: no kernel for device {x.device}")

@@ -4,7 +4,8 @@ shared attention+MLP block.
 
 ``init_block`` builds the params of ``count`` stacked blocks (leading
 ``count`` axis on every leaf, the reference's vmapped init); ``block_apply``
-runs one block from its unstacked params.
+runs one block from its unstacked params.  ``block_cache`` and
+``block_decode`` are the serving path's per-layer cache and one-token step.
 """
 from __future__ import annotations
 
@@ -16,6 +17,18 @@ from repro_torch.configs.base import (BLOCK_ATTN_DENSE, BLOCK_HYBRID_SHARED,
 from repro_torch.models import layers, ssm
 
 _MAMBA_KINDS = (BLOCK_MAMBA, BLOCK_HYBRID_SHARED)
+# decode of the block kinds later slices bring (ROADMAP Queue 1)
+_LATER_DECODE = {"moe": "item 7 (MoE)", "mla": "item 8 (MLA)"}
+
+
+def _refuse_later(kind: str) -> None:
+    for tag, item in _LATER_DECODE.items():
+        if tag in kind:
+            raise NotImplementedError(
+                f"decode of block kind {kind!r} arrives with ROADMAP Queue 1 "
+                f"{item}")
+    if kind != BLOCK_ATTN_DENSE:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
 def _stacked_norm(count: int, cfg, dtype, device) -> dict:
@@ -67,3 +80,49 @@ def shared_block_apply(p: dict, cfg, x: torch.Tensor, positions, *,
                                    positions=positions)
     h = layers.norm_apply(p["norm2"], x, cfg.norm)
     return x + layers.mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def block_cache(cfg, kind: str, batch: int, capacity: int, dtype, device,
+                layer_is_local: bool = False) -> dict:
+    """Zero decode cache of one layer: the Mamba2 state, or K/V buffers of
+    ``capacity`` slots (``min(capacity, window)`` for a local layer)."""
+    if kind in _MAMBA_KINDS:
+        return ssm.mamba_init_state(cfg, batch, dtype, device)
+    _refuse_later(kind)
+    a = cfg.attn
+    cap = min(capacity, a.window) if (layer_is_local and a.window) \
+        else capacity
+    shape = (batch, cap, a.n_kv_heads, a.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def block_decode(p: dict, cfg, kind: str, x: torch.Tensor, cache: dict, pos,
+                 *, layer_is_local: bool = False):
+    """One-token decode.  x: (B,1,d).  Returns (x, new_cache)."""
+    if kind in _MAMBA_KINDS:
+        h = layers.norm_apply(p["norm"], x, cfg.norm)
+        y, new = ssm.mamba_decode(p["mamba"], cfg, h, cache)
+        return x + y, new
+    _refuse_later(kind)
+    return shared_block_decode(p, cfg, x, cache, pos,
+                               layer_is_local=layer_is_local)
+
+
+def shared_block_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos, *,
+                        layer_is_local: bool = False):
+    """``attn_dense``'s one-token step (zamba2's shared block runs it with
+    global attention).  Returns (x, {"k", "v"})."""
+    h = layers.norm_apply(p["norm1"], x, cfg.norm)
+    y, nk, nv = layers.attention_decode(p["attn"], cfg, h, cache["k"],
+                                        cache["v"], pos,
+                                        layer_is_local=layer_is_local)
+    x = x + y
+    h = layers.norm_apply(p["norm2"], x, cfg.norm)
+    x = x + layers.mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp)
+    return x, {"k": nk, "v": nv}

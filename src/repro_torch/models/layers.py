@@ -1,10 +1,12 @@
-"""Core model primitives: norms, RoPE, MLPs, attention, embedding (dense
-subset of ``repro/models/layers.py``).
+"""Core model primitives: norms, RoPE, MLPs, attention (full sequence and
+one-token decode), embedding (dense subset of ``repro/models/layers.py``).
 
 Functional, as in the reference: ``init_*`` builds a param dict,
-``*_apply`` consumes it.  Attention always goes through
-``kernels.ops.flash_attention``: the Hopper kernel for CUDA tensors, the
-plain version for CPU tensors.
+``*_apply`` consumes it.  Full-sequence attention always goes through
+``kernels.ops.flash_attention`` and every RMSNorm through
+``kernels.ops.rmsnorm``: the Hopper kernels for CUDA tensors, the plain
+versions for CPU tensors.  ``attention_decode`` is the one-token step of
+the serving path, plain PyTorch as in the reference.
 """
 from __future__ import annotations
 
@@ -28,24 +30,20 @@ def init_norm(d: int, kind: str, dtype, device) -> dict:
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6):
+    if kind != "layernorm":
+        return ops.rmsnorm(x, p["scale"], eps)
     xf = x.float()
-    if kind == "layernorm":
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, unbiased=False)
-        out = (xf - mu) * torch.rsqrt(var + eps)
-        out = out * p["scale"].float() + p["bias"].float()
-    else:
-        ms = xf.square().mean(dim=-1, keepdim=True)
-        out = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * p["scale"].float() + p["bias"].float()
     return out.to(x.dtype)
 
 
 def rms_norm_weighted(x: torch.Tensor, scale: torch.Tensor,
                       eps: float = 1e-6):
     """RMSNorm with an explicit scale vector (qk-norm, the mamba gate)."""
-    xf = x.float()
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+    return ops.rmsnorm(x, scale, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +141,59 @@ def attention_apply(p: dict, cfg, x: torch.Tensor, *, layer_is_local: bool,
     o = ops.flash_attention(q, k, v, causal=a.causal, window=window,
                             softcap=a.logit_softcap)
     return o.reshape(B, S, a.n_heads * a.head_dim) @ p["wo"]
+
+
+def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos, *, layer_is_local: bool):
+    """One-token decode.  x: (B, 1, d); cache_k/v: (B, C, KV, D) where C is
+    the cache capacity (full length for global layers, the window for local
+    ones).  ``pos``: an int or a (B,) tensor, the absolute position of each
+    lane's new token (per-lane positions serve continuous batching).
+
+    Local (sliding-window) layers keep a ring buffer of ``window`` slots;
+    global layers write slot ``min(pos, C - 1)``.  The caches are updated in
+    place (one lane's slot each) and returned: (out (B,1,d), k, v)."""
+    a = cfg.attn
+    B = x.shape[0]
+    C = cache_k.shape[1]
+    pos_b = torch.as_tensor(pos, device=x.device).long().reshape(-1) \
+        .expand(B)
+    q = (x @ p["wq"]).reshape(B, 1, a.n_heads, a.head_dim)
+    k = (x @ p["wk"]).reshape(B, 1, a.n_kv_heads, a.head_dim)
+    v = (x @ p["wv"]).reshape(B, 1, a.n_kv_heads, a.head_dim)
+    if a.qk_norm:
+        q = rms_norm_weighted(q, p["q_norm"])
+        k = rms_norm_weighted(k, p["k_norm"])
+    posv = pos_b[:, None]                                   # (B, 1)
+    q = apply_rope(q, posv, a.rope_theta)
+    k = apply_rope(k, posv, a.rope_theta)
+    local = layer_is_local and a.window > 0
+    slot = pos_b % max(C, 1) if local else torch.clamp(pos_b, max=C - 1)
+    lanes = torch.arange(B, device=x.device)
+    cache_k[lanes, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[lanes, slot] = v[:, 0].to(cache_v.dtype)
+    # validity of each cache slot, per lane: (B, C)
+    slots = torch.arange(C, device=x.device)[None, :]
+    if local:
+        filled = slots <= posv % C
+        valid = filled | (posv >= C)                        # ring fill
+        base = posv - posv % C
+        abs_pos = torch.where(filled, base + slots, base + slots - C)
+        valid &= (abs_pos > posv - a.window) & (abs_pos >= 0)
+    else:
+        valid = slots <= posv
+    G = a.n_heads // a.n_kv_heads
+    qg = q.reshape(B, 1, a.n_kv_heads, G, a.head_dim).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k.float())
+    s = s / math.sqrt(a.head_dim)
+    if a.logit_softcap:
+        s = torch.tanh(s / a.logit_softcap) * a.logit_softcap
+    s = s.masked_fill(~valid[:, None, None, None, :], -math.inf)
+    w = torch.softmax(s, dim=-1)
+    w = torch.where(torch.isnan(w), 0.0, w)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, cache_v.float())
+    o = o.reshape(B, 1, a.n_heads * a.head_dim).to(x.dtype)
+    return o @ p["wo"], cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,8 @@
   init(seed)                 -> params
   forward(params, batch)     -> (logits, extras)
   loss(params, batch)        -> (scalar, metrics)
+  init_cache(batch, capacity) -> caches
+  decode_step(params, caches, tokens, pos) -> (logits, caches)
 
 Params keep the reference's tree: per segment a list of slots, each a dict
 whose leaves carry a leading ``count`` axis over the stacked layers, so JAX
@@ -13,7 +15,10 @@ key paths map 1:1 onto the port's (see ``repro_torch.bridge``).  The
 reference's ``lax.scan`` over that axis is a Python loop here, and
 ``remat=True`` wraps each scan step in ``torch.utils.checkpoint``.  zamba2's
 weight-tied attention+MLP block (``params["shared"]``) runs after the slots
-of each period of a ``shared_after`` segment.
+of each period of a ``shared_after`` segment.  Decode caches keep the same
+layout: per segment ``{"slots": [...], "shared": ...}`` with leaves of
+shape (count, batch, ...), so axis 1 of every cache leaf is the lane.
+``decode_step`` updates them in place and returns them.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from typing import Callable, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig, BLOCK_HYBRID_SHARED
+from repro_torch.configs.base import (ArchConfig, BLOCK_ATTN_DENSE,
+                                     BLOCK_HYBRID_SHARED)
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
 
@@ -89,6 +95,8 @@ class Model:
     loss: Callable
     segments: List[Segment]
     device: torch.device
+    init_cache: Callable = None
+    decode_step: Callable = None
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -176,5 +184,67 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         total = ce + extras["aux"]
         return total, {"ce": ce, "aux": extras["aux"], "loss": total}
 
+    # ---------------- decode ----------------
+
+    def init_cache(batch_size: int, capacity: int, cache_dtype=None):
+        """Zero decode caches for ``batch_size`` lanes of ``capacity``
+        positions, in ``cache_dtype`` (default: the param dtype; the SSM
+        state is float32)."""
+        cdt = cache_dtype or dtype
+
+        def stacked(one, count):
+            return {k: v[None].repeat((count,) + (1,) * v.dim())
+                    for k, v in one.items()}
+        caches = []
+        for seg in segs:
+            entry = {"slots": [stacked(blocks.block_cache(
+                cfg, seg.kind, batch_size, capacity, cdt, device,
+                layer_is_local=seg.locality[j]), seg.count)
+                for j in range(seg.inner)]}
+            if seg.shared_after:
+                entry["shared"] = stacked(blocks.block_cache(
+                    cfg, BLOCK_ATTN_DENSE, batch_size, capacity, cdt,
+                    device), seg.count)
+            caches.append(entry)
+        return caches
+
+    def decode_step(params, caches, tokens, pos):
+        """tokens: (B,) int; pos: an int or a (B,) tensor of absolute
+        positions.  Returns (logits (B, vocab) f32, caches), the caches
+        updated in place."""
+        B = tokens.shape[0]
+        pos = torch.as_tensor(pos, device=tokens.device).long() \
+            .reshape(-1).expand(B)
+        x = layers.embed_apply(params["embed"], tokens[:, None],
+                               cfg.embed_scale, cfg.d_model)
+        for seg, slot_params, cache in zip(segs, params["segments"], caches):
+            per_slot = [_unstack(sp, seg.count) for sp in slot_params]
+            for c in range(seg.count):
+                for j in range(seg.inner):
+                    layer_cache = {k: v[c]
+                                   for k, v in cache["slots"][j].items()}
+                    x, new = blocks.block_decode(
+                        per_slot[j][c], cfg, seg.kind, x, layer_cache, pos,
+                        layer_is_local=seg.locality[j])
+                    _write_back(layer_cache, new)
+                if seg.shared_after:
+                    layer_cache = {k: v[c] for k, v in cache["shared"].items()}
+                    x, new = blocks.shared_block_decode(
+                        params["shared"], cfg, x, layer_cache, pos)
+                    _write_back(layer_cache, new)
+        h = layers.norm_apply(params["final_norm"], x, cfg.norm)
+        logits = layers.logits_apply(_head_w(params), h)[:, 0]
+        return logits, caches
+
     return Model(cfg=cfg, init=init, forward=forward, loss=loss,
-                 segments=segs, device=device)
+                 segments=segs, device=device, init_cache=init_cache,
+                 decode_step=decode_step)
+
+
+def _write_back(layer_cache: dict, new: dict) -> None:
+    """Copy a layer's new cache leaves into its views of the stacked
+    caches.  The K/V buffers come back as the same tensors, already updated
+    in place by ``attention_decode``."""
+    for k, v in new.items():
+        if v is not layer_cache[k]:
+            layer_cache[k].copy_(v)

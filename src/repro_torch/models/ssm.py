@@ -9,9 +9,9 @@ The recurrence is
 computed over the full sequence in chunks by ``kernels.ops.ssd_scan`` (the
 Hopper kernel for CUDA tensors, the plain version for CPU tensors).  There
 is no ``kernel=`` switch: the reference's ``"jnp"`` and ``"pallas"`` paths
-both map to that op.  ``ssd_decode_step`` is the token-serial recurrence,
-kept as the scan's second oracle; the decode path itself waits for the
-serving slice.
+both map to that op.  ``ssd_decode_step`` is the token-serial recurrence:
+the scan's second oracle, and the step of ``mamba_decode`` (the serving
+path's one-token update of the conv history and the SSM state).
 """
 from __future__ import annotations
 
@@ -107,3 +107,52 @@ def mamba_apply(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     y = y.reshape(B, S, di).to(x.dtype)
     y = layers.rms_norm_weighted(y * F.silu(z), p["gate_norm"])
     return y @ p["w_out"]
+
+
+def mamba_init_state(cfg, batch: int, dtype=torch.float32,
+                     device="cpu") -> dict:
+    """Zero decode state of one Mamba2 layer: the SSM state (B,H,P,N) in
+    float32 and the last ``d_conv - 1`` conv inputs (B, d_conv-1, C)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    H = s.n_heads(d)
+    return {
+        "ssm": torch.zeros((batch, H, s.head_dim, s.d_state),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, s.d_conv - 1,
+                             di + 2 * N_GROUPS * s.d_state),
+                            dtype=dtype, device=device),
+    }
+
+
+def mamba_decode(p: dict, cfg, x: torch.Tensor, state: dict):
+    """One-token decode.  x: (B,1,d); state: {"ssm", "conv"}.  Returns
+    (y (B,1,d), new_state)."""
+    s = cfg.ssm
+    B, _, d = x.shape
+    di = s.d_inner(d)
+    H = s.n_heads(d)
+    N = s.d_state
+    gn = N_GROUPS * N
+
+    z, xbc, dt_raw = _split_proj(cfg, x @ p["w_in"])     # (B,1,*)
+    hist = torch.cat([state["conv"], xbc[:, 0][:, None]], dim=1)  # (B,K,C)
+    # the reference's einsum: products summed in f32, rounded once
+    out_dtype = torch.promote_types(hist.dtype, p["conv_w"].dtype)
+    conv_out = (hist.float() * p["conv_w"].float()).sum(dim=1) \
+        .to(out_dtype) + p["conv_b"]
+    xbc_t = F.silu(conv_out)
+    new_conv = hist[:, 1:]
+
+    xs = xbc_t[:, :di].reshape(B, H, s.head_dim).float()
+    Bm = xbc_t[:, di:di + gn].reshape(B, N_GROUPS, N).float()
+    Cm = xbc_t[:, di + gn:].reshape(B, N_GROUPS, N).float()
+    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    y, new_ssm = ssd_decode_step(state["ssm"], xs, dt, A, Bm, Cm)
+    y = y + p["D"][None, :, None] * xs
+    y = y.reshape(B, 1, di).to(x.dtype)
+    y = layers.rms_norm_weighted(y * F.silu(z), p["gate_norm"])
+    return y @ p["w_out"], {"ssm": new_ssm, "conv": new_conv}

@@ -15,7 +15,8 @@ from repro_torch.core.costmodel import A800  # noqa: E402
 from repro_torch.launch import plan  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
-from repro_torch.launch import self_healing  # noqa: E402
+from repro_torch.launch import quickstart, self_healing  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
@@ -42,7 +43,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"src/repro_torch/kernels/maxplus.py",
             "src/repro_torch/kernels/ssd_scan.py",
-            "src/repro_torch/models/ssm.py"} <= names
+            "src/repro_torch/models/ssm.py",
+            "src/repro_torch/kernels/rmsnorm.py",
+            "src/repro_torch/serve/decode.py",
+            "src/repro_torch/serve/scheduler.py",
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/launch/quickstart.py"} <= names
     bad = [(p.name, m) for p in files for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -64,6 +70,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         self_healing.run(1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train(get_arch("mamba2-780m").reduced(), steps=1)
+
+
+def test_serving_entry_points_default_to_cuda_and_raise_without_it():
+    _needs_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve(get_arch("qwen3-4b").reduced(), batch=1, prompt_len=2,
+              n_new=1, continuous=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quickstart.run("qwen3-4b", steps=1, log=lambda s: None)
 
 
 def test_planner_entry_points_default_to_cuda_and_raise_without_it():
