@@ -7,9 +7,15 @@ Phases, each printing one JSON line:
   device            torch/CUDA versions, the card's name and power limit
   build             nvcc build of every CUDA source of the port
   kernel:flash_attention
-                    the Hopper flash-attention kernel against its plain
-                    PyTorch version on the card, at the reference's test
-                    cases and at gemma-2b's training shape, with times
+                    the two attention kernels against their plain
+                    PyTorch version on the card, each case with the variant
+                    it took (the reference's test cases in float32 and
+                    bfloat16, the wgmma kernel's edges, fused-QKV, strided
+                    and misaligned views), the wgmma kernels' ptxas lines
+                    (no spills, no serialised wgmma), and times at gemma-2b's,
+                    zamba2-1.2b's and qwen3-4b's training shapes beside
+                    SDPA's, with gemma-2b's last causal q tile alone and
+                    B = 8
   kernel:maxplus    the three max-plus kernels against their plain
                     versions on the card, bitwise in float32 and float64,
                     at the reference's test cases and the planner's
@@ -51,7 +57,11 @@ Phases, each printing one JSON line:
                     one evicted mid-decode, slo_stats -> ServingSLO); the
                     decode path held against the training forward and the
                     kernel's norms against the plain ones, 145 RMSNorm
-                    launches a decode step, one traced decode step
+                    launches a decode step, one traced decode step; the
+                    batcher's greedy tokens against generate()'s with both
+                    runs' top-1/top-2 logits at the first difference; then
+                    qwen3-4b at full width, 4 layers, in float32, where the
+                    batcher's tokens must equal generate()'s
   serve_ssm         the static batch on mamba2-780m at full width and full
                     depth: 97 RMSNorm launches a decode step, finite logits
   profile           device time by kernel over one traced steady step of
@@ -107,20 +117,87 @@ ATTN_CASES = [
     (1, 72, 72, 4, 4, 192, 128, True, 0, 0.0, 0, "float32"),
     (1, 40, 40, 2, 1, 24, 40, True, 0, 0.0, 0, "float32"),
 ]
-# every case runs in float32 (the CUDA-core kernel) and in bfloat16 (the
-# tensor-core kernel where D % 16 == 0 and Dv is 32/64/128/256, else the
-# CUDA-core kernel)
+# every case runs in float32 (the CUDA-core kernel) and in bfloat16
+# (kernels.flash_attention.variant: "wgmma" at D = Dv in {64, 128, 256},
+# else "cuda_core")
 ATTN_CASES = [c[:-1] + (dt,) for c in ATTN_CASES
               for dt in ("float32", "bfloat16")]
+# the wgmma kernel's edges, each expected on "wgmma": ragged Sq and Sk with
+# q_offset = Sk - Sq and a negative one (fully masked rows), a window, a
+# soft-cap, MQA, GQA and H = KV, D in {64, 128, 256}, bidirectional, a
+# single query row, fewer keys than a tile
+WGMMA_CASES = [
+    (1, 100, 1000, 8, 1, 256, 256, True, 0, 0.0, 900, "bfloat16"),
+    (2, 1000, 1000, 4, 2, 128, 128, True, 0, 0.0, 0, "bfloat16"),
+    (1, 100, 100, 4, 4, 64, 64, True, 0, 0.0, -40, "bfloat16"),
+    (1, 300, 300, 4, 1, 128, 128, True, 16, 0.0, 0, "bfloat16"),
+    (1, 257, 257, 8, 2, 256, 256, True, 0, 30.0, 0, "bfloat16"),
+    (2, 200, 200, 2, 2, 64, 64, False, 0, 0.0, 0, "bfloat16"),
+    (1, 1000, 1000, 4, 1, 256, 256, False, 128, 0.0, 0, "bfloat16"),
+    # one query row at the end of 100 keys, and fewer keys than one tile
+    (1, 1, 100, 8, 1, 256, 256, True, 0, 0.0, 99, "bfloat16"),
+    (2, 37, 10, 4, 2, 128, 128, False, 0, 0.0, 0, "bfloat16"),
+]
+# non-contiguous inputs, with the variant each must take: q, k, v sliced
+# out of one fused (B, S, H + 2 KV, D) projection, a q strided over every
+# other head and a q stored (B, H, S, D) and transposed, whose head stride
+# exceeds its seq stride (aligned: "wgmma"), and a q whose base is 2 bytes
+# off (mis-aligned: not "wgmma")
+ATTN_LAYOUT_CASES = [
+    ("fused_qkv", (2, 512, 512, 8, 2, 128, 128, True, 0, 0.0, 0,
+                   "bfloat16"), "wgmma"),
+    ("strided_q", (1, 200, 200, 4, 4, 64, 64, True, 0, 0.0, 0,
+                   "bfloat16"), "wgmma"),
+    ("transposed_q", (2, 300, 300, 8, 1, 256, 256, True, 0, 0.0, 0,
+                      "bfloat16"), "wgmma"),
+    ("misaligned_q", (1, 130, 130, 4, 2, 64, 64, True, 0, 0.0, 0,
+                      "bfloat16"), "cuda_core"),
+]
 GEMMA_SHAPE = (2, 1024, 1024, 8, 1, 256, 256, True, 0, 0.0, 0, "bfloat16")
 # zamba2-1.2b's shared block at the train_hybrid phase's micro-batch
 ZAMBA2_ATTN_SHAPE = (2, 1024, 1024, 32, 32, 64, 64, True, 0, 0.0, 0,
                      "bfloat16")
+# qwen3-4b's attention at the same micro-batch: the only width (D = 128) at
+# which the wgmma kernel runs two consumer warpgroups per block
+QWEN3_ATTN_SHAPE = (2, 1024, 1024, 32, 8, 128, 128, True, 0, 0.0, 0,
+                    "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def graph_ms(fn, n: int = 20, reps: int = 7) -> float:
+    """Device time per call of ``fn`` with no host time between calls: n
+    calls captured in one CUDA graph, the graph replayed ``reps`` times
+    between CUDA events; the median replay over n.  (torch.profiler's
+    device time, ``device_ms``, has read a small fraction of the true time
+    for some calls on this card; the graph time does not depend on the
+    tracer.)"""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return sorted(times)[len(times) // 2]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -138,7 +215,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attn_inputs(case, seed: int = 0):
+def attn_inputs(case, seed: int = 0, layout: str = "contiguous"):
+    """q, k, v of ``case`` on the card from ``seed``, contiguous or in one
+    of ATTN_LAYOUT_CASES' layouts."""
     import numpy as np
     import torch
     B, Sq, Sk, H, KV, D, Dv, *_ , dtype = case
@@ -146,6 +225,19 @@ def attn_inputs(case, seed: int = 0):
     dt = getattr(torch, dtype)
     mk = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s, dtype=np.float32)).to("cuda", dt)
+    if layout == "fused_qkv":
+        qkv = mk(B, Sq, H + 2 * KV, D)
+        return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    if layout == "strided_q":
+        return mk(B, Sq, 2 * H, D)[:, :, ::2], mk(B, Sk, KV, D), \
+            mk(B, Sk, KV, Dv)
+    if layout == "transposed_q":
+        return mk(B, H, Sq, D).transpose(1, 2), mk(B, Sk, KV, D), \
+            mk(B, Sk, KV, Dv)
+    if layout == "misaligned_q":
+        flat = mk(B * Sq * H * D + 1)
+        return flat[1:].view(B, Sq, H, D), mk(B, Sk, KV, D), \
+            mk(B, Sk, KV, Dv)
     return mk(B, Sq, H, D), mk(B, Sk, KV, D), mk(B, Sk, KV, Dv)
 
 
@@ -188,82 +280,190 @@ def phase_device(ctx) -> None:
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
 
 
+def ptxas_entries(log: str) -> dict:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: registers, stack
+    and spill bytes, and ptxas's performance notes (C75xx) naming it."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {"notes": []})
+            continue
+        note = re.search(r"\((C75\d\d)\).*function '(\S+)'", ln)
+        if note:
+            out.setdefault(note.group(2), {"notes": []})["notes"].append(
+                note.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build(ctx) -> None:
     from repro_torch.kernels import build
     names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
     reports = build.build(names)
     secs = time.perf_counter() - t0
+    ctx["ptxas"] = {n: ptxas_entries(log) for n, log in reports.items()}
     ptxas = {n: [ln for ln in log.splitlines() if "registers" in ln
                  or "spill" in ln] for n, log in reports.items()}
     emit({"phase": "build", "sources": names, "seconds": secs,
           "ptxas": ptxas})
 
 
+def _attn_check(case, got, want, q_off, window, sk) -> float:
+    import torch
+    *_, dtype = case
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{case}: got {got.dtype} {got.shape}")
+    err = (got.float() - want.float()).abs()
+    tol = TOL[dtype]
+    bad = err > tol + tol * want.float().abs()
+    if bad.any() or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"flash_attention {case}: max abs err "
+                             f"{err.max().item():.3e} over tol {tol}")
+    if q_off < 0 and got[:, :-q_off].abs().max().item() != 0.0:
+        raise AssertionError(f"{case}: masked rows not zero")
+    if window and q_off - window >= sk and got.abs().max().item() != 0.0:
+        raise AssertionError(f"{case}: masked rows not zero")
+    return err.max().item()
+
+
+def wgmma_build_report(ctx) -> dict:
+    """The wgmma kernels' ptxas lines from this run's build: registers at
+    entry (setmaxnreg moves them between producer and consumers; the
+    launcher itself refuses a build whose entry count its split does not
+    assume), spill bytes and performance notes; none may spill or be
+    serialised.  Checked before any launch."""
+    entries = ctx.get("ptxas", {}).get("flash_attention")
+    if entries is None:
+        return {"built_in_this_run": False}
+    wg = {name: rec for name, rec in entries.items()
+          if "attn_fwd_wgmma_kernel" in name}
+    if len(wg) != 3:
+        raise AssertionError(f"expected 3 wgmma instantiations, ptxas "
+                             f"reported {sorted(wg)}")
+    import re
+    entries = {}
+    for name, rec in wg.items():
+        d = re.search(r"ILi(\d+)E", name).group(1)
+        if rec.get("spill_stores") or rec.get("spill_loads") or rec["notes"]:
+            raise AssertionError(f"{name}: spills or serialised wgmma: {rec}")
+        entries[f"D={d}"] = rec
+    return {"built_in_this_run": True, "entries": entries}
+
+
+def attention_diagnostics(ctx) -> None:
+    """Where gemma-2b's attention time goes, by graph time: the last causal
+    q tile alone (its 128 rows see all 1024 keys: one block of 16 KV tiles
+    per (batch, head), the longest block of the training call) and the
+    training shape at B = 8 (four waves of blocks, so the steady rate per
+    tile rather than one block's latency), each beside SDPA where SDPA
+    computes the same function."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, S, _, H, KV, D = GEMMA_SHAPE[:6]
+    last = (B, 128, S, H, KV, D, D, True, 0, 0.0, S - 128, "bfloat16")
+    q, k, v = attn_inputs(last, seed=2)
+    out = {"phase": "kernel:flash_attention", "diagnostics": "gemma-2b",
+           "last_q_tile_graph_ms": graph_ms(lambda: fa.flash_attention_cuda(
+               q, k, v, q_offset=S - 128)),
+           "nvidia_smi": ctx["smi"]}
+    wide = (8,) + GEMMA_SHAPE[1:]
+    q, k, v = attn_inputs(wide, seed=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out.update(b8_graph_ms=graph_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+               b8_library_graph_ms=graph_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True)),
+               b8_bound_ms=attn_bound(wide)[0])
+    emit(out)
+
+
 def phase_kernel(ctx) -> None:
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    worst = 0.0
-    for case in ATTN_CASES + [GEMMA_SHAPE, ZAMBA2_ATTN_SHAPE]:
+    emit({"phase": "kernel:flash_attention", "ptxas_wgmma":
+          wgmma_build_report(ctx)})
+    cases = [(c, "contiguous", None) for c in ATTN_CASES] + \
+        [(c, "contiguous", "wgmma") for c in WGMMA_CASES +
+         [GEMMA_SHAPE, ZAMBA2_ATTN_SHAPE, QWEN3_ATTN_SHAPE]] + \
+        [(c, layout, want) for layout, c, want in ATTN_LAYOUT_CASES]
+    worst, ran = 0.0, {}
+    for case, layout, expect in cases:
         _, _, _, _, _, _, _, causal, window, softcap, q_off, dtype = case
-        q, k, v = attn_inputs(case)
+        q, k, v = attn_inputs(case, layout=layout)
         opts = dict(causal=causal, window=window, softcap=softcap,
                     q_offset=q_off)
-        got = flash_attention_cuda(q, k, v, **opts)
+        kind = fa.variant(q, k, v)
+        if expect is not None and kind != expect:
+            raise AssertionError(f"{layout} {case}: variant {kind}, "
+                                 f"expected {expect}")
+        before = fa.LAUNCHES_BY_VARIANT[kind].count
+        got = fa.flash_attention_cuda(q, k, v, **opts)
         torch.cuda.synchronize()
-        want = ref.flash_attention(q, k, v, **opts)
-        if got.dtype != q.dtype or got.shape != want.shape:
-            raise AssertionError(f"{case}: got {got.dtype} {got.shape}")
-        err = (got.float() - want.float()).abs()
-        tol = TOL[dtype]
-        bad = err > tol + tol * want.float().abs()
-        if bad.any() or not torch.isfinite(got.float()).all():
-            raise AssertionError(f"flash_attention {case}: max abs err "
-                                 f"{err.max().item():.3e} over tol {tol}")
-        if q_off < 0:
-            dead = got[:, :-q_off]
-            if dead.abs().max().item() != 0.0:
-                raise AssertionError(f"{case}: masked rows not zero")
-        if window and q_off - window >= k.shape[1]:
-            if got.abs().max().item() != 0.0:
-                raise AssertionError(f"{case}: masked rows not zero")
-        worst = max(worst, err.max().item())
-    emit({"phase": "kernel:flash_attention", "cases": len(ATTN_CASES) + 2,
-          "tol": TOL,
-          "max_abs_err_all_cases": worst})
+        if fa.LAUNCHES_BY_VARIANT[kind].count != before + 1:
+            raise AssertionError(f"{case}: no {kind} launch counted")
+        err = _attn_check(case, got, ref.flash_attention(q, k, v, **opts),
+                          q_off, window, k.shape[1])
+        worst = max(worst, err)
+        ran[kind] = ran.get(kind, 0) + 1
+        emit({"phase": "kernel:flash_attention", "case": list(case),
+              "layout": layout, "variant": kind, "max_abs_err": err})
+    emit({"phase": "kernel:flash_attention", "cases": len(cases),
+          "by_variant": ran, "tol": TOL, "max_abs_err_all_cases": worst})
 
     # the training shapes: times and the bound; the kernels line keeps
     # gemma-2b's
     shapes = {"gemma-2b B=2 S=1024 H=8 KV=1 D=256 causal bf16": GEMMA_SHAPE,
               "zamba2-1.2b B=2 S=1024 H=KV=32 D=64 causal bf16":
-                  ZAMBA2_ATTN_SHAPE}
+                  ZAMBA2_ATTN_SHAPE,
+              "qwen3-4b B=2 S=1024 H=32 KV=8 D=128 causal bf16":
+                  QWEN3_ATTN_SHAPE}
     for i, (label, case) in enumerate(shapes.items()):
         q, k, v = attn_inputs(case, seed=1)
         opts = dict(causal=True, window=0, softcap=0.0, q_offset=0)
-        got = flash_attention_cuda(q, k, v, **opts)
+        kernel = lambda: fa.flash_attention_cuda(q, k, v, **opts)  # noqa
+        got = kernel()
         want = ref.flash_attention(q, k, v, **opts)
         err = (got.float() - want.float()).abs().max().item()
-        kernel_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **opts))
-        plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, **opts))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=case[3] != case[4]))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=case[3] != case[4])
         bound_ms, bound_by = attn_bound(case)
         rec = {"name": "flash_attention", "route": "cuda",
                "source": "src/repro_torch/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:94",
-               "launches": None, "max_abs_err": err, "ms": kernel_ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms}
+               "launches": None, "max_abs_err": err,
+               "ms": cuda_ms(kernel),
+               "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v,
+                                                               **opts)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": cuda_ms(sdpa), "variant": fa.variant(q, k, v),
+               "device_ms": device_ms(kernel),
+               "library_device_ms": device_ms(sdpa),
+               "graph_ms": graph_ms(kernel),
+               "library_graph_ms": graph_ms(sdpa)}
         if i == 0:
             ctx["kernels"]["flash_attention"] = rec
         emit({"phase": "kernel:flash_attention", "shape": label, **rec,
               "nvidia_smi": ctx["smi"]})
+    attention_diagnostics(ctx)
     phase_kernel_maxplus(ctx)
     phase_kernel_ssd(ctx)
     phase_kernel_rmsnorm(ctx)
@@ -949,6 +1149,24 @@ def _model_fields(cfg) -> dict:
     return out
 
 
+def attention_variants_reset() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    for counter in fa.LAUNCHES_BY_VARIANT.values():
+        counter.count = 0
+
+
+def attention_variants_check(phase: str, total: int,
+                             expected: str = "wgmma") -> dict:
+    """Every one of the phase's ``total`` kernel-1 launches was of the
+    ``expected`` variant; returns the counts by variant."""
+    from repro_torch.kernels import flash_attention as fa
+    by = {k: c.count for k, c in fa.LAUNCHES_BY_VARIANT.items()}
+    if by[expected] != total or sum(by.values()) != total:
+        raise AssertionError(f"{phase}: {total} attention launches, by "
+                             f"variant {by}: not all {expected}")
+    return by
+
+
 def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool) -> dict:
     """launch.train.train() on ``cfg`` with ``opts``; every step's launches
     of each kernel checked against ``launches_per_pass`` (twice on the
@@ -984,6 +1202,7 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool) -> dict:
 
     for counter in KERNEL_LAUNCHES.values():
         counter.count = 0
+    attention_variants_reset()
     t0 = time.perf_counter()
     result = train(cfg, **opts, ckpt_dir=str(ckpt_dir),
                    ckpt_every=opts["steps"] if checkpoint else 0,
@@ -1013,7 +1232,9 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool) -> dict:
         raise AssertionError(f"{phase}: {launches} launches in the run, "
                              f"expected {total}")
     out = {"phase": phase, "ok": True, "seconds": secs,
-           "launches": launches, "launches_expected": total}
+           "launches": launches, "launches_expected": total,
+           "attention_by_variant": attention_variants_check(
+               phase, launches["flash_attention"])}
     rec = next((r for r in result.history if r["kind"] == "recovered"), None)
     if rec is not None:
         tol = RECOVERY_RTOL * rec["grad_sum_max_abs"]
@@ -1077,6 +1298,7 @@ def phase_self_heal(ctx) -> None:
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     lines = []
     fa.LAUNCHES.count = 0
+    attention_variants_reset()
     t0 = time.perf_counter()
     worst = self_healing.run(
         5, {1: ErrorKind.LINK_FLAPPING, 2: ErrorKind.EXITED_ABNORMALLY,
@@ -1087,8 +1309,12 @@ def phase_self_heal(ctx) -> None:
     if launches == 0 or not lines[-1].startswith("PASS"):
         raise AssertionError(f"self_heal: launches={launches}, "
                              f"last line {lines[-1]!r}")
+    # the scenario trains a float32 reduced gemma-2b (head_dim 64), whose
+    # attention is the CUDA-core kernel's by variant()
+    by_variant = attention_variants_check("self_heal", launches, "cuda_core")
     emit({"phase": "self_heal", "ok": True,
           "seconds": time.perf_counter() - t0, "launches": launches,
+          "attention_by_variant": by_variant,
           "max_param_diff": worst, "atol": self_healing.ATOL,
           "log": lines})
 
@@ -1111,6 +1337,11 @@ DECODE_VS_FORWARD_RTOL = 5e-2
 # tests (tests/test_kernels.py:160)
 KERNEL_VS_PLAIN_RTOL = 2e-2
 AGREE_REQUESTS = 2              # shortest completed requests re-run alone
+# The float32 run: qwen3-4b at full width with its depth cut to 4 layers,
+# the same request mix; its greedy tokens must equal generate()'s token for
+# token on the AGREE_F32_REQUESTS shortest completed requests.
+SERVE_F32_LAYERS = 4
+AGREE_F32_REQUESTS = 4
 
 
 def _rel(a, b) -> float:
@@ -1181,6 +1412,94 @@ def profile_decode(model, params, caches, tokens, pos) -> dict:
                     for k, ms, n in rows[:10]]}
 
 
+def _top2_recorder(model, out: list):
+    """``model`` with a ``decode_step`` that appends each step's top-2
+    logits per lane (values, indices, on the card) to ``out``."""
+    import torch
+
+    def decode_step(params, caches, tokens, pos):
+        logits, caches = model.decode_step(params, caches, tokens, pos)
+        out.append(torch.topk(logits.float(), 2, dim=-1))
+        return logits, caches
+    return dataclasses.replace(model, decode_step=decode_step)
+
+
+def recorded_continuous(model, params, cfg) -> tuple:
+    """The serve phase's continuous part again, untimed: the same requests,
+    lanes and eviction rule as ``launch.serve.serve`` with ``SERVE``, through
+    a ContinuousBatcher whose decode steps record the top-2 logits per lane.
+    Returns the part ({"finished", "evicted"}) and the records: the top-2
+    of every step, and for each generated token the (step, lane) that
+    produced it, records["at"][(req_id, index)]."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.scheduler import ContinuousBatcher
+    records = {"top2": [], "at": {}}
+    reqs = make_requests(cfg, SERVE["n_requests"], SERVE["prompt_range"],
+                         SERVE["new_range"], SERVE["seed"] + 1)
+    capacity = max(len(r.prompt) + r.max_new for r in reqs) + 1
+    cb = ContinuousBatcher(_top2_recorder(model, records["top2"]), params,
+                           batch_size=SERVE["lanes"], capacity=capacity)
+    for r in reqs:
+        cb.submit(r)
+    evicted = None
+    while cb.queue or any(not ln.free for ln in cb.lanes):
+        held = [(ln.req, len(ln.req.out)) if ln.req is not None else None
+                for ln in cb.lanes]
+        n = len(records["top2"])
+        cb.step()
+        for lane, entry in enumerate(held):
+            if entry is not None and len(entry[0].out) > entry[1]:
+                records["at"][(entry[0].req_id, entry[1])] = (n, lane)
+        if evicted is None:
+            busy = [ln.req for ln in cb.lanes
+                    if ln.req is not None and ln.req.out]
+            if busy:
+                evicted = busy[0].req_id
+                cb.evict(evicted)
+    return {"finished": cb.finished, "evicted": evicted}, records
+
+
+def _gap(top2, row) -> dict:
+    vals, idx = top2
+    return {"top1": int(idx[row, 0]), "top2": int(idx[row, 1]),
+            "top1_logit": float(vals[row, 0]),
+            "gap": float(vals[row, 0] - vals[row, 1])}
+
+
+def batcher_vs_generate(part, model, params, records, n_requests) -> dict:
+    """The ``n_requests`` shortest completed requests of the continuous
+    batcher re-run alone through generate(): positions that agree, the
+    first differing position per request and, there, both runs' top-1 and
+    top-2 logits and their gap."""
+    from repro_torch.serve.decode import generate
+    same = total = 0
+    first_diff, gaps = {}, {}
+    done = sorted((r for r in part["finished"] if r.req_id != part["evicted"]),
+                  key=lambda r: len(r.prompt) + r.max_new)[:n_requests]
+    for r in done:
+        steps = []
+        want = generate(_top2_recorder(model, steps), params,
+                        r.prompt[None].cuda(), r.max_new,
+                        capacity=len(r.prompt) + r.max_new)[0].tolist()
+        same += sum(a == b for a, b in zip(r.out, want))
+        total += len(want)
+        i = next((i for i, (a, b) in enumerate(zip(r.out, want)) if a != b),
+                 None)
+        first_diff[r.req_id] = i
+        if i is not None:
+            step, lane = records["at"][(r.req_id, i)]
+            gaps[r.req_id] = {
+                "batcher": _gap(records["top2"][step], lane),
+                "generate": _gap(steps[len(r.prompt) - 1 + i], 0)}
+    return {"agree": same / max(total, 1), "tokens": total,
+            "first_diff": first_diff, "gaps_at_first_diff": gaps}
+
+
+def _outs(part) -> dict:
+    """Each finished request's generated tokens, by request id."""
+    return {r.req_id: list(r.out) for r in part["finished"]}
+
+
 def _part_fields(part) -> dict:
     return {k: v for k, v in part.items()
             if k not in ("outs", "finished")}
@@ -1192,7 +1511,7 @@ def phase_serve(ctx) -> None:
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.serve import make_prompts, serve
     from repro_torch.launch.train import KERNEL_LAUNCHES
-    from repro_torch.serve.decode import generate, prefill
+    from repro_torch.serve.decode import prefill
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_arch("qwen3-4b")
@@ -1255,20 +1574,14 @@ def phase_serve(ctx) -> None:
                              f"kernel off the plain norms' by "
                              f"{rel_plain:.3e} > {KERNEL_VS_PLAIN_RTOL}")
 
-    # greedy agreement of the batcher with sequential generate() (printed,
-    # not required: near-ties may flip with the batch's GEMM tiling)
-    same = total = 0
-    first_diff = {}
-    done = sorted((r for r in res.continuous["finished"]
-                   if r.req_id != res.continuous["evicted"]),
-                  key=lambda r: len(r.prompt) + r.max_new)[:AGREE_REQUESTS]
-    for r in done:
-        want = generate(model, params, r.prompt[None].cuda(), r.max_new,
-                        capacity=len(r.prompt) + r.max_new)[0].tolist()
-        same += sum(a == b for a, b in zip(r.out, want))
-        total += len(want)
-        first_diff[r.req_id] = next((i for i, (a, b) in enumerate(
-            zip(r.out, want)) if a != b), None)
+    # greedy agreement of the batcher with sequential generate() in bf16
+    # (printed with the top-1/top-2 logit gaps at the first difference, not
+    # required: near-ties may flip with the batch's GEMM tiling), from a
+    # recorded rerun of the continuous part outside the timed serve() call
+    part, records = recorded_continuous(model, params, cfg)
+    agree = batcher_vs_generate(part, model, params, records, AGREE_REQUESTS)
+    agree["rerun_tokens_equal_timed_run"] = _outs(part) == _outs(
+        res.continuous)
     prof = profile_decode(model, params, caches, tok, S)
     emit({"phase": "serve", "ok": True, "seconds": secs,
           "launches": launches, "decode_steps": steps,
@@ -1282,10 +1595,43 @@ def phase_serve(ctx) -> None:
           "kernel_vs_plain_rel": rel_plain,
           "kernel_vs_plain_max_abs": (kern - plain).abs().max().item(),
           "kernel_vs_plain_rtol": KERNEL_VS_PLAIN_RTOL,
-          "batcher_vs_generate_agree": same / max(total, 1),
-          "batcher_vs_generate_tokens": total,
-          "batcher_vs_generate_first_diff": first_diff,
+          "batcher_vs_generate": agree,
           "profile_decode_step": prof, "nvidia_smi": ctx["smi"]})
+    del res, model, params, caches
+    torch.cuda.empty_cache()
+    serve_f32(ctx)
+
+
+def serve_f32(ctx) -> None:
+    """qwen3-4b at full width, SERVE_F32_LAYERS layers, in float32 (the
+    serve phase's request mix through the continuous batcher): its greedy
+    tokens must equal generate()'s token for token, as they do on the
+    CPU."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+
+    full = get_arch("qwen3-4b")
+    cfg = dataclasses.replace(full, n_layers=SERVE_F32_LAYERS,
+                              param_dtype="float32")
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    params = model.init(SERVE["seed"])
+    part, records = recorded_continuous(model, params, cfg)
+    agree = batcher_vs_generate(part, model, params, records,
+                                AGREE_F32_REQUESTS)
+    secs = time.perf_counter() - t0
+    emit({"phase": "serve", "part": "float32", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "reduced": {"n_layers": [
+              full.n_layers, SERVE_F32_LAYERS]}, "param_dtype": "float32",
+          "seconds": secs, "batcher_vs_generate": agree,
+          "nvidia_smi": ctx["smi"]})
+    if agree["agree"] != 1.0:
+        raise AssertionError(f"serve float32: the continuous batcher's "
+                             f"greedy tokens differ from generate()'s: "
+                             f"{agree}")
+    del model, params, part
+    torch.cuda.empty_cache()
 
 
 def phase_serve_ssm(ctx) -> None:

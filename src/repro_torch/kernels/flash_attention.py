@@ -7,6 +7,10 @@
 ``ops.FlashAttention``): it launches the kernel for CUDA tensors and runs
 the plain version (``ref.flash_attention``) for CPU tensors, and for
 nothing else.
+
+The source holds two kernels; ``variant`` picks one from the inputs alone,
+here and nowhere else, and the C entry point launches that one or refuses
+the inputs.  No failure ever falls back on the other variant.
 """
 from __future__ import annotations
 
@@ -20,9 +24,34 @@ from repro_torch.kernels import build, ref
 
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
+VARIANTS = ("cuda_core", "wgmma")     # their codes in the C entry
+# the errors the C entry returns by itself, before any launch
+_REFUSALS = {
+    1: "cudaErrorInvalidValue: the variant cannot take these inputs",
+    200: "cudaErrorInvalidKernelImage: ptxas gave the wgmma kernel another "
+         "register count than its setmaxnreg split needs"}
 
 LAUNCHES = build.LaunchCounter()
+LAUNCHES_BY_VARIANT = {name: build.LaunchCounter() for name in VARIANTS}
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """16-byte aligned base and (batch, seq, head) strides."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def variant(q, k, v) -> str:
+    """The kernel that ``flash_attention_cuda`` launches for these inputs,
+    from their dtype, head widths, base alignment and strides (and, for
+    "wgmma", at least one key: a TMA map has no empty dimension):
+
+    * "wgmma": bf16, D = Dv in {64, 128, 256}, q, k, v 16-byte aligned;
+    * "cuda_core": everything else, float32 included."""
+    D, Dv = q.shape[3], v.shape[3]
+    if all(t.dtype == torch.bfloat16 and _aligned16(t) for t in (q, k, v)) \
+            and D == Dv and D in (64, 128, 256) and k.shape[1] > 0:
+        return "wgmma"
+    return "cuda_core"
 
 
 @functools.cache
@@ -30,7 +59,7 @@ def _entry():
     fn = build.load("flash_attention").repro_flash_attention_fwd
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I] + [L] * 12 + \
+    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, I] + [L] * 12 + \
         [I, I, F, I, F, P]
     fn.restype = ctypes.c_int
     return fn
@@ -41,7 +70,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D|Dv), CUDA, float32 or bfloat16,
     last dim contiguous, D and Dv <= 256, H % KV == 0.  Returns
-    (B, Sq, H, Dv) in q's dtype."""
+    (B, Sq, H, Dv) in q's dtype.  Launches the kernel ``variant`` names, or
+    raises."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention_cuda: {name} is on {t.device}, "
@@ -71,17 +101,20 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    kind = variant(q, k, v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, Sq, Sk, H, KV, D, Dv,
+        _DTYPE_CODE[q.dtype], VARIANTS.index(kind), B, Sq, Sk, H, KV, D, Dv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), int(window), float(softcap or 0.0), int(q_offset),
         1.0 / math.sqrt(D), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention {kind} kernel launch failed: "
+                           f"CUDA error {err} "
+                           f"{_REFUSALS.get(err, '')}".rstrip())
     LAUNCHES.count += 1
+    LAUNCHES_BY_VARIANT[kind].count += 1
     return out
 
 

@@ -122,3 +122,144 @@ def test_cuda_kernel_matches_plain_version(dtype):
         torch.cuda.synchronize()
         assert tfa.LAUNCHES.count == before + 1
         assert_close(got, tref.flash_attention(q, k, v, **opts), tol, tol)
+
+
+# ---- which kernel a CUDA tensor gets: variant(), a pure function of the
+# inputs' dtype, widths, base alignment and strides (checked on the CPU)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("q_shape, kv_shape", [
+    ((2, 1024, 8, 256), (2, 1024, 1, 256)),     # gemma-2b, MQA
+    ((2, 1024, 32, 64), (2, 1024, 32, 64)),     # zamba2-1.2b, H = KV
+    ((2, 1024, 32, 128), (2, 1024, 8, 128)),    # qwen3-4b, GQA
+])
+def test_variant_training_shapes_take_wgmma(q_shape, kv_shape):
+    q, kv = _bf16(*q_shape), _bf16(*kv_shape)
+    assert tfa.variant(q, kv, kv) == "wgmma"
+
+
+@pytest.mark.parametrize("d, dv", [(32, 32), (16, 32), (192, 128),
+                                   (64, 32)])
+def test_variant_other_bf16_widths_take_cuda_core(d, dv):
+    q, k, v = _bf16(1, 64, 4, d), _bf16(1, 64, 2, d), _bf16(1, 64, 2, dv)
+    assert tfa.variant(q, k, v) == "cuda_core"
+
+
+@pytest.mark.parametrize("d, dv", [(256, 256), (64, 64), (16, 16)])
+def test_variant_float32_takes_cuda_core(d, dv):
+    q, k, v = (torch.zeros(1, 64, 4, d), torch.zeros(1, 64, 2, d),
+               torch.zeros(1, 64, 2, dv))
+    assert tfa.variant(q, k, v) == "cuda_core"
+
+
+def test_variant_bf16_widths_no_tensor_core_kernel_takes():
+    q, v = _bf16(1, 40, 2, 24), _bf16(1, 40, 1, 40)
+    assert tfa.variant(q, _bf16(1, 40, 1, 24), v) == "cuda_core"
+    q, v = _bf16(1, 80, 4, 64), _bf16(1, 80, 2, 48)
+    assert tfa.variant(q, _bf16(1, 80, 2, 64), v) == "cuda_core"
+
+
+def test_variant_misaligned_views_are_not_wgmma():
+    kv = _bf16(2, 64, 2, 128)
+    # a base 2 bytes past a 16-byte boundary
+    flat = _bf16(2 * 64 * 8 * 128 + 1)
+    q = flat[1:].view(2, 64, 8, 128)
+    assert q.data_ptr() % 16 == 2
+    assert tfa.variant(q, kv, kv) == "cuda_core"
+    # a head stride of 132 elements (264 bytes): not a multiple of 16 bytes
+    q = _bf16(2, 64, 8, 132)[..., :128]
+    assert tfa.variant(q, kv, kv) == "cuda_core"
+    # k sliced the same way
+    assert tfa.variant(_bf16(2, 64, 8, 128), _bf16(2, 64, 2, 136)[..., 4:132],
+                       kv) == "cuda_core"
+
+
+def test_variant_aligned_views_stay_on_wgmma():
+    # q, k, v sliced out of one fused (B, S, H + 2 KV, D) projection, and a
+    # q strided over every other head
+    qkv = _bf16(2, 64, 12, 128)
+    assert tfa.variant(qkv[:, :, :8], qkv[:, :, 8:10],
+                       qkv[:, :, 10:]) == "wgmma"
+    kv = _bf16(1, 64, 4, 64)
+    assert tfa.variant(_bf16(1, 64, 8, 64)[:, :, ::2], kv, kv) == "wgmma"
+
+
+def test_variant_needs_a_key_for_wgmma():
+    q, kv = _bf16(1, 8, 2, 64), _bf16(1, 0, 2, 64)
+    assert tfa.variant(q, kv, kv) == "cuda_core"
+
+
+# the wgmma kernel's edges (B, Sq, Sk, H, KV, D, causal, window, softcap,
+# q_offset): ragged Sq and Sk with q_offset = Sk - Sq and a negative one,
+# a window, a soft-cap, MQA / GQA / H = KV, D in {64, 128, 256},
+# bidirectional, one query row, fewer keys than a tile
+WGMMA_CASES = [
+    (1, 100, 1000, 8, 1, 256, True, 0, 0.0, 900),
+    (2, 1000, 1000, 4, 2, 128, True, 0, 0.0, 0),
+    (1, 100, 100, 4, 4, 64, True, 0, 0.0, -40),
+    (1, 300, 300, 4, 1, 128, True, 16, 0.0, 0),
+    (1, 257, 257, 8, 2, 256, True, 0, 30.0, 0),
+    (2, 200, 200, 2, 2, 64, False, 0, 0.0, 0),
+    (1, 1, 100, 8, 1, 256, True, 0, 0.0, 99),      # one query row
+    (2, 37, 10, 4, 2, 128, False, 0, 0.0, 0),      # fewer keys than a tile
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_wgmma_kernel_matches_plain_version(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    *_, causal, window, softcap, off = case
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+               for a in _inputs(case, seed=5))
+    opts = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    assert tfa.variant(q, k, v) == "wgmma"
+    before = tfa.LAUNCHES_BY_VARIANT["wgmma"].count
+    got = tfa.flash_attention_cuda(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES_BY_VARIANT["wgmma"].count == before + 1
+    assert_close(got, tref.flash_attention(q, k, v, **opts), 2e-2, 2e-2)
+    if off < 0:
+        assert got[:, :-off].abs().max().item() == 0.0
+
+
+def _views(layout, device="cpu"):
+    """bf16 (q, k, v) on ``device`` in a non-contiguous layout the wgmma
+    kernel takes: sliced out of one fused (B, S, H + 2 KV, D) projection,
+    or q stored (B, H, S, D) and transposed (its head stride exceeds its
+    seq stride)."""
+    def mk(seed, *shape):
+        return torch.from_numpy(randn(seed, *shape)).to(device,
+                                                        torch.bfloat16)
+    if layout == "fused_qkv":
+        qkv = mk(9, 2, 256, 12, 128)
+        return qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    return (mk(10, 2, 8, 200, 256).transpose(1, 2), mk(11, 2, 200, 1, 256),
+            mk(12, 2, 200, 1, 256))
+
+
+@pytest.mark.parametrize("layout", ["fused_qkv", "transposed_q"])
+def test_variant_strided_views_take_wgmma(layout):
+    q, k, v = _views(layout)
+    assert not q.is_contiguous()
+    assert tfa.variant(q, k, v) == "wgmma"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["fused_qkv", "transposed_q"])
+def test_wgmma_kernel_takes_strided_views(layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v = _views(layout, "cuda")
+    assert not q.is_contiguous()
+    assert tfa.variant(q, k, v) == "wgmma"
+    before = tfa.LAUNCHES_BY_VARIANT["wgmma"].count
+    got = tfa.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES_BY_VARIANT["wgmma"].count == before + 1
+    assert_close(got, tref.flash_attention(q, k, v), 2e-2, 2e-2)

@@ -98,9 +98,12 @@ def test_planner_entry_points_default_to_cuda_and_raise_without_it():
 def test_cuda_wrapper_raises_on_cpu_tensors_and_does_not_fall_back():
     q = torch.zeros(1, 8, 2, 16)
     before = tfa.LAUNCHES.count
+    by_variant = {k: c.count for k, c in tfa.LAUNCHES_BY_VARIANT.items()}
     with pytest.raises(ValueError, match="not on a CUDA device"):
         tfa.flash_attention_cuda(q, q, q)
     assert tfa.LAUNCHES.count == before
+    assert {k: c.count for k, c in tfa.LAUNCHES_BY_VARIANT.items()} == \
+        by_variant
 
 
 def test_cuda_wrapper_checks_its_inputs_before_building():
