@@ -24,8 +24,14 @@ Phases, each printing one JSON line:
                     on the card (atol = rtol = 1e-4): the reference's test
                     cases, the token-serial recurrence, chunk invariance, a
                     ragged S = 1000 at mamba2's widths and with two groups,
-                    a chunk whose dt sum overflows exp, and the training
-                    shapes of mamba2-780m and zamba2-1.2b, with times
+                    a chunk whose dt sum overflows exp, P and N past one
+                    tile and not multiples of 4, and the training shapes
+                    of mamba2-780m and zamba2-1.2b, with times (per call,
+                    in a CUDA graph, each pass's device time at
+                    mamba2-780m's shape) beside the f32 bound and the
+                    split-TF32 tensor-core bound, each pass's ptxas line
+                    (no performance note) and its HGMMA count in the
+                    built SASS
   kernel:rmsnorm    the RMSNorm kernel against its plain version on the card
                     (atol 2e-2 bf16, 1e-5 f32): the reference's test cases,
                     every decode and training shape of the port's models,
@@ -93,7 +99,7 @@ PHASES = ("device", "build", "kernel", "plan", "train", "train_ssm",
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
-                  "float64": 33.5e12}
+                  "float64": 33.5e12, "tfloat32": 495e12}
 
 # (B, Sq, Sk, H, KV, D, Dv, causal, window, softcap, q_offset, dtype)
 ATTN_CASES = [
@@ -655,6 +661,11 @@ SSD_CASES = [
     # ragged S = 1000 at mamba2's widths, and with two B/C groups
     (1, 1000, 48, 64, 1, 128, 128),
     (1, 1000, 8, 64, 2, 128, 128),
+    # widths the kernel tiles raggedly: P and N past one tile and not
+    # multiples of 4 (4-byte copies), N = 256, a chunk of 100
+    (1, 300, 3, 100, 1, 200, 128),
+    (1, 130, 2, 6, 1, 6, 64),
+    (1, 77, 4, 130, 2, 256, 100),
 ]
 SSD_SERIAL = (1, 24, 2, 4, 1, 4, 8)       # tests/test_kernels.py:109-128
 SSD_INVARIANCE = (1, 96, 2, 8, 1, 8)      # tests/test_kernels.py:131-141
@@ -704,12 +715,12 @@ def _ssd_err(name, got, want) -> float:
     return worst
 
 
-def ssd_bound(case):
-    """Least time for one scan: every input read once and both outputs
-    written once, against the multiply-adds of the chunked algorithm for
-    these shapes: C.B^T once per group (causal half), the (L,L)x(L,P)
-    product per head (causal half), C.S_prev for chunks after the first
-    and the state update, each over the chunk's live tokens."""
+def ssd_work(case):
+    """(operations, bytes) of one scan: the multiply-adds of the chunked
+    algorithm for these shapes -- C.B^T once per group (causal half), the
+    (L,L)x(L,P) product per head (causal half), C.S_prev for chunks after
+    the first and the state update, each over the chunk's live tokens --
+    and every input read once and both outputs written once."""
     B, S, H, P, G, N, chunk = case
     L = min(chunk, S)
     ops = 0.0
@@ -720,10 +731,104 @@ def ssd_bound(case):
                           + H * n * N * P * (2 if c0 else 1))
     nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * G * N
                   + B * H * P * N)
+    return ops, nbytes
+
+
+def ssd_bound(case):
+    """Least time for one scan in f32 on the CUDA cores (the bound the
+    records of earlier kernels compare with)."""
+    ops, nbytes = ssd_work(case)
     t_ops = ops / PEAK_OPS_PER_S["float32"]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssd_bound_tc(case):
+    """Least time for the kernel's own work: three TF32 tensor-core
+    products (split TF32) for every f32 multiply-add, against the same
+    bytes."""
+    ops, nbytes = ssd_work(case)
+    return max(3 * ops / PEAK_OPS_PER_S["tfloat32"],
+               nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_carry_kernel",
+              "ssd_y_kernel")
+
+
+def ssd_pass_ms(args, chunk, calls: int = 5) -> dict:
+    """Device time per call of each pass of the scan, from one
+    torch.profiler trace of a few calls (after a warm call; a trace of one
+    call has dropped its first kernel on this card)."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    ssd_scan_cuda(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ssd_scan_cuda(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"(ssd_[a-z]+_kernel)", e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            out[m.group(1)] = e.self_device_time_total / 1e3 / calls
+    if sorted(out) != sorted(SSD_PASSES):
+        raise AssertionError(f"ssd_scan: the trace shows passes {out}")
+    return out
+
+
+def ssd_ptxas_report(ctx) -> dict:
+    """The SSD passes' ptxas lines from this run's build (registers, stack
+    and spill bytes); a performance note such as C7518 (serialised wgmma)
+    fails the phase."""
+    entries = ctx.get("ptxas", {}).get("ssd_scan")
+    if entries is None:
+        return {"built_in_this_run": False}
+    out = {}
+    for name, rec in entries.items():
+        m = next((p for p in SSD_PASSES if p in name), None)
+        if m is None:
+            continue
+        if rec["notes"]:
+            raise AssertionError(f"ssd_scan: ptxas notes for {m}: {rec}")
+        out[m] = rec
+    return {"built_in_this_run": True, "entries": out}
+
+
+def ssd_sass_report() -> dict:
+    """Tensor-core instructions of each pass in the built library's SASS
+    (cuobjdump, beside nvcc): the product passes must issue HGMMA."""
+    import re
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build.library_path("ssd_scan"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : .*(ssd_[a-z]+_kernel)", ln)
+        if m:
+            cur = counts.setdefault(m.group(1), {"instructions": 0,
+                                                 "HGMMA": 0})
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                     ln)
+        if m and cur is not None:
+            cur["instructions"] += 1
+            cur["HGMMA"] += m.group(1) == "HGMMA"
+    for name in SSD_PASSES:
+        if name == "ssd_carry_kernel":        # elementwise: no products
+            continue
+        if counts.get(name, {}).get("HGMMA", 0) == 0:
+            raise AssertionError(f"ssd_scan: {name} issues no HGMMA: "
+                                 f"{counts}")
+    return counts
 
 
 def phase_kernel_ssd(ctx) -> None:
@@ -734,6 +839,8 @@ def phase_kernel_ssd(ctx) -> None:
 
     print("ssd_scan library_ms: null — no PyTorch call computes the SSD "
           "scan", flush=True)
+    emit({"phase": "kernel:ssd_scan", "ptxas": ssd_ptxas_report(ctx),
+          "sass": ssd_sass_report()})
     worst = 0.0
     cases = [("case", c) for c in SSD_CASES] + list(SSD_SHAPES.items())
     for i, (label, case) in enumerate(cases):
@@ -742,7 +849,8 @@ def phase_kernel_ssd(ctx) -> None:
         torch.cuda.synchronize()
         err = _ssd_err(case, got, ref.ssd_scan(*args, chunk=chunk))
         worst = max(worst, err)
-        kernel_ms = cuda_ms(lambda: ssd_scan_cuda(*args, chunk=chunk))
+        kernel = lambda: ssd_scan_cuda(*args, chunk=chunk)  # noqa: E731
+        kernel_ms = cuda_ms(kernel)
         plain_ms = cuda_ms(lambda: ref.ssd_scan(*args, chunk=chunk))
         bound_ms, bound_by = ssd_bound(case)
         rec = {"name": "ssd_scan", "route": "cuda",
@@ -750,7 +858,11 @@ def phase_kernel_ssd(ctx) -> None:
                "replaces": "src/repro/kernels/ssd_scan.py:86",
                "launches": None, "max_abs_err": err, "ms": kernel_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None}
+               "bound_by": bound_by, "library_ms": None,
+               "graph_ms": graph_ms(kernel),
+               "bound_tc_ms": ssd_bound_tc(case)}
+        if label == "mamba2-780m":
+            rec["pass_device_ms"] = ssd_pass_ms(args, chunk)
         emit({"phase": "kernel:ssd_scan", "shape": f"{label} B={case[0]} "
               f"S={case[1]} H={case[2]} P={case[3]} G={case[4]} "
               f"N={case[5]} chunk={case[6]}", **rec,

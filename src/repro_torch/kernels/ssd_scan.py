@@ -22,11 +22,22 @@ MAX_D_STATE = 256
 LAUNCHES = build.LaunchCounter()
 
 
+def scratch_shapes(B, S, H, P, G, N, L):
+    """The kernel's float32 scratch for one call with chunk length L, in
+    the order the C entry takes it: ``cb`` holds C.B^T per (batch, chunk,
+    group) with rows padded to a multiple of 4, ``st`` each chunk's state
+    (its own contribution, then the state entering it), ``at`` each chunk's
+    total log-decay."""
+    nc = -(-S // L)
+    return {"cb": (B, nc, G, L, -(-L // 4) * 4), "st": (B, H, nc, P, N),
+            "at": (B, H, nc)}
+
+
 @functools.cache
 def _entry():
     fn = build.load("ssd_scan").repro_ssd_scan_fwd
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 7 + [I] * 7 + [P]
+    fn.argtypes = [P] * 10 + [I] * 7 + [P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -66,9 +77,11 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int = 128):
     if x.numel() == 0:
         return y, fin.zero_()
     x, dt, A, Bm, Cm = (t.contiguous() for t in (x, dt, A, Bm, Cm))
+    scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
+               for shape in scratch_shapes(B, S, H, P, G, N, L).values()]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _entry()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                   Cm.data_ptr(), y.data_ptr(), fin.data_ptr(),
+    err = _entry()(*(t.data_ptr() for t in (x, dt, A, Bm, Cm, y, fin,
+                                            *scratch)),
                    B, S, H, P, G, N, L, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")

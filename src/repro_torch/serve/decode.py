@@ -42,11 +42,15 @@ def prefill(model, params, caches, prompt: torch.Tensor, start_pos: int = 0):
 def generate(model, params, prompt: torch.Tensor, n_new: int,
              capacity: Optional[int] = None,
              cache_dtype=None) -> torch.Tensor:
-    """Greedy generation: returns (B, n_new) new tokens (int32)."""
+    """Greedy generation: returns (B, n_new) new tokens (int32).  The
+    prompt is prefilled even for ``n_new == 0``, which returns (B, 0), as
+    the reference's scan over no steps does."""
     B, S = prompt.shape
     cap = capacity or (S + n_new)
     caches = model.init_cache(B, cap, cache_dtype)
     caches, last_logits = prefill(model, params, caches, prompt)
+    if n_new == 0:
+        return torch.empty((B, 0), dtype=torch.int32, device=prompt.device)
     tok = torch.argmax(last_logits, dim=-1).int()
     toks = []
     for i in range(n_new):

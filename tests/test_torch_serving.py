@@ -185,6 +185,18 @@ def test_greedy_tokens_equal_reference_generate(arch):
                f"more than the logits tolerance {DECODE_TOL}"))
 
 
+def test_generate_zero_new_tokens_matches_reference(small_model):
+    """n_new = 0 runs the prefill and returns an empty (B, 0) int32 batch,
+    as the reference's scan over no steps does."""
+    cfg, tm, tparams, (jm, jparams) = small_model
+    prompt = np.random.default_rng(12).integers(
+        0, cfg.vocab, (2, 5)).astype(np.int32)
+    want = np.asarray(jgenerate(jm, jparams, jnp.asarray(prompt), 0))
+    got = generate(tm, tparams, torch.from_numpy(prompt), 0)
+    assert want.shape == (2, 0) and want.dtype == np.int32
+    assert tuple(got.shape) == want.shape and got.dtype == torch.int32
+
+
 def test_serve_step_matches_reference(small_model):
     cfg, tm, tparams, (jm, jparams) = small_model
     toks = np.array([3, 17], np.int32)

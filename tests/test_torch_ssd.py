@@ -26,7 +26,7 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
-from test_torch_helpers import assert_close, randn  # noqa: E402
+from test_torch_helpers import assert_close, randn, to_np  # noqa: E402
 
 SSD_TOL = 1e-4
 
@@ -176,6 +176,73 @@ def test_reference_gradient_is_nan_at_chunk_128_and_the_ports_is_finite():
         assert_close(g, w, SSD_TOL, SSD_TOL)
 
 
+def _tf32(a):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: ``cvt.rna.tf32.f32``'s rounding, which the kernel splits
+    its operands with."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b as the kernel's tensor cores form it, in float32: one TF32
+    pass (hi . hi), or split TF32 (lo . hi + hi . lo, then + hi . hi)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _ssd_scan_tf32(x, dt, A, Bm, Cm, chunk, passes):
+    """The chunked scan with its four products (C.B^T, W.x, C.S_prev^T and
+    x^T (B f)) rounded as ``_mm_tf32`` rounds them; S a multiple of the
+    chunk, G = 1."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[3]
+    y = torch.empty_like(x)
+    fin = torch.empty(Bsz, H, P, N)
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    for b in range(Bsz):
+        for h in range(H):
+            state = torch.zeros(P, N)
+            for t0 in range(0, S, chunk):
+                sl = slice(t0, t0 + chunk)
+                xc, dtc = x[b, sl, h], dt[b, sl, h]
+                Bc, Cc = Bm[b, sl, 0], Cm[b, sl, 0]
+                acum = torch.cumsum(dtc * A[h], dim=0)
+                diff = (acum[:, None] - acum[None, :]).masked_fill(
+                    ~tri, -np.inf)
+                w = _mm_tf32(Cc, Bc.T, passes) * torch.exp(diff) * dtc
+                y[b, sl, h] = (_mm_tf32(Cc, state.T, passes)
+                               * torch.exp(acum)[:, None]
+                               + _mm_tf32(w, xc, passes))
+                f = torch.exp(acum[-1] - acum) * dtc
+                state = state * torch.exp(acum[-1]) + _mm_tf32(
+                    xc.T, Bc * f[:, None], passes)
+            fin[b, h] = state
+    return y, fin
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_split_tf32_products_hold_the_tolerance_and_one_pass_does_not(
+        passes):
+    """Why the CUDA kernel splits each float32 operand into two TF32 parts
+    and takes three tensor-core products: at mamba2's widths (N = 128,
+    P = 64, chunk 128) the scan with split-TF32 products stays within
+    atol = rtol = SSD_TOL of the plain version, which the kernel is held
+    to on the card, and with one TF32 pass it does not."""
+    args = ssd_inputs(1, 512, 4, 64, 1, 128, seed=0)
+    want = tref.ssd_scan(*_t(args), chunk=128)
+    got = _ssd_scan_tf32(*_t(args), chunk=128, passes=passes)
+    over = max(float(np.max(np.abs(to_np(g) - to_np(w))
+                            - SSD_TOL * np.abs(to_np(w))))
+               for g, w in zip(got, want))
+    if passes == 3:
+        assert over <= SSD_TOL
+    else:
+        assert over > 10 * SSD_TOL
+
 def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
     args = _t(ssd_inputs(1, 20, 2, 4, 1, 4, seed=9))
     before = tssd.LAUNCHES.count
@@ -188,18 +255,56 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
     assert tssd.LAUNCHES.count == before
 
 
+def test_scratch_shapes():
+    """The wrapper's scratch for the kernel's passes (C.B^T per group and
+    chunk with rows padded to a multiple of 4, each chunk's state, each
+    chunk's total log-decay): about 26 MB a call at mamba2-780m's training
+    shape, 17 MB at zamba2-1.2b's."""
+    nbytes = {k: 4 * int(np.prod(v)) for k, v in
+              tssd.scratch_shapes(2, 1024, 48, 64, 1, 128, 128).items()}
+    assert nbytes == {"cb": 2 * 8 * 128 * 128 * 4,
+                      "st": 2 * 48 * 8 * 64 * 128 * 4, "at": 2 * 48 * 8 * 4}
+    assert 4 * np.prod(tssd.scratch_shapes(2, 1024, 64, 64, 1, 64, 128)[
+        "st"]) == 16 * 2 ** 20
+    # ragged: S = 37 in chunks of 16, a chunk of 6 (rows padded to 8)
+    assert tssd.scratch_shapes(2, 37, 2, 8, 1, 4, 16) == {
+        "cb": (2, 3, 1, 16, 16), "st": (2, 2, 3, 8, 4), "at": (2, 2, 3)}
+    assert tssd.scratch_shapes(1, 130, 2, 6, 1, 6, 6)["cb"] == (
+        1, 22, 1, 6, 8)
+
+
+# the card: the reference's cases, a ragged S = 1000 with two groups, widths
+# the kernel tiles raggedly (P, N past one tile, not multiples of 4, N =
+# 256, a chunk of 100), the training shapes of mamba2-780m and zamba2-1.2b,
+# a chunk whose dt sum passes 88 (A = -1), and chunk invariance
+CARD_CASES = [("plain", c) for c in SSD_CASES + [
+    (2, 1000, 4, 64, 2, 128, 128), (1, 300, 3, 100, 1, 200, 128),
+    (1, 130, 2, 6, 1, 6, 64), (1, 77, 4, 130, 2, 256, 100),
+    (2, 1024, 48, 64, 1, 128, 128), (2, 1024, 64, 64, 1, 64, 128)]] + [
+    ("large_dt", (1, 256, 2, 8, 1, 8, 128)),
+    ("chunk_16_vs_48", (1, 96, 2, 8, 1, 8, 16))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,H,P,G,N,chunk",
-                         SSD_CASES + [(2, 1000, 4, 64, 2, 128, 128)])
-def test_ssd_kernel_matches_plain_version_on_the_card(B, S, H, P, G, N,
-                                                      chunk):
+@pytest.mark.parametrize("check,case", CARD_CASES,
+                         ids=[f"{k}-{c}" for k, c in CARD_CASES])
+def test_ssd_kernel_matches_plain_version_on_the_card(check, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    args = tuple(t.cuda() for t in _t(ssd_inputs(B, S, H, P, G, N, seed=7)))
+    B, S, H, P, G, N, chunk = case
+    x, dt, A, Bm, Cm = ssd_inputs(B, S, H, P, G, N, seed=7)
+    if check == "large_dt":
+        A = -np.ones(H, np.float32)
+        assert dt.reshape(B, S // chunk, chunk, H).sum(axis=2).max() > 88.0
+    args = tuple(t.cuda() for t in _t((x, dt, A, Bm, Cm)))
     before = tssd.LAUNCHES.count
     y, fin = tssd.ssd_scan_fwd(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert tssd.LAUNCHES.count == before + 1
-    want_y, want_fin = tref.ssd_scan(*args, chunk=chunk)
+    if check == "chunk_16_vs_48":
+        want_y, want_fin = tssd.ssd_scan_fwd(*args, chunk=48)
+    else:
+        want_y, want_fin = tref.ssd_scan(*args, chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(fin).all()
     assert_close(y, want_y, SSD_TOL, SSD_TOL)
     assert_close(fin, want_fin, SSD_TOL, SSD_TOL)
