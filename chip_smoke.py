@@ -37,7 +37,11 @@ Phases, each printing one JSON line:
                     every decode and training shape of the port's models,
                     ragged widths and row counts, mixed dtypes, a
                     non-contiguous and a misaligned input, with times beside
-                    F.rms_norm's
+                    F.rms_norm's: back to back through the eager wrapper
+                    (``ms``, the median of four rounds taken in turns with
+                    F.rms_norm's), the profiler's device time, and ``graph_ms``
+                    (20 calls in one CUDA graph, as inside the decode
+                    step's graph) for the kernel and for F.rms_norm
   plan              launch.plan.replan: the coordinator's replans on the
                     first SEV1 events of trace-b on the Fig. 11 fleet (128
                     GPUs) and a 12-step churn walk at 1024 workers / 64
@@ -60,16 +64,26 @@ Phases, each printing one JSON line:
   serve             launch.serve on qwen3-4b at full width and full depth:
                     a static batch (8 prompts of 128 tokens, 64 new each)
                     and the continuous batcher (16 requests over 8 lanes,
-                    one evicted mid-decode, slo_stats -> ServingSLO); the
-                    decode path held against the training forward and the
-                    kernel's norms against the plain ones, 145 RMSNorm
-                    launches a decode step, one traced decode step; the
-                    batcher's greedy tokens against generate()'s with both
-                    runs' top-1/top-2 logits at the first difference; then
+                    one evicted mid-decode, slo_stats -> ServingSLO), each
+                    through one GraphDecoder (one eager step, one CUDA graph
+                    capture, every other step a replay): decode step
+                    median, min and max, tokens/s, peak GB, captures and
+                    replays, 145 RMSNorm launches in every step counted
+                    through replays; the decode path held against the
+                    training forward, the kernel's norms against the plain
+                    ones, and one graph step against eager decode_step from
+                    the same caches (bf16 2e-2, bitwise equality printed);
+                    one traced eager and one traced replayed step (device
+                    busy time, idle share); the batcher's greedy tokens
+                    against generate()'s (both on graphs) with both runs'
+                    top-1/top-2 logits at the first difference; then
                     qwen3-4b at full width, 4 layers, in float32, where the
-                    batcher's tokens must equal generate()'s
+                    batcher's tokens must equal generate()'s and the graph
+                    step eager decode_step's within 1e-5
   serve_ssm         the static batch on mamba2-780m at full width and full
-                    depth: 97 RMSNorm launches a decode step, finite logits
+                    depth through the graph: 97 RMSNorm launches a decode
+                    step, finite logits, the graph step against eager, the
+                    traced eager and replayed steps
   profile           device time by kernel over one traced steady step of
                     the train and train_ssm phases' configurations, and the
                     idle share
@@ -219,6 +233,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_in_turns(fns: dict, rounds: int = 4, iters: int = 20) -> dict:
+    """``cuda_ms`` of each function, timed in turns (a b, b a, a b, ...)
+    over ``rounds`` rounds, so that a drift of the host's speed falls on
+    both alike: each one's median and its rounds."""
+    import statistics
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(cuda_ms(fns[name], iters=iters))
+    return {name: (statistics.median(ts), ts) for name, ts in times.items()}
 
 
 def attn_inputs(case, seed: int = 0, layout: str = "contiguous"):
@@ -1029,10 +1056,18 @@ def phase_kernel_rmsnorm(ctx) -> None:
         worst = max(worst, err)
         n += 1
         iters = 200 if x.numel() < 1 << 20 else 50
-        kernel_ms = cuda_ms(lambda: rmsnorm_cuda(x, s), iters=iters)
+        # the kernel through its eager wrapper and F.rms_norm, in turns
+        turns = cuda_ms_in_turns(
+            {"kernel": lambda: rmsnorm_cuda(x, s),
+             "library": lambda: F.rms_norm(x, (shape[-1],), s, 1e-6)},
+            iters=iters)
+        kernel_ms, library_ms = turns["kernel"][0], turns["library"][0]
         plain_ms = cuda_ms(lambda: ref.rmsnorm(x, s), iters=iters)
-        library_ms = cuda_ms(lambda: F.rms_norm(x, (shape[-1],), s, 1e-6),
-                             iters=iters)
+        # device time per call with no host time between calls, as inside
+        # the decode step's CUDA graph
+        graphs = {"graph_ms": graph_ms(lambda: rmsnorm_cuda(x, s)),
+                  "library_graph_ms": graph_ms(
+                      lambda: F.rms_norm(x, (shape[-1],), s, 1e-6))}
         bound_ms, bound_by = rms_bound(shape, dt)
         on_device = {"kernel_device_ms": device_ms(lambda: rmsnorm_cuda(x, s)),
                      "plain_device_ms": device_ms(lambda: ref.rmsnorm(x, s)),
@@ -1043,10 +1078,12 @@ def phase_kernel_rmsnorm(ctx) -> None:
                "replaces": "src/repro/kernels/rmsnorm.py:27",
                "launches": None, "max_abs_err": err, "ms": kernel_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms}
+               "bound_by": bound_by, "library_ms": library_ms, **graphs}
         rows[label] = rec
         emit({"phase": "kernel:rmsnorm", "shape": f"{label} "
               f"{'x'.join(map(str, shape))} {dt}", **rec, **on_device,
+              "ms_rounds": turns["kernel"][1],
+              "library_ms_rounds": turns["library"][1],
               "nvidia_smi": ctx["smi"]})
     ctx["kernels"]["rmsnorm"] = rows[RMS_MAIN]
     emit({"phase": "kernel:rmsnorm", "cases": n, "tol": RMS_TOL,
@@ -1448,6 +1485,11 @@ DECODE_VS_FORWARD_RTOL = 5e-2
 # element's norm; held to the bf16 tolerance of the reference's kernel
 # tests (tests/test_kernels.py:160)
 KERNEL_VS_PLAIN_RTOL = 2e-2
+# One decode step as the CUDA graph against eager decode_step from the same
+# caches: the same kernels on the same inputs, but cuBLAS may choose other
+# algorithms under capture; float32 held to the reference's f32 logits
+# tolerance, bf16 to KERNEL_VS_PLAIN_RTOL.  Bitwise equality is printed.
+GRAPH_VS_EAGER_RTOL = {"float32": 1e-5, "bfloat16": KERNEL_VS_PLAIN_RTOL}
 AGREE_REQUESTS = 2              # shortest completed requests re-run alone
 # The float32 run: qwen3-4b at full width with its depth cut to 4 layers,
 # the same request mix; its greedy tokens must equal generate()'s token for
@@ -1476,6 +1518,16 @@ def _check_steps(phase, part, cfg) -> None:
                              f"logits")
 
 
+def _check_graphed(phase, part) -> None:
+    """A part decoded through one decoder: its first step eager (the
+    warm-up), one capture, every other step a replay."""
+    want = (1, 1, part["steps"] - 1)
+    got = (part["eager_steps"], part["captures"], part["replays"])
+    if got != want:
+        raise AssertionError(f"{phase}: (eager steps, captures, replays) "
+                             f"{got}, expected {want}")
+
+
 def _check_continuous(part, n_requests) -> None:
     stats, done = part["slo_stats"], part["finished"]
     evicted = [r for r in done if r.req_id == part["evicted"]]
@@ -1495,21 +1547,18 @@ def _check_continuous(part, n_requests) -> None:
                              f"discount {part['lane_fail_discount']}")
 
 
-def profile_decode(model, params, caches, tokens, pos) -> dict:
-    """Device time by kernel over one traced decode step (after one
-    untraced warm-up step on a copy of the caches), and the idle share."""
+def _traced(step) -> dict:
+    """Device time by kernel over one traced, synchronised call of
+    ``step``, and the device's idle share of its host time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad():
-        model.decode_step(params, _clone_caches(caches), tokens, pos)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.decode_step(params, caches, tokens, pos)
-            torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3
+        step_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
@@ -1524,16 +1573,85 @@ def profile_decode(model, params, caches, tokens, pos) -> dict:
                     for k, ms, n in rows[:10]]}
 
 
-def _top2_recorder(model, out: list):
-    """``model`` with a ``decode_step`` that appends each step's top-2
-    logits per lane (values, indices, on the card) to ``out``."""
+def profile_decode(model, params, caches, tokens, pos) -> dict:
+    """One traced eager decode step (after one untraced warm-up step on a
+    copy of the caches): ``_traced``'s numbers."""
+    import torch
+    with torch.no_grad():
+        model.decode_step(params, _clone_caches(caches), tokens, pos)
+        torch.cuda.synchronize()
+        return _traced(lambda: model.decode_step(params, caches, tokens,
+                                                 pos))
+
+
+def profile_replay(decoder, tokens, pos, steps: int = 5) -> dict:
+    """One traced step of a decoder that has captured its graph (a
+    replay): ``_traced``'s numbers; the median of ``steps`` further steps'
+    time between CUDA events and on the host's clock; and the idle share
+    of that untraced step against the traced device busy time (the tracer
+    lengthens a replayed step's host time, not its kernels)."""
+    import torch
+    out = _traced(lambda: decoder.step(tokens, pos))
+    ev, host = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        decoder.step(tokens, pos)
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        ev.append(start.elapsed_time(end))
+    host_ms = sorted(host)[steps // 2]
+    out.update(step_event_ms_median=sorted(ev)[steps // 2],
+               step_host_ms_median=host_ms,
+               device_idle_share_untraced_step=None
+               if out["device_busy_ms"] is None
+               else 1 - out["device_busy_ms"] / host_ms)
+    return out
+
+
+def graph_vs_eager(model, params, caches, tokens, pos, dtype: str):
+    """One decode step as the CUDA graph and as eager ``decode_step`` from
+    clones of the same caches: a decoder on a clone of ``caches`` runs its
+    first step (eager) at ``pos``, then its second, captured and replayed,
+    at ``pos + 1``; eager decode_step runs that second step from a clone of
+    the caches it started from.  Held to GRAPH_VS_EAGER_RTOL; bitwise
+    equality printed.  Returns the record and the decoder (captured; the
+    caller closes it)."""
+    import torch
+    from repro_torch.serve.decode import GraphDecoder
+    decoder = GraphDecoder(model, params, _clone_caches(caches))
+    nxt = decoder.step(tokens, pos).argmax(-1).int()
+    before = _clone_caches(decoder.caches)
+    graph = decoder.step(nxt, pos + 1)
+    with torch.no_grad():
+        eager, _ = model.decode_step(params, before, nxt, pos + 1)
+    del before
+    rec = {"rel": _rel(graph, eager), "rtol": GRAPH_VS_EAGER_RTOL[dtype],
+           "max_abs": (graph - eager).abs().max().item(),
+           "bitwise_equal": bool(torch.equal(graph, eager)),
+           "decoder_steps": [decoder.eager_steps, decoder.captures,
+                             decoder.replays],
+           "capture_seconds": decoder.capture_seconds}
+    if not rec["rel"] <= rec["rtol"]:
+        raise AssertionError(f"graph step off eager decode_step by "
+                             f"{rec['rel']:.3e} (relative) > {rec['rtol']}")
+    return rec, decoder
+
+
+def _top2_recorder(out: list):
+    """A decoder wrap that appends each step's top-2 logits per lane
+    (values, indices, on the card) to ``out``: once per step that ran,
+    eager, captured or replayed."""
     import torch
 
-    def decode_step(params, caches, tokens, pos):
-        logits, caches = model.decode_step(params, caches, tokens, pos)
+    def wrap(decoder, run):
+        logits = run()
         out.append(torch.topk(logits.float(), 2, dim=-1))
-        return logits, caches
-    return dataclasses.replace(model, decode_step=decode_step)
+        return logits
+    return wrap
 
 
 def recorded_continuous(model, params, cfg) -> tuple:
@@ -1549,8 +1667,9 @@ def recorded_continuous(model, params, cfg) -> tuple:
     reqs = make_requests(cfg, SERVE["n_requests"], SERVE["prompt_range"],
                          SERVE["new_range"], SERVE["seed"] + 1)
     capacity = max(len(r.prompt) + r.max_new for r in reqs) + 1
-    cb = ContinuousBatcher(_top2_recorder(model, records["top2"]), params,
-                           batch_size=SERVE["lanes"], capacity=capacity)
+    cb = ContinuousBatcher(model, params, batch_size=SERVE["lanes"],
+                           capacity=capacity,
+                           wrap=_top2_recorder(records["top2"]))
     for r in reqs:
         cb.submit(r)
     evicted = None
@@ -1568,6 +1687,7 @@ def recorded_continuous(model, params, cfg) -> tuple:
             if busy:
                 evicted = busy[0].req_id
                 cb.evict(evicted)
+    cb.close()
     return {"finished": cb.finished, "evicted": evicted}, records
 
 
@@ -1590,9 +1710,9 @@ def batcher_vs_generate(part, model, params, records, n_requests) -> dict:
                   key=lambda r: len(r.prompt) + r.max_new)[:n_requests]
     for r in done:
         steps = []
-        want = generate(_top2_recorder(model, steps), params,
-                        r.prompt[None].cuda(), r.max_new,
-                        capacity=len(r.prompt) + r.max_new)[0].tolist()
+        want = generate(model, params, r.prompt[None].cuda(), r.max_new,
+                        capacity=len(r.prompt) + r.max_new,
+                        wrap=_top2_recorder(steps))[0].tolist()
         same += sum(a == b for a, b in zip(r.out, want))
         total += len(want)
         i = next((i for i, (a, b) in enumerate(zip(r.out, want)) if a != b),
@@ -1640,6 +1760,7 @@ def phase_serve(ctx) -> None:
         raise AssertionError("serve: the RMSNorm kernel never launched")
     for part in (res.batch, res.continuous):
         _check_steps("serve", part, cfg)
+        _check_graphed("serve", part)
     _check_continuous(res.continuous, SERVE["n_requests"])
     steps = res.batch["steps"] + res.continuous["steps"]
     if launches != {k: n * steps for k, n in
@@ -1658,7 +1779,7 @@ def phase_serve(ctx) -> None:
     S = prompts.shape[1]
     with torch.no_grad():
         caches, dec = prefill(model, params, model.init_cache(
-            prompts.shape[0], S + 1), prompts)
+            prompts.shape[0], S + 16), prompts)
         fwd = model.forward(params, {"tokens": prompts})[0][:, -1]
     rel_fwd = _rel(dec, fwd)
     agree_fwd = (dec.argmax(-1) == fwd.argmax(-1)).float().mean().item()
@@ -1686,6 +1807,15 @@ def phase_serve(ctx) -> None:
                              f"kernel off the plain norms' by "
                              f"{rel_plain:.3e} > {KERNEL_VS_PLAIN_RTOL}")
 
+    # 3. one decode step as the CUDA graph and as eager decode_step from
+    # the same caches; the eager step and a replayed step traced
+    vs_eager, decoder = graph_vs_eager(model, params, caches, tok, S,
+                                       cfg.param_dtype)
+    prof = {"eager": profile_decode(model, params, _clone_caches(caches),
+                                    tok, S),
+            "graph_replay": profile_replay(decoder, tok, S + 2)}
+    decoder.close()
+
     # greedy agreement of the batcher with sequential generate() in bf16
     # (printed with the top-1/top-2 logit gaps at the first difference, not
     # required: near-ties may flip with the batch's GEMM tiling), from a
@@ -1694,7 +1824,6 @@ def phase_serve(ctx) -> None:
     agree = batcher_vs_generate(part, model, params, records, AGREE_REQUESTS)
     agree["rerun_tokens_equal_timed_run"] = _outs(part) == _outs(
         res.continuous)
-    prof = profile_decode(model, params, caches, tok, S)
     emit({"phase": "serve", "ok": True, "seconds": secs,
           "launches": launches, "decode_steps": steps,
           "launches_per_decode_step_expected":
@@ -1707,6 +1836,7 @@ def phase_serve(ctx) -> None:
           "kernel_vs_plain_rel": rel_plain,
           "kernel_vs_plain_max_abs": (kern - plain).abs().max().item(),
           "kernel_vs_plain_rtol": KERNEL_VS_PLAIN_RTOL,
+          "graph_vs_eager": vs_eager,
           "batcher_vs_generate": agree,
           "profile_decode_step": prof, "nvidia_smi": ctx["smi"]})
     del res, model, params, caches
@@ -1721,7 +1851,9 @@ def serve_f32(ctx) -> None:
     CPU."""
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import make_prompts
     from repro_torch.models.model import build_model
+    from repro_torch.serve.decode import prefill
 
     full = get_arch("qwen3-4b")
     cfg = dataclasses.replace(full, n_layers=SERVE_F32_LAYERS,
@@ -1732,17 +1864,25 @@ def serve_f32(ctx) -> None:
     part, records = recorded_continuous(model, params, cfg)
     agree = batcher_vs_generate(part, model, params, records,
                                 AGREE_F32_REQUESTS)
+    # one graph step against eager decode_step, from caches after a prompt
+    prompts = torch.stack(make_prompts(cfg, SERVE["batch"], 16,
+                                       SERVE["seed"])).cuda()
+    caches, logits = prefill(model, params, model.init_cache(
+        prompts.shape[0], 24), prompts)
+    vs_eager, decoder = graph_vs_eager(model, params, caches,
+                                       logits.argmax(-1).int(), 16, "float32")
+    decoder.close()
     secs = time.perf_counter() - t0
     emit({"phase": "serve", "part": "float32", "arch": cfg.name,
           "n_layers": cfg.n_layers, "reduced": {"n_layers": [
               full.n_layers, SERVE_F32_LAYERS]}, "param_dtype": "float32",
           "seconds": secs, "batcher_vs_generate": agree,
-          "nvidia_smi": ctx["smi"]})
+          "graph_vs_eager": vs_eager, "nvidia_smi": ctx["smi"]})
     if agree["agree"] != 1.0:
         raise AssertionError(f"serve float32: the continuous batcher's "
                              f"greedy tokens differ from generate()'s: "
                              f"{agree}")
-    del model, params, part
+    del model, params, part, caches
     torch.cuda.empty_cache()
 
 
@@ -1766,26 +1906,33 @@ def phase_serve_ssm(ctx) -> None:
     secs = time.perf_counter() - t0
     ctx["phase_launches"]["serve_ssm"] = launches
     _check_steps("serve_ssm", res.batch, cfg)
+    _check_graphed("serve_ssm", res.batch)
     steps = res.batch["steps"]
     if launches != {k: n * steps for k, n in
                     launches_per_decode_step(cfg).items()}:
         raise AssertionError(f"serve_ssm: {launches} launches over {steps} "
                              f"decode steps")
-    # one traced decode step after a short prefill (the state is O(1) in
-    # the sequence, so its length does not change the step)
+    # after a short prefill (the state is O(1) in the sequence, so its
+    # length does not change the step): one step as the graph against
+    # eager decode_step, and a traced eager and replayed step
     model, params = res.model, res.params
     prompts = torch.stack(make_prompts(cfg, opts["batch"], 8,
                                        opts["seed"])).cuda()
-    with torch.no_grad():
-        caches, logits = prefill(model, params, model.init_cache(
-            prompts.shape[0], 9), prompts)
-    prof = profile_decode(model, params, caches, logits.argmax(-1).int(), 8)
+    caches, logits = prefill(model, params, model.init_cache(
+        prompts.shape[0], 16), prompts)
+    tok = logits.argmax(-1).int()
+    vs_eager, decoder = graph_vs_eager(model, params, caches, tok, 8,
+                                       cfg.param_dtype)
+    prof = {"eager": profile_decode(model, params, _clone_caches(caches),
+                                    tok, 8),
+            "graph_replay": profile_replay(decoder, tok, 10)}
+    decoder.close()
     emit({"phase": "serve_ssm", "ok": True, "seconds": secs,
           "launches": launches, "decode_steps": steps,
           "launches_per_decode_step_expected":
               launches_per_decode_step(cfg),
-          "batch": _part_fields(res.batch), "profile_decode_step": prof,
-          "nvidia_smi": ctx["smi"]})
+          "batch": _part_fields(res.batch), "graph_vs_eager": vs_eager,
+          "profile_decode_step": prof, "nvidia_smi": ctx["smi"]})
 
 
 def profile_step(cfg) -> dict:

@@ -8,14 +8,16 @@ first use, never at import.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import weakref
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -28,10 +30,46 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 class LaunchCounter:
     """Counts a kernel's launches, so a run can show that its main path
-    went through the kernel.  The wrapper adds one where it launches."""
+    went through the kernel.  The wrapper adds one where it launches.
+
+    Under a CUDA graph capture a wrapper's call records a launch that has
+    not run: ``capture_launches`` takes those back and hands them to the
+    graph, which adds them again on every replay."""
+
+    _all: "weakref.WeakSet[LaunchCounter]" = weakref.WeakSet()
 
     def __init__(self):
         self.count = 0
+        LaunchCounter._all.add(self)
+
+
+class GraphLaunches:
+    """The launches a CUDA graph recorded, per counter."""
+
+    def __init__(self):
+        self.per_counter: Dict[LaunchCounter, int] = {}
+
+    def replayed(self) -> None:
+        """Count one replay of the graph: every recorded launch ran again."""
+        for counter, n in self.per_counter.items():
+            counter.count += n
+
+
+@contextlib.contextmanager
+def capture_launches() -> Iterator[GraphLaunches]:
+    """Around a CUDA graph capture: every launch counted inside is taken
+    back on exit (none of them ran) and recorded in the yielded
+    ``GraphLaunches``, whose ``replayed()`` the graph's owner calls on
+    each replay."""
+    before = {c: c.count for c in list(LaunchCounter._all)}
+    recorded = GraphLaunches()
+    try:
+        yield recorded
+    finally:
+        for counter, n in before.items():
+            if counter.count != n:
+                recorded.per_counter[counter] = counter.count - n
+                counter.count = n
 
 
 def _nvcc() -> str:

@@ -88,5 +88,9 @@ class RmsNorm(torch.autograd.Function):
 
 def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
     """``(x * rsqrt(mean(x^2) + eps)) * scale`` over the last dim, in x's
-    dtype; see ``ref.rmsnorm``."""
-    return RmsNorm.apply(x, scale, eps)
+    dtype; see ``ref.rmsnorm``.  Where autograd has nothing to record
+    (grad off, or neither input requires it) the forward is called without
+    the ``autograd.Function`` around it: the same call, less host time."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RmsNorm.apply(x, scale, eps)
+    return rmsnorm_fwd(x, scale, eps=eps)

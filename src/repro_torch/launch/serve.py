@@ -5,9 +5,12 @@ steps, then greedy decode.  Part 2 runs the continuous batcher: requests
 of different lengths share the lanes, joining and leaving mid-flight
 (per-lane positions); one request is evicted mid-decode (a lane failure,
 the lane recycled), and the batcher's lane-outcome counters calibrate the
-planner's ``ServingSLO`` objective.  Every decode step is timed on the
-device's clock (synchronised), and its kernel launches are counted: on
-the card every RMSNorm runs the Hopper RMSNorm kernel.
+planner's ``ServingSLO`` objective.  Both parts decode through a
+``GraphDecoder`` (on the card: one eager step, one capture, then CUDA
+graph replays).  Every decode step the decoder runs is timed on the host's
+clock between device synchronisations, and its kernel launches are counted
+(a replay counts the launches its graph recorded): on the card every
+RMSNorm runs the Hopper RMSNorm kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
@@ -17,7 +20,6 @@ the card every RMSNorm runs the Hopper RMSNorm kernel.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import statistics
 import time
 from dataclasses import dataclass, field
@@ -31,7 +33,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.waf import ServingSLO
 from repro_torch.launch.train import launch_counts
 from repro_torch.models.model import Model, build_model
-from repro_torch.serve.decode import RequestBatcher
+from repro_torch.serve.decode import RequestBatcher, StepWrap
 from repro_torch.serve.scheduler import ContinuousBatcher, Request
 
 SLO_RATE_RPS = 120.0            # the serving example's offered load
@@ -39,16 +41,21 @@ SLO_RATE_RPS = 120.0            # the serving example's offered load
 
 @dataclass
 class StepLog:
-    """One record per ``decode_step``: seconds (synchronised), kernel
-    launches, and whether every logit was finite."""
+    """One record per decode step the decoders ran: seconds (synchronised),
+    kernel launches, whether every logit was finite, and how the step ran
+    ("eager", "capture": captured and replayed, or "replay"), with each
+    capture's seconds."""
     seconds: List[float] = field(default_factory=list)
     launches: List[dict] = field(default_factory=list)
     finite: List[bool] = field(default_factory=list)
+    kinds: List[str] = field(default_factory=list)
+    capture_seconds: List[float] = field(default_factory=list)
 
     def summary(self, lanes: int) -> dict:
         """Median step ms over the steps after the first (warm-up), the
-        decode tokens/s it gives at ``lanes`` lanes, and the distinct
-        launch counts of each kernel over the steps."""
+        decode tokens/s it gives at ``lanes`` lanes, the distinct launch
+        counts of each kernel over the steps, and the steps run eagerly,
+        the captures (with their seconds) and the replays."""
         steady = self.seconds[1:] or self.seconds
         med = statistics.median(steady)
         per_step = {k: sorted({d[k] for d in self.launches})
@@ -58,26 +65,33 @@ class StepLog:
                 "step_ms_max": max(steady) * 1e3,
                 "tokens_per_s": lanes / med,
                 "launches_per_step": per_step,
-                "all_logits_finite": all(self.finite)}
+                "all_logits_finite": all(self.finite),
+                "eager_steps": self.kinds.count("eager"),
+                "captures": self.kinds.count("capture"),
+                "replays": len(self.kinds) - self.kinds.count("eager"),
+                "capture_seconds": self.capture_seconds}
 
 
-def timed(model: Model, log: StepLog) -> Model:
-    """``model`` with a ``decode_step`` that records into ``log``."""
-    sync = (lambda: torch.cuda.synchronize(model.device)) \
-        if model.device.type == "cuda" else (lambda: None)
+def timed(device: torch.device, log: StepLog) -> StepWrap:
+    """A ``GraphDecoder`` wrap that records every step into ``log``."""
+    sync = (lambda: torch.cuda.synchronize(device)) \
+        if device.type == "cuda" else (lambda: None)
 
-    def decode_step(params, caches, tokens, pos):
+    def wrap(decoder, run):
         sync()
         before = launch_counts()
         t0 = time.perf_counter()
-        logits, caches = model.decode_step(params, caches, tokens, pos)
+        logits = run()
         sync()
         log.seconds.append(time.perf_counter() - t0)
         log.launches.append({k: n - before[k]
                              for k, n in launch_counts().items()})
         log.finite.append(bool(torch.isfinite(logits).all()))
-        return logits, caches
-    return dataclasses.replace(model, decode_step=decode_step)
+        log.kinds.append(decoder.last_step)
+        if decoder.last_step == "capture":
+            log.capture_seconds.append(decoder.capture_seconds)
+        return logits
+    return wrap
 
 
 def make_prompts(cfg: ArchConfig, n: int, length: int, seed: int):
@@ -118,8 +132,9 @@ def batch_serve(model: Model, params, prompts, n_new: int,
     """Part 1: ``RequestBatcher`` over ``prompts``; returns the tokens
     and the per-step record."""
     log = StepLog()
-    rb = RequestBatcher(timed(model, log), params, batch_size=batch,
-                        capacity=len(prompts[0]) + n_new)
+    rb = RequestBatcher(model, params, batch_size=batch,
+                        capacity=len(prompts[0]) + n_new,
+                        wrap=timed(model.device, log))
     _peak_reset(model.device)
     t0 = time.perf_counter()
     outs = rb.serve(prompts, n_new)
@@ -138,8 +153,8 @@ def continuous_serve(model: Model, params, requests: List[Request],
     lane-failure discount."""
     log = StepLog()
     capacity = max(len(r.prompt) + r.max_new for r in requests) + 1
-    cb = ContinuousBatcher(timed(model, log), params, batch_size=lanes,
-                           capacity=capacity)
+    cb = ContinuousBatcher(model, params, batch_size=lanes,
+                           capacity=capacity, wrap=timed(model.device, log))
     for r in requests:
         cb.submit(r)
     _peak_reset(model.device)
@@ -154,6 +169,7 @@ def continuous_serve(model: Model, params, requests: List[Request],
                 evicted = busy[0].req_id
                 cb.evict(evicted)
     secs = time.perf_counter() - t0
+    cb.close()
     stats = cb.slo_stats()
     slo = ServingSLO(rate_rps=SLO_RATE_RPS).calibrated(stats)
     return {"finished": cb.finished, "evicted": evicted, "seconds": secs,
@@ -190,7 +206,8 @@ def serve(cfg: ArchConfig, *, device="cuda", batch: int = 8,
         f"{n_new} new each in {part1['seconds']:.2f}s; decode step "
         f"{part1['step_ms_median']:.2f} ms (median), "
         f"{part1['tokens_per_s']:.1f} tokens/s; launches per step "
-        f"{part1['launches_per_step']}")
+        f"{part1['launches_per_step']}; {part1['eager_steps']} eager "
+        f"steps, {part1['captures']} captures, {part1['replays']} replays")
     result = ServeResult(model=model, params=params, batch=part1)
     if continuous:
         reqs = make_requests(cfg, n_requests, prompt_range, new_range,

@@ -10,6 +10,7 @@ the serving path, plain PyTorch as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -81,21 +82,32 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str, gated: bool):
 # ---------------------------------------------------------------------------
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """x: (..., S, H, D) or (..., S, D); positions: (..., S) int.  Half-split
-    rotation computed in f32, cast back to x's dtype."""
-    d = x.shape[-1]
+def rope_tables(positions: torch.Tensor, d: int, theta: float):
+    """cos and sin of the RoPE angles for head width ``d``: (..., S, d/2)
+    in f32 for positions (..., S) int."""
     half = d // 2
     freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device)
+                                    device=positions.device)
                       * (math.log(theta) / half))
     ang = positions.float()[..., None] * freqs               # (..., S, half)
-    if x.dim() == ang.dim() + 1:                             # head dim present
-        ang = ang[..., None, :]
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x: (..., S, H, D) or (..., S, D) rotated by ``rope_tables``' (...,
+    S, D/2).  Half-split rotation computed in f32, cast back to x's
+    dtype."""
+    if x.dim() == cos.dim() + 1:                             # head dim present
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., S, H, D) or (..., S, D); positions: (..., S) int."""
+    return rope_rotate(x, *rope_tables(positions, x.shape[-1], theta))
 
 
 # ---------------------------------------------------------------------------
@@ -143,12 +155,60 @@ def attention_apply(p: dict, cfg, x: torch.Tensor, *, layer_is_local: bool,
     return o.reshape(B, S, a.n_heads * a.head_dim) @ p["wo"]
 
 
+class DecodePositions:
+    """One decode step's positions, (B,) per lane, and what every attention
+    layer of the step derives from them alone: the RoPE tables per head
+    width, and per cache capacity and locality the slot each lane writes
+    and the validity of every slot.  ``decode_step`` builds one per step
+    and passes it down, so each is computed once a step, not once a layer
+    (and, for RoPE, not once for q and again for k).  Nothing here reads a
+    device value on the host."""
+
+    def __init__(self, pos, batch: int, device):
+        self.pos = torch.as_tensor(pos, device=device).long().reshape(-1) \
+            .expand(batch)
+        self._rope: dict = {}
+        self._slots: dict = {}
+
+    @functools.cached_property
+    def lanes(self) -> torch.Tensor:
+        return torch.arange(self.pos.shape[0], device=self.pos.device)
+
+    def rope(self, d: int, theta: float):
+        """``rope_tables`` of every lane's position: (B, 1, d/2) each."""
+        key = (d, theta)
+        if key not in self._rope:
+            self._rope[key] = rope_tables(self.pos[:, None], d, theta)
+        return self._rope[key]
+
+    def slots(self, C: int, local: bool, window: int):
+        """(slot (B,), valid (B, C)) for a cache of C slots: a local layer's
+        ring of ``window`` slots, or a global layer writing slot
+        ``min(pos, C - 1)``."""
+        key = (C, local, window)
+        if key not in self._slots:
+            pos, posv = self.pos, self.pos[:, None]
+            slot = pos % max(C, 1) if local else torch.clamp(pos, max=C - 1)
+            slots = torch.arange(C, device=pos.device)[None, :]
+            if local:
+                filled = slots <= posv % C
+                valid = filled | (posv >= C)                 # ring fill
+                base = posv - posv % C
+                abs_pos = torch.where(filled, base + slots, base + slots - C)
+                valid &= (abs_pos > posv - window) & (abs_pos >= 0)
+            else:
+                valid = slots <= posv
+            self._slots[key] = (slot, valid)
+        return self._slots[key]
+
+
 def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos, *, layer_is_local: bool):
     """One-token decode.  x: (B, 1, d); cache_k/v: (B, C, KV, D) where C is
     the cache capacity (full length for global layers, the window for local
-    ones).  ``pos``: an int or a (B,) tensor, the absolute position of each
-    lane's new token (per-lane positions serve continuous batching).
+    ones).  ``pos``: an int, a (B,) tensor (the absolute position of each
+    lane's new token; per-lane positions serve continuous batching) or the
+    step's ``DecodePositions``.
 
     Local (sliding-window) layers keep a ring buffer of ``window`` slots;
     global layers write slot ``min(pos, C - 1)``.  The caches are updated in
@@ -156,32 +216,21 @@ def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
     a = cfg.attn
     B = x.shape[0]
     C = cache_k.shape[1]
-    pos_b = torch.as_tensor(pos, device=x.device).long().reshape(-1) \
-        .expand(B)
+    if not isinstance(pos, DecodePositions):
+        pos = DecodePositions(pos, B, x.device)
     q = (x @ p["wq"]).reshape(B, 1, a.n_heads, a.head_dim)
     k = (x @ p["wk"]).reshape(B, 1, a.n_kv_heads, a.head_dim)
     v = (x @ p["wv"]).reshape(B, 1, a.n_kv_heads, a.head_dim)
     if a.qk_norm:
         q = rms_norm_weighted(q, p["q_norm"])
         k = rms_norm_weighted(k, p["k_norm"])
-    posv = pos_b[:, None]                                   # (B, 1)
-    q = apply_rope(q, posv, a.rope_theta)
-    k = apply_rope(k, posv, a.rope_theta)
+    cos, sin = pos.rope(a.head_dim, a.rope_theta)
+    q = rope_rotate(q, cos, sin)
+    k = rope_rotate(k, cos, sin)
     local = layer_is_local and a.window > 0
-    slot = pos_b % max(C, 1) if local else torch.clamp(pos_b, max=C - 1)
-    lanes = torch.arange(B, device=x.device)
-    cache_k[lanes, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[lanes, slot] = v[:, 0].to(cache_v.dtype)
-    # validity of each cache slot, per lane: (B, C)
-    slots = torch.arange(C, device=x.device)[None, :]
-    if local:
-        filled = slots <= posv % C
-        valid = filled | (posv >= C)                        # ring fill
-        base = posv - posv % C
-        abs_pos = torch.where(filled, base + slots, base + slots - C)
-        valid &= (abs_pos > posv - a.window) & (abs_pos >= 0)
-    else:
-        valid = slots <= posv
+    slot, valid = pos.slots(C, local, a.window)
+    cache_k[pos.lanes, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[pos.lanes, slot] = v[:, 0].to(cache_v.dtype)
     G = a.n_heads // a.n_kv_heads
     qg = q.reshape(B, 1, a.n_kv_heads, G, a.head_dim).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k.float())
@@ -210,7 +259,10 @@ def init_embed(gen, vocab: int, d: int, dtype, device) -> dict:
 def embed_apply(p: dict, tokens: torch.Tensor, scale: bool, d: int):
     x = F.embedding(tokens.long(), p["w"])
     if scale:
-        x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
+        # sqrt(d) rounded to x's dtype, as the reference's
+        # ``jnp.asarray(sqrt(d), x.dtype)``; filled on the device, so a
+        # decode step copies nothing from the host
+        x = x * torch.full((), math.sqrt(d), dtype=x.dtype, device=x.device)
     return x
 
 

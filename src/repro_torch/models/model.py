@@ -211,10 +211,11 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
     def decode_step(params, caches, tokens, pos):
         """tokens: (B,) int; pos: an int or a (B,) tensor of absolute
         positions.  Returns (logits (B, vocab) f32, caches), the caches
-        updated in place."""
+        updated in place.  With ``pos`` a tensor on the caches' device the
+        step copies nothing from the host and reads nothing back, so a
+        CUDA graph can capture it (``serve.decode.GraphDecoder``)."""
         B = tokens.shape[0]
-        pos = torch.as_tensor(pos, device=tokens.device).long() \
-            .reshape(-1).expand(B)
+        pos = layers.DecodePositions(pos, B, tokens.device)
         x = layers.embed_apply(params["embed"], tokens[:, None],
                                cfg.embed_scale, cfg.d_model)
         for seg, slot_params, cache in zip(segs, params["segments"], caches):

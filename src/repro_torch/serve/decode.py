@@ -3,16 +3,116 @@
 
 ``make_serve_step`` builds the one-token decode function: given the caches,
 produce ONE new token per lane.  ``prefill`` and ``generate`` drive
-decoding.  The reference's ``lax.scan`` over positions is a Python loop of
-eager steps under ``torch.no_grad()``; the prompt is fed through decode
-steps, as the reference's prefill does.  Greedy ``argmax`` takes the first
-maximum, as ``jnp.argmax`` does.
+decoding; the prompt is fed through decode steps, as the reference's
+prefill does.  Greedy ``argmax`` takes the first maximum, as
+``jnp.argmax`` does.
+
+The reference compiles its decode step: ``prefill`` and ``generate`` are
+``lax.scan``s and the continuous batcher runs ``jax.jit(model.decode_step)``.
+The port's counterpart is ``GraphDecoder``: one CUDA graph of
+``model.decode_step`` per batch shape, captured over caches that stay in
+place, so a step costs its kernels' device time and not the host's time to
+launch each of them.  ``prefill``, ``generate`` and ``RequestBatcher`` run
+their steps through one, freed when the call returns.
 """
 from __future__ import annotations
 
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import torch
+
+from repro_torch import tree
+from repro_torch.kernels import build
+
+# ``wrap(decoder, run)`` runs one step by calling ``run()`` and returns the
+# logits it gave: a caller's hook to time or record every step that really
+# ran, eager, captured or replayed.
+StepWrap = Callable[["GraphDecoder", Callable[[], torch.Tensor]],
+                    torch.Tensor]
+
+
+class GraphDecoder:
+    """Decode steps of ``model`` over ``caches`` (updated in place, never
+    moved) through static buffers: the tokens (B,) int32 and positions (B,)
+    int64 on the model's device, filled on the device before each step.
+
+    On a CUDA device the first step runs ``model.decode_step`` eagerly on
+    the real caches: the warm-up that loads every library and kernel, since
+    nothing may be built inside a capture.  The second captures the step
+    as a CUDA graph and replays it; every later one replays it.  A capture
+    that fails raises: nothing on CUDA falls back to eager decoding.  The
+    graph's output lives in its private pool and changes at each replay, so
+    a step hands out a clone.  The kernels' launch counters count every
+    replay (``build.capture_launches``).  On the CPU every step runs
+    ``model.decode_step`` eagerly through the same buffers.
+
+    ``close()`` (or leaving a ``with`` block) frees the graph and its pool.
+    """
+
+    def __init__(self, model, params, caches, *,
+                 wrap: Optional[StepWrap] = None):
+        self.model, self.params, self.caches = model, params, caches
+        batch = tree.leaves(caches)[0].shape[1]     # leaves: (count, B, ...)
+        self.tokens = torch.zeros(batch, dtype=torch.int32,
+                                  device=model.device)
+        self.pos = torch.zeros(batch, dtype=torch.int64, device=model.device)
+        self.wrap = wrap
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out: Optional[torch.Tensor] = None    # the graph's logits
+        self._launches: Optional[build.GraphLaunches] = None
+        self.eager_steps = self.captures = self.replays = 0
+        self.capture_seconds = 0.0                  # the last capture's
+        self.last_step: Optional[str] = None        # eager|capture|replay
+
+    def __enter__(self) -> "GraphDecoder":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """Frees the graph and its private memory pool."""
+        self.graph = self._out = self._launches = None
+
+    @torch.no_grad()
+    def step(self, tokens: torch.Tensor, pos) -> torch.Tensor:
+        """Feeds ``tokens`` (B,) at ``pos`` (an int for every lane, or a
+        (B,) tensor) and returns the (B, vocab) float32 logits."""
+        def run() -> torch.Tensor:
+            self.tokens.copy_(tokens)
+            if isinstance(pos, int):
+                self.pos.fill_(pos)
+            else:
+                self.pos.copy_(pos)
+            return self._run()
+        return run() if self.wrap is None else self.wrap(self, run)
+
+    def _run(self) -> torch.Tensor:
+        if self.model.device.type != "cuda" or self.eager_steps == 0:
+            self.eager_steps += 1
+            self.last_step = "eager"
+            logits, _ = self.model.decode_step(self.params, self.caches,
+                                               self.tokens, self.pos)
+            return logits
+        self.last_step = "replay"
+        if self.graph is None:
+            self._capture()
+            self.last_step = "capture"
+        self.graph.replay()
+        self._launches.replayed()
+        self.replays += 1
+        return self._out.clone()
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with build.capture_launches() as launches, torch.cuda.graph(graph):
+            out, _ = self.model.decode_step(self.params, self.caches,
+                                            self.tokens, self.pos)
+        self.graph, self._out, self._launches = graph, out, launches
+        self.captures += 1
+        self.capture_seconds = time.perf_counter() - t0
 
 
 def make_serve_step(model):
@@ -27,36 +127,43 @@ def make_serve_step(model):
     return serve_step
 
 
+def _feed(decoder: GraphDecoder, prompt: torch.Tensor, start_pos: int):
+    logits = None
+    for t in range(prompt.shape[1]):
+        logits = decoder.step(prompt[:, t], start_pos + t)
+    return logits
+
+
 @torch.no_grad()
 def prefill(model, params, caches, prompt: torch.Tensor, start_pos: int = 0):
     """Feed ``prompt`` (B, S) through decode steps.  Returns (caches,
     last_logits)."""
-    logits = None
-    for t in range(prompt.shape[1]):
-        logits, caches = model.decode_step(params, caches, prompt[:, t],
-                                           start_pos + t)
-    return caches, logits
+    with GraphDecoder(model, params, caches) as decoder:
+        return caches, _feed(decoder, prompt, start_pos)
 
 
 @torch.no_grad()
 def generate(model, params, prompt: torch.Tensor, n_new: int,
-             capacity: Optional[int] = None,
-             cache_dtype=None) -> torch.Tensor:
+             capacity: Optional[int] = None, cache_dtype=None, *,
+             wrap: Optional[StepWrap] = None) -> torch.Tensor:
     """Greedy generation: returns (B, n_new) new tokens (int32).  The
     prompt is prefilled even for ``n_new == 0``, which returns (B, 0), as
-    the reference's scan over no steps does."""
+    the reference's scan over no steps does.  Every step, prefill
+    included, goes through one ``GraphDecoder``; nothing reads a device
+    value on the host until the tokens are returned."""
     B, S = prompt.shape
     cap = capacity or (S + n_new)
     caches = model.init_cache(B, cap, cache_dtype)
-    caches, last_logits = prefill(model, params, caches, prompt)
-    if n_new == 0:
-        return torch.empty((B, 0), dtype=torch.int32, device=prompt.device)
-    tok = torch.argmax(last_logits, dim=-1).int()
-    toks = []
-    for i in range(n_new):
-        toks.append(tok)
-        logits, caches = model.decode_step(params, caches, tok, S + i)
-        tok = torch.argmax(logits, dim=-1).int()
+    with GraphDecoder(model, params, caches, wrap=wrap) as decoder:
+        last_logits = _feed(decoder, prompt, 0)
+        if n_new == 0:
+            return torch.empty((B, 0), dtype=torch.int32,
+                               device=prompt.device)
+        tok = torch.argmax(last_logits, dim=-1).int()
+        toks = []
+        for i in range(n_new):
+            toks.append(tok)
+            tok = torch.argmax(decoder.step(tok, S + i), dim=-1).int()
     return torch.stack(toks, dim=1)
 
 
@@ -64,11 +171,13 @@ class RequestBatcher:
     """Minimal static-batch server: pads requests to a fixed batch and
     decodes them together (the serving example's front-end)."""
 
-    def __init__(self, model, params, batch_size: int, capacity: int):
+    def __init__(self, model, params, batch_size: int, capacity: int, *,
+                 wrap: Optional[StepWrap] = None):
         self.model = model
         self.params = params
         self.batch_size = batch_size
         self.capacity = capacity
+        self.wrap = wrap
 
     def serve(self, prompts, n_new: int):
         """prompts: 1-D int tensors (same length for simplicity)."""
@@ -81,5 +190,5 @@ class RequestBatcher:
                             + [torch.zeros(S, dtype=torch.int32,
                                            device=dev)] * pad)
         out = generate(self.model, self.params, batch, n_new,
-                       capacity=self.capacity)
+                       capacity=self.capacity, wrap=self.wrap)
         return [out[i] for i in range(len(prompts))]

@@ -8,6 +8,13 @@ prefilling, generated tokens afterwards.  New requests join free lanes
 between ticks; finished requests free their lane at once, so no request
 waits for the longest one in the batch.
 
+Every step runs through one ``GraphDecoder`` over the batcher's caches,
+which never move: on the card the step is one CUDA graph replay, the
+counterpart of the reference's ``jax.jit(model.decode_step)``.  The lane
+reset zeroes the same cache tensors in place, outside the graph, and the
+lanes' tokens and positions are copied into the decoder's buffers.  As
+in the reference, each step reads the argmax back to the host once.
+
 The scheduler tolerates lane-level failure: a poisoned request is evicted
 and its lane recycled without touching the other lanes.  Lane outcomes are
 counted (``slo_stats``) and feed the planner's serving objective:
@@ -20,6 +27,8 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import torch
+
+from repro_torch.serve.decode import GraphDecoder, StepWrap
 
 
 @dataclass
@@ -46,13 +55,15 @@ class _Lane:
 class ContinuousBatcher:
     """Schedules requests over ``batch_size`` decode lanes."""
 
-    def __init__(self, model, params, batch_size: int, capacity: int):
+    def __init__(self, model, params, batch_size: int, capacity: int, *,
+                 wrap: Optional[StepWrap] = None):
         self.model = model
         self.params = params
         self.batch_size = batch_size
         self.capacity = capacity
         self.lanes = [_Lane() for _ in range(batch_size)]
         self.caches = model.init_cache(batch_size, capacity)
+        self.decoder = GraphDecoder(model, params, self.caches, wrap=wrap)
         self.queue: List[Request] = []
         self.finished: List[Request] = []
         self.steps = 0
@@ -69,6 +80,11 @@ class ContinuousBatcher:
                 and self.steps < max_steps:
             self.step()
         return self.finished
+
+    def close(self) -> None:
+        """Frees the decoder's CUDA graph and its memory pool (a later step
+        captures again)."""
+        self.decoder.close()
 
     # ---- scheduler core ----------------------------------------------------
 
@@ -97,14 +113,11 @@ class ContinuousBatcher:
         self._admit()
         if all(ln.free for ln in self.lanes):
             return
-        dev = self.model.device
         toks = torch.tensor([ln.pending for ln in self.lanes],
-                            dtype=torch.int32).to(dev)
-        poss = torch.tensor([ln.pos for ln in self.lanes],
-                            dtype=torch.int32).to(dev)
-        logits, self.caches = self.model.decode_step(self.params, self.caches,
-                                                     toks, poss)
-        nxt = torch.argmax(logits, dim=-1).tolist()
+                            dtype=torch.int32)
+        poss = torch.tensor([ln.pos for ln in self.lanes], dtype=torch.int64)
+        logits = self.decoder.step(toks, poss)
+        nxt = torch.argmax(logits, dim=-1).tolist()       # the one sync
         for i, lane in enumerate(self.lanes):
             if lane.free:
                 continue
