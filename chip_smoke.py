@@ -17,9 +17,13 @@ Phases, each printing one JSON line:
                     SDPA's, with gemma-2b's last causal q tile alone and
                     B = 8
   kernel:maxplus    the three max-plus kernels against their plain
-                    versions on the card, bitwise in float32 and float64,
-                    at the reference's test cases and the planner's
-                    sizes, with times at n=1024
+                    versions on the card, bitwise (int64/int32 views) in
+                    float32 and float64, at the reference's test cases and
+                    the planner's sizes; kernel 5 as the fused program's
+                    scan step against its plain step at every step of the
+                    churn walk's schedule, in both types; times at n=1024
+                    and per scan step of that schedule (back to back and
+                    ``graph_ms``) beside each bound
   kernel:ssd_scan   the Mamba2 SSD scan kernel against its plain version
                     on the card (atol = rtol = 1e-4): the reference's test
                     cases, the token-serial recurrence, chunk invariance, a
@@ -48,7 +52,16 @@ Phases, each printing one JSON line:
                     tasks, on the batched and fused engines, every plan
                     and scenario total bitwise equal to the same run on
                     the CPU (plain versions); the fused churn walk again
-                    in float32
+                    in float32, and once more in float64 on its warm
+                    graph (every rebuild a replay).  The fused program is
+                    one CUDA graph per signature: each walk must run one
+                    eager rebuild, one capture and replays, with every
+                    step kernel launch counted in every rebuild; one traced
+                    steady rebuild per engine (device busy time, idle
+                    share, the kernels and copies it ran) and, for the
+                    fused engine, untraced rebuilds beside their program
+                    calls and the span of its graph replay between CUDA
+                    events
   train             launch.train.train() on gemma-2b at full width (depth
                     cut 18 -> 4 layers): fused steps, one injected DP-rank
                     failure recovered through micro-batch redistribution
@@ -614,6 +627,95 @@ def maxplus_bound(kernel, dtype, *args):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _same_bits(got, want) -> bool:
+    """Equal dtype, shape and bits (``torch.equal`` calls -0.0 and +0.0
+    equal)."""
+    import torch
+    itype = torch.int64 if got.dtype == torch.float64 else torch.int32
+    return got.dtype == want.dtype and got.shape == want.shape and \
+        torch.equal(got.contiguous().view(itype),
+                    want.contiguous().view(itype))
+
+
+def churn_schedule():
+    """The fused program's schedule for the plan phase's churn walk (1024
+    workers, 64 tasks capped at 16: one signature over the walk)."""
+    from repro_torch.core.costmodel import A800
+    from repro_torch.core.planner import PlanTable, _FusedSchedule
+    from repro_torch.launch import plan
+    table = PlanTable(plan.fleet_tasks(64, max_workers=16), [16] * 64, A800,
+                      plan.D_RUNNING, plan.D_TRANSITION, lazy=True,
+                      n_budget=1032, engine="fused", device="cpu")
+    return _FusedSchedule(*table._fused_signature()[:4])
+
+
+def scan_step_bound(sched, dtype):
+    """Least time of the schedule's steps, each launch bounded alone: the
+    distinct slot cells a step reads once (windows, reward chunks, the
+    outputs it reduces into) and writes once, against its real rows'
+    add+max pairs (cell j of a row has min(K, band-off+1) candidates).
+    Returns the mean over the steps."""
+    import numpy as np
+    elt = 8
+    K, n1, padl = sched.chunk, sched.n1, sched.padl
+    t_bytes = t_ops = total = 0.0
+    for s in range(sched.n_steps):
+        src, gsl, off, band, out = (x[s] for x in sched.xs)
+        read = np.zeros((sched.n_slots, sched.width), dtype=bool)
+        outs = set()
+        ops = 0.0
+        for r in np.flatnonzero(band >= 0):
+            kc = min(K, band[r] - off[r] + 1)
+            lo = padl - off[r] - (kc - 1)
+            read[src[r], lo:padl - off[r] + n1] = True
+            read[gsl[r], padl + off[r]:padl + off[r] + kc] = True
+            outs.add(int(out[r]))
+            ops += 2.0 * n1 * kc
+        sb = elt * (read.sum() + 2 * n1 * len(outs)) / HBM_BYTES_PER_S
+        so = ops / PEAK_OPS_PER_S[dtype]
+        t_bytes, t_ops, total = t_bytes + sb, t_ops + so, total + max(sb, so)
+    return (total / sched.n_steps * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _scan_buffer(sched, seed):
+    """A slot buffer with -inf margins and random values in every slot."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    buf = np.full((sched.n_slots, sched.width), NEG)
+    vals = rng.uniform(-50.0, 50.0, (sched.n_slots, sched.n1))
+    vals[rng.uniform(size=vals.shape) < 0.1] = NEG
+    buf[:, sched.padl:sched.padl + sched.n1] = vals
+    return torch.from_numpy(buf).view(-1)
+
+
+def check_scan_steps(sched) -> int:
+    """The step kernel against its plain step at every step of ``sched``,
+    f32 and f64, bit for bit: both walk the steps from one buffer on the
+    card, and the plain step also on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import maxplus, ref
+    tables = torch.from_numpy(np.stack(sched.xs))
+    args = (sched.chunk, sched.n1, sched.padl, sched.width)
+    checked = 0
+    for dtype in (torch.float32, torch.float64):
+        host = _scan_buffer(sched, 18)
+        got, want = host.cuda(), host.cuda()
+        t_cuda = tables.cuda()
+        for s in range(sched.n_steps):
+            maxplus.maxplus_scan_step_cuda(got, t_cuda, s, *args, dtype)
+            ref.maxplus_scan_step(want, t_cuda, s, *args, dtype)
+            ref.maxplus_scan_step(host, tables, s, *args, dtype)
+            torch.cuda.synchronize()
+            if not (_same_bits(got, want) and _same_bits(got.cpu(), host)):
+                raise AssertionError(f"scan step {s} {dtype}: the kernel is "
+                                     f"not bitwise equal to the plain step")
+            checked += 1
+    return checked
+
+
 def phase_kernel_maxplus(ctx) -> None:
     import numpy as np
     import torch
@@ -631,17 +733,21 @@ def phase_kernel_maxplus(ctx) -> None:
             got = getattr(maxplus, kernel + "_cuda")(*t_args)
             torch.cuda.synchronize()
             want = getattr(ref, kernel)(*t_args)
-            if got.dtype != dt or got.shape != want.shape \
-                    or not torch.equal(got, want):
+            if got.dtype != dt or not _same_bits(got, want):
                 diff = (got - want).abs().nan_to_num(nan=float("inf"))
                 raise AssertionError(
                     f"{kernel} {dtype} {tuple(got.shape)}: not bitwise equal "
                     f"to the plain version (max |diff| {diff.max().item()})")
             n_cases += 1
+    sched = churn_schedule()
+    steps_checked = check_scan_steps(sched)
     emit({"phase": "kernel:maxplus", "cases": n_cases,
-          "tol": "bitwise (torch.equal)", "dtypes": ["float32", "float64"]})
+          "scan_steps_checked": steps_checked,
+          "tol": "bitwise (int64/int32 views)",
+          "dtypes": ["float32", "float64"]})
 
-    # times at n = 1024 (B = 64 for the stacked kernels)
+    # times at n = 1024 (B = 64 for the stacked kernels), and the scan step
+    # over the churn signature's 19 steps
     rng = np.random.RandomState(7)
     prev, g = _capped_rows(rng, 64, 1024, [16] * 64)
     wins = rng.uniform(-50.0, 50.0, (64, 1025 + 16))
@@ -667,11 +773,49 @@ def phase_kernel_maxplus(ctx) -> None:
                    "replaces": MAXPLUS_REPLACES[kernel], "launches": None,
                    "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None}
-            emit({"phase": "kernel:maxplus", "shape": shape, "dtype": dtype,
-                  **rec, "nvidia_smi": ctx["smi"]})
-            if dtype == "float64":           # the planner's precision
+                   "library_ms": None, "shape": shape,
+                   "graph_ms": graph_ms(lambda: fn(*t_args))}
+            emit({"phase": "kernel:maxplus", "dtype": dtype, **rec,
+                  "nvidia_smi": ctx["smi"]})
+            if dtype == "float64" and kernel != "maxplus_scan_chunk":
                 ctx["kernels"][kernel] = rec
+        # kernel 5 on the fused engine's path: the scan step, per launch
+        tables = torch.from_numpy(np.stack(sched.xs)).cuda()
+        buf = _scan_buffer(sched, 7).cuda()
+        want = buf.clone()
+        args = (sched.chunk, sched.n1, sched.padl, sched.width, dt)
+
+        def steps(step_fn, target):
+            def run():
+                for s in range(sched.n_steps):
+                    step_fn(target, tables, s, *args)
+            return run
+        run_kernel = steps(maxplus.maxplus_scan_step_cuda, buf)
+        run_plain = steps(ref.maxplus_scan_step, want)
+        run_kernel()
+        run_plain()
+        err = (buf - want).abs().nan_to_num(nan=0.0).max().item()
+        if not _same_bits(buf, want):
+            raise AssertionError(f"scan step program {dtype}: not bitwise "
+                                 f"equal to the plain steps")
+        per = sched.n_steps
+        bound_ms, bound_by = scan_step_bound(sched, dtype)
+        rec = {"name": "maxplus_scan_chunk", "route": "cuda",
+               "source": "src/repro_torch/csrc/maxplus.cu",
+               "replaces": MAXPLUS_REPLACES["maxplus_scan_chunk"],
+               "launches": None, "max_abs_err": err,
+               "ms": cuda_ms(run_kernel, iters=20) / per,
+               "plain_ms": cuda_ms(run_plain, iters=2, warmup=1) / per,
+               "graph_ms": graph_ms(run_kernel, n=5) / per,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None,
+               "shape": (f"scan step (maxplus_scan_step), churn signature: "
+                         f"{sched.n_steps} steps of G={sched.group}, "
+                         f"n1={sched.n1}, K={sched.chunk}; per step")}
+        emit({"phase": "kernel:maxplus", "dtype": dtype, **rec,
+              "nvidia_smi": ctx["smi"]})
+        if dtype == "float64":               # the planner's precision
+            ctx["kernels"]["maxplus_scan_chunk"] = rec
 
 
 # ---------------------------------------------------------------------------
@@ -1160,11 +1304,70 @@ def _profile_rebuild(engine: str) -> dict:
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return {"rebuild_ms": wall_ms,
-            "device_busy_ms": busy if rows else None,
-            "device_idle_share": 1 - busy / wall_ms if rows else None,
-            "top": [{"name": k[:80], "ms": ms, "calls": n}
-                    for k, ms, n in rows[:8]]}
+    out = {"rebuild_ms": wall_ms,
+           "device_busy_ms": busy if rows else None,
+           "device_idle_share": 1 - busy / wall_ms if rows else None,
+           "device_entries": len(rows),
+           "top": [{"name": k[:80], "ms": ms, "calls": n}
+                   for k, ms, n in rows[:12]]}
+    if engine == "fused":
+        # the traced rebuild replayed the signature's graph; its span on
+        # the device, between CUDA events, untraced; then untraced
+        # rebuilds after one-task changes, each with the time of its
+        # program call (staging, replay, synchronisation, fresh copies)
+        # beside the whole rebuild's
+        from repro_torch.core import planner
+        call = planner._FusedProgram.__call__
+        calls = []
+
+        def timed(self, *args):
+            t0 = time.perf_counter()
+            got = call(self, *args)
+            calls.append((time.perf_counter() - t0) * 1e3)
+            return got
+        planner._FusedProgram.__call__ = timed
+        walls = []
+        try:
+            for i, x in enumerate((4, 8, 12, 4, 8, 12, 4)):
+                nxt = table([x if j == 20 + i else y
+                             for j, y in enumerate(state)])
+                t0 = time.perf_counter()
+                nxt.rebuild_values()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            planner._FusedProgram.__call__ = call
+        out.update(untraced_rebuild_ms=walls, program_call_ms=calls)
+        prog = planner._FUSED_PROGRAMS[t._fused_signature()]
+        spans = []
+        for _ in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            prog.graph.replay()
+            end.record()
+            end.synchronize()
+            spans.append(start.elapsed_time(end))
+        out.update(run=t.fused_run, replay_device_ms=sorted(spans)[3],
+                   replay_device_ms_all=spans)
+    return out
+
+
+def check_graph_walk(dtype, recs, n_steps) -> dict:
+    """The fused churn walk on one signature: an eager first rebuild (the
+    warm-up), one capture, replays after it, and the schedule's
+    ``n_steps`` kernel-5 launches counted in every rebuild."""
+    runs = [r["fused_run"] for r in recs]
+    if runs != ["eager", "capture"] + ["replay"] * (len(recs) - 2):
+        raise AssertionError(f"plan: {dtype} fused walk ran {runs}, want "
+                             f"one eager rebuild, one capture, replays")
+    k5 = [r["launches"]["maxplus_scan_chunk"] for r in recs]
+    if any(n != n_steps for n in k5):
+        raise AssertionError(f"plan: {dtype} fused walk launched kernel 5 "
+                             f"{k5} times, want {n_steps} per rebuild")
+    return {"eager": runs.count("eager"), "captures": runs.count("capture"),
+            "replays": runs.count("capture") + runs.count("replay"),
+            "kernel5_launches_per_rebuild": k5}
 
 
 def phase_plan(ctx) -> None:
@@ -1173,6 +1376,7 @@ def phase_plan(ctx) -> None:
     from repro_torch.kernels import maxplus
     from repro_torch.launch import plan
 
+    n_steps = churn_schedule().n_steps
     for c in maxplus.LAUNCHES.values():
         c.count = 0
     t0 = time.perf_counter()
@@ -1212,9 +1416,19 @@ def phase_plan(ctx) -> None:
                                   or any(d != 1 for d in disp)):
             raise AssertionError(f"plan: fused engine launched {used}, "
                                  f"dispatches {disp} (want 1 per rebuild)")
+        if engine == "fused":
+            per_engine[engine]["runs"] = check_graph_walk(
+                "float64", gpu["churn"][engine], n_steps)
 
     # float32 kernels (the reference's Pallas precision), fused churn walk
     gpu32 = plan.churn("cuda", "fused", dtype=torch.float32)
+    runs32 = check_graph_walk("float32", gpu32, n_steps)
+    # the float64 walk again, its graph warm: every rebuild a replay
+    again = plan.churn("cuda", "fused")
+    if any(r["fused_run"] != "replay" for r in again) or not _plans_equal(
+            {"churn": {"fused": again}}, {"churn": {"fused":
+                                                    gpu["churn"]["fused"]}}):
+        raise AssertionError("plan: the float64 fused walk again differs")
     cpu32 = plan.churn("cpu", "fused", dtype=torch.float32)
     if not _plans_equal({"churn": {"fused": gpu32}},
                         {"churn": {"fused": cpu32}}):
@@ -1234,6 +1448,9 @@ def phase_plan(ctx) -> None:
           "engines": per_engine,
           "float32_fused_rebuild_s_median": statistics.median(
               r["rebuild_s"] for r in gpu32),
+          "float32_fused_rebuild_s": [r["rebuild_s"] for r in gpu32],
+          "float32_fused_runs": runs32,
+          "float64_fused_again_rebuild_s": [r["rebuild_s"] for r in again],
           "profiled_rebuild": profiled, "nvidia_smi": ctx["smi"]})
 
 

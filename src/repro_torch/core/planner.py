@@ -17,18 +17,20 @@ so the banded convolutions below are exact.
   ``finish:i`` and ``join:1`` scenario) with five engines: ``"batched"``
   (default: level-synchronous stacked merges, one launch of kernel 4 per
   tree level, kernel 3 for single-row levels), ``"fused"`` (the whole
-  -table value rebuild as one program of ``maxplus_scan_chunk`` launches,
-  kernel 5, over a static step table, cached per schedule signature),
+  -table value rebuild as one program of ``maxplus_scan_step`` launches,
+  kernel 5, over a static step table, cached per schedule signature and
+  captured as one CUDA graph on the card),
   ``"segtree"`` (one kernel-3 call per node merge), ``"chain"`` (host
   numpy prefix/suffix chains) and ``"reference"`` (scalar solves).
 * ``PlannerCache`` — cross-rebuild cache of reward rows, node vectors,
   lazy tables and fresh solves.
 
 The device seam: ``PlanTable(device=, dtype=)``.  On a CUDA device every
-tree-engine convolution uploads its operands, launches the Hopper kernel
-(``kernels/maxplus.py``) and brings the values back as float64 numpy for
-the host-side argmax tracebacks, as ``np.asarray`` does in the
-reference; on the CPU the same wrappers run the plain PyTorch versions.
+tree-engine convolution uploads its operands in one pinned copy, launches
+the Hopper kernel (``kernels/maxplus.py``) and brings the values back in
+one pinned copy as float64 numpy for the host-side argmax tracebacks, as
+``np.asarray`` does in the reference; on the CPU the same wrappers run
+the plain PyTorch versions.
 ``dtype`` is the kernels' arithmetic: ``torch.float64`` (default, the
 counterpart of the reference's default numpy backend) or
 ``torch.float32`` (the counterpart of its Pallas backend).  Each
@@ -51,7 +53,7 @@ from repro_torch.core import waf as waf_mod
 from repro_torch.core.costmodel import Hardware
 from repro_torch.core.waf import Task
 from repro_torch.device import resolve_device
-from repro_torch.kernels import maxplus
+from repro_torch.kernels import build, maxplus
 
 NEG = float("-inf")
 
@@ -168,14 +170,26 @@ def resolve_engine(engine: Optional[str] = None) -> str:
     return engine if engine is not None else "batched"
 
 
-def _to_device(a: np.ndarray, device: torch.device,
-               dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(
-        device=device, dtype=dtype)
+def _upload(rows: Sequence[np.ndarray], device: torch.device,
+            dtype: torch.dtype) -> torch.Tensor:
+    """The equal-length rows stacked as float64 into one host tensor,
+    pinned when it is bound for CUDA, and moved to ``device`` in ``dtype``
+    with one asynchronous copy."""
+    host = torch.empty((len(rows), len(rows[0])), dtype=torch.float64,
+                       pin_memory=device.type == "cuda")
+    np.stack(rows, out=host.numpy())
+    return host.to(device, non_blocking=True).to(dtype)
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    return np.asarray(t.cpu().numpy(), dtype=np.float64)
+def _download(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a fresh float64 numpy array (the stores keep rows of it):
+    one copy into pinned memory and one synchronisation on CUDA."""
+    if t.is_cuda:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        t = host
+    return t.numpy().astype(np.float64)
 
 
 def _conv_vals(prev: np.ndarray, g: np.ndarray, band: Optional[int],
@@ -183,18 +197,20 @@ def _conv_vals(prev: np.ndarray, g: np.ndarray, band: Optional[int],
     """One banded max-plus convolution (the segment-tree engine's merge,
     kernel 3): values come back as float64 numpy, argmax recovery stays
     on the host."""
-    return _to_host(maxplus.maxplus_conv(_to_device(prev, device, dtype),
-                                         _to_device(g, device, dtype), band))
+    t = _upload([prev, g], device, dtype)
+    return _download(maxplus.maxplus_conv(t[0], t[1], band))
 
 
-def _conv_vals_batched(prev: np.ndarray, g: np.ndarray, bands,
+def _conv_vals_batched(prevs: Sequence[np.ndarray],
+                       gs: Sequence[np.ndarray], bands,
                        device: torch.device,
                        dtype: torch.dtype) -> np.ndarray:
     """Stacked banded max-plus convolution (the batched engine's
-    per-level launch, kernel 4)."""
-    return _to_host(maxplus.maxplus_conv_batched(
-        _to_device(prev, device, dtype), _to_device(g, device, dtype),
-        bands))
+    per-level launch, kernel 4): the operands go up in one copy, the
+    values come back in one."""
+    B = len(prevs)
+    t = _upload(list(prevs) + list(gs), device, dtype)
+    return _download(maxplus.maxplus_conv_batched(t[:B], t[B:], bands))
 
 
 def _argmax_at(prev: np.ndarray, g: np.ndarray, j: int) -> int:
@@ -502,45 +518,70 @@ class _FusedProgram:
     stacks and the (2m+1,) per-scenario argmax limits and returns host
     arrays: the (n_slots, n+1) slot values, per-scenario argmax cells and
     totals — the call contract of the reference's jitted program.  The
-    step tables live on the device once per signature; each scan step
-    gathers its chunk rows' windows and reward chunks by index arithmetic,
-    masks the reward chunks past each row's band, runs the
-    ``maxplus_scan_chunk`` kernel and scatter-maxes the rows into their
-    output slots (several rows of a step may share a slot; amax makes
-    that order-free, and the -inf dummy rows inert).  The slot buffer is
-    float64; the kernel computes in ``dtype`` (a float32 program widens
-    each step's result back, as the reference's Pallas step does)."""
+    step tables live on the device once per signature.  The program fills
+    the float64 slot buffer (running maxima at the leaves, faulted rows,
+    the root complement's zero), runs one ``maxplus_scan_step`` per scan
+    step (kernel 5: it folds each chunk row's window against its reward
+    chunk in ``dtype`` and max-reduces the widened result into the row's
+    output slot; several rows of a step may share a slot, and the -inf
+    dummy rows are skipped), and reads each scenario's first maximum up to
+    its limit.
+
+    On CUDA the program is one CUDA graph, the counterpart of the
+    reference's ``jax.jit(self._program)``.  The inputs enter through
+    static device buffers filled from pinned host staging, and the graph
+    copies ``vals``, ``js`` and ``totals`` into pinned host buffers.  The
+    first call runs the program eagerly: the warm-up that builds and loads
+    the kernel library, since nothing may be built inside a capture.  The
+    second call captures it and replays; every later call replays.  A
+    failed capture raises: nothing on CUDA falls back to the eager program
+    or to the plain step.  The kernel-5 launches recorded by the capture
+    are counted on every replay (``build.capture_launches``).  On the CPU
+    every call runs the same program eagerly with the plain step.
+
+    The pinned outputs change at the next call, and callers keep views of
+    the values (``PlanTable`` stores rows of ``vals``), so every call
+    hands out fresh host copies.  A lock keeps calls that share the static
+    buffers from interleaving.  ``close()`` frees the graph and its pool.
+    """
 
     def __init__(self, sched: _FusedSchedule, device: torch.device,
                  dtype: torch.dtype):
         self.sched = sched
         self.device = device
         self.dtype = dtype
-        self.calls = 0
-        K, n1, padl, width = sched.chunk, sched.n1, sched.padl, sched.width
+        m, n1, n_scen = sched.m, sched.n1, len(sched.scen_slots)
 
-        def dev(a):
-            return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
+        def dev(a, dt=torch.int64):
+            return torch.from_numpy(np.asarray(a)).to(device, dt)
 
-        src, gsl, off, band, out = (dev(x) for x in sched.xs)
-        # flat buffer offsets: a chunk row's window starts at column
-        # padl - off - (K-1) of its source slot, its reward chunk at
-        # padl + off of its g slot, its output at padl of its out slot
-        self._wbase = src * width + (padl - (K - 1)) - off
-        self._gbase = gsl * width + padl + off
-        self._obase = out * width + padl
-        self._wcols = torch.arange(n1 + K - 1, device=device)
-        self._kcols = torch.arange(K, device=device)
+        self._tables = dev(np.stack(sched.xs), torch.int32)  # (5, steps, G)
         self._ncols = torch.arange(n1, device=device)
-        self._gmask = (off[:, :, None] + self._kcols) <= band[:, :, None]
         self._leaf = dev(sched.leaf_slots)
         self._frow = dev(sched.frow_slots)
         self._scen = dev(sched.scen_slots)
+        pin = device.type == "cuda"
+
+        def host(shape, dt):
+            return torch.empty(shape, dtype=dt, pin_memory=pin)
+
+        self._stage = (host((2, m, n1), torch.float64),
+                       host(n_scen, torch.int64))
+        self._inputs = tuple(torch.empty_like(t, device=device)
+                             for t in self._stage)
+        self._outputs = (host((sched.n_slots, n1), torch.float64),
+                         host(n_scen, torch.int64),
+                         host(n_scen, torch.float64))
+        self._lock = threading.Lock()
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._launches: Optional[build.GraphLaunches] = None
+        self.calls = self.eager_calls = self.captures = self.replays = 0
+        self.last_run: Optional[str] = None        # eager|capture|replay
 
     def _program(self, g_unf, g_f, limits):
         sc = self.sched
-        n1, padl = sc.n1, sc.padl
-        buf = torch.full((sc.n_slots, sc.width), NEG, dtype=torch.float64,
+        K, n1, padl, width = sc.chunk, sc.n1, sc.padl, sc.width
+        buf = torch.full((sc.n_slots, width), NEG, dtype=torch.float64,
                          device=self.device)
         inner = buf[:, padl:padl + n1]
         inner[self._leaf] = torch.cummax(g_unf, dim=1).values  # running max
@@ -548,29 +589,56 @@ class _FusedProgram:
         inner[sc.root_c_slot] = 0.0
         flat = buf.view(-1)
         for s in range(sc.n_steps):
-            wins = flat[self._wbase[s][:, None] + self._wcols]
-            gs = torch.where(self._gmask[s],
-                             flat[self._gbase[s][:, None] + self._kcols], NEG)
-            acc = maxplus.maxplus_scan_chunk(wins.to(self.dtype),
-                                             gs.to(self.dtype))
-            idx = (self._obase[s][:, None] + self._ncols).view(-1)
-            flat.scatter_reduce_(0, idx, acc.to(torch.float64).view(-1),
-                                 "amax")
+            maxplus.maxplus_scan_step(flat, self._tables, s, K, n1, padl,
+                                      width, self.dtype)
         scen = inner[self._scen]
         mask = self._ncols[None, :] <= limits[:, None]
         js = torch.argmax(torch.where(mask, scen, NEG), dim=1)  # first max
         totals = scen.gather(1, js[:, None])[:, 0]
         return inner, js, totals
 
+    def _run(self) -> None:
+        """Staging -> program -> pinned outputs, all on the stream (and in
+        the graph, once captured)."""
+        for dst, src in zip(self._inputs, self._stage):
+            dst.copy_(src, non_blocking=True)
+        g, limits = self._inputs
+        for dst, src in zip(self._outputs, self._program(g[0], g[1], limits)):
+            dst.copy_(src, non_blocking=True)
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        with build.capture_launches() as launches, torch.cuda.graph(graph):
+            self._run()
+        self.graph, self._launches = graph, launches
+        self.captures += 1
+
+    def close(self) -> None:
+        """Frees the graph and its private memory pool."""
+        with self._lock:
+            self.graph = self._launches = None
+
     def __call__(self, g_unf: np.ndarray, g_f: np.ndarray,
                  limits: np.ndarray):
-        dev = self.device
-        vals, js, totals = self._program(
-            torch.from_numpy(g_unf).to(dev), torch.from_numpy(g_f).to(dev),
-            torch.from_numpy(np.asarray(limits, dtype=np.int64)).to(dev))
-        out = (vals.cpu().numpy(), js.cpu().numpy(), totals.cpu().numpy())
-        self.calls += 1
-        return out
+        with self._lock:
+            g, lim = (t.numpy() for t in self._stage)
+            g[0], g[1], lim[:] = g_unf, g_f, limits
+            if self.device.type != "cuda" or self.eager_calls == 0:
+                self._run()
+                self.eager_calls += 1
+                self.last_run = "eager"
+            else:
+                self.last_run = "replay"
+                if self.graph is None:
+                    self._capture()
+                    self.last_run = "capture"
+                self.graph.replay()
+                self._launches.replayed()
+                self.replays += 1
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            self.calls += 1
+            return tuple(t.numpy().copy() for t in self._outputs)
 
 
 _FUSED_PROGRAMS: OrderedDict = OrderedDict()
@@ -597,7 +665,7 @@ def _fused_program(m: int, n_max: int, bands_unf: Tuple[int, ...],
         got = _FUSED_PROGRAMS.setdefault(key, prog)
         _FUSED_PROGRAMS.move_to_end(key)
         while len(_FUSED_PROGRAMS) > _FUSED_PROGRAM_CAP:
-            _FUSED_PROGRAMS.popitem(last=False)
+            _FUSED_PROGRAMS.popitem(last=False)[1].close()
         return got
 
 
@@ -683,6 +751,9 @@ class PlanTable:
         self.batch_stats: Dict[str, int] = {"levels": 0, "launches": 0,
                                             "tracebacks": 0,
                                             "device_dispatches": 0}
+        # how the fused engine's last dispatch ran: "eager", "capture" or
+        # "replay" (``_FusedProgram``); None until it dispatches
+        self.fused_run: Optional[str] = None
         self._incremental = (engine != "reference"
                              and len(self.tasks) > 0
                              and _vector_capable(self.tasks))
@@ -1139,10 +1210,9 @@ class PlanTable:
         if len(rows) == 1:
             prev, g, band = rows[0]
             return self._vals(prev, g, band)[None, :]
-        prev = np.stack([r[0] for r in rows])
-        g = np.stack([r[1] for r in rows])
-        return _conv_vals_batched(prev, g, [r[2] for r in rows],
-                                  self.device, self.dtype)
+        return _conv_vals_batched([r[0] for r in rows], [r[1] for r in rows],
+                                  [r[2] for r in rows], self.device,
+                                  self.dtype)
 
     def _node_hit(self, lo: int, hi: int) -> Optional[np.ndarray]:
         got = self._V.get((lo, hi))
@@ -1365,6 +1435,7 @@ class PlanTable:
                             + [self._n_join], dtype=np.int32)
         vals, js, totals = prog(g_unf, g_f, limits)
         self.batch_stats["device_dispatches"] += 1
+        self.fused_run = prog.last_run
         sched = prog.sched
         for node, si in sched.v_slot.items():
             self._V[node] = vals[si]

@@ -10,8 +10,15 @@
 // scan chunk: base K-1, kc = K.  One thread owns one output cell of one row;
 // the grid is (ceil(n1 / BLOCK), rows).  The block stages the src span its
 // cells read and the g values of a tile of k in shared memory, then folds
-// acc = fmax(acc, w + g[k]) over the tile.  A row's band is a loop bound
-// (the batched kernel reads bands[r]): no -inf-masked copy of g is built.
+// acc = fmax(acc, w + g[k]) over the tile (fold_row).  A row's band is a
+// loop bound: no -inf-masked copy of g is built.
+//
+// The fused engine's scan step (maxplus_scan_step_kernel, kernel 5 on the
+// planner's path) is the same fold reading the float64 slot buffer itself:
+// row r of step s folds its window of slot src[s][r] against the reward
+// chunk of slot gsl[s][r] in the program's type T and max-reduces the
+// widened result into slot out[s][r].  That puts the gather, the band mask,
+// both casts and the scatter-max of the step in the one launch.
 //
 // Bitwise contract: each candidate is one IEEE add (no multiply, so nothing
 // is contracted into an FMA) and max is exact and order-free, so every
@@ -21,13 +28,17 @@
 // most, and -inf + finite = -inf), so the two agree on every input it gives.
 //
 // Bound: at the planner's sizes (n1 ~ 1e3, B <= 64, band ~ 16) a launch does
-// a few microseconds of work, so launch latency and the host round trip of
-// each level bound it.  Otherwise it is 2*B*n1*(band+1) add+max operations
-// against 33.5 TFLOP/s (fp64; 67 f32) and (2*n1+band+1)*B*8 bytes against
-// 3.35 TB/s, i.e. operation-bound once band+1 exceeds ~20 in fp64.  The
-// design keeps every candidate out of device memory (one load per staged
-// element, then shared-memory reads) and sizes the k tile to the band, so a
-// narrow band stages only BLOCK+band elements per block.
+// a few microseconds of work, so launch latency and the host around each
+// launch bound it.  Hence the designs of kernels 4 and 5 are about their
+// launches: kernel 4 takes its bands by value in the launch's parameters
+// (no device array, no upload), and the scan step reads and reduces the
+// slot buffer itself, so the fused program is one kernel per step and the
+// whole program fits one CUDA graph.  Otherwise a call is 2*B*n1*(band+1)
+// add+max operations against 33.5 TFLOP/s (fp64; 67 f32) and
+// (2*n1+band+1)*B*8 bytes against 3.35 TB/s, i.e. operation-bound once
+// band+1 exceeds ~20 in fp64.  Every candidate stays out of device memory
+// (one load per staged element, then shared-memory reads) and the k tile is
+// sized to the band, so a narrow band stages only BLOCK+band elements.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -36,6 +47,10 @@ namespace {
 
 constexpr int BLOCK = 256;   // output cells per block (one per thread)
 constexpr int TK = 256;      // k values per staged tile
+// Kernel 4's bands travel in the launch's parameter space, which holds
+// 32764 bytes on Hopper (CUDA 12.1+): three pointers, n1 and this many ints.
+// kernels/maxplus.py's _MAX_BANDS is the same number.
+constexpr int MAX_BANDS = 8000;
 
 template <typename T> __device__ __forceinline__ T neg_inf();
 template <> __device__ __forceinline__ float neg_inf<float>() { return -CUDART_INF_F; }
@@ -44,12 +59,14 @@ template <> __device__ __forceinline__ double neg_inf<double>() { return -CUDART
 __device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double vmax(double a, double b) { return fmax(a, b); }
 
-// out[j] = max_{0 <= k < kc} src[j + base - k] + g[k] for the BLOCK cells
-// j0 .. j0+BLOCK-1 of one row (j < n1 written).
-template <typename T>
-__device__ void fold_row(const T* __restrict__ src, long long src_len,
-                         const T* __restrict__ g, T* __restrict__ out,
-                         int n1, int base, int kc) {
+// max_{0 <= k < kc} T(src[j + base - k]) + T(g[k]) for this thread's cell
+// j = blockIdx.x * BLOCK + threadIdx.x of one row (every thread of the block
+// calls it; the caller writes the cells j < n1).  S is the stored type, T
+// the arithmetic type: a double read as float rounds to nearest, as
+// torch's .to(torch.float32) does.
+template <typename T, typename S>
+__device__ T fold_row(const S* src, long long src_len, const S* g, int base,
+                      int kc) {
   __shared__ T w[BLOCK + TK - 1];
   __shared__ T gt[TK];
   const int tid = threadIdx.x;
@@ -62,35 +79,41 @@ __device__ void fold_row(const T* __restrict__ src, long long src_len,
     const long long s0 = j0 + base - k0 - (tk - 1);
     for (int t = tid; t < BLOCK + tk - 1; t += BLOCK) {
       const long long idx = s0 + t;
-      w[t] = (idx >= 0 && idx < src_len) ? src[idx] : neg_inf<T>();
+      w[t] = (idx >= 0 && idx < src_len) ? (T)src[idx] : neg_inf<T>();
     }
-    for (int t = tid; t < tk; t += BLOCK) gt[t] = g[k0 + t];
+    for (int t = tid; t < tk; t += BLOCK) gt[t] = (T)g[k0 + t];
     __syncthreads();
     const T* wp = w + tid + tk - 1;
 #pragma unroll 8
     for (int kk = 0; kk < tk; ++kk) acc = vmax(acc, wp[-kk] + gt[kk]);
     __syncthreads();
   }
-  const long long j = j0 + tid;
-  if (j < n1) out[j] = acc;
+  return acc;
+}
+
+__device__ __forceinline__ long long cell() {
+  return (long long)blockIdx.x * BLOCK + threadIdx.x;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)
 maxplus_conv_kernel(const T* __restrict__ prev, const T* __restrict__ g,
                     T* __restrict__ out, int n1, int band) {
-  fold_row<T>(prev, n1, g, out, n1, 0, band + 1);
+  const T acc = fold_row<T>(prev, n1, g, 0, band + 1);
+  if (cell() < n1) out[cell()] = acc;
 }
 
-template <typename T>
+template <int CAP> struct Bands { int b[CAP]; };
+
+template <typename T, int CAP>
 __global__ void __launch_bounds__(BLOCK)
 maxplus_conv_batched_kernel(const T* __restrict__ prev,
-                            const T* __restrict__ g,
-                            const int* __restrict__ bands,
-                            T* __restrict__ out, int n1) {
+                            const T* __restrict__ g, T* __restrict__ out,
+                            int n1, __grid_constant__ const Bands<CAP> bands) {
   const long long r = blockIdx.y;
-  fold_row<T>(prev + r * n1, n1, g + r * n1, out + r * n1, n1, 0,
-              bands[r] + 1);
+  const T acc = fold_row<T>(prev + r * n1, n1, g + r * n1, 0,
+                            bands.b[r] + 1);
+  if (cell() < n1) out[r * n1 + cell()] = acc;
 }
 
 template <typename T>
@@ -100,7 +123,62 @@ maxplus_scan_chunk_kernel(const T* __restrict__ wins,
                           int n1, int K) {
   const long long r = blockIdx.y;
   const long long wlen = (long long)n1 + K - 1;
-  fold_row<T>(wins + r * wlen, wlen, gs + r * K, out + r * n1, n1, K - 1, K);
+  const T acc = fold_row<T>(wins + r * wlen, wlen, gs + r * K, K - 1, K);
+  if (cell() < n1) out[r * n1 + cell()] = acc;
+}
+
+// The image of a double's bits under which signed 64-bit order is the
+// order of the doubles (-0.0 just below +0.0): negative values get their 63
+// low bits flipped.
+__device__ __forceinline__ long long ordered(long long bits) {
+  return bits >= 0 ? bits : bits ^ 0x7fffffffffffffffLL;
+}
+
+// *slot = max(*slot, v) against concurrent writers of the same slot.  A
+// stale first read is at most the slot's value (a slot only grows within a
+// step), so leaving when v does not exceed it is right.
+__device__ __forceinline__ void atomic_max(double* slot, double v) {
+  unsigned long long* p = reinterpret_cast<unsigned long long*>(slot);
+  const long long want = __double_as_longlong(v);
+  unsigned long long seen = *p;
+  while (ordered(want) > ordered((long long)seen)) {
+    const unsigned long long was =
+        atomicCAS(p, seen, (unsigned long long)want);
+    if (was == seen) return;
+    seen = was;
+  }
+}
+
+// One step of the fused program over the slot buffer (n_slots rows of
+// `width` doubles, a slot's values at columns padl .. padl+n1-1, -inf
+// margins around them).  tables is (5, n_steps, G) int32: src, gsl, off,
+// band, out.  Block (x, r) folds row r of step `step`:
+//   acc[j] = max_{k < min(K, band-off+1)} T(buf[src, padl-off+j-k])
+//                                        + T(buf[gsl, padl+off+k])
+//   buf[out, padl+j] = max(buf[out, padl+j], double(acc[j]))
+// A dummy row (band = -1) does nothing.  Several rows of a step may share
+// an output slot (the offset chunks of one op), hence the atomic max; max
+// is exact and order-free, so the result does not depend on which block
+// writes first.  The schedule pads its steps per dependency level
+// (core/planner.py, _FusedSchedule), so no row of a step reads a slot that
+// a row of the same step writes: the reads need no ordering against the
+// writes, and buf is not __restrict__.
+template <typename T>
+__global__ void __launch_bounds__(BLOCK)
+maxplus_scan_step_kernel(double* buf, const int* __restrict__ tables,
+                         int n_steps, int step, int G, int K, int n1,
+                         int padl, int width) {
+  const long long plane = (long long)n_steps * G;
+  const int* row = tables + (long long)step * G + blockIdx.y;
+  const int src = row[0], gsl = row[plane], off = row[2 * plane],
+            band = row[3 * plane], out = row[4 * plane];
+  if (band < 0) return;                          // the whole block leaves
+  const int kc = min(K, band - off + 1);
+  const double* wins = buf + (long long)src * width + padl - off - (K - 1);
+  const double* gs = buf + (long long)gsl * width + padl + off;
+  const T acc = fold_row<T>(wins, (long long)n1 + K - 1, gs, K - 1, kc);
+  if (cell() < n1)
+    atomic_max(buf + (long long)out * width + padl + cell(), (double)acc);
 }
 
 dim3 grid_for(int n1, int rows) {
@@ -114,13 +192,28 @@ int conv(const T* prev, const T* g, T* out, int n1, int band, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The launch copies CAP bands into its parameters: the smallest CAP that
+// holds B keeps the usual launch small.
+template <typename T, int CAP>
+int conv_batched_cap(const T* prev, const T* g, const int* bands, T* out,
+                     int B, int n1, void* stream) {
+  Bands<CAP> bs;
+  for (int r = 0; r < B; ++r) bs.b[r] = bands[r];
+  maxplus_conv_batched_kernel<T, CAP><<<grid_for(n1, B), BLOCK, 0,
+                                        (cudaStream_t)stream>>>(
+      prev, g, out, n1, bs);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int conv_batched(const T* prev, const T* g, const int* bands, T* out, int B,
                  int n1, void* stream) {
-  maxplus_conv_batched_kernel<T><<<grid_for(n1, B), BLOCK, 0,
-                                   (cudaStream_t)stream>>>(prev, g, bands,
-                                                           out, n1);
-  return (int)cudaGetLastError();
+  if (B <= 64) return conv_batched_cap<T, 64>(prev, g, bands, out, B, n1, stream);
+  if (B <= 1024)
+    return conv_batched_cap<T, 1024>(prev, g, bands, out, B, n1, stream);
+  if (B <= MAX_BANDS)
+    return conv_batched_cap<T, MAX_BANDS>(prev, g, bands, out, B, n1, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -132,11 +225,21 @@ int scan_chunk(const T* wins, const T* gs, T* out, int B, int n1, int K,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int scan_step(double* buf, const int* tables, int n_steps, int step, int G,
+              int K, int n1, int padl, int width, void* stream) {
+  maxplus_scan_step_kernel<T><<<grid_for(n1, G), BLOCK, 0,
+                                (cudaStream_t)stream>>>(
+      buf, tables, n_steps, step, G, K, n1, padl, width);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry points (ctypes).  Pointers are device pointers to contiguous
-// row-major arrays; `bands` is a device int32 array of B clamped bands
-// (0 <= band <= n1-1).  Each returns cudaGetLastError() after its launch.
+// row-major arrays, except `bands`: a HOST int32 array of B clamped bands
+// (0 <= band <= n1-1, B <= MAX_BANDS), copied into the launch.  Each
+// returns cudaGetLastError() after its launch.
 extern "C" {
 
 int repro_maxplus_conv_f32(const float* prev, const float* g, float* out,
@@ -166,6 +269,20 @@ int repro_maxplus_scan_chunk_f64(const double* wins, const double* gs,
                                  double* out, int B, int n1, int K,
                                  void* stream) {
   return scan_chunk<double>(wins, gs, out, B, n1, K, stream);
+}
+// `buf` is the float64 slot buffer in both; the suffix names the
+// arithmetic type.
+int repro_maxplus_scan_step_f32(double* buf, const int* tables, int n_steps,
+                                int step, int G, int K, int n1, int padl,
+                                int width, void* stream) {
+  return scan_step<float>(buf, tables, n_steps, step, G, K, n1, padl, width,
+                          stream);
+}
+int repro_maxplus_scan_step_f64(double* buf, const int* tables, int n_steps,
+                                int step, int G, int K, int n1, int padl,
+                                int width, void* stream) {
+  return scan_step<double>(buf, tables, n_steps, step, G, K, n1, padl, width,
+                           stream);
 }
 
 }  // extern "C"

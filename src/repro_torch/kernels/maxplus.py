@@ -2,19 +2,24 @@
 ``csrc/maxplus.cu``, the port of the three Pallas kernels of
 ``repro/kernels/maxplus.py`` (``maxplus_conv``, ``maxplus_conv_batched``,
 ``maxplus_scan_chunk``) that the planner's batched and fused engines run.
+Kernel 5 reaches the fused engine as ``maxplus_scan_step``: one step of the
+fused program, folding and max-reducing inside the slot buffer itself.
 
 Each public function launches its kernel for CUDA tensors and runs the
 plain version (``ref.maxplus_*``) for CPU tensors, and for nothing else.
 Both compute every candidate as one add and reduce with an exact max, so
 the kernel equals the plain version bit for bit, in float32 and float64.
-``LAUNCHES[name].count`` counts each kernel's launches.
+``LAUNCHES[name].count`` counts each kernel's launches (the scan step's on
+``"maxplus_scan_chunk"``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import numbers
+from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
@@ -23,6 +28,8 @@ LAUNCHES = {name: build.LaunchCounter() for name in
             ("maxplus_conv", "maxplus_conv_batched", "maxplus_scan_chunk")}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_ROWS = 65535                      # the kernels' grid y dimension
+_MAX_BANDS = 8000                      # kernel 4's bands in its launch
+#                                        parameters (csrc/maxplus.cu)
 
 
 @functools.cache
@@ -31,7 +38,8 @@ def _entry(name: str, dtype: torch.dtype):
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = {"maxplus_conv": [P, P, P, I, I, P],
                    "maxplus_conv_batched": [P, P, P, P, I, I, P],
-                   "maxplus_scan_chunk": [P, P, P, I, I, I, P]}[name]
+                   "maxplus_scan_chunk": [P, P, P, I, I, I, P],
+                   "maxplus_scan_step": [P, P] + [I] * 7 + [P]}[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -53,21 +61,26 @@ def _check(name: str, ndim: int, *ts) -> None:
             raise ValueError(f"{name}: inputs on different devices")
 
 
-def _launch(name: str, x: torch.Tensor, *args) -> None:
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _entry(name, x.dtype)(*args, stream)
+def _launch(name: str, x: torch.Tensor, *args,
+            dtype: Optional[torch.dtype] = None,
+            counter: Optional[str] = None) -> None:
+    # the current stream's raw handle, without a torch.cuda.Stream object
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    err = _entry(name, dtype or x.dtype)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name].count += 1
+    LAUNCHES[counter or name].count += 1
 
 
-def _bands(bands, B: int, n: int):
+def _bands(bands, B: int, n: int) -> np.ndarray:
+    """The (B,) int32 bands clamped to [0, n]; ``None`` is dense (n)."""
     if bands is None or isinstance(bands, numbers.Integral):
-        bands = [bands] * B
-    bs = [n if b is None else max(0, min(int(b), n)) for b in bands]
-    if len(bs) != B:
-        raise ValueError(f"got {len(bs)} bands for a batch of {B}")
-    return bs
+        band = n if bands is None else min(max(int(bands), 0), n)
+        return np.full(B, band, dtype=np.int32)
+    bs = np.array(bands, dtype=np.float64)          # None -> nan
+    if bs.shape != (B,):
+        raise ValueError(f"got {bs.size} bands for a batch of {B}")
+    return np.fmax(np.fmin(bs, n), 0).astype(np.int32)  # fmin(nan, n) = n
 
 
 def maxplus_conv_cuda(prev, g, band=None) -> torch.Tensor:
@@ -80,7 +93,7 @@ def maxplus_conv_cuda(prev, g, band=None) -> torch.Tensor:
     out = torch.empty_like(prev)
     if n1:
         _launch("maxplus_conv", prev, prev.data_ptr(), g.data_ptr(),
-                out.data_ptr(), n1, _bands([band], 1, n1 - 1)[0])
+                out.data_ptr(), n1, int(_bands([band], 1, n1 - 1)[0]))
     return out
 
 
@@ -92,14 +105,14 @@ def maxplus_conv_batched_cuda(prev, g, bands=None) -> torch.Tensor:
         raise ValueError(f"maxplus_conv_batched: prev {tuple(prev.shape)} "
                          f"and g {tuple(g.shape)} differ")
     B, n1 = prev.shape
-    if B > _MAX_ROWS:
-        raise ValueError(f"maxplus_conv_batched: {B} rows > {_MAX_ROWS}")
+    if B > _MAX_BANDS:
+        raise ValueError(f"maxplus_conv_batched: {B} rows > {_MAX_BANDS}, "
+                         f"the bands its launch parameters hold")
     bs = _bands(bands, B, n1 - 1)
     out = torch.empty_like(prev)
     if B and n1:
-        dev_bands = torch.tensor(bs, dtype=torch.int32).to(prev.device)
         _launch("maxplus_conv_batched", prev, prev.data_ptr(),
-                g.data_ptr(), dev_bands.data_ptr(), out.data_ptr(), B, n1)
+                g.data_ptr(), bs.ctypes.data, out.data_ptr(), B, n1)
     return out
 
 
@@ -118,6 +131,44 @@ def maxplus_scan_chunk_cuda(wins, gs) -> torch.Tensor:
         _launch("maxplus_scan_chunk", wins, wins.data_ptr(),
                 gs.data_ptr(), out.data_ptr(), B, n1, K)
     return out
+
+
+def maxplus_scan_step_cuda(buf, tables, step: int, K: int, n1: int,
+                           padl: int, width: int, dtype) -> None:
+    """Kernel 5 as the fused program's scan step, on CUDA tensors: folds
+    row r of step ``step`` of ``tables`` (int32 (5, steps, G): src, gsl,
+    off, band, out) in ``dtype`` and max-reduces it into the flat float64
+    slot buffer ``buf`` (slots of ``width``, values at ``padl``), in place
+    (``ref.maxplus_scan_step`` says what it computes).  Counted on
+    ``LAUNCHES["maxplus_scan_chunk"]``."""
+    name = "maxplus_scan_step"
+    for t in (buf, tables):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: input is on {t.device}, not on a "
+                             f"CUDA device")
+        if not t.is_contiguous() or t.device != buf.device:
+            raise ValueError(f"{name}: inputs must be contiguous, on one "
+                             f"device")
+    if buf.dtype != torch.float64 or buf.dim() != 1:
+        raise ValueError(f"{name}: the slot buffer must be 1-D float64")
+    if tables.dtype != torch.int32 or tables.dim() != 3 \
+            or tables.shape[0] != 5:
+        raise ValueError(f"{name}: tables must be int32 (5, steps, G), got "
+                         f"{tables.dtype} {tuple(tables.shape)}")
+    if dtype not in _SUFFIX:
+        raise ValueError(f"{name}: dtype {dtype}; float32 or float64")
+    _, steps, G = tables.shape
+    step, K, n1, padl, width = (int(x) for x in (step, K, n1, padl, width))
+    if not 0 <= step < steps or G > _MAX_ROWS or K < 1 or n1 < 1 \
+            or padl < K - 1 or padl + n1 + K > width \
+            or buf.numel() % width:
+        raise ValueError(f"{name}: step {step} of {steps}, G {G}, K {K}, "
+                         f"n1 {n1}, padl {padl}, width {width} do not fit a "
+                         f"buffer of {buf.numel()}")
+    if G:
+        _launch(name, buf, buf.data_ptr(), tables.data_ptr(), steps, step,
+                G, K, n1, padl, width, dtype=dtype,
+                counter="maxplus_scan_chunk")
 
 
 def _route(cuda_fn, plain_fn, x, *args):
@@ -144,3 +195,12 @@ def maxplus_conv_batched(prev, g, bands=None) -> torch.Tensor:
 def maxplus_scan_chunk(wins, gs) -> torch.Tensor:
     """``out[r, j] = max_{0 <= k < K} wins[r, j+K-1-k] + gs[r, k]``."""
     return _route(maxplus_scan_chunk_cuda, ref.maxplus_scan_chunk, wins, gs)
+
+
+def maxplus_scan_step(buf, tables, step: int, K: int, n1: int, padl: int,
+                      width: int, dtype) -> None:
+    """One step of the fused planner program, in place on the float64 slot
+    buffer ``buf``: the kernel for CUDA tensors, the plain version
+    (``ref.maxplus_scan_step``) for CPU tensors."""
+    return _route(maxplus_scan_step_cuda, ref.maxplus_scan_step, buf, tables,
+                  step, K, n1, padl, width, dtype)

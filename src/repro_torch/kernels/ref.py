@@ -255,3 +255,31 @@ def maxplus_scan_chunk(wins, gs) -> torch.Tensor:
         out = torch.maximum(out, wins[:, K - 1 - k:K - 1 - k + n1]
                             + gs[:, k:k + 1])
     return out
+
+
+def maxplus_scan_step(buf, tables, step: int, K: int, n1: int, padl: int,
+                      width: int, dtype) -> None:
+    """One step of the fused planner program (kernel 5 on the fused
+    engine's path), in place on the flat float64 slot buffer ``buf``: slot
+    s holds its values at ``buf[s*width + padl : s*width + padl + n1]``
+    with -inf margins.  ``tables`` is int32 (5, steps, G): each row r of
+    ``step`` is (src, gsl, off, band, out) and computes, in ``dtype``,
+
+        acc[j] = max_{0 <= k < min(K, band-off+1)}
+                     buf[src, padl-off+j-k] + buf[gsl, padl+off+k]
+
+    then ``buf[out, padl+j] = max(buf[out, padl+j], float64(acc[j]))``.
+    A dummy row (band = -1) does nothing.  No row of a step reads a slot
+    that a row of the same step writes (the schedule's dependency levels),
+    so taking the rows in turn is the step."""
+    for src, gsl, off, band, out in tables[:, step].T.tolist():
+        if band < 0:
+            continue
+        kc = min(K, band - off + 1)
+        w0 = src * width + padl - off - (kc - 1)
+        g0 = gsl * width + padl + off
+        acc = maxplus_scan_chunk(buf[None, w0:w0 + n1 + kc - 1].to(dtype),
+                                 buf[None, g0:g0 + kc].to(dtype))[0]
+        o0 = out * width + padl
+        dst = buf[o0:o0 + n1]
+        torch.maximum(dst, acc.to(torch.float64), out=dst)

@@ -16,7 +16,9 @@ Two workloads, each run for the ``batched`` and ``fused`` plan engines:
   the caps, so the schedule signature never changes).
 
 ``replan`` returns per-step records: the plans, every scenario total,
-rebuild seconds, launches of each max-plus kernel and device dispatches.
+rebuild seconds, launches of each max-plus kernel, device dispatches and,
+on the fused engine, how its program ran (eager, capture or replay of its
+CUDA graph).
 """
 from __future__ import annotations
 
@@ -136,7 +138,8 @@ def churn(device, engine: str, *, n: int = 1024, m: int = 64,
         rec = {"step": step, "assignment": state, "totals": totals,
                "rebuild_s": rebuild_s, "launches": launches,
                "device_dispatches": (table.batch_stats["device_dispatches"]
-                                     - dispatches), "lookups": {}}
+                                     - dispatches),
+               "fused_run": table.fused_run, "lookups": {}}
         for key in (f"fault:{rng.randrange(m)}",
                     f"finish:{rng.randrange(m)}"):
             plan = table.lookup(key)
