@@ -19,11 +19,15 @@ Phases, each printing one JSON line:
   kernel:maxplus    the three max-plus kernels against their plain
                     versions on the card, bitwise (int64/int32 views) in
                     float32 and float64, at the reference's test cases and
-                    the planner's sizes; kernel 5 as the fused program's
-                    scan step against its plain step at every step of the
-                    churn walk's schedule, in both types; times at n=1024
-                    and per scan step of that schedule (back to back and
-                    ``graph_ms``) beside each bound
+                    the planner's sizes, kernel 3 on both its variants
+                    (also at either side of the variant threshold, n = 0,
+                    1 and 4096, an all -inf row and rows of +-0 ties);
+                    kernel 5 as the fused program's scan step against its
+                    plain step at every step of the churn walk's schedule,
+                    in both types; times (back to back and ``graph_ms``)
+                    beside each bound: kernel 3 at four shapes
+                    (CONV3_SHAPES) and both its variants by band, kernels
+                    4 and 5 at n=1024 and per scan step of that schedule
   kernel:ssd_scan   the Mamba2 SSD scan kernel against its plain version
                     on the card (atol = rtol = 1e-4): the reference's test
                     cases, the token-serial recurrence, chunk invariance, a
@@ -49,9 +53,13 @@ Phases, each printing one JSON line:
   plan              launch.plan.replan: the coordinator's replans on the
                     first SEV1 events of trace-b on the Fig. 11 fleet (128
                     GPUs) and a 12-step churn walk at 1024 workers / 64
-                    tasks, on the batched and fused engines, every plan
-                    and scenario total bitwise equal to the same run on
-                    the CPU (plain versions); the fused churn walk again
+                    tasks, on the batched, fused and segtree engines
+                    (the segtree engine all kernel 3, one call a node
+                    merge), every plan and scenario total bitwise equal to
+                    the same run on the CPU (plain versions) and across
+                    the engines, both kernel-3 variants launched and, on
+                    the segtree engine, kernel 3 in every rebuild and
+                    kernels 4 and 5 never; the fused churn walk again
                     in float32, and once more in float64 on its warm
                     graph (every rebuild a replay).  The fused program is
                     one CUDA graph per signature: each walk must run one
@@ -103,7 +111,10 @@ Phases, each printing one JSON line:
 
 Then a line with the card's name and power limit, a line with every
 kernel's numbers, and the result line.  Any failure exits non-zero before
-the result line.  ``--phases`` runs a subset (for debugging).
+the result line.  ``--phases`` runs a subset (for debugging).  Phase
+``ab``, outside the default run, times kernel 3 at its four shapes and the
+segtree and batched churn walks through the port that ``--src`` names:
+run it on two trees in turns to compare them on one card.
 """
 from __future__ import annotations
 
@@ -591,12 +602,35 @@ def maxplus_cases():
     prev[5] = NEG                                 # an all -inf prev row
     cases.append(("maxplus_conv_batched", (prev, g, bands)))
     cases.append(("maxplus_conv", (np.full(1025, NEG), g[1], 16)))
+    cases += [("maxplus_conv", case) for case in conv3_edge_cases()]
     # the fused engine's scan step at K=17, G=32 (planner.py:624), with
     # its dummy rows: all -inf reward chunks
     wins = rng.uniform(-50.0, 50.0, (32, 1033 + 16))
     gs = rng.uniform(-50.0, 50.0, (32, 17))
     gs[28:] = NEG
     cases.append(("maxplus_scan_chunk", (wins, gs)))
+    return cases
+
+
+def conv3_edge_cases():
+    """Kernel 3's edges, each run on both variants: the bands on either
+    side of the variant threshold, n = 0, 1 and 4096, an all -inf prev,
+    and rows of +-0 ties (signed zeros everywhere else below them)."""
+    import numpy as np
+    from repro_torch.kernels.maxplus import WIDE_MIN
+    rng = np.random.RandomState(19)
+    cases = []
+    for band in (WIDE_MIN - 2, WIDE_MIN - 1, WIDE_MIN):
+        prev, g = _capped_rows(rng, 1, 1024, [band])
+        cases.append((prev[0], g[0], band))
+    for n in (0, 1, 4096):
+        prev, g = _capped_rows(rng, 1, n, [None])
+        cases.append((prev[0], g[0], None))
+    cases.append((np.full(1025, NEG), rng.uniform(-50.0, 50.0, 1025), None))
+    zeros = np.where(rng.rand(2, 1025) < 0.5, -0.0, 0.0)
+    zeros[:, rng.rand(1025) < 0.2] = -1.0
+    for band in (None, 16, WIDE_MIN):
+        cases.append((zeros[0], zeros[1], band))
     return cases
 
 
@@ -716,6 +750,69 @@ def check_scan_steps(sched) -> int:
     return checked
 
 
+# kernel 3's shapes: the planner's rows at n = 1024, dense, at a wide band
+# and at its usual band, and Fig. 11's 128 workers
+CONV3_SHAPES = (("n=1024 dense", 1024, None), ("n=1024 band 256", 1024, 256),
+                ("n=1024 band 16", 1024, 16), ("n=128 dense", 128, None))
+
+
+def conv3_times(smi) -> list:
+    """Kernel 3 through its public wrapper at CONV3_SHAPES, float32 and
+    float64: ``graph_ms``, back to back, the plain version and the bound.
+    Runs on any tree of the port (``variant`` is None where the tree has
+    no ``maxplus.variant``), so two trees compare in one call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import maxplus, ref
+    pick = getattr(maxplus, "variant", None)
+    rng = np.random.RandomState(7)
+    recs = []
+    for label, n, band in CONV3_SHAPES:
+        prev, g = _capped_rows(rng, 1, n, [band])
+        for dtype in ("float32", "float64"):
+            dt = getattr(torch, dtype)
+            p, q = (torch.from_numpy(a[0]).to("cuda", dt) for a in (prev, g))
+            fn = lambda: maxplus.maxplus_conv_cuda(p, q, band)  # noqa: E731
+            plain = lambda: ref.maxplus_conv(p, q, band)  # noqa: E731
+            err = (fn() - plain()).abs().max().item()
+            bound_ms, bound_by = maxplus_bound("maxplus_conv", dtype,
+                                               prev[0], g[0], band)
+            recs.append({
+                "name": "maxplus_conv", "route": "cuda",
+                "source": "src/repro_torch/csrc/maxplus.cu",
+                "replaces": MAXPLUS_REPLACES["maxplus_conv"],
+                "launches": None, "shape": label, "dtype": dtype,
+                "variant": pick and pick(n + 1, ref._clamp_band(band, n)),
+                "max_abs_err": err, "graph_ms": graph_ms(fn),
+                "ms": cuda_ms(fn, iters=50),
+                "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "nvidia_smi": smi})
+    return recs
+
+
+def conv3_variant_sweep() -> dict:
+    """``graph_ms`` of both kernel-3 variants by row length and band, in
+    float32 and float64: the measurement behind ``maxplus.WIDE_MIN``
+    (Fig. 11's 128 workers, the churn walk's rows of 1033, n = 4096)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import maxplus
+    rng = np.random.RandomState(8)
+    out = {}
+    for n in (128, 1032, 4096):
+        prev, g = _capped_rows(rng, 1, n, [None])
+        for dtype in ("float32", "float64"):
+            p, q = (torch.from_numpy(a[0]).to("cuda", getattr(torch, dtype))
+                    for a in (prev, g))
+            out[f"n={n} {dtype}"] = {
+                kind: {band: graph_ms(lambda: maxplus._conv_cuda(
+                    p, q, band, kind))
+                    for band in (0, 1, 2, 4, 8, 16, 32, 64, 128, n)}
+                for kind in maxplus.VARIANTS}
+    return out
+
+
 def phase_kernel_maxplus(ctx) -> None:
     import numpy as np
     import torch
@@ -725,23 +822,40 @@ def phase_kernel_maxplus(ctx) -> None:
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
                      if isinstance(a, np.ndarray) else a for a in args)
 
-    n_cases = 0
+    n_cases, by_run = 0, {}
     for dtype in ("float32", "float64"):
         dt = getattr(torch, dtype)
         for kernel, args in maxplus_cases():
             t_args = on_card(args, dt)
-            got = getattr(maxplus, kernel + "_cuda")(*t_args)
-            torch.cuda.synchronize()
             want = getattr(ref, kernel)(*t_args)
-            if got.dtype != dt or not _same_bits(got, want):
-                diff = (got - want).abs().nan_to_num(nan=float("inf"))
-                raise AssertionError(
-                    f"{kernel} {dtype} {tuple(got.shape)}: not bitwise equal "
-                    f"to the plain version (max |diff| {diff.max().item()})")
+            host = getattr(ref, kernel)(*(
+                torch.from_numpy(a).to(dt) if isinstance(a, np.ndarray)
+                else a for a in args))
+            if not _same_bits(want.cpu(), host):
+                raise AssertionError(f"{kernel} {dtype}: the plain version "
+                                     f"differs between the card and the CPU")
+            runs = {"wrapper": lambda: getattr(maxplus, kernel + "_cuda")(
+                *t_args)}
+            if kernel == "maxplus_conv" and len(args[0]):
+                # both variants of kernel 3 on every case
+                band = ref._clamp_band(args[2], len(args[0]) - 1)
+                runs.update({kind: lambda kind=kind: maxplus._conv_cuda(
+                    t_args[0], t_args[1], band, kind)
+                    for kind in maxplus.VARIANTS})
+            for run, fn in runs.items():
+                got = fn()
+                torch.cuda.synchronize()
+                if got.dtype != dt or not _same_bits(got, want):
+                    diff = (got - want).abs().nan_to_num(nan=float("inf"))
+                    raise AssertionError(
+                        f"{kernel} ({run}) {dtype} {tuple(got.shape)}: not "
+                        f"bitwise equal to the plain version (max |diff| "
+                        f"{diff.max().item()})")
+                by_run[run] = by_run.get(run, 0) + 1
             n_cases += 1
     sched = churn_schedule()
     steps_checked = check_scan_steps(sched)
-    emit({"phase": "kernel:maxplus", "cases": n_cases,
+    emit({"phase": "kernel:maxplus", "cases": n_cases, "runs": by_run,
           "scan_steps_checked": steps_checked,
           "tol": "bitwise (int64/int32 views)",
           "dtypes": ["float32", "float64"]})
@@ -753,11 +867,19 @@ def phase_kernel_maxplus(ctx) -> None:
     wins = rng.uniform(-50.0, 50.0, (64, 1025 + 16))
     gs = rng.uniform(-50.0, 50.0, (64, 17))
     shapes = {
-        "maxplus_conv": ("n=1024 dense", (prev[0], g[0], None)),
         "maxplus_conv_batched": ("B=64 n=1024 band 16", (prev, g, 16)),
         "maxplus_scan_chunk": ("B=64 n1=1025 K=17", (wins, gs))}
     print("maxplus library_ms: null — no single PyTorch call computes a "
           "max-plus (tropical) convolution", flush=True)
+    # kernel 3 at its four shapes, and both variants by band
+    for rec in conv3_times(ctx["smi"]):
+        emit({"phase": "kernel:maxplus", **rec})
+        if rec["dtype"] == "float64" and rec["shape"] == CONV3_SHAPES[0][0]:
+            ctx["kernels"]["maxplus_conv"] = {
+                k: v for k, v in rec.items()
+                if k not in ("dtype", "nvidia_smi")}
+    emit({"phase": "kernel:maxplus", "variant_sweep": conv3_variant_sweep(),
+          "wide_min": maxplus.WIDE_MIN, "nvidia_smi": ctx["smi"]})
     for dtype in ("float32", "float64"):
         dt = getattr(torch, dtype)
         for kernel, (shape, args) in shapes.items():
@@ -1376,26 +1498,43 @@ def phase_plan(ctx) -> None:
     from repro_torch.kernels import maxplus
     from repro_torch.launch import plan
 
+    def replan(device):
+        """launch.plan.replan, then both walks on the segtree engine (all
+        kernel 3: one call a node merge)."""
+        out = plan.replan(device)
+        out["fig11"]["segtree"] = plan.fig11(device, "segtree")
+        out["churn"]["segtree"] = plan.churn(device, "segtree")
+        return out
+
     n_steps = churn_schedule().n_steps
-    for c in maxplus.LAUNCHES.values():
+    counters = list(maxplus.LAUNCHES.values()) + \
+        list(maxplus.CONV_LAUNCHES_BY_VARIANT.values())
+    for c in counters:
         c.count = 0
     t0 = time.perf_counter()
-    gpu = plan.replan("cuda")
+    gpu = replan("cuda")
     gpu_s = time.perf_counter() - t0
     launches = {k: c.count for k, c in maxplus.LAUNCHES.items()}
+    conv_by_variant = {k: c.count for k, c in
+                       maxplus.CONV_LAUNCHES_BY_VARIANT.items()}
     ctx["phase_launches"]["plan"] = launches
+    if not all(conv_by_variant.values()):
+        raise AssertionError(f"plan: kernel 3 launched {conv_by_variant} "
+                             f"times by variant; the path runs both")
     t0 = time.perf_counter()
-    cpu = plan.replan("cpu")
+    cpu = replan("cpu")
     cpu_s = time.perf_counter() - t0
     if not _plans_equal(gpu, cpu):
         raise AssertionError("plan: the card's plans or totals differ from "
                              "the CPU run's")
-    if not _plans_equal(_engine_view(gpu, "batched"),
-                        _engine_view(gpu, "fused")):
-        raise AssertionError("plan: the batched and fused engines differ")
+    for engine in ("fused", "segtree"):
+        if not _plans_equal(_engine_view(gpu, "batched"),
+                            _engine_view(gpu, engine)):
+            raise AssertionError(f"plan: the batched and {engine} engines "
+                                 f"differ")
 
     per_engine = {}
-    for engine in plan.ENGINES:
+    for engine in gpu["churn"]:
         recs = gpu["churn"][engine] + gpu["fig11"][engine]
         used = {k: sum(r["launches"][k] for r in recs) for k in MAXPLUS}
         disp = [r["device_dispatches"] for r in recs]
@@ -1416,6 +1555,13 @@ def phase_plan(ctx) -> None:
                                   or any(d != 1 for d in disp)):
             raise AssertionError(f"plan: fused engine launched {used}, "
                                  f"dispatches {disp} (want 1 per rebuild)")
+        if engine == "segtree" and any(
+                r["launches"]["maxplus_conv"] < 1
+                or r["launches"]["maxplus_conv_batched"]
+                or r["launches"]["maxplus_scan_chunk"] for r in recs):
+            raise AssertionError(f"plan: a segtree rebuild launched "
+                                 f"{[r['launches'] for r in recs]}; want "
+                                 f"kernel 3 in each, kernels 4 and 5 never")
         if engine == "fused":
             per_engine[engine]["runs"] = check_graph_walk(
                 "float64", gpu["churn"][engine], n_steps)
@@ -1436,10 +1582,14 @@ def phase_plan(ctx) -> None:
     for k in MAXPLUS:
         if k in ctx["kernels"]:
             ctx["kernels"][k]["launches"] = launches[k]
+    if "maxplus_conv" in ctx["kernels"]:
+        ctx["kernels"]["maxplus_conv"]["launches_by_variant"] = \
+            conv_by_variant
     profiled = {e: _profile_rebuild(e) for e in plan.ENGINES}
     fig = gpu["fig11"]["batched"]
     emit({"phase": "plan", "ok": True, "seconds_cuda": gpu_s,
           "seconds_cpu": cpu_s, "launches": launches,
+          "kernel3_launches_by_variant": conv_by_variant,
           "fig11": {"workers": plan.FIG11_WORKERS,
                     "plans": [r["assignment"] for r in fig],
                     "waf_tflops": [r["waf"] / 1e12 for r in fig]},
@@ -2197,22 +2347,46 @@ def phase_profile(ctx) -> None:
               "nvidia_smi": ctx["smi"]})
 
 
+def phase_ab(ctx) -> None:
+    """Not in the default run: kernel 3 at CONV3_SHAPES and the churn walk
+    on the segtree and batched engines, through the port that ``--src``
+    names.  Run once per tree, in turns, to compare two trees on one
+    card."""
+    import statistics
+    from repro_torch.launch import plan
+    for rec in conv3_times(ctx["smi"]):
+        emit({"phase": "ab", "src": ctx["src"], **rec})
+    for engine in ("segtree", "batched"):
+        recs = plan.churn("cuda", engine)
+        emit({"phase": "ab", "src": ctx["src"], "engine": engine,
+              "rebuild_s_median": statistics.median(
+                  r["rebuild_s"] for r in recs),
+              "rebuild_s": [r["rebuild_s"] for r in recs],
+              "kernel3_launches": [r["launches"]["maxplus_conv"]
+                                   for r in recs],
+              "nvidia_smi": ctx["smi"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the directory holding the repro_torch package to "
+                         "drive (default: this checkout's src)")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
-              f"checkout of the repository", file=sys.stderr)
+    if not (args.src / "repro_torch").is_dir():
+        print(f"chip_smoke: {args.src / 'repro_torch'} not found; run from "
+              f"a checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(args.src.resolve()))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    ctx = {"kernels": {}, "smi": None, "phase_launches": {}}
-    fns = {"device": phase_device, "build": phase_build,
+    ctx = {"kernels": {}, "smi": None, "phase_launches": {},
+           "src": str(args.src)}
+    fns = {"device": phase_device, "build": phase_build, "ab": phase_ab,
            "kernel": phase_kernel, "plan": phase_plan, "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
            "self_heal": phase_self_heal, "serve": phase_serve,

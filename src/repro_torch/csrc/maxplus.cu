@@ -7,11 +7,11 @@
 //
 // All three are one computation: out[j] = max_{k<kc} src[j + base - k] + g[k],
 // with src read as -inf outside [0, src_len).  conv: base 0, kc = band+1;
-// scan chunk: base K-1, kc = K.  One thread owns one output cell of one row;
-// the grid is (ceil(n1 / BLOCK), rows).  The block stages the src span its
-// cells read and the g values of a tile of k in shared memory, then folds
-// acc = fmax(acc, w + g[k]) over the tile (fold_row).  A row's band is a
-// loop bound: no -inf-masked copy of g is built.
+// scan chunk: base K-1, kc = K.  Kernels 4 and 5 give one thread one output
+// cell of one row; the grid is (ceil(n1 / BLOCK), rows).  The block stages
+// the src span its cells read and the g values of a tile of k in shared
+// memory, then folds acc = fmax(acc, w + g[k]) over the tile (fold_row).  A
+// row's band is a loop bound: no -inf-masked copy of g is built.
 //
 // The fused engine's scan step (maxplus_scan_step_kernel, kernel 5 on the
 // planner's path) is the same fold reading the float64 slot buffer itself:
@@ -21,11 +21,13 @@
 // both casts and the scatter-max of the step in the one launch.
 //
 // Bitwise contract: each candidate is one IEEE add (no multiply, so nothing
-// is contracted into an FMA) and max is exact and order-free, so every
-// output equals the plain PyTorch version (repro_torch/kernels/ref.py) bit
-// for bit in float32 and float64.  fmax returns the non-NaN operand where
-// torch.maximum propagates NaN; the planner's inputs are never NaN (-inf at
-// most, and -inf + finite = -inf), so the two agree on every input it gives.
+// is contracted into an FMA) and max is exact, so every output equals the
+// plain PyTorch version (repro_torch/kernels/ref.py) on the card bit for
+// bit in float32 and float64.  The plain version's torch.maximum is fmax on
+// the card, as here; fmax returns the non-NaN operand where torch.maximum
+// propagates NaN, and the planner's inputs are never NaN (-inf at most, and
+// -inf + finite = -inf).  A double read as float rounds to nearest, as
+// torch's .to(torch.float32) does.
 //
 // Bound: at the planner's sizes (n1 ~ 1e3, B <= 64, band ~ 16) a launch does
 // a few microseconds of work, so launch latency and the host around each
@@ -39,6 +41,32 @@
 // band+1 exceeds ~20 in fp64.  Every candidate stays out of device memory
 // (one load per staged element, then shared-memory reads) and the k tile is
 // sized to the band, so a narrow band stages only BLOCK+band elements.
+//
+// Kernel 3 (one row) is bound by its launch too: a dense n = 1024 call is
+// 2 * (1025 * 1025 - 1024 * 1025 / 2) = 1.05e6 operations, 31 ns at the
+// fp64 peak, against a few microseconds to launch.  Folded as kernels 4
+// and 5 fold, it ran 5 blocks on 132 SMs and each thread folded all 1025
+// candidates of its cell in one dependent max chain, half of them the -inf
+// triangle k > j: the card's critical path was one 1025-long serial chain
+// (0.024 ms, 760x the bound).  So it has two variants, chosen by the
+// widest cell's candidate count, min(band, n1-1) + 1
+// (kernels/maxplus.py: variant() and WIDE_MIN):
+//   wide    one warp per cell and WARPS cells per block, so a dense
+//           n = 1024 call runs 129 blocks, one wave over the SMs.  Lanes
+//           stride over k up to the cell's own min(j, band) (the triangle
+//           is never folded), each folding at most 33 candidates at
+//           n = 1024, and five shuffle steps combine the lanes.  The block
+//           stages its prev window and g[0 .. its k range) in shared
+//           memory with cp.async (16 KB in f64 at n = 1024).
+//   narrow  the one-thread-per-cell fold of kernels 4 and 5, with each
+//           block's k range cut to min(band, its last cell) + 1, for the
+//           shortest bands: below WIDE_MIN candidates a warp per cell
+//           leaves most lanes idle and its 16x more blocks stage more.
+// The wide variant combines candidates in another order than the plain
+// version's ascending k.  On the card fmax, and torch.maximum with it,
+// orders -0.0 below +0.0 whichever operand comes first (measured on an
+// H100; chip_smoke.py's phase kernel:maxplus holds rows of +-0 ties on
+// both variants), so the order does not change a bit.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -95,12 +123,72 @@ __device__ __forceinline__ long long cell() {
   return (long long)blockIdx.x * BLOCK + threadIdx.x;
 }
 
+// Kernel 3, narrow: fold_row, each block's k range cut to the candidates
+// of its last cell.
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)
-maxplus_conv_kernel(const T* __restrict__ prev, const T* __restrict__ g,
-                    T* __restrict__ out, int n1, int band) {
-  const T acc = fold_row<T>(prev, n1, g, 0, band + 1);
+maxplus_conv_narrow_kernel(const T* __restrict__ prev,
+                           const T* __restrict__ g, T* __restrict__ out,
+                           int n1, int band) {
+  const int last = min((int)(blockIdx.x + 1) * BLOCK, n1) - 1;
+  const T acc = fold_row<T>(prev, n1, g, 0, min(band, last) + 1);
   if (cell() < n1) out[cell()] = acc;
+}
+
+constexpr int WARPS = 8;     // kernel 3, wide: cells per block, a warp each
+constexpr int TKW = 1024;    // kernel 3, wide: k values per staged tile
+
+// One element global -> shared without a register round trip; every copy
+// of the thread lands by cp_async_wait_all().
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(s), "l"(src), "n"(sizeof(T)) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Kernel 3, wide: warp w of block b owns cell j = b*WARPS + w.  Its lanes
+// stride over k < min(j, band) + 1; the block stages, per tile of k, the
+// prev window its cells read and that tile of g.
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+maxplus_conv_wide_kernel(const T* __restrict__ prev, const T* __restrict__ g,
+                         T* __restrict__ out, int n1, int band) {
+  __shared__ T w[WARPS + TKW - 1];
+  __shared__ T gt[TKW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = blockIdx.x * WARPS, j = j0 + warp;
+  const int kb = min(band, min(j0 + WARPS, n1) - 1) + 1;  // the block's k
+  const int kj = min(j, band) + 1;                         // cell j's k
+  T acc = neg_inf<T>();
+  for (int k0 = 0; k0 < kb; k0 += TKW) {
+    const int tk = min(TKW, kb - k0);
+    // w[t] = prev[j0 - k0 - (tk-1) + t]; cell j at k = k0 + kk reads
+    // prev[j - k] = w[warp + tk-1 - kk]
+    const int s0 = j0 - k0 - (tk - 1);
+    for (int t = threadIdx.x; t < WARPS + tk - 1; t += WARPS * 32) {
+      const int idx = s0 + t;
+      if (idx >= 0 && idx < n1) cp_async(w + t, prev + idx);
+      else w[t] = neg_inf<T>();
+    }
+    for (int t = threadIdx.x; t < tk; t += WARPS * 32)
+      cp_async(gt + t, g + k0 + t);
+    cp_async_wait_all();
+    __syncthreads();
+    const T* wp = w + warp + tk - 1;
+    const int kend = min(tk, kj - k0);
+#pragma unroll 4
+    for (int kk = lane; kk < kend; kk += 32) acc = vmax(acc, wp[-kk] + gt[kk]);
+    __syncthreads();
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    acc = vmax(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+  if (lane == 0 && j < n1) out[j] = acc;
 }
 
 template <int CAP> struct Bands { int b[CAP]; };
@@ -185,10 +273,20 @@ dim3 grid_for(int n1, int rows) {
   return dim3((unsigned)((n1 + BLOCK - 1) / BLOCK), (unsigned)rows);
 }
 
+// variant 0 is "narrow", 1 "wide" (kernels/maxplus.py: VARIANTS).
 template <typename T>
-int conv(const T* prev, const T* g, T* out, int n1, int band, void* stream) {
-  maxplus_conv_kernel<T><<<grid_for(n1, 1), BLOCK, 0,
-                           (cudaStream_t)stream>>>(prev, g, out, n1, band);
+int conv(const T* prev, const T* g, T* out, int n1, int band, int variant,
+         void* stream) {
+  if (n1 < 1 || band < 0 || band >= n1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 0)
+    maxplus_conv_narrow_kernel<T><<<grid_for(n1, 1), BLOCK, 0, s>>>(
+        prev, g, out, n1, band);
+  else if (variant == 1)
+    maxplus_conv_wide_kernel<T><<<(n1 + WARPS - 1) / WARPS, WARPS * 32, 0,
+                                  s>>>(prev, g, out, n1, band);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -238,17 +336,18 @@ int scan_step(double* buf, const int* tables, int n_steps, int step, int G,
 
 // C entry points (ctypes).  Pointers are device pointers to contiguous
 // row-major arrays, except `bands`: a HOST int32 array of B clamped bands
-// (0 <= band <= n1-1, B <= MAX_BANDS), copied into the launch.  Each
-// returns cudaGetLastError() after its launch.
+// (0 <= band <= n1-1, B <= MAX_BANDS), copied into the launch.  Kernel 3's
+// entries take its clamped band and its variant (0 narrow, 1 wide) and
+// refuse any other.  Each returns cudaGetLastError() after its launch.
 extern "C" {
 
 int repro_maxplus_conv_f32(const float* prev, const float* g, float* out,
-                           int n1, int band, void* stream) {
-  return conv<float>(prev, g, out, n1, band, stream);
+                           int n1, int band, int variant, void* stream) {
+  return conv<float>(prev, g, out, n1, band, variant, stream);
 }
 int repro_maxplus_conv_f64(const double* prev, const double* g, double* out,
-                           int n1, int band, void* stream) {
-  return conv<double>(prev, g, out, n1, band, stream);
+                           int n1, int band, int variant, void* stream) {
+  return conv<double>(prev, g, out, n1, band, variant, stream);
 }
 int repro_maxplus_conv_batched_f32(const float* prev, const float* g,
                                    const int* bands, float* out, int B,

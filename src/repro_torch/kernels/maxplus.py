@@ -10,7 +10,8 @@ plain version (``ref.maxplus_*``) for CPU tensors, and for nothing else.
 Both compute every candidate as one add and reduce with an exact max, so
 the kernel equals the plain version bit for bit, in float32 and float64.
 ``LAUNCHES[name].count`` counts each kernel's launches (the scan step's on
-``"maxplus_scan_chunk"``).
+``"maxplus_scan_chunk"``); kernel 3 comes in two variants (``variant()``),
+each also counted on ``CONV_LAUNCHES_BY_VARIANT``.
 """
 from __future__ import annotations
 
@@ -30,13 +31,20 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_ROWS = 65535                      # the kernels' grid y dimension
 _MAX_BANDS = 8000                      # kernel 4's bands in its launch
 #                                        parameters (csrc/maxplus.cu)
+VARIANTS = ("narrow", "wide")          # kernel 3's, by their C code
+# Kernel 3 is "wide" from this many candidates in its widest cell
+# (csrc/maxplus.cu says what each variant does): the crossover of the two
+# variants' graph times on the planner's rows of 1033 cells (chip_smoke.py,
+# conv3_variant_sweep; H100 80GB HBM3, 700 W).
+WIDE_MIN = 8
+CONV_LAUNCHES_BY_VARIANT = {name: build.LaunchCounter() for name in VARIANTS}
 
 
 @functools.cache
 def _entry(name: str, dtype: torch.dtype):
     fn = getattr(build.load("maxplus"), f"repro_{name}_{_SUFFIX[dtype]}")
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = {"maxplus_conv": [P, P, P, I, I, P],
+    fn.argtypes = {"maxplus_conv": [P, P, P, I, I, I, P],
                    "maxplus_conv_batched": [P, P, P, P, I, I, P],
                    "maxplus_scan_chunk": [P, P, P, I, I, I, P],
                    "maxplus_scan_step": [P, P] + [I] * 7 + [P]}[name]
@@ -75,26 +83,42 @@ def _launch(name: str, x: torch.Tensor, *args,
 def _bands(bands, B: int, n: int) -> np.ndarray:
     """The (B,) int32 bands clamped to [0, n]; ``None`` is dense (n)."""
     if bands is None or isinstance(bands, numbers.Integral):
-        band = n if bands is None else min(max(int(bands), 0), n)
-        return np.full(B, band, dtype=np.int32)
+        return np.full(B, ref._clamp_band(bands, n), dtype=np.int32)
     bs = np.array(bands, dtype=np.float64)          # None -> nan
     if bs.shape != (B,):
         raise ValueError(f"got {bs.size} bands for a batch of {B}")
     return np.fmax(np.fmin(bs, n), 0).astype(np.int32)  # fmin(nan, n) = n
 
 
+def variant(n1: int, band: int) -> str:
+    """The kernel-3 variant that a CUDA call on rows of ``n1`` cells with
+    this band launches: "wide" where the widest cell has at least
+    ``WIDE_MIN`` candidates (``min(band, n1 - 1) + 1``), else "narrow"."""
+    return "wide" if min(band, n1 - 1) + 1 >= WIDE_MIN else "narrow"
+
+
+def _conv_cuda(prev, g, band: int, kind: str) -> torch.Tensor:
+    """Kernel 3's ``kind`` variant on checked CUDA rows of n1 >= 1 cells
+    and a band clamped to [0, n1 - 1]."""
+    out = torch.empty_like(prev)
+    _launch("maxplus_conv", prev, prev.data_ptr(), g.data_ptr(),
+            out.data_ptr(), prev.shape[0], band, VARIANTS.index(kind))
+    CONV_LAUNCHES_BY_VARIANT[kind].count += 1
+    return out
+
+
 def maxplus_conv_cuda(prev, g, band=None) -> torch.Tensor:
-    """Kernel 3 on CUDA tensors: ``prev``, ``g`` 1-D of length n+1."""
+    """Kernel 3 on CUDA tensors: ``prev``, ``g`` 1-D of length n+1; the
+    variant is ``variant(n+1, band)``."""
     _check("maxplus_conv", 1, prev, g)
     if prev.shape != g.shape:
         raise ValueError(f"maxplus_conv: prev {tuple(prev.shape)} and g "
                          f"{tuple(g.shape)} differ")
     n1 = prev.shape[0]
-    out = torch.empty_like(prev)
-    if n1:
-        _launch("maxplus_conv", prev, prev.data_ptr(), g.data_ptr(),
-                out.data_ptr(), n1, int(_bands([band], 1, n1 - 1)[0]))
-    return out
+    if not n1:
+        return torch.empty_like(prev)
+    band = ref._clamp_band(band, n1 - 1)
+    return _conv_cuda(prev, g, band, variant(n1, band))
 
 
 def maxplus_conv_batched_cuda(prev, g, bands=None) -> torch.Tensor:

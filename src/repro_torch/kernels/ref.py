@@ -192,11 +192,21 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
 # ---------------------------------------------------------------------------
 # Max-plus (tropical) convolutions: the planner's DP step (the plain
 # versions of ``repro/kernels/maxplus.py``'s three kernels).  Generic in
-# dtype; each candidate is one add and max is order-free, so a float64 run
-# equals the reference's numpy kernels bit for bit and a float32 run its
-# float32 Pallas kernels.  The band is folded by a loop over k — the
-# (n+1, band+1) candidate matrix is never built.
+# dtype; each candidate is one add and max is order-free (``_max``), so a
+# float64 run equals the reference's numpy kernels bit for bit and a
+# float32 run its float32 Pallas kernels (on a -0.0/+0.0 tie the numpy
+# kernels' sign follows their lane order; these follow the Pallas
+# kernels').  The band is folded by a loop over k — the (n+1, band+1)
+# candidate matrix is never built.
 # ---------------------------------------------------------------------------
+
+
+def _max(a, b) -> torch.Tensor:
+    """``torch.maximum`` with -0.0 below +0.0 whichever operand comes
+    first, as the reference's Pallas kernels (``jnp.maximum``) and the card
+    order them.  The CPU's ``torch.maximum`` returns its second operand on
+    a +-0 tie in vectorised lanes and its first in the scalar tail."""
+    return torch.where((a == 0) & (b == 0), a + b, torch.maximum(a, b))
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6) -> torch.Tensor:
@@ -218,7 +228,7 @@ def maxplus_conv(prev, g, band=None) -> torch.Tensor:
     n = prev.shape[0] - 1
     out = prev + g[0]
     for k in range(1, _clamp_band(band, n) + 1):
-        out[k:] = torch.maximum(out[k:], prev[:n + 1 - k] + g[k])
+        out[k:] = _max(out[k:], prev[:n + 1 - k] + g[k])
     return out
 
 
@@ -240,7 +250,7 @@ def maxplus_conv_batched(prev, g, bands=None) -> torch.Tensor:
     gm = torch.where(ks[None, :] > bs[:, None], -math.inf, g)
     out = prev + gm[:, :1]
     for k in range(1, int(bs.max()) + 1 if B else 0):
-        out[:, k:] = torch.maximum(out[:, k:], prev[:, :n1 - k] + gm[:, k:k + 1])
+        out[:, k:] = _max(out[:, k:], prev[:, :n1 - k] + gm[:, k:k + 1])
     return out
 
 
@@ -252,8 +262,7 @@ def maxplus_scan_chunk(wins, gs) -> torch.Tensor:
     n1 = wins.shape[1] - (K - 1)
     out = torch.full((B, n1), -math.inf, dtype=wins.dtype, device=wins.device)
     for k in range(K):
-        out = torch.maximum(out, wins[:, K - 1 - k:K - 1 - k + n1]
-                            + gs[:, k:k + 1])
+        out = _max(out, wins[:, K - 1 - k:K - 1 - k + n1] + gs[:, k:k + 1])
     return out
 
 
@@ -282,4 +291,4 @@ def maxplus_scan_step(buf, tables, step: int, K: int, n1: int, padl: int,
                                  buf[None, g0:g0 + kc].to(dtype))[0]
         o0 = out * width + padl
         dst = buf[o0:o0 + n1]
-        torch.maximum(dst, acc.to(torch.float64), out=dst)
+        dst.copy_(_max(dst, acc.to(torch.float64)))
