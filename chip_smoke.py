@@ -70,6 +70,23 @@ Phases, each printing one JSON line:
                     fused engine, untraced rebuilds beside their program
                     calls and the span of its graph replay between CUDA
                     events
+  replay            launch.replay on the card: Fig. 11b/d (run_policies
+                    over trace-b for all eight recovery policies on the
+                    six-task, 128-GPU cluster, and Unicron's lane alone on
+                    the fused and segtree engines), the example's mixed
+                    training and serving fleet (its replan, and the replan
+                    after the 120 -> 240 rps rate change), each bitwise
+                    equal to the same run on the CPU; then
+                    bench_cluster_sim's paper-scale mixed fleet (128 nodes
+                    x 8 GPUs, 32 tasks, 30 days, 16 seeds) on the batched
+                    engine seed by seed on one fresh plan cache, seed 0
+                    bitwise equal to the CPU run and to the fused and
+                    segtree engines, every seed's vector-engine WAF within
+                    1e-6 (seeds are cut, and the cut printed under
+                    ``reduced``, only if the phase would pass 150 s);
+                    wall seconds, tables built and hit, launches of kernels
+                    3-5 in each part, one traced seed (device busy time,
+                    idle share) and the peak device memory
   train             launch.train.train() on gemma-2b at full width (depth
                     cut 18 -> 4 layers): fused steps, one injected DP-rank
                     failure recovered through micro-batch redistribution
@@ -130,8 +147,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernel", "plan", "train", "train_ssm",
-          "train_hybrid", "self_heal", "serve", "serve_ssm", "profile")
+PHASES = ("device", "build", "kernel", "plan", "replay", "train",
+          "train_ssm", "train_hybrid", "self_heal", "serve", "serve_ssm",
+          "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
@@ -1604,6 +1622,248 @@ def phase_plan(ctx) -> None:
           "profiled_rebuild": profiled, "nvidia_smi": ctx["smi"]})
 
 
+# ---- replay: the policy replay (Fig. 11b/d) and the paper-scale fleet -----
+
+REPLAY_BUDGET_S = 150.0         # the phase's share of the script's time
+REPLAY_CONFIG = "paper_scale"   # benchmarks/bench_cluster_sim.py:70
+REPLAY_REL_TOL = 1e-6           # bench_cluster_sim.py REL_TOL (vector)
+REPLAY_ENGINES = ("fused", "segtree")
+
+
+def _sim_bits(rec: dict) -> tuple:
+    """A ``launch.replay.result_record`` as exact bits."""
+    return (_bits(rec["accumulated_waf"]), _bits(rec["downtime_s"]),
+            rec["n_reconfigs"], rec["n_events"], rec["n_degraded_drains"],
+            tuple((_bits(t), _bits(w)) for t, w in rec["timeline"]))
+
+
+def _fleet_bits(res: dict) -> dict:
+    """Per policy of a ``launch.replay.fleet`` result: every seed's WAF,
+    the reconfigurations and the downtime, as exact bits."""
+    return {p: (tuple(_bits(w) for w in r["per_seed"]), r["n_reconfigs"],
+                _bits(r["downtime_s"]))
+            for p, r in res["policies"].items()}
+
+
+def _profile_replay_seed(seed: int) -> dict:
+    """Device busy time over one paper-scale seed of the batched engine on
+    a fresh plan cache (as the fleet's first seed ran), traced with
+    torch.profiler: the kernels and copies it ran and the idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import replay
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        replay.fleet("cuda", config=REPLAY_CONFIG, seeds=[seed])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"seed": seed, "wall_ms_traced": wall_ms,
+            "device_busy_ms": busy if rows else None,
+            "device_idle_share": 1 - busy / wall_ms if rows else None,
+            "top": [{"name": k[:80], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:8]]}
+
+
+def phase_replay(ctx) -> None:
+    """Fig. 11 over trace-b for every policy (and Unicron's lane on the
+    fused and segtree engines), the example's serving replans, and the
+    paper-scale mixed fleet, on the card, each held against the port's
+    CPU run (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.planner import PlannerCache
+    from repro_torch.core.simulator import TraceSimulator
+    from repro_torch.core.traces import trace_b
+    from repro_torch.kernels import maxplus
+    from repro_torch.launch import plan, replay
+
+    t_phase = time.perf_counter()
+    counters = list(maxplus.LAUNCHES.values()) + \
+        list(maxplus.CONV_LAUNCHES_BY_VARIANT.values())
+    torch.cuda.reset_peak_memory_stats()
+
+    def lane(device, engine):
+        """Unicron's lane alone over trace-b on ``engine`` (eager tables,
+        as ``run_policies`` builds them)."""
+        tasks, assignment = replay.case5_tasks()
+        before = plan.launch_counts()
+        t0 = time.perf_counter()
+        res = TraceSimulator(tasks, assignment, "unicron",
+                             plan_engine=engine,
+                             device=device).run(trace_b())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return {"result": replay.result_record(res),
+                "seconds": time.perf_counter() - t0,
+                "launches": plan.launch_delta(before)}
+
+    # -- 1. Fig. 11, the unicron lane on the other engines, serving -------
+    # (the counts are set to 0 once: the CPU runs launch nothing)
+    for c in counters:
+        c.count = 0
+    gpu = {"fig11": replay.fig11("cuda"), "serving": replay.serving("cuda")}
+    gpu.update({f"unicron_{e}": lane("cuda", e) for e in REPLAY_ENGINES})
+    fig_launches = plan.launch_counts()
+    cpu = {"fig11": replay.fig11("cpu"), "serving": replay.serving("cpu")}
+    for p, rec in cpu["fig11"]["policies"].items():
+        if _sim_bits(gpu["fig11"]["policies"][p]) != _sim_bits(rec):
+            raise AssertionError(f"replay: fig11 {p} on the card differs "
+                                 f"from the CPU run")
+    for e in REPLAY_ENGINES:
+        if _sim_bits(gpu[f"unicron_{e}"]["result"]) != \
+                _sim_bits(cpu["fig11"]["policies"]["unicron"]):
+            raise AssertionError(f"replay: fig11 unicron on the {e} engine "
+                                 f"differs from the batched engine")
+    for x, y in zip(gpu["serving"]["plans"], cpu["serving"]["plans"],
+                    strict=True):
+        if x["assignment"] != y["assignment"] or any(
+                _bits(x[k]) != _bits(y[k])
+                for k in ("total_reward", "waf", "served_rps")):
+            raise AssertionError(f"replay: serving plan {x} on the card, "
+                                 f"{y} on the CPU")
+    if not (gpu["fig11"]["launches"]["maxplus_conv"]
+            and gpu["fig11"]["launches"]["maxplus_conv_batched"]):
+        raise AssertionError(f"replay: fig11's unicron lane launched "
+                             f"{gpu['fig11']['launches']}")
+    if not gpu["unicron_fused"]["launches"]["maxplus_scan_chunk"]:
+        raise AssertionError(f"replay: the fused lane launched "
+                             f"{gpu['unicron_fused']['launches']}")
+
+    # -- 2. the paper-scale mixed fleet -----------------------------------
+    # fixed costs first: seed 0 on the CPU and on the fused and segtree
+    # engines; then the batched engine seed by seed on one fresh cache
+    # (what one run_monte_carlo call over those seeds does), each seed's
+    # vector run beside it, until the next seed would pass the budget
+    n_seeds = replay.CONFIGS[REPLAY_CONFIG][3]
+    cpu0 = replay.fleet("cpu", config=REPLAY_CONFIG, seeds=[0])
+    t_fleet = time.perf_counter()
+    engines = {e: replay.fleet("cuda", config=REPLAY_CONFIG, seeds=[0],
+                               plan_engine=e) for e in REPLAY_ENGINES}
+    gcache = PlannerCache()
+    batched, vector = [], []
+    while len(batched) < n_seeds:
+        s = len(batched)
+        batched.append(replay.fleet("cuda", config=REPLAY_CONFIG, seeds=[s],
+                                    plan_cache=gcache))
+        vector.append(replay.fleet("cuda", config=REPLAY_CONFIG, seeds=[s],
+                                   engine="vector", plan_cache=gcache))
+        elapsed = time.perf_counter() - t_phase
+        per_seed = sum(r["seconds"] for r in batched + vector) / (s + 1)
+        if elapsed + per_seed > REPLAY_BUDGET_S:
+            break
+    fleet_launches = {k: n - fig_launches[k]
+                      for k, n in plan.launch_counts().items()}
+    fleet_s = time.perf_counter() - t_fleet
+    seeds_run = len(batched)
+    reduced = ({} if seeds_run == n_seeds else
+               {"seeds": [n_seeds, seeds_run]})
+
+    # checks, in order: seed 0 card vs CPU, vector within REL_TOL per
+    # seed and policy, fused and segtree bitwise on seed 0
+    if _fleet_bits(batched[0]) != _fleet_bits(cpu0):
+        raise AssertionError("replay: the fleet's seed 0 on the card "
+                             "differs from the CPU run")
+    worst = 0.0
+    for b, v in zip(batched, vector):
+        for p, r in b["policies"].items():
+            want, got = r["per_seed"][0], v["policies"][p]["per_seed"][0]
+            rel = abs(got - want) / max(abs(want), 1.0)
+            worst = max(worst, rel)
+            if rel >= REPLAY_REL_TOL:
+                raise AssertionError(f"replay: vector {p} seed "
+                                     f"{b['seeds'][0]} off by {rel}")
+    for e, res in engines.items():
+        if _fleet_bits(res) != _fleet_bits(batched[0]):
+            raise AssertionError(f"replay: the fleet's seed 0 on the {e} "
+                                 f"engine differs from the batched engine")
+    if not fleet_launches["maxplus_conv"] or \
+            not fleet_launches["maxplus_conv_batched"]:
+        raise AssertionError(f"replay: the fleet's unicron lanes launched "
+                             f"{fleet_launches}")
+    fused = engines["fused"]
+    if fused["device_dispatches"] and \
+            not fused["launches"]["maxplus_scan_chunk"]:
+        raise AssertionError(f"replay: the fused fleet reported "
+                             f"{fused['device_dispatches']} dispatches and "
+                             f"no kernel-5 launch")
+    launches = {k: fig_launches[k] + fleet_launches[k]
+                for k in fig_launches}
+    by_variant = {k: c.count
+                  for k, c in maxplus.CONV_LAUNCHES_BY_VARIANT.items()}
+    profiled = _profile_replay_seed(0)      # after the counts are read
+    ctx["phase_launches"]["replay"] = launches
+    for k in MAXPLUS:
+        if k in ctx["kernels"]:
+            ctx["kernels"][k]["launches"] = \
+                (ctx["kernels"][k]["launches"] or 0) + launches[k]
+
+    def walls(parts):
+        return [r["seconds"] for r in parts]
+
+    fig = gpu["fig11"]["policies"]
+    emit({"phase": "replay", "ok": True,
+          "seconds": time.perf_counter() - t_phase,
+          "fig11": {"workers": 128, "tasks": 6, "events": fig["unicron"][
+              "n_events"],
+                    "policies": {p: {"accumulated_waf": r["accumulated_waf"],
+                                     "unicron_over": r["unicron_over"],
+                                     "downtime_h": r["downtime_s"] / 3600,
+                                     "n_reconfigs": r["n_reconfigs"]}
+                                 for p, r in fig.items()},
+                    "seconds_cuda": gpu["fig11"]["seconds"],
+                    "seconds_cpu": cpu["fig11"]["seconds"],
+                    "launches": gpu["fig11"]["launches"],
+                    "unicron_lane": {e: {"seconds": gpu[f"unicron_{e}"][
+                        "seconds"], "launches": gpu[f"unicron_{e}"][
+                        "launches"]} for e in REPLAY_ENGINES}},
+          "serving": {"plans": [{k: r[k] for k in ("rate_rps", "assignment",
+                                                    "served_rps")}
+                                for r in gpu["serving"]["plans"]],
+                      "seconds_cuda": gpu["serving"]["seconds"],
+                      "seconds_cpu": cpu["serving"]["seconds"],
+                      "launches": gpu["serving"]["launches"]},
+          "fleet": {"config": REPLAY_CONFIG, "workers": batched[0]["workers"],
+                    "tasks": batched[0]["tasks"], "span_days":
+                        replay.CONFIGS[REPLAY_CONFIG][2],
+                    "seeds": seeds_run, "reduced": reduced,
+                    "waf_mean": {p: float(np.mean(
+                        [b["policies"][p]["per_seed"][0] for b in batched]))
+                        for p in batched[0]["policies"]},
+                    "seed0_waf": {p: r["per_seed"][0] for p, r in
+                                  batched[0]["policies"].items()},
+                    "batched_seconds": walls(batched),
+                    "vector_seconds": walls(vector),
+                    "seed0_cpu_seconds": cpu0["seconds"],
+                    "engines_seed0": {e: {
+                        "seconds": r["seconds"], "launches": r["launches"],
+                        "tables_built": r["tables_built"],
+                        "device_dispatches": r["device_dispatches"]}
+                        for e, r in engines.items()},
+                    "tables_built": [r["tables_built"] for r in batched],
+                    "table_hits": [r["table_hits"] for r in batched],
+                    "vector_table_hits": [r["table_hits"] for r in vector],
+                    "cache_stats": gcache.stats(),
+                    "batched_launches": [r["launches"] for r in batched],
+                    "vector_launches": [r["launches"] for r in vector],
+                    "vector_worst_rel": worst,
+                    "vector_rel_tol": REPLAY_REL_TOL,
+                    "seconds_cuda": fleet_s},
+          "profiled_seed": profiled, "launches": launches,
+          "kernel3_launches_by_variant": by_variant,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "nvidia_smi": ctx["smi"]})
+
+
+
 TRAIN = dict(steps=4, seq=1024, batch=8, n_micro=4, dp=4, inject_fail=2)
 N_LAYERS = 4                    # gemma-2b has 18; the only reduction
 HYBRID = dict(steps=2, seq=1024, batch=8, n_micro=4, dp=4)
@@ -2387,7 +2647,8 @@ def main() -> int:
     ctx = {"kernels": {}, "smi": None, "phase_launches": {},
            "src": str(args.src)}
     fns = {"device": phase_device, "build": phase_build, "ab": phase_ab,
-           "kernel": phase_kernel, "plan": phase_plan, "train": phase_train,
+           "kernel": phase_kernel, "plan": phase_plan,
+           "replay": phase_replay, "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
            "self_heal": phase_self_heal, "serve": phase_serve,
            "serve_ssm": phase_serve_ssm, "profile": phase_profile}

@@ -71,15 +71,17 @@ def fleet_tasks(m: int, max_workers=None) -> List[Task]:
                  max_workers=max_workers) for i in range(m)]
 
 
-def _launch_counts() -> Dict[str, int]:
+def launch_counts() -> Dict[str, int]:
+    """Launches of each max-plus kernel so far."""
     return {name: c.count for name, c in maxplus.LAUNCHES.items()}
 
 
-def _delta(before: Dict[str, int]) -> Dict[str, int]:
-    return {name: c - before[name] for name, c in _launch_counts().items()}
+def launch_delta(before: Dict[str, int]) -> Dict[str, int]:
+    """Launches of each max-plus kernel since ``before``."""
+    return {name: c - before[name] for name, c in launch_counts().items()}
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -96,18 +98,18 @@ def fig11(device, engine: str) -> List[dict]:
     records = []
     for e in sev1:
         n -= WORKERS_PER_NODE
-        before = _launch_counts()
+        before = launch_counts()
         dispatches = coord.plan_stats.device_dispatches
         faulted = e.node % len(tasks)
         plan = coord.reconfigure(n, faulted_task=faulted)
-        _sync(device)
+        sync(device)
         records.append({
             "time_h": e.time / 3600, "kind": e.kind.value,
             "faulted_task": faulted, "n_workers": n,
             "assignment": list(plan.assignment),
             "total_reward": plan.total_reward, "waf": plan.waf,
             "rebuild_s": coord.plan_stats.last_rebuild_s,
-            "launches": _delta(before),
+            "launches": launch_delta(before),
             "device_dispatches": (coord.plan_stats.device_dispatches
                                   - dispatches)})
     return records
@@ -128,13 +130,13 @@ def churn(device, engine: str, *, n: int = 1024, m: int = 64,
         table = cache.table(tasks, assignment, A800, D_RUNNING,
                             D_TRANSITION, n_budget=n + WORKERS_PER_NODE,
                             engine=engine, device=device, dtype=dtype)
-        before = _launch_counts()
+        before = launch_counts()
         dispatches = table.batch_stats["device_dispatches"]
         t0 = time.perf_counter()
         totals = table.rebuild_values()
-        _sync(device)
+        sync(device)
         rebuild_s = time.perf_counter() - t0
-        launches = _delta(before)
+        launches = launch_delta(before)
         rec = {"step": step, "assignment": state, "totals": totals,
                "rebuild_s": rebuild_s, "launches": launches,
                "device_dispatches": (table.batch_stats["device_dispatches"]

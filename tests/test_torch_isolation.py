@@ -9,10 +9,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import planner  # noqa: E402
+from repro_torch.core import planner, simulator  # noqa: E402
 from repro_torch.core.coordinator import UnicronCoordinator  # noqa: E402
 from repro_torch.core.costmodel import A800  # noqa: E402
-from repro_torch.launch import plan  # noqa: E402
+from repro_torch.launch import plan, replay  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.launch import quickstart, self_healing  # noqa: E402
@@ -48,7 +48,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "src/repro_torch/serve/decode.py",
             "src/repro_torch/serve/scheduler.py",
             "src/repro_torch/launch/serve.py",
-            "src/repro_torch/launch/quickstart.py"} <= names
+            "src/repro_torch/launch/quickstart.py",
+            "src/repro_torch/core/simulator.py",
+            "src/repro_torch/core/scenarios.py",
+            "src/repro_torch/core/transition.py",
+            "src/repro_torch/core/cluster.py",
+            "src/repro_torch/core/calibration.py",
+            "src/repro_torch/core/chaos.py",
+            "src/repro_torch/launch/replay.py"} <= names
     bad = [(p.name, m) for p in files for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -93,6 +100,26 @@ def test_planner_entry_points_default_to_cuda_and_raise_without_it():
                                      3600.0, 120.0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         plan.replan()
+
+
+def test_replay_entry_points_default_to_cuda_and_raise_without_it():
+    _needs_no_cuda()
+    tasks, asg = replay.case5_tasks()
+    for policy in ("unicron", "megatron"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            simulator.TraceSimulator(tasks, asg, policy)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            simulator.VectorSimulator(tasks, asg, policy)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulator.BatchSimulator(tasks, asg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulator.run_policies(tasks, asg, [])
+    for engine in ("batched", "vector"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            simulator.run_monte_carlo(tasks, asg, None, [0], engine=engine)
+    for entry in (replay.replay, replay.fig11, replay.serving, replay.fleet):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
 
 
 def test_cuda_wrapper_raises_on_cpu_tensors_and_does_not_fall_back():
