@@ -87,6 +87,29 @@ Phases, each printing one JSON line:
                     wall seconds, tables built and hit, launches of kernels
                     3-5 in each part, one traced seed (device busy time,
                     idle share) and the peak device memory
+  control           launch.controlplane on the card: bench_chaos's suite
+                    (demo_world through ChaosHarness on 6 nodes x 4 GPUs,
+                    chaos-free and under each chaos_suite class: drop,
+                    delay_dup, partition, crash, full), every HarnessResult
+                    and LoopEvent bitwise equal to the CPU run's
+                    (plan_latency_s by presence) and each class's row equal
+                    to results/bench_chaos.json's gated fields; then
+                    bench_controlplane's stack at 100k agents ("quick", then
+                    "full"): ingestion on the legacy and sharded stores and
+                    SEV1 dispatch, the SEV1 plans, the cluster WAF after
+                    each (by bits), every event's action and the event
+                    counts of "full" equal to the CPU run's (its ticks cut,
+                    and the cut printed under ``reduced``, only past 60 s);
+                    kernels 3 and 4 bitwise their plain versions at the
+                    fleet's shapes (rows of N_AGENTS + 2 cells, bands 0,
+                    64, 128); events/s of both stores and their ratio
+                    beside the reference's CPU record, p50/p99 dispatch ms
+                    on the card and the CPU, kernel-3/4 launches per SEV1
+                    (every one launches one; kernel 5 never), tables built,
+                    one traced SEV1 dispatch in a process of its own
+                    (device busy time and idle share; the phase fails if
+                    the trace holds no device time), and the peak device
+                    memory
   train             launch.train.train() on gemma-2b at full width (depth
                     cut 18 -> 4 layers): fused steps, one injected DP-rank
                     failure recovered through micro-batch redistribution
@@ -147,9 +170,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernel", "plan", "replay", "train",
-          "train_ssm", "train_hybrid", "self_heal", "serve", "serve_ssm",
-          "profile")
+PHASES = ("device", "build", "kernel", "plan", "replay", "control",
+          "train", "train_ssm", "train_hybrid", "self_heal", "serve",
+          "serve_ssm", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
@@ -1863,6 +1886,328 @@ def phase_replay(ctx) -> None:
           "nvidia_smi": ctx["smi"]})
 
 
+# ---- control: the control loop and the chaos-hardened control plane -------
+
+CONTROL_CONFIG = "full"         # benchmarks/bench_controlplane.py:49-52
+CONTROL_CPU_BUDGET_S = 60.0     # the CPU half of the fleet; ticks cut past it
+# results/bench_controlplane.json: the reference's CPU record of the sharded
+# store's ingestion over the legacy one's
+CONTROL_REF_SPEEDUP = {"full": 23.700058793704734,
+                       "quick": 34.233761821189745}
+# results/bench_chaos.json's equal-gated fields (bench_chaos.py:5-11) and
+# counters, compared with each class's row
+CHAOS_FIELDS = ("converged", "waf_delta", "reconverge_s", "n_crashes",
+                "n_partitions", "dropped", "delayed", "duplicated",
+                "rejected")
+
+
+def _event_bits(ev) -> tuple:
+    """A ``LoopEvent`` field by field as exact bits; ``plan_latency_s``
+    (a wall clock) by its presence only."""
+    import enum
+    out = []
+    for f in dataclasses.fields(ev):
+        v = getattr(ev, f.name)
+        if f.name == "plan_latency_s":
+            v = v is not None
+        elif isinstance(v, float):
+            v = _bits(v)
+        elif isinstance(v, enum.Enum):
+            v = v.value
+        out.append(v)
+    return tuple(out)
+
+
+def _harness_bits(res) -> tuple:
+    """A ``HarnessResult`` field by field as exact bits."""
+    return tuple((f.name, _bits(v) if isinstance(v, float) else v)
+                 for f in dataclasses.fields(res)
+                 for v in [getattr(res, f.name)])
+
+
+def fleet_conv_cases():
+    """(kernel, args) in numpy float64 at the shapes a fleet SEV1 gives
+    kernels 3 and 4: rows of N_AGENTS + 2 cells (the table's budget is the
+    fleet plus one node's workers, core/coordinator.py:317, and the zero
+    cell), at the bands of a stack's first dispatch (kernel 4 on three
+    rows of band CAP; kernel 3 at 0, CAP and 2 CAP) and of each later one
+    (kernel 3 at CAP)."""
+    import numpy as np
+    from repro_torch.launch import controlplane as cp
+    rng = np.random.RandomState(21)
+    n, cap = cp.N_AGENTS + 1, cp.CAP
+    cases = [("maxplus_conv_batched",
+              _capped_rows(rng, 3, n, [cap] * 3) + ([cap] * 3,))]
+    for band in (0, cap, 2 * cap):
+        prev, g = _capped_rows(rng, 1, n, [band])
+        cases.append(("maxplus_conv", (prev[0], g[0], band)))
+    return cases
+
+
+def check_fleet_convs() -> list:
+    """Kernels 3 and 4 through their CUDA wrappers at ``fleet_conv_cases``,
+    held bit for bit against the plain version on the card and on the
+    CPU.  Returns the shapes checked."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import maxplus, ref
+    checked = []
+    for kernel, args in fleet_conv_cases():
+        host = tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                     for a in args)
+        card = tuple(a.cuda() if isinstance(a, torch.Tensor) else a
+                     for a in host)
+        got = getattr(maxplus, kernel + "_cuda")(*card)
+        want = getattr(ref, kernel)(*card)
+        torch.cuda.synchronize()
+        if not (_same_bits(got, want)
+                and _same_bits(want.cpu(), getattr(ref, kernel)(*host))):
+            diff = (got - want).abs().nan_to_num(nan=float("inf"))
+            raise AssertionError(f"control: {kernel} at the fleet's shape "
+                                 f"{tuple(got.shape)}, bands {args[2]}: not "
+                                 f"bitwise the plain version (max |diff| "
+                                 f"{diff.max().item()})")
+        checked.append({"kernel": kernel, "shape": list(got.shape),
+                        "bands": args[2]})
+    return checked
+
+
+def _profile_dispatch() -> dict:
+    """Device busy time over one steady SEV1 dispatch tick at 100k agents:
+    a fresh sharded stack on the card, one untraced dispatch (its lazy
+    table), then one traced with torch.profiler, its device time and idle
+    share.  Fails if the trace holds no device time.  Run it in a process
+    of its own (``traced_dispatch``): late in a long process the profiler
+    drops a short trace's device work (PERF.md §7)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.kvstore import KVStore
+    from repro_torch.launch import controlplane as cp
+    from repro_torch.launch import plan
+
+    kv, _, _, loop = cp.fleet_stack(KVStore, "cuda")
+    ids = np.arange(cp.N_AGENTS)
+
+    def sev1(node):
+        t = cp.TICK_S * (node + 1)
+        kv.heartbeat_batch(ids, t, ttl=cp.HB_TTL)
+        cp.sev1_report(kv, node, t)
+        return t
+
+    loop.tick(sev1(0))                  # builds the stack's lazy table
+    t = sev1(1)
+    before = plan.launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evs = loop.tick(t)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = plan.launch_delta(before)
+    if len(evs) != 1 or evs[0].plan is None:
+        raise AssertionError(f"control: the traced SEV1 gave {evs}")
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    if not rows:
+        raise AssertionError(f"control: the traced SEV1 dispatch launched "
+                             f"{launched} but its trace holds no device "
+                             f"time")
+    busy = sum(r[1] for r in rows)
+    return {"agents": cp.N_AGENTS, "wall_ms_traced": wall_ms,
+            "launches_traced": launched, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms,
+            "top": [{"name": k[:80], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:8]]}
+
+
+def traced_dispatch(src: str) -> dict:
+    """``_profile_dispatch`` in a fresh Python process on the card, this
+    script imported from ``src``'s checkout; its result, or the child's
+    error."""
+    code = ("import json, sys; sys.path[:0] = sys.argv[1:3]; "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke._profile_dispatch()))")
+    proc = subprocess.run([sys.executable, "-c", code,
+                           str(Path(src).resolve()), str(ROOT)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"control: the traced dispatch's process "
+                             f"failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_control(ctx) -> None:
+    """launch.controlplane on the card: bench_chaos's suite held bitwise
+    against the CPU run and against the reference's committed CPU record,
+    then bench_controlplane's 100k-agent fleet, its SEV1 plans, actions and
+    event counts held against the CPU run (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import maxplus
+    from repro_torch.launch import controlplane as cp
+    from repro_torch.launch import plan
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    counters = list(maxplus.LAUNCHES.values()) + \
+        list(maxplus.CONV_LAUNCHES_BY_VARIANT.values())
+
+    # -- the main path on the card: the chaos suite, then the fleet in
+    # bench_controlplane's order, "quick" (which pays the process's first
+    # cost-model sweeps) before "full" --------------------------------------
+    for c in counters:
+        c.count = 0
+    gpu_chaos = cp.chaos("cuda")
+    gpu_quick = cp.fleet("cuda", config="quick")
+    gpu_fleet = cp.fleet("cuda", config=CONTROL_CONFIG)
+    launches = plan.launch_counts()
+    by_variant = {k: c.count
+                  for k, c in maxplus.CONV_LAUNCHES_BY_VARIANT.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # -- 1. the chaos suite, card == CPU bitwise -------------------------
+    cpu_chaos = cp.chaos("cpu")
+    for name in ("free", *cpu_chaos["classes"]):
+        g = gpu_chaos["free"] if name == "free" else \
+            gpu_chaos["classes"][name]
+        c = cpu_chaos["free"] if name == "free" else \
+            cpu_chaos["classes"][name]
+        if _harness_bits(g["result"]) != _harness_bits(c["result"]):
+            raise AssertionError(f"control: chaos {name}'s HarnessResult on "
+                                 f"the card {g['result']}, on the CPU "
+                                 f"{c['result']}")
+        if [_event_bits(e) for e in g["events"]] != \
+                [_event_bits(e) for e in c["events"]]:
+            raise AssertionError(f"control: chaos {name}'s loop events on "
+                                 f"the card differ from the CPU run's")
+        if name != "free" and g["row"] != c["row"]:
+            raise AssertionError(f"control: chaos row {g['row']} on the "
+                                 f"card, {c['row']} on the CPU")
+
+    # -- 2. the card's rows against the reference's CPU record ------------
+    record = {r["case"]: r for r in json.loads(
+        (ROOT / "results" / "bench_chaos.json").read_text())}
+    rows = [c["row"] for c in gpu_chaos["classes"].values()]
+    for row in rows:
+        want = {k: record[row["case"]][k] for k in CHAOS_FIELDS}
+        if {k: row[k] for k in CHAOS_FIELDS} != want:
+            raise AssertionError(f"control: chaos row {row} against "
+                                 f"results/bench_chaos.json's {want}")
+
+    # -- 3. the fleet at 100k agents, card against CPU --------------------
+    cfg = cp.CONFIGS[CONTROL_CONFIG]
+    # the CPU repeats the host's ingestion ticks and runs the plain
+    # max-plus versions for each SEV1: each store's ticks get a quarter of
+    # the budget (timed by the card run's ticks, the same host work), the
+    # other half is left to the stacks' set-up and the SEV1s
+    ticks, reduced = {}, {}
+    for store in ("sharded", "legacy"):
+        per_tick = gpu_fleet["stores"][store]["wall_s"] / \
+            cfg[f"ticks_{store}"]
+        fit = int(CONTROL_CPU_BUDGET_S / 4 / max(per_tick, 1e-9))
+        if fit < cfg[f"ticks_{store}"]:
+            ticks[store] = max(2, fit)
+            reduced[f"cpu_ticks_{store}"] = [cfg[f"ticks_{store}"],
+                                             ticks[store]]
+    cpu_fleet = cp.fleet("cpu", config=CONTROL_CONFIG, ticks=ticks)
+    if gpu_fleet["sev1_plans"] != cpu_fleet["sev1_plans"] or \
+            [_bits(w) for w in gpu_fleet["sev1_waf"]] != \
+            [_bits(w) for w in cpu_fleet["sev1_waf"]]:
+        raise AssertionError(f"control: SEV1 plans {gpu_fleet['sev1_plans']}"
+                             f", WAF {gpu_fleet['sev1_waf']} on the card, "
+                             f"{cpu_fleet['sev1_plans']}, "
+                             f"{cpu_fleet['sev1_waf']} on the CPU")
+    for store in ("legacy", "sharded"):
+        g, c = gpu_fleet["stores"][store], cpu_fleet["stores"][store]
+        for res, rec in ((gpu_fleet, g), (cpu_fleet, c)):
+            if rec["loop_events"] != cfg["errors"] * rec["ticks"] or \
+                    rec["events"] != rec["events_per_tick"] * rec["ticks"]:
+                raise AssertionError(f"control: {store} ingestion counted "
+                                     f"{rec}")
+        if not ticks.get(store) and \
+                (g["events"], g["loop_events"]) != \
+                (c["events"], c["loop_events"]):
+            raise AssertionError(f"control: {store} event counts {g} on the "
+                                 f"card, {c} on the CPU")
+        # the CPU's events: its ingestion ticks, then (sharded) the SEV1s
+        ge, ce = gpu_fleet["events"][store], cpu_fleet["events"][store]
+        n_sev1 = gpu_fleet["sev1_replans"] if store == "sharded" else 0
+        ge = ge[:len(ce) - n_sev1] + ge[len(ge) - n_sev1:]
+        if [e.action.value for e in ge] != [e.action.value for e in ce]:
+            raise AssertionError(f"control: {store} loop actions on the "
+                                 f"card differ from the CPU run's")
+        if [e.plan for e in ge] != [e.plan for e in ce]:
+            raise AssertionError(f"control: {store} loop plans on the card "
+                                 f"differ from the CPU run's")
+
+    # -- the launches: kernels 3 and 4 on the path, kernel 5 never -------
+    per_dispatch = gpu_quick["launches_per_dispatch"] + \
+        gpu_fleet["launches_per_dispatch"]
+    if not launches["maxplus_conv"] or not launches["maxplus_conv_batched"] \
+            or launches["maxplus_scan_chunk"]:
+        raise AssertionError(f"control: the phase launched {launches}")
+    if any(not (d["maxplus_conv"] + d["maxplus_conv_batched"])
+           for d in per_dispatch):
+        raise AssertionError(f"control: a SEV1 dispatch launched no "
+                             f"max-plus kernel: {per_dispatch}")
+    fleet_convs = check_fleet_convs()       # after the counts are read
+    profiled = traced_dispatch(ctx["src"])
+    ctx["phase_launches"]["control"] = launches
+    for k in MAXPLUS:
+        if k in ctx["kernels"]:
+            ctx["kernels"][k]["launches"] = \
+                (ctx["kernels"][k]["launches"] or 0) + launches[k]
+
+    def fleet_fields(f):
+        return {"events_per_sec": {s: r["events_per_sec"]
+                                   for s, r in f["stores"].items()},
+                "ticks": {s: r["ticks"] for s, r in f["stores"].items()},
+                "ingest_speedup": f["ingest_speedup"],
+                "p50_event_ms": f["p50_event_ms"],
+                "p99_event_ms": f["p99_event_ms"],
+                "dispatch_ms": f["dispatch_ms"], "seconds": f["seconds"]}
+
+    emit({"phase": "control", "ok": True,
+          "seconds": time.perf_counter() - t_phase,
+          "chaos": {"rows": rows, "seconds_cuda": gpu_chaos["seconds"],
+                    "seconds_cpu": cpu_chaos["seconds"],
+                    "launches": gpu_chaos["launches"],
+                    "events": {n: len(c["events"]) for n, c in
+                               gpu_chaos["classes"].items()}},
+          "fleet": {"config": CONTROL_CONFIG, "agents": gpu_fleet["agents"],
+                    "tasks": gpu_fleet["tasks"], "cap": gpu_fleet["cap"],
+                    "reduced": reduced,
+                    "events": {s: r["events"] for s, r in
+                               gpu_fleet["stores"].items()},
+                    "loop_events": {s: r["loop_events"] for s, r in
+                                    gpu_fleet["stores"].items()},
+                    "cuda": fleet_fields(gpu_fleet),
+                    "cpu": fleet_fields(cpu_fleet),
+                    "ingest_speedup_reference_cpu":
+                        CONTROL_REF_SPEEDUP[CONTROL_CONFIG],
+                    "sev1_plans": gpu_fleet["sev1_plans"],
+                    "launches_per_dispatch":
+                        gpu_fleet["launches_per_dispatch"],
+                    "launches": gpu_fleet["launches"],
+                    "tables_built": gpu_fleet["tables_built"]},
+          "fleet_quick": {"cuda": fleet_fields(gpu_quick),
+                          "ingest_speedup_reference_cpu":
+                              CONTROL_REF_SPEEDUP["quick"],
+                          "sev1_plans": gpu_quick["sev1_plans"],
+                          "launches_per_dispatch":
+                              gpu_quick["launches_per_dispatch"],
+                          "tables_built": gpu_quick["tables_built"]},
+          "fleet_convs_bitwise": fleet_convs,
+          "profiled_dispatch": profiled, "launches": launches,
+          "kernel3_launches_by_variant": by_variant,
+          "max_memory_allocated_gb": peak_gb,
+          "nvidia_smi": ctx["smi"]})
+
 
 TRAIN = dict(steps=4, seq=1024, batch=8, n_micro=4, dp=4, inject_fail=2)
 N_LAYERS = 4                    # gemma-2b has 18; the only reduction
@@ -2648,7 +2993,8 @@ def main() -> int:
            "src": str(args.src)}
     fns = {"device": phase_device, "build": phase_build, "ab": phase_ab,
            "kernel": phase_kernel, "plan": phase_plan,
-           "replay": phase_replay, "train": phase_train,
+           "replay": phase_replay, "control": phase_control,
+           "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
            "self_heal": phase_self_heal, "serve": phase_serve,
            "serve_ssm": phase_serve_ssm, "profile": phase_profile}

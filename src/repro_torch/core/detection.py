@@ -1,9 +1,10 @@
 """In-band error detection (§4.1): severities, methods, the Table-1 error
 table, the Table-2 detection latencies and the online statistical monitor,
 with their array forms over (kinds x policies) and over a fleet of tasks
-(``detection_times``, ``FleetMonitor``) that the simulator's engines read.
+(``detection_times``, ``FleetMonitor``) that the simulator's engines read,
+and the status monitor's array-native heartbeat table (``HeartbeatTable``).
 
-Copied from ``repro/core/detection.py`` (all but ``HeartbeatTable``).
+Copied from ``repro/core/detection.py``.
 """
 from __future__ import annotations
 
@@ -151,6 +152,18 @@ class OnlineStatMonitor:
     window: int = 64
     _hist: Deque[float] = field(default_factory=deque)
 
+    @classmethod
+    def primed(cls, avg_iter_s: float, window: int = 64,
+               n_obs: Optional[int] = None) -> "OnlineStatMonitor":
+        """A monitor warmed with a steady-state iteration history, as a
+        task that has been training for a while would have — the simulator
+        and the scenario tests use this to ask whether a slow-node event
+        trips the 1.1x degradation margin (Fig. 6)."""
+        mon = cls(window=window)
+        for _ in range(n_obs if n_obs is not None else window):
+            mon.observe(avg_iter_s)
+        return mon
+
     def observe(self, iter_s: float) -> None:
         self._hist.append(iter_s)
         if len(self._hist) > self.window:
@@ -172,6 +185,126 @@ class OnlineStatMonitor:
         if waited_s > DEGRADE_MARGIN * avg:
             return "degraded"
         return "ok"
+
+
+class HeartbeatTable:
+    """Array-native heartbeat liveness — the ``FleetMonitor`` ring-buffer
+    idiom extended from per-task statistics to per-shard lease state.
+
+    The status monitor's hot liveness path at fleet scale is not a dict
+    of lease objects: beats and lease deadlines live in numpy arrays
+    sharded by node group (``node_id // group_size``), so
+
+    * a single beat is two array element writes,
+    * a whole agent cohort's beats (``beat_batch``) are one fancy-index
+      scatter per touched group, and
+    * lease expiry (``expired``) is one vectorized ``deadline <= now``
+      comparison + argwhere per group instead of a per-node Python scan.
+
+    Semantics match a plain KV lease table: a beat overwrites the value
+    and re-arms the deadline, ``pop`` revokes, expiry drops the node and
+    reports it exactly once.  Groups materialize lazily, so a sparse id
+    space costs only the groups actually inhabited."""
+
+    __slots__ = ("group_size", "_groups")
+
+    def __init__(self, group_size: int = 1024):
+        self.group_size = group_size
+        # gid -> [beat values, lease deadlines, presence mask]
+        self._groups: Dict[int, Tuple[np.ndarray, np.ndarray,
+                                      np.ndarray]] = {}
+
+    def _group(self, gid: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        g = self._groups.get(gid)
+        if g is None:
+            size = self.group_size
+            g = self._groups[gid] = (np.full(size, np.nan),
+                                     np.full(size, np.inf),
+                                     np.zeros(size, dtype=bool))
+        return g
+
+    def __len__(self) -> int:
+        return sum(int(g[2].sum()) for g in self._groups.values())
+
+    def beat(self, node: int, value: float, deadline: float) -> None:
+        gid, off = divmod(int(node), self.group_size)
+        beats, deadlines, present = self._group(gid)
+        beats[off] = value
+        deadlines[off] = deadline
+        present[off] = True
+
+    def beat_batch(self, nodes, value: float, deadline: float) -> None:
+        """One cohort, one scatter per touched group.  The cohort is
+        sorted once so each group's offsets are a contiguous slice — no
+        per-group masking pass over the whole cohort."""
+        ids = np.asarray(nodes, dtype=np.int64)
+        if ids.size == 0:
+            return
+        if ids.size > 1 and np.any(ids[1:] < ids[:-1]):
+            ids = np.sort(ids)
+        gids = ids // self.group_size
+        offs = ids % self.group_size
+        uniq, starts = np.unique(gids, return_index=True)
+        ends = np.append(starts[1:], ids.size)
+        for gid, lo, hi in zip(uniq, starts, ends):
+            beats, deadlines, present = self._group(int(gid))
+            sel = offs[lo:hi]
+            beats[sel] = value
+            deadlines[sel] = deadline
+            present[sel] = True
+
+    def get(self, node: int, default=None):
+        gid, off = divmod(int(node), self.group_size)
+        g = self._groups.get(gid)
+        if g is None or not g[2][off]:
+            return default
+        return float(g[0][off])
+
+    def pop(self, node: int) -> bool:
+        """Revoke a node's lease; True if it was present."""
+        gid, off = divmod(int(node), self.group_size)
+        g = self._groups.get(gid)
+        if g is None or not g[2][off]:
+            return False
+        g[0][off] = np.nan
+        g[1][off] = np.inf
+        g[2][off] = False
+        return True
+
+    def cas(self, node: int, expect, value) -> bool:
+        """Swap the beat value only — the lease deadline survives, the
+        KV-level cas-preserves-lease contract."""
+        gid, off = divmod(int(node), self.group_size)
+        g = self._groups.get(gid)
+        current = float(g[0][off]) if g is not None and g[2][off] else None
+        if current == expect:
+            self._group(gid)[0][off] = value
+            self._groups[gid][2][off] = True
+            return True
+        return False
+
+    def items(self):
+        """(node, beat value) pairs for all present nodes, id order."""
+        for gid in sorted(self._groups):
+            beats, _, present = self._groups[gid]
+            for off in np.nonzero(present)[0]:
+                yield gid * self.group_size + int(off), float(beats[off])
+
+    def expired(self, now: float) -> list:
+        """Drop lapsed leases; node ids in ascending order — one
+        vectorized comparison + argwhere per inhabited group."""
+        out = []
+        for gid in sorted(self._groups):
+            beats, deadlines, present = self._groups[gid]
+            hits = np.nonzero(present & (deadlines <= now))[0]
+            if hits.size == 0:
+                continue
+            beats[hits] = np.nan
+            deadlines[hits] = np.inf
+            present[hits] = False
+            base = gid * self.group_size
+            out.extend(base + int(off) for off in hits)
+        return out
 
 
 class FleetMonitor:

@@ -9,10 +9,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import planner, simulator  # noqa: E402
+from repro_torch.core import chaos, planner, simulator  # noqa: E402
 from repro_torch.core.coordinator import UnicronCoordinator  # noqa: E402
 from repro_torch.core.costmodel import A800  # noqa: E402
-from repro_torch.launch import plan, replay  # noqa: E402
+from repro_torch.launch import controlplane, plan, replay  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.launch import quickstart, self_healing  # noqa: E402
@@ -55,7 +55,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "src/repro_torch/core/cluster.py",
             "src/repro_torch/core/calibration.py",
             "src/repro_torch/core/chaos.py",
-            "src/repro_torch/launch/replay.py"} <= names
+            "src/repro_torch/launch/replay.py",
+            "src/repro_torch/core/controlloop.py",
+            "src/repro_torch/core/kvstore.py",
+            "src/repro_torch/launch/controlplane.py"} <= names
     bad = [(p.name, m) for p in files for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -120,6 +123,16 @@ def test_replay_entry_points_default_to_cuda_and_raise_without_it():
     for entry in (replay.replay, replay.fig11, replay.serving, replay.fleet):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry()
+
+
+def test_controlplane_entry_points_default_to_cuda_and_raise_without_it():
+    _needs_no_cuda()
+    for entry in (controlplane.chaos, controlplane.fleet):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+    tasks, assignment, _ = controlplane.chaos_fleet()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        chaos.ChaosHarness(tasks=tasks, assignment=assignment, hw=A800)
 
 
 def test_cuda_wrapper_raises_on_cpu_tensors_and_does_not_fall_back():
