@@ -13,9 +13,10 @@ Phases, each printing one JSON line:
                     bfloat16, the wgmma kernel's edges, fused-QKV, strided
                     and misaligned views), the wgmma kernels' ptxas lines
                     (no spills, no serialised wgmma), and times at gemma-2b's,
-                    zamba2-1.2b's and qwen3-4b's training shapes beside
-                    SDPA's, with gemma-2b's last causal q tile alone and
-                    B = 8
+                    zamba2-1.2b's, qwen3-4b's and granite-moe-3b-a800m's
+                    (GQA group 3: 24 heads over 8 KV heads) training shapes
+                    beside SDPA's, with gemma-2b's last causal q tile alone
+                    and B = 8
   kernel:maxplus    the three max-plus kernels against their plain
                     versions on the card, bitwise (int64/int32 views) in
                     float32 and float64, at the reference's test cases and
@@ -120,6 +121,12 @@ Phases, each printing one JSON line:
   train_hybrid      zamba2-1.2b at full width (depth cut 38 -> 12, two
                     applications of the shared attention block): two fused
                     steps through both kernels
+  train_moe         the train phase on granite-moe-3b-a800m at full width
+                    (40 experts top-8, capacity factor 1.25; depth cut 32 ->
+                    8): kernels 1 and 2 counted every step, the recovered
+                    gradient, the checkpoint round trips, each step's router
+                    aux loss and share of assignments dropped, and one
+                    micro-batch's gradient computed twice, equal bit for bit
   self_heal         launch.self_healing: three injected failures and the
                     strict-semantics check against a fault-free shadow run
   serve             launch.serve on qwen3-4b at full width and full depth:
@@ -145,9 +152,18 @@ Phases, each printing one JSON line:
                     depth through the graph: 97 RMSNorm launches a decode
                     step, finite logits, the graph step against eager, the
                     traced eager and replayed steps
+  serve_moe         the serve phase's two parts on granite-moe-3b-a800m at
+                    full width and full depth (32 layers, 3.30 B params) on
+                    the graphed decoder: 65 RMSNorm launches a decode step
+                    counted through replays, the decode path held against
+                    a training forward that drops no token (capacity factor
+                    E / K) with the 1.25 forward's drop share beside it, the
+                    graph step against eager, the traced eager and replayed
+                    steps, and the batcher's greedy tokens against
+                    generate()'s (printed)
   profile           device time by kernel over one traced steady step of
-                    the train and train_ssm phases' configurations, and the
-                    idle share
+                    the train, train_ssm and train_moe phases'
+                    configurations, and the idle share
 
 Then a line with the card's name and power limit, a line with every
 kernel's numbers, and the result line.  Any failure exits non-zero before
@@ -171,8 +187,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernel", "plan", "replay", "control",
-          "train", "train_ssm", "train_hybrid", "self_heal", "serve",
-          "serve_ssm", "profile")
+          "train", "train_ssm", "train_hybrid", "train_moe", "self_heal",
+          "serve", "serve_ssm", "serve_moe", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
@@ -246,6 +262,10 @@ ZAMBA2_ATTN_SHAPE = (2, 1024, 1024, 32, 32, 64, 64, True, 0, 0.0, 0,
 # which the wgmma kernel runs two consumer warpgroups per block
 QWEN3_ATTN_SHAPE = (2, 1024, 1024, 32, 8, 128, 128, True, 0, 0.0, 0,
                     "bfloat16")
+# granite-moe-3b-a800m's at the train_moe phase's micro-batch: GQA group 3
+# (24 heads, not a multiple of 8, over 8 KV heads) at D = 64
+GRANITE_ATTN_SHAPE = (2, 1024, 1024, 24, 8, 64, 64, True, 0, 0.0, 0,
+                      "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -500,7 +520,8 @@ def phase_kernel(ctx) -> None:
           wgmma_build_report(ctx)})
     cases = [(c, "contiguous", None) for c in ATTN_CASES] + \
         [(c, "contiguous", "wgmma") for c in WGMMA_CASES +
-         [GEMMA_SHAPE, ZAMBA2_ATTN_SHAPE, QWEN3_ATTN_SHAPE]] + \
+         [GEMMA_SHAPE, ZAMBA2_ATTN_SHAPE, QWEN3_ATTN_SHAPE,
+          GRANITE_ATTN_SHAPE]] + \
         [(c, layout, want) for layout, c, want in ATTN_LAYOUT_CASES]
     worst, ran = 0.0, {}
     for case, layout, expect in cases:
@@ -532,7 +553,9 @@ def phase_kernel(ctx) -> None:
               "zamba2-1.2b B=2 S=1024 H=KV=32 D=64 causal bf16":
                   ZAMBA2_ATTN_SHAPE,
               "qwen3-4b B=2 S=1024 H=32 KV=8 D=128 causal bf16":
-                  QWEN3_ATTN_SHAPE}
+                  QWEN3_ATTN_SHAPE,
+              "granite-moe-3b-a800m B=2 S=1024 H=24 KV=8 D=64 causal bf16":
+                  GRANITE_ATTN_SHAPE}
     for i, (label, case) in enumerate(shapes.items()):
         q, k, v = attn_inputs(case, seed=1)
         opts = dict(causal=True, window=0, softcap=0.0, q_offset=0)
@@ -1267,6 +1290,7 @@ RMS_SHAPES = [
     ("gemma-2b train block norm", (2, 1024, 2048), "bfloat16"),
     ("mamba2-780m train gate norm", (2, 1024, 3072), "bfloat16"),
     ("zamba2-1.2b train gate norm", (2, 1024, 4096), "bfloat16"),
+    ("granite-moe-3b-a800m train block norm", (2, 1024, 1536), "bfloat16"),
     ("reduced configs (f32)", (2, 1024, 256), "float32"),
 ]
 RMS_MAIN = "qwen3-4b decode block norm"        # the kernels line's row
@@ -2213,6 +2237,7 @@ TRAIN = dict(steps=4, seq=1024, batch=8, n_micro=4, dp=4, inject_fail=2)
 N_LAYERS = 4                    # gemma-2b has 18; the only reduction
 HYBRID = dict(steps=2, seq=1024, batch=8, n_micro=4, dp=4)
 HYBRID_LAYERS = 12              # zamba2-1.2b has 38: two shared-block periods
+MOE_LAYERS = 8                  # granite-moe-3b-a800m has 32; the only reduction
 # The recovered gradient sums the redistributed micro-batches in another
 # order than the fault-free one; f32 accumulators over bf16 gradients of
 # magnitude <= max|g| differ by a few f32 ulps of that magnitude.
@@ -2231,14 +2256,16 @@ def _tree_equal(a, b) -> bool:
 def launches_per_pass(cfg) -> dict:
     """Launches of each kernel in one forward pass of ``cfg``, from the
     config alone (not from the model's segment plan): one attention per
-    dense layer, one SSD scan per Mamba2 layer, and one attention per
+    dense or MoE layer, one SSD scan per Mamba2 layer, and one attention per
     shared-block application, after every ``shared_period`` layers of a
     hybrid stack; two RMSNorms per attention block (four with qk-norm), two
-    per Mamba2 layer (the block's and the gate's) and the final one.  The
-    backward recomputes through the plain versions and launches nothing."""
+    per Mamba2 layer (the block's and the gate's) and the final one.  An
+    MoE layer's FFN (router, dispatch, expert products) is PyTorch ops, as
+    the reference's is XLA, so it counts as a dense layer.  The backward
+    recomputes through the plain versions and launches nothing."""
     a = cfg.attn
     per_attn = 2 + (2 if a is not None and a.qk_norm else 0)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         return {"flash_attention": cfg.n_layers, "ssd_scan": 0,
                 "rmsnorm": per_attn * cfg.n_layers + 1}
     shared = cfg.n_layers // cfg.shared_period if cfg.arch_type == "hybrid" \
@@ -2267,6 +2294,9 @@ def _model_fields(cfg) -> dict:
         out.update(ssm_heads=s.n_heads(cfg.d_model), ssm_head_dim=s.head_dim,
                    d_state=s.d_state, chunk=s.chunk,
                    shared_period=cfg.shared_period)
+    if cfg.moe is not None:
+        out.update(dataclasses.asdict(cfg.moe),
+                   active_params=cfg.active_param_count())
     return out
 
 
@@ -2288,13 +2318,16 @@ def attention_variants_check(phase: str, total: int,
     return by
 
 
-def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool) -> dict:
+def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
+              step_fields=None, final_fields=None) -> dict:
     """launch.train.train() on ``cfg`` with ``opts``; every step's launches
     of each kernel checked against ``launches_per_pass`` (twice on the
     verified recovered step), losses and gradient norms finite, the
     recovered gradient within RECOVERY_RTOL of the fault-free one and, with
     ``checkpoint``, the step-0 in-memory and persistent saves restored
-    bitwise.  Returns the run's launches of each kernel."""
+    bitwise.  ``step_fields()`` adds fields to each step's line and
+    ``final_fields(result)`` (which may raise) to the phase's last.
+    Returns the run's launches of each kernel."""
     import torch
     from repro_torch.checkpoint import persistent
     from repro_torch.launch.train import KERNEL_LAUNCHES, train
@@ -2306,7 +2339,8 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool) -> dict:
 
     def on_step(result) -> None:
         rec = result.history[-1]
-        emit({"phase": phase, **rec})
+        emit({"phase": phase, **rec, **(step_fields() if step_fields
+                                          else {})})
         if not checkpoint or rec["step"] != 0:
             return
         # the one in-memory and one persistent save happen at step 0
@@ -2371,6 +2405,8 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool) -> dict:
                 raise AssertionError(f"{phase}: {tier} restore differs from "
                                      f"the saved state")
         out["checkpoint"] = ckpt
+    if final_fields is not None:
+        out.update(final_fields(result))
     fused = [r for r in result.history if r["kind"] == "fused"
              and r["step"] > 0]
     emit({**out, "losses": [r["loss"] for r in result.history],
@@ -2408,6 +2444,74 @@ def phase_train_hybrid(ctx) -> None:
     run_train(ctx, "train_hybrid", cfg,
               {"n_layers": [full.n_layers, HYBRID_LAYERS]}, HYBRID,
               checkpoint=False)
+
+
+class DropCounter:
+    """Within a ``with`` block, counts the MoE assignments every
+    ``models.moe.route`` call routes and drops (the drops summed on the
+    device, read by ``take``)."""
+
+    def __enter__(self) -> "DropCounter":
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe.route
+        self.dropped, self.total = [], 0
+
+        def route(router, cfg, xt):
+            r = self._route(router, cfg, xt)
+            self.dropped.append((~r.keep).sum())
+            self.total += r.keep.numel()
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._moe.route = self._route
+
+    def take(self) -> dict:
+        """The assignments routed and the share dropped since the last
+        call."""
+        import torch
+        n = int(torch.stack(self.dropped).sum()) if self.dropped else 0
+        out = {"assignments": self.total, "dropped": n,
+               "drop_share": n / self.total if self.total else None}
+        self.dropped, self.total = [], 0
+        return out
+
+
+def same_bits_gradient(cfg, params) -> dict:
+    """One training micro-batch's gradient at ``params`` computed twice on
+    the card (the train phases' first micro-batch of step 0): equal bit
+    for bit, or the phase fails."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import make_grad_fn
+    grad_fn = make_grad_fn(build_model(cfg, "cuda"))
+    data = SyntheticLM(cfg, seq_len=TRAIN["seq"],
+                       global_batch=TRAIN["batch"], device="cuda")
+    mb = data.batch(0, start=0, n=TRAIN["batch"] // TRAIN["n_micro"])
+    first = tree.leaves(grad_fn(params, mb)[0])
+    second = tree.leaves(grad_fn(params, mb)[0])
+    differ = [i for i, (a, b) in enumerate(zip(first, second))
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"a micro-batch's gradient differs between "
+                             f"two runs in {len(differ)} of {len(first)} "
+                             f"leaves")
+    return {"gradient_twice_bitwise_equal": True, "leaves": len(first)}
+
+
+def phase_train_moe(ctx) -> None:
+    from repro_torch.configs import get_arch
+    full = get_arch("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    with DropCounter() as drops:
+        run_train(ctx, "train_moe", cfg,
+                  {"n_layers": [full.n_layers, MOE_LAYERS]}, TRAIN,
+                  checkpoint=True, step_fields=drops.take,
+                  final_fields=lambda result: same_bits_gradient(
+                      cfg, result.state.params))
 
 
 def phase_self_heal(ctx) -> None:
@@ -2709,36 +2813,51 @@ def _part_fields(part) -> dict:
             if k not in ("outs", "finished")}
 
 
+def run_serve(ctx, phase, cfg, opts, continuous: bool = True) -> tuple:
+    """launch.serve.serve() on ``cfg`` with ``opts``, its continuous part
+    with ``continuous``: every decode step's launches of each kernel
+    checked against ``launches_per_decode_step`` (replays counted), the
+    logits finite, each part decoded through one graph (one eager step,
+    one capture, replays) and the continuous part's counters adding up.
+    Returns (the ServeResult, the launches, seconds, decode steps)."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import KERNEL_LAUNCHES
+
+    emit({"phase": phase, **_model_fields(cfg), "reduced": {}, **opts})
+    for counter in KERNEL_LAUNCHES.values():
+        counter.count = 0
+    t0 = time.perf_counter()
+    res = serve(cfg, device="cuda", continuous=continuous,
+                log=lambda s: None, **opts)
+    launches = {k: c.count for k, c in KERNEL_LAUNCHES.items()}
+    secs = time.perf_counter() - t0
+    ctx["phase_launches"][phase] = launches
+    if launches["rmsnorm"] == 0:
+        raise AssertionError(f"{phase}: the RMSNorm kernel never launched")
+    parts = (res.batch, res.continuous) if continuous else (res.batch,)
+    for part in parts:
+        _check_steps(phase, part, cfg)
+        _check_graphed(phase, part)
+    if continuous:
+        _check_continuous(res.continuous, opts["n_requests"])
+    steps = sum(part["steps"] for part in parts)
+    if launches != {k: n * steps for k, n in
+                    launches_per_decode_step(cfg).items()}:
+        raise AssertionError(f"{phase}: {launches} launches over {steps} "
+                             f"decode steps")
+    return res, launches, secs, steps
+
+
 def phase_serve(ctx) -> None:
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.serve import make_prompts, serve
-    from repro_torch.launch.train import KERNEL_LAUNCHES
+    from repro_torch.launch.serve import make_prompts
     from repro_torch.serve.decode import prefill
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_arch("qwen3-4b")
-    emit({"phase": "serve", **_model_fields(cfg), "reduced": {},
-          **SERVE})
-    for counter in KERNEL_LAUNCHES.values():
-        counter.count = 0
-    t0 = time.perf_counter()
-    res = serve(cfg, device="cuda", log=lambda s: None, **SERVE)
-    launches = {k: c.count for k, c in KERNEL_LAUNCHES.items()}
-    secs = time.perf_counter() - t0
-    ctx["phase_launches"]["serve"] = launches
-    if launches["rmsnorm"] == 0:
-        raise AssertionError("serve: the RMSNorm kernel never launched")
-    for part in (res.batch, res.continuous):
-        _check_steps("serve", part, cfg)
-        _check_graphed("serve", part)
-    _check_continuous(res.continuous, SERVE["n_requests"])
-    steps = res.batch["steps"] + res.continuous["steps"]
-    if launches != {k: n * steps for k, n in
-                    launches_per_decode_step(cfg).items()}:
-        raise AssertionError(f"serve: {launches} launches over {steps} "
-                             f"decode steps")
+    res, launches, secs, steps = run_serve(ctx, "serve", cfg, SERVE)
     if "rmsnorm" in ctx["kernels"]:
         ctx["kernels"]["rmsnorm"]["launches"] = launches["rmsnorm"]
 
@@ -2861,29 +2980,13 @@ def serve_f32(ctx) -> None:
 def phase_serve_ssm(ctx) -> None:
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import make_prompts, serve
-    from repro_torch.launch.train import KERNEL_LAUNCHES
+    from repro_torch.launch.serve import make_prompts
     from repro_torch.serve.decode import prefill
 
     cfg = get_arch("mamba2-780m")
     opts = {k: SERVE[k] for k in ("batch", "prompt_len", "n_new", "seed")}
-    emit({"phase": "serve_ssm", **_model_fields(cfg), "reduced": {},
-          **opts})
-    for counter in KERNEL_LAUNCHES.values():
-        counter.count = 0
-    t0 = time.perf_counter()
-    res = serve(cfg, device="cuda", continuous=False, log=lambda s: None,
-                **opts)
-    launches = {k: c.count for k, c in KERNEL_LAUNCHES.items()}
-    secs = time.perf_counter() - t0
-    ctx["phase_launches"]["serve_ssm"] = launches
-    _check_steps("serve_ssm", res.batch, cfg)
-    _check_graphed("serve_ssm", res.batch)
-    steps = res.batch["steps"]
-    if launches != {k: n * steps for k, n in
-                    launches_per_decode_step(cfg).items()}:
-        raise AssertionError(f"serve_ssm: {launches} launches over {steps} "
-                             f"decode steps")
+    res, launches, secs, steps = run_serve(ctx, "serve_ssm", cfg, opts,
+                                           continuous=False)
     # after a short prefill (the state is O(1) in the sequence, so its
     # length does not change the step): one step as the graph against
     # eager decode_step, and a traced eager and replayed step
@@ -2905,6 +3008,85 @@ def phase_serve_ssm(ctx) -> None:
               launches_per_decode_step(cfg),
           "batch": _part_fields(res.batch), "graph_vs_eager": vs_eager,
           "profile_decode_step": prof, "nvidia_smi": ctx["smi"]})
+
+
+def phase_serve_moe(ctx) -> None:
+    """granite-moe-3b-a800m at full width and depth through launch.serve
+    (the serve phase's two parts), then the decode path against a training
+    forward that drops no token, one graph step against eager, a traced
+    eager and replayed step, and the batcher against generate()."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.decode import prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("granite-moe-3b-a800m")
+    res, launches, secs, steps = run_serve(ctx, "serve_moe", cfg, SERVE)
+
+    # the decode path against the training forward.  A decode step of 8
+    # lanes drops no assignment (capacity 8 >= lanes); the forward over
+    # 8 x 128 tokens at capacity factor 1.25 does, so the decode path is
+    # held against a forward at capacity factor E / K, where no expert
+    # can overflow, with the 1.25 forward's drops and distance beside it
+    model, params = res.model, res.params
+    prompts = torch.stack(make_prompts(cfg, SERVE["batch"],
+                                       SERVE["prompt_len"],
+                                       SERVE["seed"])).cuda()
+    S = prompts.shape[1]
+    m = cfg.moe
+    nodrop = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k)), "cuda")
+    with torch.no_grad():
+        caches, dec = prefill(model, params, model.init_cache(
+            prompts.shape[0], S + 16), prompts)
+        with DropCounter() as drops:
+            fwd = nodrop.forward(params, {"tokens": prompts})[0][:, -1]
+            nodrop_drops = drops.take()
+            fwd125 = model.forward(params, {"tokens": prompts})[0][:, -1]
+            drops125 = drops.take()
+    rel_fwd, rel_125 = _rel(dec, fwd), _rel(dec, fwd125)
+    agree_fwd = (dec.argmax(-1) == fwd.argmax(-1)).float().mean().item()
+    del fwd, fwd125
+    if nodrop_drops["dropped"] != 0:
+        raise AssertionError(f"serve_moe: the no-drop forward dropped "
+                             f"{nodrop_drops}")
+    if not rel_fwd <= DECODE_VS_FORWARD_RTOL:
+        raise AssertionError(f"serve_moe: prefill-by-decode logits off the "
+                             f"no-drop forward's by {rel_fwd:.3e} "
+                             f"(relative) > {DECODE_VS_FORWARD_RTOL}")
+
+    # one decode step as the CUDA graph and as eager decode_step from the
+    # same caches; the eager step and a replayed step traced
+    tok = dec.argmax(-1).int()
+    vs_eager, decoder = graph_vs_eager(model, params, caches, tok, S,
+                                       cfg.param_dtype)
+    prof = {"eager": profile_decode(model, params, _clone_caches(caches),
+                                    tok, S),
+            "graph_replay": profile_replay(decoder, tok, S + 2)}
+    decoder.close()
+    part, records = recorded_continuous(model, params, cfg)
+    agree = batcher_vs_generate(part, model, params, records, AGREE_REQUESTS)
+    agree["rerun_tokens_equal_timed_run"] = _outs(part) == _outs(
+        res.continuous)
+    emit({"phase": "serve_moe", "ok": True, "seconds": secs,
+          "launches": launches, "decode_steps": steps,
+          "launches_per_decode_step_expected":
+              launches_per_decode_step(cfg),
+          "batch": _part_fields(res.batch),
+          "continuous": _part_fields(res.continuous),
+          "decode_vs_forward_rel": rel_fwd,
+          "decode_vs_forward_rtol": DECODE_VS_FORWARD_RTOL,
+          "decode_vs_forward_argmax_agree": agree_fwd,
+          "forward_capacity_factor": m.n_experts / m.top_k,
+          "forward_drops": nodrop_drops,
+          "decode_vs_forward_1.25_rel": rel_125,
+          "forward_1.25_drops": drops125,
+          "graph_vs_eager": vs_eager, "batcher_vs_generate": agree,
+          "profile_decode_step": prof, "nvidia_smi": ctx["smi"]})
+    del res, model, params, caches, nodrop
+    torch.cuda.empty_cache()
 
 
 def profile_step(cfg) -> dict:
@@ -2947,7 +3129,9 @@ def profile_step(cfg) -> dict:
 def phase_profile(ctx) -> None:
     from repro_torch.configs import get_arch
     for cfg in (dataclasses.replace(get_arch("gemma-2b"), n_layers=N_LAYERS),
-                get_arch("mamba2-780m")):
+                get_arch("mamba2-780m"),
+                dataclasses.replace(get_arch("granite-moe-3b-a800m"),
+                                    n_layers=MOE_LAYERS)):
         emit({"phase": "profile", **profile_step(cfg),
               "nvidia_smi": ctx["smi"]})
 
@@ -2996,8 +3180,9 @@ def main() -> int:
            "replay": phase_replay, "control": phase_control,
            "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
-           "self_heal": phase_self_heal, "serve": phase_serve,
-           "serve_ssm": phase_serve_ssm, "profile": phase_profile}
+           "train_moe": phase_train_moe, "self_heal": phase_self_heal,
+           "serve": phase_serve, "serve_ssm": phase_serve_ssm,
+           "serve_moe": phase_serve_moe, "profile": phase_profile}
     if "device" not in phases:
         phases.insert(0, "device")
     for name in phases:

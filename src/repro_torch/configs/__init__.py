@@ -1,4 +1,5 @@
-from repro_torch.configs.base import (ArchConfig, AttnConfig, SSMConfig,
-                                     get_arch, register)
+from repro_torch.configs.base import (ArchConfig, AttnConfig, MoEConfig,
+                                     SSMConfig, get_arch, register)
 
-__all__ = ["ArchConfig", "AttnConfig", "SSMConfig", "get_arch", "register"]
+__all__ = ["ArchConfig", "AttnConfig", "MoEConfig", "SSMConfig", "get_arch",
+           "register"]

@@ -1,5 +1,6 @@
 """Architecture configs for the port (own copy of ``repro/configs/base.py``,
-trimmed to the dense, Mamba2 (SSD) and zamba2-hybrid stacks the port runs).
+trimmed to the dense, mixture-of-experts, Mamba2 (SSD) and zamba2-hybrid
+stacks the port runs).
 
 The fields, ``block_pattern``, ``param_count`` and ``reduced()`` match the
 reference for these archs, so a config built here describes the same
@@ -12,14 +13,27 @@ from dataclasses import dataclass
 from typing import Tuple
 
 BLOCK_ATTN_DENSE = "attn_dense"        # attention + dense MLP
+BLOCK_ATTN_MOE = "attn_moe"            # attention + MoE FFN
 BLOCK_MAMBA = "mamba"                  # Mamba2 SSD block
 BLOCK_HYBRID_SHARED = "hybrid_shared"  # zamba2: mamba layers + shared attn
 
 # Features of the reference that later slices of the port bring.
 _LATER = {
-    "moe": "the MoE slice",
     "mla": "the MLA slice",
 }
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings (GShard/DeepSeek style)."""
+
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0          # DeepSeek shared experts
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01    # load-balance loss weight
+    router_dtype: str = "float32"
 
 
 @dataclass(frozen=True)
@@ -59,16 +73,18 @@ class AttnConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                     # dense | ssm | hybrid
+    arch_type: str                     # dense | moe | ssm | hybrid
     source: str                        # citation for the config numbers
     n_layers: int
     d_model: int
     d_ff: int
     vocab: int
     attn: AttnConfig = None
-    moe: object = None
-    ssm: object = None
+    moe: MoEConfig = None
+    ssm: SSMConfig = None
     mla: object = None
+    # dense-layer prefix before MoE layers (deepseek: first 3 dense)
+    n_dense_prefix: int = 0
     # zamba2: shared attention block applied every `shared_period` layers
     shared_period: int = 0
     mlp_act: str = "silu"              # silu (SwiGLU) | gelu (GeGLU)
@@ -96,18 +112,28 @@ class ArchConfig:
             return ((BLOCK_MAMBA, self.n_layers),)
         if self.arch_type == "hybrid":
             return ((BLOCK_HYBRID_SHARED, self.n_layers),)
+        if self.moe is not None:
+            return ((BLOCK_ATTN_DENSE, self.n_dense_prefix),
+                    (BLOCK_ATTN_MOE, self.n_layers - self.n_dense_prefix))
         return ((BLOCK_ATTN_DENSE, self.n_layers),)
 
     def param_count(self) -> int:
         """Parameter count N, as the reference counts it."""
+        return self._count(active_only=False)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top-k experts count)."""
+        return self._count(active_only=True)
+
+    def _count(self, active_only: bool) -> int:
         d = self.d_model
         n = self.vocab * d
         if not self.tie_embeddings:
             n += self.vocab * d
         for kind, count in self.block_pattern:
-            n += count * self._block_params(kind)
+            n += count * self._block_params(kind, active_only)
         if self.shared_period:                # zamba2 shared attn+MLP block
-            n += self._attn_params() + self._mlp_params() + 2 * d
+            n += self._attn_params() + self._mlp_params(self.d_ff) + 2 * d
         return n + d
 
     def _attn_params(self) -> int:
@@ -115,10 +141,10 @@ class ArchConfig:
         return d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim \
             + a.n_heads * a.head_dim * d
 
-    def _mlp_params(self) -> int:
-        return (3 if self.gated_mlp else 2) * self.d_model * self.d_ff
+    def _mlp_params(self, d_ff: int) -> int:
+        return (3 if self.gated_mlp else 2) * self.d_model * d_ff
 
-    def _block_params(self, kind: str) -> int:
+    def _block_params(self, kind: str, active_only: bool = False) -> int:
         d = self.d_model
         if kind in (BLOCK_MAMBA, BLOCK_HYBRID_SHARED):
             # zamba2's per-layer params are the mamba block only; its shared
@@ -129,10 +155,18 @@ class ArchConfig:
             p += s.d_conv * (di + 2 * s.d_state)      # conv1d
             p += nh * 2 + di + di * d                 # A_log, D; gate norm; out
             return p + d                              # + pre-norm
-        return self._attn_params() + self._mlp_params() + 2 * d
+        p = self._attn_params() + 2 * d
+        if kind == BLOCK_ATTN_MOE:
+            m = self.moe
+            n_exp = m.top_k if active_only else m.n_experts
+            p += (n_exp + m.n_shared_experts) * self._mlp_params(
+                m.d_ff_expert)
+            return p + d * m.n_experts                # + router
+        return p + self._mlp_params(self.d_ff)
 
     def reduced(self) -> "ArchConfig":
-        """Tiny same-family variant: 2 layers, d_model<=256, float32."""
+        """Tiny same-family variant: 2 layers, d_model<=256, <=4 experts,
+        float32."""
         attn = None
         if self.attn is not None:
             a = self.attn
@@ -143,6 +177,16 @@ class ArchConfig:
             attn = dataclasses.replace(
                 a, n_heads=nh, n_kv_heads=nkv, head_dim=min(a.head_dim, 64),
                 window=min(a.window, 64) if a.window else 0)
+        moe = None
+        if self.moe is not None:
+            # capacity_factor 4.0: no token dropping at smoke scale, as in
+            # the reference (capacity overflow is a train-scale behavior)
+            m = self.moe
+            moe = dataclasses.replace(
+                m, n_experts=min(m.n_experts, 4), top_k=min(m.top_k, 2),
+                d_ff_expert=min(m.d_ff_expert, 128),
+                n_shared_experts=min(m.n_shared_experts, 1),
+                capacity_factor=4.0)
         ssm = None
         if self.ssm is not None:
             s = self.ssm
@@ -152,7 +196,8 @@ class ArchConfig:
         return dataclasses.replace(
             self, n_layers=2, d_model=min(self.d_model, 256),
             d_ff=min(self.d_ff, 512), vocab=min(self.vocab, 1024), attn=attn,
-            ssm=ssm, shared_period=2 if self.shared_period else 0,
+            moe=moe, ssm=ssm, n_dense_prefix=min(self.n_dense_prefix, 1),
+            shared_period=2 if self.shared_period else 0,
             param_dtype="float32")
 
 
@@ -166,8 +211,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 def get_arch(name: str) -> ArchConfig:
     from repro_torch.configs import (gemma3_12b, gemma_2b,  # noqa: F401
-                                     gpt3, granite_3_8b, mamba2_780m,
-                                     qwen3_4b, zamba2_1p2b)
+                                     gpt3, granite_3_8b, granite_moe_3b,
+                                     mamba2_780m, qwen3_4b, zamba2_1p2b)
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet; ported: "
                        f"{sorted(_REGISTRY)}")

@@ -2,6 +2,8 @@
 of ``examples/quickstart.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.quickstart [--arch qwen3-4b]
+    PYTHONPATH=src python -m repro_torch.launch.quickstart \
+        --arch granite-moe-3b-a800m --device cpu
     PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu
 """
 from __future__ import annotations

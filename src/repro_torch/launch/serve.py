@@ -15,6 +15,8 @@ RMSNorm runs the Hopper RMSNorm kernel.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --no-continuous
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 """
 from __future__ import annotations

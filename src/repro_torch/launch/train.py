@@ -7,12 +7,15 @@ manager (in-memory + persistent tiers) saving state, and optional
 mid-run failure injection through the §6.2 micro-batch redistribution
 path.  On the card, attention runs the Hopper flash-attention kernel,
 every Mamba2 layer the Hopper SSD scan kernel and every RMSNorm the Hopper
-RMSNorm kernel; each step records how many times it launched each.
+RMSNorm kernel; each step records how many times it launched each, and a
+fused step its loss and MoE router aux loss (0 without MoE).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
         --reduced --steps 50 --seq 128 --batch 8 --n-micro 4 --inject-fail 10
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
         --steps 10 --seq 1024 --inject-fail 5 --verify-recovery
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-3b-a800m --reduced --device cpu --inject-fail 2
 """
 from __future__ import annotations
 
@@ -122,11 +125,13 @@ def train(cfg: ArchConfig, *, steps: int = 50, seq: int = 128,
                 del ref_sum
             state, gnorm = finalize_step(opt, state, grad_sum, count)
             del grad_sum
-            rec.update(kind="recovered", loss=None, grad_norm=float(gnorm))
+            rec.update(kind="recovered", loss=None, aux=None,
+                       grad_norm=float(gnorm))
         else:
             state, metrics = fused(state, stack_microbatches(
                 data.batch(step), n_micro))
             rec.update(kind="fused", loss=float(metrics["loss"]),
+                       aux=float(metrics["aux"]),
                        grad_norm=float(metrics["grad_norm"]))
         _sync(device)
         dt = time.perf_counter() - t0
@@ -138,7 +143,9 @@ def train(cfg: ArchConfig, *, steps: int = 50, seq: int = 128,
         if device.type == "cuda":
             rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         loss = "-" if rec["loss"] is None else f"{rec['loss']:.4f}"
-        log(f"step {step:4d} {rec['kind']} loss={loss} "
+        aux = f" aux={rec['aux']:.4f}" if cfg.moe and rec["aux"] is not None \
+            else ""
+        log(f"step {step:4d} {rec['kind']} loss={loss}{aux} "
             f"grad_norm={rec['grad_norm']:.3f} ({dt:.2f}s)")
         if ckpt_every and step % ckpt_every == 0:
             mgr.save(rank=0, step=step, state=state)

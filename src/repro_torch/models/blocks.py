@@ -1,24 +1,27 @@
-"""Pre-norm residual blocks (``attn_dense``, ``mamba`` and
+"""Pre-norm residual blocks (``attn_dense``, ``attn_moe``, ``mamba`` and
 ``hybrid_shared`` of ``repro/models/blocks.py``), and zamba2's weight-tied
 shared attention+MLP block.
 
 ``init_block`` builds the params of ``count`` stacked blocks (leading
 ``count`` axis on every leaf, the reference's vmapped init); ``block_apply``
-runs one block from its unstacked params.  ``block_cache`` and
-``block_decode`` are the serving path's per-layer cache and one-token step.
+runs one block from its unstacked params and returns its router aux loss
+(``None`` for a block without MoE).  ``block_cache`` and ``block_decode``
+are the serving path's per-layer cache and one-token step; decode drops
+the aux loss, as the reference does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree
-from repro_torch.configs.base import (BLOCK_ATTN_DENSE, BLOCK_HYBRID_SHARED,
-                                      BLOCK_MAMBA)
-from repro_torch.models import layers, ssm
+from repro_torch.configs.base import (BLOCK_ATTN_DENSE, BLOCK_ATTN_MOE,
+                                      BLOCK_HYBRID_SHARED, BLOCK_MAMBA)
+from repro_torch.models import layers, moe, ssm
 
 _MAMBA_KINDS = (BLOCK_MAMBA, BLOCK_HYBRID_SHARED)
+_ATTN_KINDS = (BLOCK_ATTN_DENSE, BLOCK_ATTN_MOE)
 # decode of the block kinds later slices bring (ROADMAP Queue 1)
-_LATER_DECODE = {"moe": "item 7 (MoE)", "mla": "item 8 (MLA)"}
+_LATER_DECODE = {"mla": "item 5 (MLA)"}
 
 
 def _refuse_later(kind: str) -> None:
@@ -27,7 +30,7 @@ def _refuse_later(kind: str) -> None:
             raise NotImplementedError(
                 f"decode of block kind {kind!r} arrives with ROADMAP Queue 1 "
                 f"{item}")
-    if kind != BLOCK_ATTN_DENSE:
+    if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
@@ -37,22 +40,27 @@ def _stacked_norm(count: int, cfg, dtype, device) -> dict:
             layers.init_norm(d, cfg.norm, dtype, device).items()}
 
 
-def _attn_mlp(gen, count: int, cfg, dtype, device) -> dict:
+def _attn_mlp(gen, count: int, cfg, dtype, device,
+              kind: str = BLOCK_ATTN_DENSE) -> dict:
     d = cfg.d_model
-    return {"norm1": _stacked_norm(count, cfg, dtype, device),
-            "norm2": _stacked_norm(count, cfg, dtype, device),
-            "attn": layers.init_attention(gen, count, cfg, d, dtype, device),
-            "mlp": layers.init_mlp(gen, count, d, cfg.d_ff, cfg.gated_mlp,
-                                   dtype, device)}
+    p = {"norm1": _stacked_norm(count, cfg, dtype, device),
+         "norm2": _stacked_norm(count, cfg, dtype, device),
+         "attn": layers.init_attention(gen, count, cfg, d, dtype, device)}
+    if kind == BLOCK_ATTN_MOE:
+        p["moe"] = moe.init_moe(gen, count, cfg, dtype, device)
+    else:
+        p["mlp"] = layers.init_mlp(gen, count, d, cfg.d_ff, cfg.gated_mlp,
+                                   dtype, device)
+    return p
 
 
 def init_block(gen, count: int, cfg, kind: str, dtype, device) -> dict:
     if kind in _MAMBA_KINDS:
         return {"norm": _stacked_norm(count, cfg, dtype, device),
                 "mamba": ssm.init_mamba(gen, count, cfg, dtype, device)}
-    if kind != BLOCK_ATTN_DENSE:
+    if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    return _attn_mlp(gen, count, cfg, dtype, device)
+    return _attn_mlp(gen, count, cfg, dtype, device, kind)
 
 
 def init_shared_block(gen, cfg, dtype, device) -> dict:
@@ -62,24 +70,34 @@ def init_shared_block(gen, cfg, dtype, device) -> dict:
 
 
 def block_apply(p: dict, cfg, kind: str, x: torch.Tensor, positions, *,
-                layer_is_local: bool = False) -> torch.Tensor:
+                layer_is_local: bool = False):
+    """Returns (x, aux): aux the MoE router's loss, ``None`` without MoE."""
     if kind in _MAMBA_KINDS:
         h = layers.norm_apply(p["norm"], x, cfg.norm)
-        return x + ssm.mamba_apply(p["mamba"], cfg, h)
-    return shared_block_apply(p, cfg, x, positions,
-                              layer_is_local=layer_is_local)
+        return x + ssm.mamba_apply(p["mamba"], cfg, h), None
+    h = layers.norm_apply(p["norm1"], x, cfg.norm)
+    x = x + layers.attention_apply(p["attn"], cfg, h,
+                                   layer_is_local=layer_is_local,
+                                   positions=positions)
+    h = layers.norm_apply(p["norm2"], x, cfg.norm)
+    y, aux = _ffn(p, cfg, h)
+    return x + y, aux
+
+
+def _ffn(p: dict, cfg, h: torch.Tensor):
+    """The block's feed-forward: (y, aux), the MoE FFN's router loss or
+    ``None`` for the dense MLP."""
+    if "moe" in p:
+        return moe.moe_apply(p["moe"], cfg, h)
+    return layers.mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp), None
 
 
 def shared_block_apply(p: dict, cfg, x: torch.Tensor, positions, *,
                        layer_is_local: bool = False) -> torch.Tensor:
     """Attention + MLP (``attn_dense``'s body; zamba2's shared block runs it
     with global attention)."""
-    h = layers.norm_apply(p["norm1"], x, cfg.norm)
-    x = x + layers.attention_apply(p["attn"], cfg, h,
-                                   layer_is_local=layer_is_local,
-                                   positions=positions)
-    h = layers.norm_apply(p["norm2"], x, cfg.norm)
-    return x + layers.mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp)
+    return block_apply(p, cfg, BLOCK_ATTN_DENSE, x, positions,
+                       layer_is_local=layer_is_local)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -116,13 +134,13 @@ def block_decode(p: dict, cfg, kind: str, x: torch.Tensor, cache: dict, pos,
 
 def shared_block_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos, *,
                         layer_is_local: bool = False):
-    """``attn_dense``'s one-token step (zamba2's shared block runs it with
-    global attention).  Returns (x, {"k", "v"})."""
+    """The attention blocks' one-token step (zamba2's shared block runs it
+    with global attention).  Returns (x, {"k", "v"}); an MoE FFN's aux loss
+    is dropped."""
     h = layers.norm_apply(p["norm1"], x, cfg.norm)
     y, nk, nv = layers.attention_decode(p["attn"], cfg, h, cache["k"],
                                         cache["v"], pos,
                                         layer_is_local=layer_is_local)
     x = x + y
     h = layers.norm_apply(p["norm2"], x, cfg.norm)
-    x = x + layers.mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp)
-    return x, {"k": nk, "v": nv}
+    return x + _ffn(p, cfg, h)[0], {"k": nk, "v": nv}

@@ -1,4 +1,4 @@
-"""Model builder (dense, Mamba2 and zamba2-hybrid subset of
+"""Building the models (dense, MoE, Mamba2 and zamba2-hybrid subset of
 ``repro/models/model.py``).
 
 ``build_model(cfg, device)`` returns a :class:`Model` bundle of functions:
@@ -149,30 +149,34 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         return list(tree.unbind(0))
 
     def _run_segments(params, x, positions, remat):
+        """Returns (x, aux): the layers' router aux losses summed in f32 in
+        layer order, as the reference's scan carry sums them."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for seg, slot_params in zip(segs, params["segments"]):
             per_slot = [_unstack(sp, seg.count) for sp in slot_params]
             for c in range(seg.count):
-                def body(h, c=c, seg=seg, per_slot=per_slot):
+                def body(h, a, c=c, seg=seg, per_slot=per_slot):
                     for j in range(seg.inner):
-                        h = blocks.block_apply(
+                        h, aj = blocks.block_apply(
                             per_slot[j][c], cfg, seg.kind, h, positions,
                             layer_is_local=seg.locality[j])
+                        if aj is not None:
+                            a = a + aj
                     if seg.shared_after:
                         h = blocks.shared_block_apply(params["shared"], cfg,
                                                       h, positions)
-                    return h
-                x = checkpoint(body, x, use_reentrant=False) if remat \
-                    else body(x)
-        return x
+                    return h, a
+                x, aux = checkpoint(body, x, aux, use_reentrant=False) \
+                    if remat else body(x, aux)
+        return x, aux
 
     def forward(params, batch, *, remat: bool = False):
         x = layers.embed_apply(params["embed"], batch["tokens"],
                                cfg.embed_scale, cfg.d_model)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        x = _run_segments(params, x, positions, remat)
+        x, aux = _run_segments(params, x, positions, remat)
         h = layers.norm_apply(params["final_norm"], x, cfg.norm)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return layers.logits_apply(_head_w(params), h), {"aux": aux}
 
     def loss(params, batch, *, remat: bool = False):

@@ -1,0 +1,138 @@
+"""Mixture-of-experts FFN (port of ``repro/models/moe.py``, its flat
+dispatch layout).
+
+Tokens are routed top-k, sorted by expert id (a stable sort, so the same
+tokens overflow an expert's capacity as in the reference) and scattered
+into a fixed (E, C, d) capacity buffer, so the expert products are dense
+batched matmuls of static shape.  Tokens beyond an expert's capacity are
+dropped (GShard semantics); the router's aux loss keeps the load balanced.
+Shared experts (DeepSeek) are a plain MLP over all tokens.
+
+The reference's two dispatch layouts (``DISPATCH_3D``) compute the same
+function; the port has one.  Its combine is deterministic on the card:
+each token gathers its K slots into (T, K, d) and adds them in ascending
+expert order (the order of the reference's scatter-add), and the dispatch
+copies each token into its K slots by value, so neither direction
+accumulates with atomics.  Nothing reads a device value on the host: the
+capacity is a Python int of the shapes, so a CUDA graph can capture the
+decode step.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+
+
+def capacity(n_tokens: int, n_experts: int, top_k: int,
+             capacity_factor: float) -> int:
+    c = int(math.ceil(n_tokens * top_k * capacity_factor / n_experts))
+    return max(8, -(-c // 8) * 8)                 # round up to multiple of 8
+
+
+def init_moe(gen, count: int, cfg, dtype, device) -> dict:
+    """``count`` stacked MoE FFNs: a float32 router (d, E) whatever
+    ``dtype`` is, as the reference's, and the experts stacked (E, d, f) /
+    (E, f, d)."""
+    m, d = cfg.moe, cfg.d_model
+    E, f = m.n_experts, m.d_ff_expert
+    p = {"router": layers.init_dense(gen, (count, d, E), torch.float32,
+                                     device),
+         "w_in": layers.init_dense(gen, (count, E, d, f), dtype, device),
+         "w_gate": layers.init_dense(gen, (count, E, d, f), dtype, device),
+         "w_out": layers.init_dense(gen, (count, E, f, d), dtype, device)}
+    if m.n_shared_experts:
+        p["shared"] = layers.init_mlp(gen, count, d,
+                                      m.n_shared_experts * f, True, dtype,
+                                      device)
+    return p
+
+
+class Routing(NamedTuple):
+    """Where each of T tokens' K assignments goes, in (token, k) order with
+    each token's experts ascending: its expert (T, K), its renormalised
+    router weight (T, K) f32, its slot in the flat (E*C + 1) buffer (T*K,;
+    E*C, the trash slot, where dropped) and whether it was kept (T*K,)."""
+    expert: torch.Tensor
+    weight: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+    aux: torch.Tensor
+
+
+def route(router: torch.Tensor, cfg, xt: torch.Tensor) -> Routing:
+    """The router, the Switch aux loss and the capacity dispatch of ``xt``
+    (T, d), as the reference computes them."""
+    m = cfg.moe
+    T = xt.shape[0]
+    E, K = m.n_experts, m.top_k
+    probs = torch.softmax(xt.float() @ router, dim=-1)           # (T, E)
+    # jax.lax.top_k: descending, the lower index first among equal values
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :K], top_e[:, :K]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # ---- load-balance aux loss (Switch-style) ----
+    experts = torch.arange(E, device=xt.device)
+    me = probs.mean(0)                                           # (E,)
+    # one_hot by comparison: F.one_hot reads the indices' range on the host
+    ce = (top_e[:, :, None] == experts).float().sum(1).mean(0)
+    aux = (me * ce).sum() * E * m.router_aux_weight
+
+    # ---- sort-based dispatch ----
+    # An expert holds each token at most once, so the stable sort by
+    # expert orders its assignments by token whatever the order of a
+    # token's K: ordering them by expert here changes no rank and makes
+    # the combine's sum over K the reference's scatter-add order.
+    top_e, k_order = torch.sort(top_e, dim=-1)
+    top_p = top_p.gather(-1, k_order)
+    C = capacity(T, E, K, m.capacity_factor)
+    flat_e = top_e.reshape(T * K)
+    order = torch.sort(flat_e, stable=True).indices
+    se = flat_e[order]
+    seg_start = torch.searchsorted(se, experts)
+    ar = torch.arange(T * K, device=xt.device)
+    rank = torch.empty_like(order).scatter_(0, order, ar - seg_start[se])
+    keep = rank < C                                   # rank within expert
+    slot = torch.where(keep, flat_e * C + rank, E * C)      # E*C = trash
+    return Routing(top_e, top_p, slot, keep, C, aux)
+
+
+def moe_apply(p: dict, cfg, x: torch.Tensor):
+    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar f32)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, E, K = B * S, m.n_experts, m.top_k
+    xt = x.reshape(T, d)
+    r = route(p["router"], cfg, xt)
+    C = r.capacity
+
+    # each token copied into its K slots; the expand's backward sums the
+    # K slots' gradients with no atomics
+    xk = xt[:, None].expand(T, K, d).reshape(T * K, d)
+    buf = torch.index_copy(xt.new_zeros(E * C + 1, d), 0, r.slot, xk)
+    buf = buf[:E * C].view(E, C, d)
+
+    # ---- expert computation: dense per-expert matmuls ----
+    h = torch.bmm(buf, p["w_in"])
+    g = torch.bmm(buf, p["w_gate"])
+    h = F.silu(h) * g if cfg.mlp_act == "silu" \
+        else F.gelu(h, approximate="tanh") * g
+    yb = torch.bmm(h, p["w_out"]).reshape(E * C, d)
+
+    # ---- combine back: each token's K slots, summed in expert order ----
+    yb = torch.cat([yb, yb.new_zeros(1, d)])          # the trash slot, zero
+    yk = (yb.index_select(0, r.slot)
+          * r.weight.reshape(T * K, 1).to(x.dtype)).view(T, K, d)
+    y = yk[:, 0]
+    for k in range(1, K):
+        y = y + yk[:, k]
+
+    if m.n_shared_experts:
+        y = y + layers.mlp_apply(p["shared"], xt, cfg.mlp_act, True)
+    return y.reshape(B, S, d), r.aux

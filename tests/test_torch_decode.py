@@ -2,9 +2,10 @@
 ``attention_decode`` (global, and local with a ring buffer that wraps, per
 lane positions), ``block_decode`` for ``attn_dense``, ``mamba`` and
 ``hybrid_shared`` (and zamba2's shared block), and ``decode_step`` logits
-over a prefill and 8 decode steps for seven archs (gpt3 for layernorm and
-the ungated MLP) from the same parameters; the three dense configs of this
-slice; the decode path against the port's own training forward.
+over a prefill and 8 decode steps for eight archs (gpt3 for layernorm and
+the ungated MLP, granite-moe for the MoE FFN) from the same parameters;
+the three dense configs of this slice and granite-moe's; the decode path
+against the port's own training forward.
 
 Tolerances: layers and blocks at F32_ATOL / F32_RTOL
 (tests/test_torch_helpers.py); whole-model logits at DECODE_TOL.
@@ -33,20 +34,22 @@ from test_torch_helpers import (DECODE_TOL, F32_ATOL, F32_RTOL,  # noqa: E402
                                 assert_close, randn, to_torch_tree)
 
 ARCHS = ["gemma-2b", "qwen3-4b", "gemma3-12b", "granite-3-8b", "gpt3-1.3b",
-         "mamba2-780m", "zamba2-1.2b"]
+         "mamba2-780m", "zamba2-1.2b", "granite-moe-3b-a800m"]
 DENSE = ["qwen3-4b", "gemma3-12b", "granite-3-8b"]
 _FIELDS = ("name", "arch_type", "source", "n_layers", "d_model", "d_ff",
            "vocab", "mlp_act", "gated_mlp", "norm", "tie_embeddings",
            "embed_scale", "param_dtype")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["granite-moe-3b-a800m"])
 def test_dense_configs_agree(arch):
     j, t = jget_arch(arch), tget_arch(arch)
     for a, b in ((j, t), (j.reduced(), t.reduced())):
         for f in _FIELDS:
             assert getattr(a, f) == getattr(b, f), f
         assert dataclasses.asdict(a.attn) == dataclasses.asdict(b.attn)
+        assert (a.moe is None and b.moe is None) or \
+            dataclasses.asdict(a.moe) == dataclasses.asdict(b.moe)
         assert a.block_pattern == b.block_pattern
         assert a.param_count() == b.param_count()
     assert t.reduced().attn.window == (min(t.attn.window, 64)
@@ -170,12 +173,24 @@ def test_block_decode_matches_reference(arch, kind):
 
 
 def test_later_block_kinds_refuse_decode():
+    """MLA decode is refused, naming its ROADMAP item; MoE decode, ported in
+    its own slice, now builds its cache and decodes."""
     _, tcfg = _both("qwen3-4b")
-    for kind, item in (("attn_moe", "item 7"), ("mla_dense", "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            tblocks.block_cache(tcfg, kind, 1, 4, torch.float32, "cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            tblocks.block_decode({}, tcfg, kind, torch.zeros(1, 1, 8), {}, 0)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tblocks.block_cache(tcfg, "mla_dense", 1, 4, torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tblocks.block_decode({}, tcfg, "mla_dense", torch.zeros(1, 1, 8), {},
+                             0)
+    _, mcfg = _both("granite-moe-3b-a800m")
+    p = tree.tree_map(lambda t: t[0], tblocks.init_block(
+        torch.Generator().manual_seed(0), 1, mcfg, "attn_moe",
+        torch.float32, "cpu"))
+    cache = tblocks.block_cache(mcfg, "attn_moe", 2, 4, torch.float32, "cpu")
+    y, new = tblocks.block_decode(p, mcfg, "attn_moe",
+                                  torch.randn(2, 1, mcfg.d_model), cache,
+                                  torch.tensor([0, 1]))
+    assert y.shape == (2, 1, mcfg.d_model) and bool(torch.isfinite(y).all())
+    assert sorted(new) == ["k", "v"]
 
 
 PROMPT = 66          # past gemma3-12b's reduced window of 64: the ring wraps

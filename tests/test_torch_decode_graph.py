@@ -195,7 +195,8 @@ class _Probe(TorchDispatchMode):
 HOST_OPS = {"aten._local_scalar_dense.default", "aten.lift_fresh.default"}
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["gemma3-12b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ARCHS + ["gemma3-12b", "zamba2-1.2b",
+                                  "granite-moe-3b-a800m"])
 def test_decode_step_with_tensor_positions_is_capturable(arch):
     """With (B,) tensor positions, one decode_step reads no device value on
     the host (``_local_scalar_dense``) and makes no tensor from host data

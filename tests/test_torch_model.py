@@ -98,9 +98,14 @@ def test_loss_and_every_gradient_leaf_match_jax(name):
 
 
 def test_refuses_features_of_later_slices():
+    """MLA and the modality stubs are refused; MoE, ported in its own
+    slice, now builds."""
     t = tget_arch("gemma-2b")
-    for field in ("moe", "mla"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            dataclasses.replace(t, **{field: object()})
+    with pytest.raises(NotImplementedError, match="slice"):
+        dataclasses.replace(t, mla=object())
     with pytest.raises(NotImplementedError, match="slice"):
         dataclasses.replace(t, modality="vision_stub")
+    moe = tget_arch("granite-moe-3b-a800m").reduced()
+    assert moe.moe is not None and moe.block_pattern[-1][0] == "attn_moe"
+    params = tbuild(moe, device="cpu").init(0)
+    assert "moe" in params["segments"][-1][0]
