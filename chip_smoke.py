@@ -15,8 +15,10 @@ Phases, each printing one JSON line:
                     (no spills, no serialised wgmma), and times at gemma-2b's,
                     zamba2-1.2b's, qwen3-4b's and granite-moe-3b-a800m's
                     (GQA group 3: 24 heads over 8 KV heads) training shapes
-                    beside SDPA's, with gemma-2b's last causal q tile alone
-                    and B = 8
+                    and deepseek-v3-671b's MLA shapes (D = 192, Dv = 128, H =
+                    KV = 128, "cuda_core": B = 2, S = 1024 and serve_mla's
+                    forward check, B = 8, S = 128) beside SDPA's, with
+                    gemma-2b's last causal q tile alone and B = 8
   kernel:maxplus    the three max-plus kernels against their plain
                     versions on the card, bitwise (int64/int32 views) in
                     float32 and float64, at the reference's test cases and
@@ -43,7 +45,9 @@ Phases, each printing one JSON line:
                     built SASS
   kernel:rmsnorm    the RMSNorm kernel against its plain version on the card
                     (atol 2e-2 bf16, 1e-5 f32): the reference's test cases,
-                    every decode and training shape of the port's models,
+                    every decode and training shape of the port's models
+                    (deepseek-v3-671b's q_norm at 1536 and its kv_norm at
+                    512, a strided slice of the 576-wide latent projection),
                     ragged widths and row counts, mixed dtypes, a
                     non-contiguous and a misaligned input, with times beside
                     F.rms_norm's: back to back through the eager wrapper
@@ -161,6 +165,22 @@ Phases, each printing one JSON line:
                     graph step against eager, the traced eager and replayed
                     steps, and the batcher's greedy tokens against
                     generate()'s (printed)
+  serve_mla         deepseek-v3-671b at full width (MLA, 256 experts top-8
+                    with one shared, the MTP block; depth cut 61 -> 4: the
+                    3 dense-prefix layers and 1 MoE layer, 15.11 B params)
+                    through launch.serve's two parts on the graphed
+                    decoder: the absorbed latent-cache decode inside the
+                    graph, 17 RMSNorm launches a decode step counted
+                    through replays; the decode path held against a
+                    forward that drops no token (capacity factor E / K),
+                    with the 1.25 forward's distance and drop share beside
+                    it, each forward launching kernel 1 five times (4
+                    layers and the MTP block), all "cuda_core"; one step
+                    with the kernel's norms against the plain norms; the
+                    graph step against eager; a traced replayed step; then
+                    the 3 dense-prefix layers at full width in float32,
+                    where the batcher's greedy tokens must equal
+                    generate()'s
   profile           device time by kernel over one traced steady step of
                     the train, train_ssm and train_moe phases'
                     configurations, and the idle share
@@ -188,7 +208,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernel", "plan", "replay", "control",
           "train", "train_ssm", "train_hybrid", "train_moe", "self_heal",
-          "serve", "serve_ssm", "serve_moe", "profile")
+          "serve", "serve_ssm", "serve_moe", "serve_mla", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
@@ -266,6 +286,13 @@ QWEN3_ATTN_SHAPE = (2, 1024, 1024, 32, 8, 128, 128, True, 0, 0.0, 0,
 # (24 heads, not a multiple of 8, over 8 KV heads) at D = 64
 GRANITE_ATTN_SHAPE = (2, 1024, 1024, 24, 8, 64, 64, True, 0, 0.0, 0,
                       "bfloat16")
+# deepseek-v3-671b's MLA: [q_nope, q_rope] is D = 192 over Dv = 128, with
+# k_rope broadcast to every head (KV = H = 128); D != Dv gives "cuda_core".
+# A training micro-batch, and serve_mla's forward check (8 prompts of 128)
+MLA_ATTN_SHAPE = (2, 1024, 1024, 128, 128, 192, 128, True, 0, 0.0, 0,
+                  "bfloat16")
+MLA_FORWARD_SHAPE = (8, 128, 128, 128, 128, 192, 128, True, 0, 0.0, 0,
+                     "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -522,6 +549,8 @@ def phase_kernel(ctx) -> None:
         [(c, "contiguous", "wgmma") for c in WGMMA_CASES +
          [GEMMA_SHAPE, ZAMBA2_ATTN_SHAPE, QWEN3_ATTN_SHAPE,
           GRANITE_ATTN_SHAPE]] + \
+        [(c, "contiguous", "cuda_core") for c in (MLA_ATTN_SHAPE,
+                                                  MLA_FORWARD_SHAPE)] + \
         [(c, layout, want) for layout, c, want in ATTN_LAYOUT_CASES]
     worst, ran = 0.0, {}
     for case, layout, expect in cases:
@@ -555,7 +584,11 @@ def phase_kernel(ctx) -> None:
               "qwen3-4b B=2 S=1024 H=32 KV=8 D=128 causal bf16":
                   QWEN3_ATTN_SHAPE,
               "granite-moe-3b-a800m B=2 S=1024 H=24 KV=8 D=64 causal bf16":
-                  GRANITE_ATTN_SHAPE}
+                  GRANITE_ATTN_SHAPE,
+              "deepseek-v3-671b MLA B=2 S=1024 H=KV=128 D=192 Dv=128 causal "
+              "bf16": MLA_ATTN_SHAPE,
+              "deepseek-v3-671b MLA B=8 S=128 H=KV=128 D=192 Dv=128 causal "
+              "bf16 (serve_mla forward check)": MLA_FORWARD_SHAPE}
     for i, (label, case) in enumerate(shapes.items()):
         q, k, v = attn_inputs(case, seed=1)
         opts = dict(causal=True, window=0, softcap=0.0, q_offset=0)
@@ -1291,6 +1324,11 @@ RMS_SHAPES = [
     ("mamba2-780m train gate norm", (2, 1024, 3072), "bfloat16"),
     ("zamba2-1.2b train gate norm", (2, 1024, 4096), "bfloat16"),
     ("granite-moe-3b-a800m train block norm", (2, 1024, 1536), "bfloat16"),
+    ("deepseek-v3-671b forward q_norm", (8, 128, 1536), "bfloat16"),
+    # x[..., :512] of the (8, 128, 576) latent projection: the wrapper
+    # copies the strided slice before the launch
+    ("deepseek-v3-671b forward kv_norm (strided slice of 576)",
+     (8, 128, 512), "bfloat16", 576),
     ("reduced configs (f32)", (2, 1024, 256), "float32"),
 ]
 RMS_MAIN = "qwen3-4b decode block norm"        # the kernels line's row
@@ -1379,8 +1417,13 @@ def phase_kernel_rmsnorm(ctx) -> None:
                                       ref.rmsnorm(v, sc), v))
         n += 1
     rows = {}
-    for i, (label, shape, dt) in enumerate(RMS_SHAPES):
-        x, s = rms_inputs(shape, dt, dt, seed=50 + i)
+    for i, (label, shape, dt, *parent) in enumerate(RMS_SHAPES):
+        if parent:
+            full, s = rms_inputs(shape[:-1] + (parent[0],), dt, dt,
+                                 seed=50 + i)
+            x, s = full[..., :shape[-1]], s[:shape[-1]]
+        else:
+            x, s = rms_inputs(shape, dt, dt, seed=50 + i)
         got = rmsnorm_cuda(x, s)
         torch.cuda.synchronize()
         err = _rms_check(label, got, ref.rmsnorm(x, s), x)
@@ -2253,21 +2296,25 @@ def _tree_equal(a, b) -> bool:
         for x, y in zip(la, lb))
 
 
-def launches_per_pass(cfg) -> dict:
+def launches_per_pass(cfg, mtp: bool = True) -> dict:
     """Launches of each kernel in one forward pass of ``cfg``, from the
     config alone (not from the model's segment plan): one attention per
-    dense or MoE layer, one SSD scan per Mamba2 layer, and one attention per
-    shared-block application, after every ``shared_period`` layers of a
-    hybrid stack; two RMSNorms per attention block (four with qk-norm), two
-    per Mamba2 layer (the block's and the gate's) and the final one.  An
-    MoE layer's FFN (router, dispatch, expert products) is PyTorch ops, as
-    the reference's is XLA, so it counts as a dense layer.  The backward
-    recomputes through the plain versions and launches nothing."""
+    dense, MoE or MLA layer, one SSD scan per Mamba2 layer, and one
+    attention per shared-block application, after every ``shared_period``
+    layers of a hybrid stack; two RMSNorms per attention block (four with
+    qk-norm, four in an MLA block: its q_norm and kv_norm), two per Mamba2
+    layer (the block's and the gate's) and the final one; with ``mtp`` and
+    an MTP head, its block's and its norm's.  An MoE layer's FFN (router,
+    dispatch, expert products) is PyTorch ops, as the reference's is XLA,
+    so it counts as a dense layer.  The backward recomputes through the
+    plain versions and launches nothing."""
     a = cfg.attn
-    per_attn = 2 + (2 if a is not None and a.qk_norm else 0)
+    per_attn = 4 if cfg.mla is not None \
+        else 2 + (2 if a is not None and a.qk_norm else 0)
     if cfg.arch_type in ("dense", "moe"):
-        return {"flash_attention": cfg.n_layers, "ssd_scan": 0,
-                "rmsnorm": per_attn * cfg.n_layers + 1}
+        head = int(mtp and cfg.mtp)
+        return {"flash_attention": cfg.n_layers + head, "ssd_scan": 0,
+                "rmsnorm": per_attn * (cfg.n_layers + head) + 1 + head}
     shared = cfg.n_layers // cfg.shared_period if cfg.arch_type == "hybrid" \
         else 0
     return {"flash_attention": shared, "ssd_scan": cfg.n_layers,
@@ -2276,10 +2323,11 @@ def launches_per_pass(cfg) -> dict:
 
 def launches_per_decode_step(cfg) -> dict:
     """Launches of each kernel in one decode step: the norms of one forward
-    pass (decode attention and the one-token SSM update are plain
-    PyTorch, as in the reference)."""
+    pass without the MTP head, which decode does not run (decode attention,
+    MLA's absorbed step and the one-token SSM update are plain PyTorch, as
+    in the reference)."""
     return {"flash_attention": 0, "ssd_scan": 0,
-            "rmsnorm": launches_per_pass(cfg)["rmsnorm"]}
+            "rmsnorm": launches_per_pass(cfg, mtp=False)["rmsnorm"]}
 
 
 def _model_fields(cfg) -> dict:
@@ -2297,6 +2345,9 @@ def _model_fields(cfg) -> dict:
     if cfg.moe is not None:
         out.update(dataclasses.asdict(cfg.moe),
                    active_params=cfg.active_param_count())
+    if cfg.mla is not None:
+        out.update(dataclasses.asdict(cfg.mla), mtp=cfg.mtp,
+                   n_dense_prefix=cfg.n_dense_prefix)
     return out
 
 
@@ -2813,17 +2864,20 @@ def _part_fields(part) -> dict:
             if k not in ("outs", "finished")}
 
 
-def run_serve(ctx, phase, cfg, opts, continuous: bool = True) -> tuple:
+def run_serve(ctx, phase, cfg, opts, continuous: bool = True,
+              reduced=None) -> tuple:
     """launch.serve.serve() on ``cfg`` with ``opts``, its continuous part
     with ``continuous``: every decode step's launches of each kernel
     checked against ``launches_per_decode_step`` (replays counted), the
     logits finite, each part decoded through one graph (one eager step,
     one capture, replays) and the continuous part's counters adding up.
-    Returns (the ServeResult, the launches, seconds, decode steps)."""
+    ``reduced`` (printed) names the cuts of ``cfg``.  Returns (the
+    ServeResult, the launches, seconds, decode steps)."""
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import KERNEL_LAUNCHES
 
-    emit({"phase": phase, **_model_fields(cfg), "reduced": {}, **opts})
+    emit({"phase": phase, **_model_fields(cfg), "reduced": reduced or {},
+          **opts})
     for counter in KERNEL_LAUNCHES.values():
         counter.count = 0
     t0 = time.perf_counter()
@@ -2932,24 +2986,22 @@ def phase_serve(ctx) -> None:
           "profile_decode_step": prof, "nvidia_smi": ctx["smi"]})
     del res, model, params, caches
     torch.cuda.empty_cache()
-    serve_f32(ctx)
+    serve_f32(ctx, "serve", get_arch("qwen3-4b"), SERVE_F32_LAYERS)
 
 
-def serve_f32(ctx) -> None:
-    """qwen3-4b at full width, SERVE_F32_LAYERS layers, in float32 (the
-    serve phase's request mix through the continuous batcher): its greedy
+def serve_f32(ctx, phase: str, full, n_layers: int) -> None:
+    """``full`` at full width, ``n_layers`` layers, in float32 (the serve
+    phase's request mix through the continuous batcher): its greedy
     tokens must equal generate()'s token for token, as they do on the
-    CPU."""
+    CPU, and one graph step eager decode_step's within 1e-5."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models.model import build_model
     from repro_torch.serve.decode import prefill
 
-    full = get_arch("qwen3-4b")
-    cfg = dataclasses.replace(full, n_layers=SERVE_F32_LAYERS,
-                              param_dtype="float32")
+    cfg = dataclasses.replace(full, n_layers=n_layers, param_dtype="float32")
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, "cuda")
     params = model.init(SERVE["seed"])
     part, records = recorded_continuous(model, params, cfg)
@@ -2964,16 +3016,18 @@ def serve_f32(ctx) -> None:
                                        logits.argmax(-1).int(), 16, "float32")
     decoder.close()
     secs = time.perf_counter() - t0
-    emit({"phase": "serve", "part": "float32", "arch": cfg.name,
-          "n_layers": cfg.n_layers, "reduced": {"n_layers": [
-              full.n_layers, SERVE_F32_LAYERS]}, "param_dtype": "float32",
-          "seconds": secs, "batcher_vs_generate": agree,
-          "graph_vs_eager": vs_eager, "nvidia_smi": ctx["smi"]})
+    emit({"phase": phase, "part": "float32", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "params": cfg.param_count(),
+          "reduced": {"n_layers": [full.n_layers, n_layers]},
+          "param_dtype": "float32", "seconds": secs,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "batcher_vs_generate": agree, "graph_vs_eager": vs_eager,
+          "nvidia_smi": ctx["smi"]})
     if agree["agree"] != 1.0:
-        raise AssertionError(f"serve float32: the continuous batcher's "
+        raise AssertionError(f"{phase} float32: the continuous batcher's "
                              f"greedy tokens differ from generate()'s: "
                              f"{agree}")
-    del model, params, part, caches
+    del model, params, part, caches, decoder
     torch.cuda.empty_cache()
 
 
@@ -3089,6 +3143,138 @@ def phase_serve_moe(ctx) -> None:
     torch.cuda.empty_cache()
 
 
+MLA_LAYERS = 4                  # deepseek-v3-671b has 61: 3 dense + 1 MoE
+# the float32 batcher check: the dense-prefix layers alone (3.60 B params)
+MLA_F32_LAYERS = 3
+
+
+def kernel1_forward(model, params, tokens, phase: str) -> tuple:
+    """``model.forward``'s last-position logits over ``tokens``, and the
+    kernel-1 launches it made by variant: one per layer and one for the
+    MTP block, every one "cuda_core" at MLA's D != Dv, or the phase
+    fails."""
+    import torch
+    cfg = model.cfg
+    attention_variants_reset()
+    with torch.no_grad():
+        logits = model.forward(params, {"tokens": tokens})[0][:, -1]
+    want = launches_per_pass(cfg)["flash_attention"]
+    return logits, attention_variants_check(phase, want, "cuda_core")
+
+
+def phase_serve_mla(ctx) -> None:
+    """deepseek-v3-671b at full width, depth 4, through launch.serve (the
+    serve phase's two parts) on the graphed decoder, whose step is MLA's
+    absorbed decode over the latent cache; then the decode path against a
+    forward that drops no token, both forwards on kernel 1 ("cuda_core"),
+    the kernel's norms against the plain norms, one graph step against
+    eager, a traced replayed step, and the float32 batcher check."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.train import KERNEL_LAUNCHES
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.decode import prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = get_arch("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
+    reduced = {"n_layers": [full.n_layers, MLA_LAYERS]}
+    res, launches, secs, steps = run_serve(ctx, "serve_mla", cfg, SERVE,
+                                           reduced=reduced)
+
+    # the decode path against the training forward: 8 lanes drop no
+    # assignment (capacity 8 >= lanes), the forward over 8 x 128 tokens at
+    # capacity factor 1.25 does, so the decode path is held against a
+    # forward at capacity factor E / K, with the 1.25 forward beside it
+    model, params = res.model, res.params
+    prompts = torch.stack(make_prompts(cfg, SERVE["batch"],
+                                       SERVE["prompt_len"],
+                                       SERVE["seed"])).cuda()
+    S = prompts.shape[1]
+    m = cfg.moe
+    nodrop = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k)), "cuda")
+    with torch.no_grad():
+        caches, dec = prefill(model, params, model.init_cache(
+            prompts.shape[0], S + 16), prompts)
+    for counter in KERNEL_LAUNCHES.values():
+        counter.count = 0
+    with DropCounter() as drops:
+        fwd, fwd_attn = kernel1_forward(nodrop, params, prompts, "serve_mla")
+        nodrop_drops = drops.take()
+        fwd125, fwd125_attn = kernel1_forward(model, params, prompts,
+                                              "serve_mla")
+        drops125 = drops.take()
+    fwd_launches = {k: c.count for k, c in KERNEL_LAUNCHES.items()}
+    ctx["phase_launches"]["serve_mla_forward"] = fwd_launches
+    if fwd_launches != {k: 2 * n for k, n in launches_per_pass(cfg).items()}:
+        raise AssertionError(f"serve_mla: the two check forwards launched "
+                             f"{fwd_launches}")
+    rel_fwd, rel_125 = _rel(dec, fwd), _rel(dec, fwd125)
+    agree_fwd = (dec.argmax(-1) == fwd.argmax(-1)).float().mean().item()
+    del fwd, fwd125
+    if nodrop_drops["dropped"] != 0:
+        raise AssertionError(f"serve_mla: the no-drop forward dropped "
+                             f"{nodrop_drops}")
+    if not rel_fwd <= DECODE_VS_FORWARD_RTOL:
+        raise AssertionError(f"serve_mla: prefill-by-decode logits off the "
+                             f"no-drop forward's by {rel_fwd:.3e} "
+                             f"(relative) > {DECODE_VS_FORWARD_RTOL}")
+
+    # one decode step with the kernel's norms against the plain norms, from
+    # the same caches
+    tok = dec.argmax(-1).int()
+    with torch.no_grad():
+        kern, _ = model.decode_step(params, _clone_caches(caches), tok, S)
+        kernel_fwd = ops.rmsnorm_fwd
+        ops.rmsnorm_fwd = lambda x, s, eps: ref.rmsnorm(x, s, eps=eps)
+        try:
+            plain, _ = model.decode_step(params, _clone_caches(caches), tok,
+                                         S)
+        finally:
+            ops.rmsnorm_fwd = kernel_fwd
+    rel_plain = _rel(kern, plain)
+    if not rel_plain <= KERNEL_VS_PLAIN_RTOL:
+        raise AssertionError(f"serve_mla: decode-step logits with the "
+                             f"RMSNorm kernel off the plain norms' by "
+                             f"{rel_plain:.3e} > {KERNEL_VS_PLAIN_RTOL}")
+
+    # one decode step as the CUDA graph and as eager decode_step from the
+    # same caches; a replayed step traced
+    vs_eager, decoder = graph_vs_eager(model, params, caches, tok, S,
+                                       cfg.param_dtype)
+    prof = {"graph_replay": profile_replay(decoder, tok, S + 2)}
+    decoder.close()
+    emit({"phase": "serve_mla", "ok": True, "seconds": secs,
+          "reduced": reduced, "launches": launches, "decode_steps": steps,
+          "launches_per_decode_step_expected":
+              launches_per_decode_step(cfg),
+          "batch": _part_fields(res.batch),
+          "continuous": _part_fields(res.continuous),
+          "decode_vs_forward_rel": rel_fwd,
+          "decode_vs_forward_rtol": DECODE_VS_FORWARD_RTOL,
+          "decode_vs_forward_argmax_agree": agree_fwd,
+          "forward_capacity_factor": m.n_experts / m.top_k,
+          "forward_drops": nodrop_drops,
+          "decode_vs_forward_1.25_rel": rel_125,
+          "forward_1.25_drops": drops125,
+          "forward_launches": fwd_launches,
+          "forward_attention_by_variant": [fwd_attn, fwd125_attn],
+          "kernel_vs_plain_rel": rel_plain,
+          "kernel_vs_plain_max_abs": (kern - plain).abs().max().item(),
+          "kernel_vs_plain_rtol": KERNEL_VS_PLAIN_RTOL,
+          "graph_vs_eager": vs_eager, "profile_decode_step": prof,
+          "nvidia_smi": ctx["smi"]})
+    # the decoder keeps the params: drop it too before the float32 model
+    del res, model, params, caches, nodrop, kern, plain, dec, decoder
+    torch.cuda.empty_cache()
+    # the batcher's exactness in float32 on the dense-prefix layers alone
+    # (the MoE layer's is held on the CPU, tests/test_torch_mla.py)
+    serve_f32(ctx, "serve_mla", full, MLA_F32_LAYERS)
+
+
 def profile_step(cfg) -> dict:
     """Device time by kernel over one steady fused step of ``cfg`` at the
     train phase's settings (the step after the first, traced with
@@ -3182,7 +3368,8 @@ def main() -> int:
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
            "train_moe": phase_train_moe, "self_heal": phase_self_heal,
            "serve": phase_serve, "serve_ssm": phase_serve_ssm,
-           "serve_moe": phase_serve_moe, "profile": phase_profile}
+           "serve_moe": phase_serve_moe, "serve_mla": phase_serve_mla,
+           "profile": phase_profile}
     if "device" not in phases:
         phases.insert(0, "device")
     for name in phases:

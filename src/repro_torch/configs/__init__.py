@@ -1,5 +1,6 @@
-from repro_torch.configs.base import (ArchConfig, AttnConfig, MoEConfig,
-                                     SSMConfig, get_arch, register)
+from repro_torch.configs.base import (ArchConfig, AttnConfig, MLAConfig,
+                                     MoEConfig, SSMConfig, get_arch,
+                                     register)
 
-__all__ = ["ArchConfig", "AttnConfig", "MoEConfig", "SSMConfig", "get_arch",
-           "register"]
+__all__ = ["ArchConfig", "AttnConfig", "MLAConfig", "MoEConfig", "SSMConfig",
+           "get_arch", "register"]

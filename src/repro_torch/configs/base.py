@@ -1,6 +1,6 @@
 """Architecture configs for the port (own copy of ``repro/configs/base.py``,
-trimmed to the dense, mixture-of-experts, Mamba2 (SSD) and zamba2-hybrid
-stacks the port runs).
+trimmed to the dense, mixture-of-experts, MLA, Mamba2 (SSD) and
+zamba2-hybrid stacks the port runs).
 
 The fields, ``block_pattern``, ``param_count`` and ``reduced()`` match the
 reference for these archs, so a config built here describes the same
@@ -14,13 +14,10 @@ from typing import Tuple
 
 BLOCK_ATTN_DENSE = "attn_dense"        # attention + dense MLP
 BLOCK_ATTN_MOE = "attn_moe"            # attention + MoE FFN
+BLOCK_MLA_DENSE = "mla_dense"          # MLA attention + dense MLP
+BLOCK_MLA_MOE = "mla_moe"              # MLA attention + MoE FFN
 BLOCK_MAMBA = "mamba"                  # Mamba2 SSD block
 BLOCK_HYBRID_SHARED = "hybrid_shared"  # zamba2: mamba layers + shared attn
-
-# Features of the reference that later slices of the port bring.
-_LATER = {
-    "mla": "the MLA slice",
-}
 
 
 @dataclass(frozen=True)
@@ -54,6 +51,17 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 Multi-head Latent Attention settings."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class AttnConfig:
     """Plain / GQA / MQA attention settings."""
 
@@ -82,7 +90,7 @@ class ArchConfig:
     attn: AttnConfig = None
     moe: MoEConfig = None
     ssm: SSMConfig = None
-    mla: object = None
+    mla: MLAConfig = None
     # dense-layer prefix before MoE layers (deepseek: first 3 dense)
     n_dense_prefix: int = 0
     # zamba2: shared attention block applied every `shared_period` layers
@@ -92,15 +100,11 @@ class ArchConfig:
     norm: str = "rmsnorm"              # rmsnorm | layernorm
     tie_embeddings: bool = False
     modality: str = "text"
+    mtp: bool = False                  # DeepSeek multi-token-prediction head
     embed_scale: bool = False          # gemma: scale embeddings by sqrt(d)
     param_dtype: str = "bfloat16"
 
     def __post_init__(self):
-        for feat, slice_name in _LATER.items():
-            if getattr(self, feat) is not None:
-                raise NotImplementedError(
-                    f"{self.name}: {feat} arrives with {slice_name} of the "
-                    f"port")
         if self.modality != "text":
             raise NotImplementedError(
                 f"{self.name}: modality {self.modality!r} arrives with the "
@@ -112,9 +116,14 @@ class ArchConfig:
             return ((BLOCK_MAMBA, self.n_layers),)
         if self.arch_type == "hybrid":
             return ((BLOCK_HYBRID_SHARED, self.n_layers),)
+        if self.moe is not None and self.mla is not None:
+            return ((BLOCK_MLA_DENSE, self.n_dense_prefix),
+                    (BLOCK_MLA_MOE, self.n_layers - self.n_dense_prefix))
         if self.moe is not None:
             return ((BLOCK_ATTN_DENSE, self.n_dense_prefix),
                     (BLOCK_ATTN_MOE, self.n_layers - self.n_dense_prefix))
+        if self.mla is not None:
+            return ((BLOCK_MLA_DENSE, self.n_layers),)
         return ((BLOCK_ATTN_DENSE, self.n_layers),)
 
     def param_count(self) -> int:
@@ -138,6 +147,13 @@ class ArchConfig:
 
     def _attn_params(self) -> int:
         d, a = self.d_model, self.attn
+        if self.mla is not None:
+            m, h = self.mla, a.n_heads
+            p = d * m.q_lora_rank
+            p += m.q_lora_rank * h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+            p += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+            p += m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+            return p + h * m.v_head_dim * d
         return d * a.n_heads * a.head_dim + 2 * d * a.n_kv_heads * a.head_dim \
             + a.n_heads * a.head_dim * d
 
@@ -156,7 +172,7 @@ class ArchConfig:
             p += nh * 2 + di + di * d                 # A_log, D; gate norm; out
             return p + d                              # + pre-norm
         p = self._attn_params() + 2 * d
-        if kind == BLOCK_ATTN_MOE:
+        if kind in (BLOCK_ATTN_MOE, BLOCK_MLA_MOE):
             m = self.moe
             n_exp = m.top_k if active_only else m.n_experts
             p += (n_exp + m.n_shared_experts) * self._mlp_params(
@@ -193,10 +209,16 @@ class ArchConfig:
             ssm = dataclasses.replace(
                 s, d_state=min(s.d_state, 16), head_dim=min(s.head_dim, 32),
                 chunk=16)
+        mla = None
+        if self.mla is not None:
+            mla = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                            qk_nope_head_dim=32, qk_rope_head_dim=16,
+                            v_head_dim=32)
         return dataclasses.replace(
             self, n_layers=2, d_model=min(self.d_model, 256),
             d_ff=min(self.d_ff, 512), vocab=min(self.vocab, 1024), attn=attn,
-            moe=moe, ssm=ssm, n_dense_prefix=min(self.n_dense_prefix, 1),
+            moe=moe, ssm=ssm, mla=mla,
+            n_dense_prefix=min(self.n_dense_prefix, 1),
             shared_period=2 if self.shared_period else 0,
             param_dtype="float32")
 
@@ -210,9 +232,9 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def get_arch(name: str) -> ArchConfig:
-    from repro_torch.configs import (gemma3_12b, gemma_2b,  # noqa: F401
-                                     gpt3, granite_3_8b, granite_moe_3b,
-                                     mamba2_780m, qwen3_4b, zamba2_1p2b)
+    from repro_torch.configs import (  # noqa: F401
+        deepseek_v3_671b, gemma3_12b, gemma_2b, gpt3, granite_3_8b,
+        granite_moe_3b, mamba2_780m, qwen3_4b, zamba2_1p2b)
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet; ported: "
                        f"{sorted(_REGISTRY)}")

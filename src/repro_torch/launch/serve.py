@@ -17,6 +17,8 @@ RMSNorm runs the Hopper RMSNorm kernel.
         --no-continuous
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 """
 from __future__ import annotations

@@ -16,6 +16,8 @@ fused step its loss and MoE router aux loss (0 without MoE).
         --steps 10 --seq 1024 --inject-fail 5 --verify-recovery
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch granite-moe-3b-a800m --reduced --device cpu --inject-fail 2
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v3-671b --reduced --device cpu --inject-fail 2
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Pre-norm residual blocks (``attn_dense``, ``attn_moe``, ``mamba`` and
-``hybrid_shared`` of ``repro/models/blocks.py``), and zamba2's weight-tied
-shared attention+MLP block.
+"""Pre-norm residual blocks (``attn_dense``, ``attn_moe``, ``mla_dense``,
+``mla_moe``, ``mamba`` and ``hybrid_shared`` of ``repro/models/blocks.py``),
+and zamba2's weight-tied shared attention+MLP block.
 
 ``init_block`` builds the params of ``count`` stacked blocks (leading
 ``count`` axis on every leaf, the reference's vmapped init); ``block_apply``
@@ -15,21 +15,16 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import (BLOCK_ATTN_DENSE, BLOCK_ATTN_MOE,
-                                      BLOCK_HYBRID_SHARED, BLOCK_MAMBA)
-from repro_torch.models import layers, moe, ssm
+                                      BLOCK_HYBRID_SHARED, BLOCK_MAMBA,
+                                      BLOCK_MLA_DENSE, BLOCK_MLA_MOE)
+from repro_torch.models import layers, mla, moe, ssm
 
 _MAMBA_KINDS = (BLOCK_MAMBA, BLOCK_HYBRID_SHARED)
-_ATTN_KINDS = (BLOCK_ATTN_DENSE, BLOCK_ATTN_MOE)
-# decode of the block kinds later slices bring (ROADMAP Queue 1)
-_LATER_DECODE = {"mla": "item 5 (MLA)"}
+_MLA_KINDS = (BLOCK_MLA_DENSE, BLOCK_MLA_MOE)
+_ATTN_KINDS = (BLOCK_ATTN_DENSE, BLOCK_ATTN_MOE) + _MLA_KINDS
 
 
-def _refuse_later(kind: str) -> None:
-    for tag, item in _LATER_DECODE.items():
-        if tag in kind:
-            raise NotImplementedError(
-                f"decode of block kind {kind!r} arrives with ROADMAP Queue 1 "
-                f"{item}")
+def _refuse_unknown(kind: str) -> None:
     if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
@@ -45,8 +40,10 @@ def _attn_mlp(gen, count: int, cfg, dtype, device,
     d = cfg.d_model
     p = {"norm1": _stacked_norm(count, cfg, dtype, device),
          "norm2": _stacked_norm(count, cfg, dtype, device),
-         "attn": layers.init_attention(gen, count, cfg, d, dtype, device)}
-    if kind == BLOCK_ATTN_MOE:
+         "attn": mla.init_mla(gen, count, cfg, dtype, device)
+         if kind in _MLA_KINDS
+         else layers.init_attention(gen, count, cfg, d, dtype, device)}
+    if kind in (BLOCK_ATTN_MOE, BLOCK_MLA_MOE):
         p["moe"] = moe.init_moe(gen, count, cfg, dtype, device)
     else:
         p["mlp"] = layers.init_mlp(gen, count, d, cfg.d_ff, cfg.gated_mlp,
@@ -58,8 +55,7 @@ def init_block(gen, count: int, cfg, kind: str, dtype, device) -> dict:
     if kind in _MAMBA_KINDS:
         return {"norm": _stacked_norm(count, cfg, dtype, device),
                 "mamba": ssm.init_mamba(gen, count, cfg, dtype, device)}
-    if kind not in _ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    _refuse_unknown(kind)
     return _attn_mlp(gen, count, cfg, dtype, device, kind)
 
 
@@ -76,9 +72,12 @@ def block_apply(p: dict, cfg, kind: str, x: torch.Tensor, positions, *,
         h = layers.norm_apply(p["norm"], x, cfg.norm)
         return x + ssm.mamba_apply(p["mamba"], cfg, h), None
     h = layers.norm_apply(p["norm1"], x, cfg.norm)
-    x = x + layers.attention_apply(p["attn"], cfg, h,
-                                   layer_is_local=layer_is_local,
-                                   positions=positions)
+    if kind in _MLA_KINDS:
+        x = x + mla.mla_apply(p["attn"], cfg, h, positions)
+    else:
+        x = x + layers.attention_apply(p["attn"], cfg, h,
+                                       layer_is_local=layer_is_local,
+                                       positions=positions)
     h = layers.norm_apply(p["norm2"], x, cfg.norm)
     y, aux = _ffn(p, cfg, h)
     return x + y, aux
@@ -107,11 +106,14 @@ def shared_block_apply(p: dict, cfg, x: torch.Tensor, positions, *,
 
 def block_cache(cfg, kind: str, batch: int, capacity: int, dtype, device,
                 layer_is_local: bool = False) -> dict:
-    """Zero decode cache of one layer: the Mamba2 state, or K/V buffers of
-    ``capacity`` slots (``min(capacity, window)`` for a local layer)."""
+    """Zero decode cache of one layer: the Mamba2 state, MLA's latent
+    buffers ({"ckv", "k_rope"}) or K/V buffers of ``capacity`` slots
+    (``min(capacity, window)`` for a local layer)."""
     if kind in _MAMBA_KINDS:
         return ssm.mamba_init_state(cfg, batch, dtype, device)
-    _refuse_later(kind)
+    _refuse_unknown(kind)
+    if kind in _MLA_KINDS:
+        return mla.mla_init_cache(cfg, batch, capacity, dtype, device)
     a = cfg.attn
     cap = min(capacity, a.window) if (layer_is_local and a.window) \
         else capacity
@@ -127,20 +129,23 @@ def block_decode(p: dict, cfg, kind: str, x: torch.Tensor, cache: dict, pos,
         h = layers.norm_apply(p["norm"], x, cfg.norm)
         y, new = ssm.mamba_decode(p["mamba"], cfg, h, cache)
         return x + y, new
-    _refuse_later(kind)
-    return shared_block_decode(p, cfg, x, cache, pos,
-                               layer_is_local=layer_is_local)
+    _refuse_unknown(kind)
+    h = layers.norm_apply(p["norm1"], x, cfg.norm)
+    if kind in _MLA_KINDS:
+        y, new = mla.mla_decode(p["attn"], cfg, h, cache, pos)
+    else:
+        y, nk, nv = layers.attention_decode(p["attn"], cfg, h, cache["k"],
+                                            cache["v"], pos,
+                                            layer_is_local=layer_is_local)
+        new = {"k": nk, "v": nv}
+    x = x + y
+    h = layers.norm_apply(p["norm2"], x, cfg.norm)
+    return x + _ffn(p, cfg, h)[0], new
 
 
 def shared_block_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos, *,
                         layer_is_local: bool = False):
     """The attention blocks' one-token step (zamba2's shared block runs it
-    with global attention).  Returns (x, {"k", "v"}); an MoE FFN's aux loss
-    is dropped."""
-    h = layers.norm_apply(p["norm1"], x, cfg.norm)
-    y, nk, nv = layers.attention_decode(p["attn"], cfg, h, cache["k"],
-                                        cache["v"], pos,
-                                        layer_is_local=layer_is_local)
-    x = x + y
-    h = layers.norm_apply(p["norm2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h)[0], {"k": nk, "v": nv}
+    with global attention).  Returns (x, {"k", "v"})."""
+    return block_decode(p, cfg, BLOCK_ATTN_DENSE, x, cache, pos,
+                        layer_is_local=layer_is_local)

@@ -54,10 +54,11 @@ def rms_norm_weighted(x: torch.Tensor, scale: torch.Tensor,
 
 def init_dense(gen, shape, dtype, device, scale=None) -> torch.Tensor:
     """Normal init scaled by 1/sqrt(fan_in) (``shape[-2]``), drawn in f32
-    and cast, as the reference does.  A leading axis stacks layers."""
+    and cast, as the reference does.  A leading axis stacks layers.  Scaled
+    in place: one f32 transient the size of the leaf, not two."""
     s = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * s).to(dtype)
+    return w.mul_(s).to(dtype)
 
 
 def init_mlp(gen, count: int, d_model: int, d_ff: int, gated: bool, dtype,

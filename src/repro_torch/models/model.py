@@ -1,4 +1,4 @@
-"""Building the models (dense, MoE, Mamba2 and zamba2-hybrid subset of
+"""Building the models (dense, MoE, MLA, Mamba2 and zamba2-hybrid subset of
 ``repro/models/model.py``).
 
 ``build_model(cfg, device)`` returns a :class:`Model` bundle of functions:
@@ -15,7 +15,12 @@ key paths map 1:1 onto the port's (see ``repro_torch.bridge``).  The
 reference's ``lax.scan`` over that axis is a Python loop here, and
 ``remat=True`` wraps each scan step in ``torch.utils.checkpoint``.  zamba2's
 weight-tied attention+MLP block (``params["shared"]``) runs after the slots
-of each period of a ``shared_after`` segment.  Decode caches keep the same
+of each period of a ``shared_after`` segment.  DeepSeek's multi-token
+prediction head (``params["mtp"]``: one unstacked ``mla_dense`` block and
+a norm) runs on the last layer's output in ``forward`` (``extras[
+"mtp_logits"]``) and adds ``MTP_WEIGHT`` times its cross-entropy against
+the token two ahead to ``loss``; decode does not run it, as in the
+reference.  Decode caches keep the same
 layout: per segment ``{"slots": [...], "shared": ...}`` with leaves of
 shape (count, batch, ...), so axis 1 of every cache leaf is the lane.
 ``decode_step`` updates them in place and returns them.
@@ -28,10 +33,13 @@ from typing import Callable, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.configs.base import (ArchConfig, BLOCK_ATTN_DENSE,
-                                     BLOCK_HYBRID_SHARED)
+                                     BLOCK_HYBRID_SHARED, BLOCK_MLA_DENSE)
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
+
+MTP_WEIGHT = 0.3
 
 # ---------------------------------------------------------------------------
 # Segment plan
@@ -115,6 +123,7 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
     device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     segs = segment_plan(cfg)
+    mtp_kind = BLOCK_MLA_DENSE if cfg.mla else segs[0].kind
 
     def init(seed: int = 0) -> dict:
         """Random params of the reference's shapes and dtypes, drawn from a
@@ -134,6 +143,12 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         if not cfg.tie_embeddings:
             params["head"] = {"w": layers.init_dense(
                 gen, (cfg.d_model, cfg.vocab), dtype, device).T.contiguous()}
+        if cfg.mtp:
+            params["mtp"] = {
+                "block": tree.tree_map(lambda t: t[0], blocks.init_block(
+                    gen, 1, cfg, mtp_kind, dtype, device)),
+                "norm": layers.init_norm(cfg.d_model, cfg.norm, dtype,
+                                         device)}
         return params
 
     def _head_w(params):
@@ -177,7 +192,16 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         x, aux = _run_segments(params, x, positions, remat)
         h = layers.norm_apply(params["final_norm"], x, cfg.norm)
-        return layers.logits_apply(_head_w(params), h), {"aux": aux}
+        logits = layers.logits_apply(_head_w(params), h)
+        extras = {"aux": aux}
+        if cfg.mtp:
+            # the MTP block on the last layer's (pre-norm) output; its aux
+            # loss is dropped, as the reference drops it
+            hm, _ = blocks.block_apply(params["mtp"]["block"], cfg, mtp_kind,
+                                       x, positions)
+            hm = layers.norm_apply(params["mtp"]["norm"], hm, cfg.norm)
+            extras["mtp_logits"] = layers.logits_apply(_head_w(params), hm)
+        return logits, extras
 
     def loss(params, batch, *, remat: bool = False):
         logits, extras = forward(params, batch, remat=remat)
@@ -186,7 +210,13 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         ce = cross_entropy(logits[:, :-1], toks[:, 1:],
                            None if mask is None else mask[:, 1:])
         total = ce + extras["aux"]
-        return total, {"ce": ce, "aux": extras["aux"], "loss": total}
+        metrics = {"ce": ce, "aux": extras["aux"]}
+        if "mtp_logits" in extras:
+            mtp_ce = cross_entropy(extras["mtp_logits"][:, :-2], toks[:, 2:])
+            total = total + MTP_WEIGHT * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = total
+        return total, metrics
 
     # ---------------- decode ----------------
 

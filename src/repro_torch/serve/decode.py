@@ -36,6 +36,8 @@ class GraphDecoder:
     """Decode steps of ``model`` over ``caches`` (updated in place, never
     moved) through static buffers: the tokens (B,) int32 and positions (B,)
     int64 on the model's device, filled on the device before each step.
+    Every cache leaf is (count, B, ...), whatever it holds: K/V buffers,
+    MLA's latent ``ckv`` and ``k_rope`` buffers, or a Mamba2 state.
 
     On a CUDA device the first step runs ``model.decode_step`` eagerly on
     the real caches: the warm-up that loads every library and kernel, since

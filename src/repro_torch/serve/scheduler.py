@@ -99,8 +99,9 @@ class ContinuousBatcher:
             lane.pending = int(req.prompt[0])
 
     def _reset_lane(self, i: int) -> None:
-        """Zero lane i of every cache leaf.  Every leaf is (count, batch,
-        ...), so the lane is axis 1.  (The reference picks the first axis
+        """Zero lane i of every cache leaf (K/V, MLA's latent ``ckv`` and
+        ``k_rope``, or a Mamba2 state).  Every leaf is (count, batch, ...),
+        so the lane is axis 1.  (The reference picks the first axis
         whose size equals the batch size, which is the layer axis when a
         segment stacks as many layers as there are lanes.)"""
         for entry in self.caches:

@@ -173,14 +173,27 @@ def test_block_decode_matches_reference(arch, kind):
 
 
 def test_later_block_kinds_refuse_decode():
-    """MLA decode is refused, naming its ROADMAP item; MoE decode, ported in
-    its own slice, now builds its cache and decodes."""
+    """A block kind the port does not have is refused; MoE and MLA decode,
+    each ported in its own slice, now build their caches and decode."""
     _, tcfg = _both("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tblocks.block_cache(tcfg, "mla_dense", 1, 4, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tblocks.block_decode({}, tcfg, "mla_dense", torch.zeros(1, 1, 8), {},
-                             0)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tblocks.block_cache(tcfg, "vision_dense", 1, 4, torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tblocks.block_decode({}, tcfg, "vision_dense", torch.zeros(1, 1, 8),
+                             {}, 0)
+    dcfg = tget_arch("deepseek-v3-671b").reduced()
+    for kind in ("mla_dense", "mla_moe"):
+        p = tree.tree_map(lambda t: t[0], tblocks.init_block(
+            torch.Generator().manual_seed(0), 1, dcfg, kind, torch.float32,
+            "cpu"))
+        cache = tblocks.block_cache(dcfg, kind, 2, 4, torch.float32, "cpu")
+        assert cache["ckv"].shape == (2, 4, dcfg.mla.kv_lora_rank)
+        y, new = tblocks.block_decode(p, dcfg, kind,
+                                      torch.randn(2, 1, dcfg.d_model), cache,
+                                      torch.tensor([0, 1]))
+        assert y.shape == (2, 1, dcfg.d_model)
+        assert bool(torch.isfinite(y).all())
+        assert sorted(new) == ["ckv", "k_rope"]
     _, mcfg = _both("granite-moe-3b-a800m")
     p = tree.tree_map(lambda t: t[0], tblocks.init_block(
         torch.Generator().manual_seed(0), 1, mcfg, "attn_moe",

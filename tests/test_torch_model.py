@@ -98,14 +98,19 @@ def test_loss_and_every_gradient_leaf_match_jax(name):
 
 
 def test_refuses_features_of_later_slices():
-    """MLA and the modality stubs are refused; MoE, ported in its own
-    slice, now builds."""
+    """The modality stubs are refused; MoE and MLA (with the MTP head),
+    each ported in its own slice, now build."""
     t = tget_arch("gemma-2b")
-    with pytest.raises(NotImplementedError, match="slice"):
-        dataclasses.replace(t, mla=object())
-    with pytest.raises(NotImplementedError, match="slice"):
-        dataclasses.replace(t, modality="vision_stub")
+    for modality in ("vision_stub", "audio_stub"):
+        with pytest.raises(NotImplementedError, match="modality-stub slice"):
+            dataclasses.replace(t, modality=modality)
     moe = tget_arch("granite-moe-3b-a800m").reduced()
     assert moe.moe is not None and moe.block_pattern[-1][0] == "attn_moe"
     params = tbuild(moe, device="cpu").init(0)
     assert "moe" in params["segments"][-1][0]
+    mla = tget_arch("deepseek-v3-671b").reduced()
+    assert mla.block_pattern == (("mla_dense", 1), ("mla_moe", 1))
+    params = tbuild(mla, device="cpu").init(0)
+    assert "w_uk" in params["segments"][0][0]["attn"]
+    assert "moe" in params["segments"][1][0]
+    assert sorted(params["mtp"]) == ["block", "norm"]
