@@ -19,6 +19,18 @@ Phases, each printing one JSON line:
                     KV = 128, "cuda_core": B = 2, S = 1024 and serve_mla's
                     forward check, B = 8, S = 128) beside SDPA's, with
                     gemma-2b's last causal q tile alone and B = 8
+  kernel:flash_attention_bwd
+                    kernel 1's log-sum-exp (both variants) against
+                    ref.flash_attention_lse, and the attention backward
+                    kernel against its plain version (ref.flash_attention_
+                    bwd) and against autograd through ref.flash_attention
+                    (float32 1e-4, bf16 2e-2, abs + rel): every case above
+                    (window, soft-cap, q_offset, ragged Sk, masked rows,
+                    GQA, MQA, D != Dv, f32 and bf16), then the train
+                    phases' shapes (deepseek-v3-671b's MLA, gemma-2b,
+                    qwen3-4b, zamba2-1.2b, granite-moe), timed (graph,
+                    device, back to back, each pass's device time) beside
+                    the bound, the plain version and SDPA's backward
   kernel:maxplus    the three max-plus kernels against their plain
                     versions on the card, bitwise (int64/int32 views) in
                     float32 and float64, at the reference's test cases and
@@ -119,9 +131,15 @@ Phases, each printing one JSON line:
                     cut 18 -> 4 layers): fused steps, one injected DP-rank
                     failure recovered through micro-batch redistribution
                     and checked against the fault-free gradient, and one
-                    in-memory and one persistent checkpoint restored bitwise
-  train_ssm         the same on mamba2-780m at full width and full depth
-                    (48 layers): every layer through the SSD scan kernel
+                    in-memory and one persistent checkpoint restored
+                    bitwise.  Every train phase counts each kernel's
+                    launches every step: kernel 1 once per attention of a
+                    forward, the attention backward kernel once per
+                    attention of each backward pass
+  train_ssm         the same on mamba2-780m at full width (depth cut 48 ->
+                    24 for the script's time: its two restores of the
+                    state take most of the phase): every layer through
+                    the SSD scan kernel
   train_hybrid      zamba2-1.2b at full width (depth cut 38 -> 12, two
                     applications of the shared attention block): two fused
                     steps through both kernels
@@ -131,6 +149,15 @@ Phases, each printing one JSON line:
                     gradient, the checkpoint round trips, each step's router
                     aux loss and share of assignments dropped, and one
                     micro-batch's gradient computed twice, equal bit for bit
+  train_mla         deepseek-v3-671b at full width on one chip's share of
+                    its EP-64 deployment (configs.deepseek_v3_671b.ONE_CHIP:
+                    1 dense MLA + 1 MLA-MoE layer holding 4 of 256 experts,
+                    the MTP block, a vocabulary eighth of 16160; 1.81 B
+                    params): the train phase's steps and failure, kernel 1
+                    ("cuda_core", D = 192, Dv = 128) and its backward 3
+                    times a pass, each step's aux loss and drop share, the
+                    MTP block's and the routers' gradients non-zero; no
+                    checkpoint round trip
   self_heal         launch.self_healing: three injected failures and the
                     strict-semantics check against a fault-free shadow run
   serve             launch.serve on qwen3-4b at full width and full depth:
@@ -190,7 +217,8 @@ kernel's numbers, and the result line.  Any failure exits non-zero before
 the result line.  ``--phases`` runs a subset (for debugging).  Phase
 ``ab``, outside the default run, times kernel 3 at its four shapes and the
 segtree and batched churn walks through the port that ``--src`` names:
-run it on two trees in turns to compare them on one card.
+run it on two trees in turns to compare them on one card.  Phase
+``ab_attn`` does the same for kernel 1 at two shapes.
 """
 from __future__ import annotations
 
@@ -207,7 +235,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernel", "plan", "replay", "control",
-          "train", "train_ssm", "train_hybrid", "train_moe", "self_heal",
+          "train", "train_ssm", "train_hybrid", "train_moe", "train_mla",
+          "self_heal",
           "serve", "serve_ssm", "serve_moe", "serve_mla", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
@@ -294,6 +323,24 @@ MLA_ATTN_SHAPE = (2, 1024, 1024, 128, 128, 192, 128, True, 0, 0.0, 0,
 MLA_FORWARD_SHAPE = (8, 128, 128, 128, 128, 192, 128, True, 0, 0.0, 0,
                      "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The attention backward kernel against its plain version: float32 sums
+# over up to 1000 keys and 8 heads of O(1) products, in another order than
+# the plain version's (observed within 2e-5 at |g| ~ 12), so 1e-4 abs +
+# 1e-4 rel; bf16 gradients are rounded to bf16 (2^-8 relative) after f32
+# sums, so TOL's 2e-2.  The same tolerances hold it against autograd
+# through ref.flash_attention, which also differs by Dvec computed from the
+# stored (rounded) o.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the train phases' attention shapes the backward is timed at (kernels
+# line: deepseek-v3-671b's MLA, this slice's main path)
+BWD_SHAPES = {
+    "deepseek-v3-671b MLA B=2 S=1024 H=KV=128 D=192 Dv=128 causal bf16":
+        MLA_ATTN_SHAPE,
+    "gemma-2b B=2 S=1024 H=8 KV=1 D=256 causal bf16": GEMMA_SHAPE,
+    "qwen3-4b B=2 S=1024 H=32 KV=8 D=128 causal bf16": QWEN3_ATTN_SHAPE,
+    "zamba2-1.2b B=2 S=1024 H=KV=32 D=64 causal bf16": ZAMBA2_ATTN_SHAPE,
+    "granite-moe-3b-a800m B=2 S=1024 H=24 KV=8 D=64 causal bf16":
+        GRANITE_ATTN_SHAPE}
 
 
 def emit(obj) -> None:
@@ -386,18 +433,42 @@ def attn_inputs(case, seed: int = 0, layout: str = "contiguous"):
     return mk(B, Sq, H, D), mk(B, Sk, KV, D), mk(B, Sk, KV, Dv)
 
 
-def attn_bound(case):
-    """Least time for the attention forward at ``case``: each input read
-    once and the output written once, against the multiply-adds the live
-    (query, key) pairs of this mask need."""
-    B, Sq, Sk, H, KV, D, Dv, causal, window, _, q_off, dtype = case
+def _live_pairs(case) -> int:
+    """(query, key) pairs the mask of ``case`` leaves live, per (batch,
+    head)."""
+    _, Sq, Sk, _, _, _, _, causal, window, _, q_off, _ = case
     live = 0
     for i in range(Sq):
         qp = q_off + i
         hi = min(Sk - 1, qp) if causal else Sk - 1
         lo = max(0, qp - window + 1) if window > 0 else 0
         live += max(0, hi - lo + 1)
-    ops = 2.0 * B * H * live * (D + Dv)
+    return live
+
+
+def attn_bwd_bound(case):
+    """Least time for the attention backward at ``case``: q, k, v, o, dO
+    and lse read once and dq, dk, dv written once, against the
+    multiply-adds each live (query, key) pair needs (S and dP recomputed,
+    dq, dk and dv: 3 D + 2 Dv), at the input type's peak."""
+    B, Sq, Sk, H, KV, D, Dv, *_, dtype = case
+    ops = 2.0 * B * H * _live_pairs(case) * (3 * D + 2 * Dv)
+    elt = 2 if dtype == "bfloat16" else 4
+    q_side = B * Sq * H * (D + 2 * Dv + D)          # q, o, dO in; dq out
+    kv_side = 2 * B * Sk * KV * (D + Dv)            # k, v in; dk, dv out
+    nbytes = elt * (q_side + kv_side) + 4 * B * Sq * H   # + lse
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attn_bound(case):
+    """Least time for the attention forward at ``case``: each input read
+    once and the output written once, against the multiply-adds the live
+    (query, key) pairs of this mask need."""
+    B, Sq, Sk, H, KV, D, Dv, *_, dtype = case
+    ops = 2.0 * B * H * _live_pairs(case) * (D + Dv)
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = elt * (B * Sq * H * D + B * Sk * KV * (D + Dv) + B * Sq * H * Dv)
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -618,9 +689,160 @@ def phase_kernel(ctx) -> None:
         emit({"phase": "kernel:flash_attention", "shape": label, **rec,
               "nvidia_smi": ctx["smi"]})
     attention_diagnostics(ctx)
+    phase_kernel_flash_bwd(ctx)
     phase_kernel_maxplus(ctx)
     phase_kernel_ssd(ctx)
     phase_kernel_rmsnorm(ctx)
+
+
+# ---------------------------------------------------------------------------
+# the attention backward (flash VJP) and kernel 1's log-sum-exp
+# ---------------------------------------------------------------------------
+
+
+def _bwd_check(label, case, got, want) -> float:
+    """Largest difference of (dq, dk, dv) from ``want``'s within
+    BWD_TOL (abs + rel), finite, in the inputs' dtype."""
+    import torch
+    *_, dtype = case
+    tol, worst = BWD_TOL[dtype], 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label} {case} {name}: got {g.dtype} "
+                                 f"{tuple(g.shape)}")
+        err = (g.float() - w.float()).abs()
+        if (err > tol + tol * w.float().abs()).any() or \
+                not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{label} {case} {name}: max abs err "
+                                 f"{err.max().item():.3e} over tol {tol}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def _lse_check(case, got, want) -> float:
+    """Kernel 1's lse against the plain version's: f32 both, TOL's f32
+    tolerance (abs + rel; a row with no live key is -1e30 in both)."""
+    tol = TOL["float32"]
+    err = (got - want).abs()
+    if got.shape != want.shape or (err > tol + tol * want.abs()).any():
+        raise AssertionError(f"lse {case}: max abs err "
+                             f"{err.max().item():.3e} over tol {tol}")
+    return err.max().item()
+
+
+def bwd_pass_ms(fn, calls: int = 3) -> dict:
+    """Device time per call of each of the backward's three kernels, from
+    one traced run of ``calls`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in ("dvec_kernel", "dq_kernel", "dkdv_kernel"):
+            if name in e.key:
+                out[name] = out.get(name, 0.0) + \
+                    e.self_device_time_total / 1e3 / calls
+    return out
+
+
+def phase_kernel_flash_bwd(ctx) -> None:
+    """Kernel 1's lse against ``ref.flash_attention_lse`` and the backward
+    kernel against ``ref.flash_attention_bwd`` (the plain version) and
+    against autograd through ``ref.flash_attention``: every ATTN_CASES
+    and WGMMA_CASES case (window, soft-cap, q_offset, ragged Sk, masked
+    rows, GQA, MQA, D != Dv; float32 and bfloat16), then the train phases'
+    shapes, where the backward is timed beside its bound, its plain
+    version and SDPA's backward ((forward + backward) - forward, a
+    yardstick never on the path)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ref
+
+    phase = "kernel:flash_attention_bwd"
+    worst = {"lse": 0.0, "plain": 0.0, "autograd": 0.0}
+    cases = ATTN_CASES + WGMMA_CASES
+    for case in cases:
+        causal, window, softcap, q_off = case[7:11]
+        opts = dict(causal=causal, window=window, softcap=softcap,
+                    q_offset=q_off)
+        q, k, v = attn_inputs(case, seed=4)
+        o, lse = fa.flash_attention_cuda(q, k, v, **opts, with_lse=True)
+        worst["lse"] = max(worst["lse"], _lse_check(
+            case, lse, ref.flash_attention_lse(q, k, v, **opts)[1]))
+        do = attn_inputs(case[:5] + (case[6],) * 2 + case[7:], seed=5)[0]
+        before = fb.LAUNCHES.count
+        got = fb.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts)
+        torch.cuda.synchronize()
+        if fb.LAUNCHES.count != before + 1:
+            raise AssertionError(f"{case}: no backward launch counted")
+        err = _bwd_check("plain", case, got, ref.flash_attention_bwd(
+            q, k, v, o, lse, do, **opts))
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        auto = torch.autograd.grad(ref.flash_attention(*leaves, **opts),
+                                   leaves, do)
+        err_auto = _bwd_check("autograd", case, got, auto)
+        worst["plain"] = max(worst["plain"], err)
+        worst["autograd"] = max(worst["autograd"], err_auto)
+        emit({"phase": phase, "case": list(case), "max_abs_err": err,
+              "max_abs_err_vs_autograd": err_auto})
+    emit({"phase": phase, "cases": len(cases), "tol": BWD_TOL,
+          "lse_tol": TOL["float32"], "max_abs_err_all_cases": worst})
+
+    for i, (label, case) in enumerate(BWD_SHAPES.items()):
+        q, k, v = attn_inputs(case, seed=6)
+        o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+        lse_err = _lse_check(case, lse, ref.flash_attention_lse(q, k, v)[1])
+        do = torch.randn_like(o)
+        kernel = lambda: fb.flash_attention_bwd_cuda(  # noqa: E731
+            q, k, v, o, lse, do)
+        got = kernel()
+        err = _bwd_check("plain", case, got,
+                         ref.flash_attention_bwd(q, k, v, o, lse, do))
+        del got
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        gqa = case[3] != case[4]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=gqa)
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa(), (qt, kt, vt), dot)
+        with torch.no_grad():
+            sdpa_fwd_ms = cuda_ms(sdpa, iters=5, warmup=1)
+        bound_ms, bound_by = attn_bwd_bound(case)
+        ms = cuda_ms(kernel, iters=5, warmup=1)
+        rec = {"name": "flash_attention_bwd", "route": "cuda",
+               "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "replaces": "src/repro/models/flash_vjp.py:99 (_bwd_blocked,"
+                           " pure jnp: no TPU kernel)",
+               "launches": None, "max_abs_err": err, "lse_max_abs_err":
+                   lse_err, "ms": ms,
+               "plain_ms": cuda_ms(lambda: ref.flash_attention_bwd(
+                   q, k, v, o, lse, do), iters=3, warmup=1),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": cuda_ms(sdpa_bwd, iters=5, warmup=1)
+               - sdpa_fwd_ms,
+               "library_fwd_ms": sdpa_fwd_ms,
+               "device_ms": device_ms(kernel, iters=3),
+               "graph_ms": graph_ms(kernel, n=5, reps=3),
+               "pass_device_ms": bwd_pass_ms(kernel)}
+        if i == 0:
+            ctx["kernels"]["flash_attention_bwd"] = rec
+        emit({"phase": phase, "shape": label, **rec,
+              "nvidia_smi": ctx["smi"]})
+        del q, k, v, o, lse, do, qt, kt, vt, dot
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2278,6 +2500,7 @@ def phase_control(ctx) -> None:
 
 TRAIN = dict(steps=4, seq=1024, batch=8, n_micro=4, dp=4, inject_fail=2)
 N_LAYERS = 4                    # gemma-2b has 18; the only reduction
+SSM_LAYERS = 24                 # mamba2-780m has 48: cut for the script's time
 HYBRID = dict(steps=2, seq=1024, batch=8, n_micro=4, dp=4)
 HYBRID_LAYERS = 12              # zamba2-1.2b has 38: two shared-block periods
 MOE_LAYERS = 8                  # granite-moe-3b-a800m has 32; the only reduction
@@ -2296,8 +2519,9 @@ def _tree_equal(a, b) -> bool:
         for x, y in zip(la, lb))
 
 
-def launches_per_pass(cfg, mtp: bool = True) -> dict:
-    """Launches of each kernel in one forward pass of ``cfg``, from the
+def launches_per_pass(cfg, mtp: bool = True, backward: bool = True) -> dict:
+    """Launches of each kernel in one forward pass of ``cfg`` and, with
+    ``backward``, the backward pass of a training micro-batch, from the
     config alone (not from the model's segment plan): one attention per
     dense, MoE or MLA layer, one SSD scan per Mamba2 layer, and one
     attention per shared-block application, after every ``shared_period``
@@ -2306,19 +2530,24 @@ def launches_per_pass(cfg, mtp: bool = True) -> dict:
     layer (the block's and the gate's) and the final one; with ``mtp`` and
     an MTP head, its block's and its norm's.  An MoE layer's FFN (router,
     dispatch, expert products) is PyTorch ops, as the reference's is XLA,
-    so it counts as a dense layer.  The backward recomputes through the
-    plain versions and launches nothing."""
+    so it counts as a dense layer.  The backward launches the attention
+    backward kernel once per attention of the forward; the SSD scan and
+    RMSNorm backward recompute through the plain versions and launch
+    nothing."""
     a = cfg.attn
     per_attn = 4 if cfg.mla is not None \
         else 2 + (2 if a is not None and a.qk_norm else 0)
     if cfg.arch_type in ("dense", "moe"):
         head = int(mtp and cfg.mtp)
-        return {"flash_attention": cfg.n_layers + head, "ssd_scan": 0,
-                "rmsnorm": per_attn * (cfg.n_layers + head) + 1 + head}
-    shared = cfg.n_layers // cfg.shared_period if cfg.arch_type == "hybrid" \
-        else 0
-    return {"flash_attention": shared, "ssd_scan": cfg.n_layers,
-            "rmsnorm": 2 * cfg.n_layers + per_attn * shared + 1}
+        out = {"flash_attention": cfg.n_layers + head, "ssd_scan": 0,
+               "rmsnorm": per_attn * (cfg.n_layers + head) + 1 + head}
+    else:
+        shared = cfg.n_layers // cfg.shared_period \
+            if cfg.arch_type == "hybrid" else 0
+        out = {"flash_attention": shared, "ssd_scan": cfg.n_layers,
+               "rmsnorm": 2 * cfg.n_layers + per_attn * shared + 1}
+    out["flash_attention_bwd"] = out["flash_attention"] if backward else 0
+    return out
 
 
 def launches_per_decode_step(cfg) -> dict:
@@ -2326,7 +2555,7 @@ def launches_per_decode_step(cfg) -> dict:
     pass without the MTP head, which decode does not run (decode attention,
     MLA's absorbed step and the one-token SSM update are plain PyTorch, as
     in the reference)."""
-    return {"flash_attention": 0, "ssd_scan": 0,
+    return {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
             "rmsnorm": launches_per_pass(cfg, mtp=False)["rmsnorm"]}
 
 
@@ -2370,13 +2599,15 @@ def attention_variants_check(phase: str, total: int,
 
 
 def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
-              step_fields=None, final_fields=None) -> dict:
+              step_fields=None, final_fields=None,
+              variant: str = "wgmma") -> dict:
     """launch.train.train() on ``cfg`` with ``opts``; every step's launches
     of each kernel checked against ``launches_per_pass`` (twice on the
-    verified recovered step), losses and gradient norms finite, the
-    recovered gradient within RECOVERY_RTOL of the fault-free one and, with
-    ``checkpoint``, the step-0 in-memory and persistent saves restored
-    bitwise.  ``step_fields()`` adds fields to each step's line and
+    verified recovered step), every kernel-1 launch of the ``variant``
+    kernel, losses and gradient norms finite, the recovered gradient within
+    RECOVERY_RTOL of the fault-free one and, with ``checkpoint``, the
+    step-0 in-memory and persistent saves restored bitwise.
+    ``step_fields()`` adds fields to each step's line and
     ``final_fields(result)`` (which may raise) to the phase's last.
     Returns the run's launches of each kernel."""
     import torch
@@ -2440,7 +2671,7 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
     out = {"phase": phase, "ok": True, "seconds": secs,
            "launches": launches, "launches_expected": total,
            "attention_by_variant": attention_variants_check(
-               phase, launches["flash_attention"])}
+               phase, launches["flash_attention"], variant)}
     rec = next((r for r in result.history if r["kind"] == "recovered"), None)
     if rec is not None:
         tol = RECOVERY_RTOL * rec["grad_sum_max_abs"]
@@ -2482,8 +2713,11 @@ def phase_train(ctx) -> None:
 
 def phase_train_ssm(ctx) -> None:
     from repro_torch.configs import get_arch
-    launches = run_train(ctx, "train_ssm", get_arch("mamba2-780m"), {},
-                         TRAIN, checkpoint=True)
+    full = get_arch("mamba2-780m")
+    cfg = dataclasses.replace(full, n_layers=SSM_LAYERS)
+    launches = run_train(ctx, "train_ssm", cfg,
+                         {"n_layers": [full.n_layers, SSM_LAYERS]}, TRAIN,
+                         checkpoint=True)
     if "ssd_scan" in ctx["kernels"]:
         ctx["kernels"]["ssd_scan"]["launches"] = launches["ssd_scan"]
 
@@ -2499,18 +2733,18 @@ def phase_train_hybrid(ctx) -> None:
 
 class DropCounter:
     """Within a ``with`` block, counts the MoE assignments every
-    ``models.moe.route`` call routes and drops (the drops summed on the
-    device, read by ``take``)."""
+    ``models.moe.route`` call routes to the experts held here and drops
+    (summed on the device, read by ``take``)."""
 
     def __enter__(self) -> "DropCounter":
         from repro_torch.models import moe
         self._moe, self._route = moe, moe.route
-        self.dropped, self.total = [], 0
+        self.dropped, self.held = [], []
 
         def route(router, cfg, xt):
             r = self._route(router, cfg, xt)
-            self.dropped.append((~r.keep).sum())
-            self.total += r.keep.numel()
+            self.dropped.append((r.held & ~r.keep).sum())
+            self.held.append(r.held.sum())
             return r
         moe.route = route
         return self
@@ -2519,13 +2753,14 @@ class DropCounter:
         self._moe.route = self._route
 
     def take(self) -> dict:
-        """The assignments routed and the share dropped since the last
-        call."""
+        """The assignments routed to experts held here and the share of
+        them dropped since the last call."""
         import torch
-        n = int(torch.stack(self.dropped).sum()) if self.dropped else 0
-        out = {"assignments": self.total, "dropped": n,
-               "drop_share": n / self.total if self.total else None}
-        self.dropped, self.total = [], 0
+        n, total = (int(torch.stack(x).sum()) if x else 0
+                    for x in (self.dropped, self.held))
+        out = {"assignments": total, "dropped": n,
+               "drop_share": n / total if total else None}
+        self.dropped, self.held = [], []
         return out
 
 
@@ -2565,31 +2800,93 @@ def phase_train_moe(ctx) -> None:
                       cfg, result.state.params))
 
 
+def loss_terms_reach_gradient(cfg, params) -> dict:
+    """One training micro-batch's gradient at ``params`` (the train phases'
+    first of step 0): the MTP block's leaves and the routers' norms, each
+    non-zero or the phase fails (the MTP block's only gradient is its
+    MTP_WEIGHT x cross-entropy), and the micro-batch's loss terms."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import make_grad_fn
+    grads, metrics = make_grad_fn(build_model(cfg, "cuda"))(
+        params, SyntheticLM(cfg, seq_len=TRAIN["seq"],
+                            global_batch=TRAIN["batch"], device="cuda")
+        .batch(0, start=0, n=TRAIN["batch"] // TRAIN["n_micro"]))
+    norm = lambda ts: float(torch.sqrt(sum(  # noqa: E731
+        t.float().square().sum() for t in ts)))
+    out = {"mtp_block_grad_norm": norm(tree.leaves(grads["mtp"])),
+           "router_grad_norm": norm(
+               g for k, g in tree.leaves_with_path(grads)
+               if k.endswith("['router']")),
+           "micro_batch_terms": {k: float(v) for k, v in metrics.items()}}
+    if not (out["mtp_block_grad_norm"] > 0 and out["router_grad_norm"] > 0
+            and math.isfinite(out["mtp_block_grad_norm"])):
+        raise AssertionError(f"train_mla: a loss term does not reach the "
+                             f"gradient: {out}")
+    return out
+
+
+def phase_train_mla(ctx) -> None:
+    """deepseek-v3-671b at full width on one card's share of its EP-64
+    deployment (configs.deepseek_v3_671b.ONE_CHIP): the train phase's
+    steps and injected failure, kernel 1 ("cuda_core", D = 192, Dv = 128)
+    and its backward three times a pass (2 layers and the MTP block), each
+    step's aux loss and drop share, no checkpoint round trip (a 1.8 B
+    parameter state would take ~25 GB of host copies)."""
+    from repro_torch import tree
+    from repro_torch.configs import deepseek_v3_671b as ds
+    cfg = ds.ONE_CHIP
+
+    def final_fields(result) -> dict:
+        params = result.state.params
+        return {"params_held": sum(t.numel() for t in tree.leaves(params)),
+                **loss_terms_reach_gradient(cfg, params)}
+    with DropCounter() as drops:
+        launches = run_train(ctx, "train_mla", cfg, ds.ONE_CHIP_REDUCED,
+                             TRAIN, checkpoint=False, step_fields=drops.take,
+                             final_fields=final_fields, variant="cuda_core")
+    if "flash_attention_bwd" in ctx["kernels"]:
+        ctx["kernels"]["flash_attention_bwd"]["launches"] = \
+            launches["flash_attention_bwd"]
+
+
 def phase_self_heal(ctx) -> None:
     from repro_torch.core.detection import ErrorKind
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.launch import self_healing
 
     ckpt_dir = ROOT / "build" / "chip_smoke_self_heal"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     lines = []
-    fa.LAUNCHES.count = 0
+    fa.LAUNCHES.count = fb.LAUNCHES.count = 0
     attention_variants_reset()
     t0 = time.perf_counter()
     worst = self_healing.run(
         5, {1: ErrorKind.LINK_FLAPPING, 2: ErrorKind.EXITED_ABNORMALLY,
             3: ErrorKind.LOST_CONNECTION}, device="cuda",
         ckpt_dir=str(ckpt_dir), log=lines.append)
-    launches = fa.LAUNCHES.count
+    launches, bwd = fa.LAUNCHES.count, fb.LAUNCHES.count
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     if launches == 0 or not lines[-1].startswith("PASS"):
         raise AssertionError(f"self_heal: launches={launches}, "
                              f"last line {lines[-1]!r}")
+    # every forward has its backward but the logged losses' (no grad)
+    evals = sum(" loss=" in ln for ln in lines)
+    per_eval = launches_per_pass(self_healing.build(1, "cpu")[0])[
+        "flash_attention"]
+    if bwd == 0 or launches - bwd != evals * per_eval:
+        raise AssertionError(f"self_heal: {launches} attention launches, "
+                             f"{bwd} backward launches, {evals} evaluated "
+                             f"losses of {per_eval} each")
     # the scenario trains a float32 reduced gemma-2b (head_dim 64), whose
     # attention is the CUDA-core kernel's by variant()
     by_variant = attention_variants_check("self_heal", launches, "cuda_core")
     emit({"phase": "self_heal", "ok": True,
           "seconds": time.perf_counter() - t0, "launches": launches,
+          "backward_launches": bwd,
           "attention_by_variant": by_variant,
           "max_param_diff": worst, "atol": self_healing.ATOL,
           "log": lines})
@@ -3209,7 +3506,8 @@ def phase_serve_mla(ctx) -> None:
         drops125 = drops.take()
     fwd_launches = {k: c.count for k, c in KERNEL_LAUNCHES.items()}
     ctx["phase_launches"]["serve_mla_forward"] = fwd_launches
-    if fwd_launches != {k: 2 * n for k, n in launches_per_pass(cfg).items()}:
+    if fwd_launches != {k: 2 * n for k, n in
+                        launches_per_pass(cfg, backward=False).items()}:
         raise AssertionError(f"serve_mla: the two check forwards launched "
                              f"{fwd_launches}")
     rel_fwd, rel_125 = _rel(dec, fwd), _rel(dec, fwd125)
@@ -3342,6 +3640,26 @@ def phase_ab(ctx) -> None:
               "nvidia_smi": ctx["smi"]})
 
 
+def phase_ab_attn(ctx) -> None:
+    """Not in the default run: kernel 1's graph time at deepseek-v3-671b's
+    MLA shape ("cuda_core") and gemma-2b's ("wgmma"), through the port
+    that ``--src`` names (and, where that port writes it, with the
+    log-sum-exp).  Run once per tree, in turns, to compare two trees on
+    one card."""
+    import inspect
+    from repro_torch.kernels import flash_attention as fa
+    lse = "with_lse" in inspect.signature(fa.flash_attention_cuda).parameters
+    for label, case in (("deepseek-v3-671b MLA", MLA_ATTN_SHAPE),
+                        ("gemma-2b", GEMMA_SHAPE)):
+        q, k, v = attn_inputs(case, seed=1)
+        rec = {"phase": "ab_attn", "src": ctx["src"], "shape": label,
+               "graph_ms": graph_ms(lambda: fa.flash_attention_cuda(q, k, v))}
+        if lse:
+            rec["with_lse_graph_ms"] = graph_ms(
+                lambda: fa.flash_attention_cuda(q, k, v, with_lse=True))
+        emit({**rec, "nvidia_smi": ctx["smi"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3364,16 +3682,21 @@ def main() -> int:
     fns = {"device": phase_device, "build": phase_build, "ab": phase_ab,
            "kernel": phase_kernel, "plan": phase_plan,
            "replay": phase_replay, "control": phase_control,
-           "train": phase_train,
+           "ab_attn": phase_ab_attn, "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
-           "train_moe": phase_train_moe, "self_heal": phase_self_heal,
+           "train_moe": phase_train_moe, "train_mla": phase_train_mla,
+           "self_heal": phase_self_heal,
            "serve": phase_serve, "serve_ssm": phase_serve_ssm,
            "serve_moe": phase_serve_moe, "serve_mla": phase_serve_mla,
            "profile": phase_profile}
     if "device" not in phases:
         phases.insert(0, "device")
+    t_start = time.perf_counter()
     for name in phases:
+        t0 = time.perf_counter()
         fns[name](ctx)
+        emit({"phase": name, "wall_seconds": time.perf_counter() - t0,
+              "script_seconds": time.perf_counter() - t_start})
     for name, rec in ctx["kernels"].items():
         rec["launches_by_phase"] = {
             phase: counts[name]

@@ -97,3 +97,28 @@ def to_flat(t: Any) -> Dict[str, np.ndarray]:
     """The inverse of ``from_flat``: ``{keystr: np.ndarray}`` in JAX's leaf
     order."""
     return {k: to_numpy(v) for k, v in tree.leaves_with_path(t)}
+
+
+EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
+
+
+def expert_share(flat: Dict[str, np.ndarray], n_shards: int,
+                 shard: int) -> Dict[str, np.ndarray]:
+    """The flat params with each MoE layer's routed-expert leaves
+    (``['moe']['w_in' | 'w_gate' | 'w_out']``, experts on axis -3) cut to
+    the contiguous block of ``n_experts // n_shards`` experts that shard
+    ``shard`` holds (``MoEConfig.expert_shards`` / ``expert_shard``), so
+    that a reference's whole layer and the port's share of it start from
+    the same weights.  Every other leaf, the router and the shared expert
+    included, is passed on as it is."""
+    out = {}
+    for key, arr in flat.items():
+        path = parse_keystr(key)
+        if len(path) >= 2 and path[-2] == "moe" and path[-1] in EXPERT_LEAVES:
+            n = arr.shape[-3]
+            if n % n_shards:
+                raise ValueError(f"{key}: {n} experts over {n_shards} shards")
+            held = n // n_shards
+            arr = arr[..., shard * held:(shard + 1) * held, :, :]
+        out[key] = arr
+    return out

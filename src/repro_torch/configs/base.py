@@ -22,7 +22,14 @@ BLOCK_HYBRID_SHARED = "hybrid_shared"  # zamba2: mamba layers + shared attn
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts settings (GShard/DeepSeek style)."""
+    """Mixture-of-experts settings (GShard/DeepSeek style).
+
+    ``expert_shards`` and ``expert_shard`` are the port's own (the
+    reference's ``MoEConfig`` has neither): the routed experts are divided
+    over ``expert_shards`` chips in contiguous blocks of
+    ``n_experts // expert_shards`` and this chip holds block
+    ``expert_shard``, as expert parallelism divides them.  The router keeps
+    all ``n_experts`` outputs; see ``models.moe``."""
 
     n_experts: int
     top_k: int
@@ -31,6 +38,20 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01    # load-balance loss weight
     router_dtype: str = "float32"
+    expert_shards: int = 1
+    expert_shard: int = 0
+
+    def __post_init__(self):
+        if self.expert_shards < 1 or self.n_experts % self.expert_shards \
+                or not 0 <= self.expert_shard < self.expert_shards:
+            raise ValueError(f"{self.n_experts} experts do not divide into "
+                             f"{self.expert_shards} shards with shard "
+                             f"{self.expert_shard} among them")
+
+    @property
+    def experts_held(self) -> int:
+        """The routed experts this chip holds."""
+        return self.n_experts // self.expert_shards
 
 
 @dataclass(frozen=True)
@@ -127,7 +148,8 @@ class ArchConfig:
         return ((BLOCK_ATTN_DENSE, self.n_layers),)
 
     def param_count(self) -> int:
-        """Parameter count N, as the reference counts it."""
+        """Parameter count N, as the reference counts it (of the experts,
+        those held here: ``MoEConfig.experts_held``)."""
         return self._count(active_only=False)
 
     def active_param_count(self) -> int:
@@ -174,7 +196,8 @@ class ArchConfig:
         p = self._attn_params() + 2 * d
         if kind in (BLOCK_ATTN_MOE, BLOCK_MLA_MOE):
             m = self.moe
-            n_exp = m.top_k if active_only else m.n_experts
+            n_exp = min(m.top_k, m.experts_held) if active_only \
+                else m.experts_held
             p += (n_exp + m.n_shared_experts) * self._mlp_params(
                 m.d_ff_expert)
             return p + d * m.n_experts                # + router

@@ -8,7 +8,11 @@
 // online softmax over f32 (acc, m, l) state, dead KV tiles skipped, fully
 // masked rows giving exactly 0 (finite NEG_INF = -1e30 and max(l, 1e-30),
 // as in the Pallas kernel).  Inputs f32 or bf16, f32 math, output in q's
-// dtype.
+// dtype.  Given an `lse` pointer, both kernels also write each row's
+// log-sum-exp, (B, Sq, H) f32: lse = m + log(max(l, 1e-30)) with m the
+// row's running max (NEG_INF for a row with no live key) and l its sum,
+// as repro/models/flash_vjp.py:_fwd_blocked returns it for the backward
+// (csrc/flash_attention_bwd.cu); serving passes none and stores nothing.
 //
 // What bounds it on the H100: at training shapes (S = 1024, D = 256) the
 // work is ~4*S*S*D/2 FLOPs per (batch, head) against ~S*D*2 bytes of q and
@@ -81,6 +85,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Sq, H) f32, or null
   int Sq, Sk, H, KV, D, Dv;
   // strides in elements of dims 0..2 (batch, seq, head); dim 3 is contiguous
   long long qs0, qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2, os0, os1, os2;
@@ -109,7 +114,12 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // NT = number of 32-wide column groups of Dv held per lane (ceil(Dv / 32)).
-template <typename T, int NT>
+// LSE: whether the block writes each row's log-sum-exp.  A template
+// argument, so the kernel serving launches (no lse) is compiled as if the
+// store did not exist: with a runtime test instead, ptxas gave the Dv =
+// 128 instantiation more registers and MLA's forward ran 12% slower on an
+// H100 without writing lse.
+template <typename T, int NT, bool LSE>
 __global__ void __launch_bounds__(NTHREADS)
 attn_fwd_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -216,6 +226,10 @@ attn_fwd_kernel(const Params p) {
     const int q = q0 + r * NWARPS + warp;
     if (q >= p.Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if constexpr (LSE) {
+      if (lane == 0)
+        p.lse[(size_t(b) * p.Sq + q) * p.H + h] = m[r] + logf(denom);
+    }
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const int c = lane + 32 * t;
@@ -224,16 +238,22 @@ attn_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool LSE>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (size_t(BQ) * p.D + size_t(BK) * (p.D + 1) +
                        size_t(BK) * p.Dv);
-  cudaError_t err = set_smem<attn_fwd_kernel<T, NT>>(smem);
+  cudaError_t err = set_smem<attn_fwd_kernel<T, NT, LSE>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  attn_fwd_kernel<T, NT><<<grid, NTHREADS, smem, stream>>>(p);
+  attn_fwd_kernel<T, NT, LSE><<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, int NT>
+cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  return p.lse != nullptr ? launch<T, NT, true>(p, B, stream)
+                          : launch<T, NT, false>(p, B, stream);
 }
 
 template <typename T>
@@ -357,6 +377,7 @@ struct Cfg {
 
 struct WgParams {
   void* o;
+  float* lse;  // (B, Sq, H) f32, or null
   long long os0, os1, os2;
   int Sq, Sk, H, KV, n_qtiles;
   int causal, window, q_offset;
@@ -803,6 +824,11 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = row0 + warp * 16 + g + 8 * r;
       if (row >= p.Sq) continue;
       const float inv = 1.f / fmaxf(l, 1e-30f);
+      // m is in log2 units; a row with no live key keeps NEG_INF as is
+      if (p.lse != nullptr && tig == 0)
+        p.lse[(size_t(b) * p.Sq + row) * p.H + h] =
+            (st.m[r] == NEG_INF ? NEG_INF : st.m[r] * (1.f / LOG2E)) +
+            logf(fmaxf(l, 1e-30f));
 #pragma unroll
       for (int n = 0; n < NCH; ++n)
 #pragma unroll
@@ -916,7 +942,7 @@ template <int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   cudaError_t err = check_regs<D>();
   if (err != cudaSuccess) return err;
-  WgParams w{p.o,     p.os0,  p.os1,      p.os2,  p.Sq,   p.Sk,
+  WgParams w{p.o,     p.lse,  p.os0,  p.os1,      p.os2,  p.Sq,   p.Sk,
              p.H,     p.KV,   (p.Sq + Cfg<D>::BQ - 1) / Cfg<D>::BQ, p.causal,
              p.window,
              p.q_offset, p.softcap, p.scale, 0, 0, 0};
@@ -951,10 +977,11 @@ cudaError_t dispatch(const Params& p, int B, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  variant: 0 = CUDA-core, 1 = wgmma, as
 // chosen by the wrapper; a variant that cannot take the inputs returns
-// cudaErrorInvalidValue and launches nothing.  Returns the launch's
-// cudaError_t.
+// cudaErrorInvalidValue and launches nothing.  `lse` is null or a
+// contiguous (B, Sq, H) f32 buffer.  Returns the launch's cudaError_t.
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype,
     int variant, int B, int Sq, int Sk, int H, int KV, int D, int Dv,
     long long qs0, long long qs1, long long qs2, long long ks0, long long ks1,
     long long ks2, long long vs0, long long vs1, long long vs2, long long os0,
@@ -963,7 +990,7 @@ extern "C" int repro_flash_attention_fwd(
   if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || KV < 1 || H % KV != 0 ||
       (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
-  Params p{q,   k,   v,   o,   Sq,  Sk,  H,   KV,     D,      Dv,       qs0,
+  Params p{q,   k,   v,   o,   lse, Sq,  Sk,  H,   KV,     D,      Dv,     qs0,
            qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2,    os0,    os1,      os2,
            causal, window, q_offset, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -4,9 +4,11 @@
 
 ``flash_attention_cuda`` launches the kernel and takes CUDA tensors only.
 ``flash_attention_fwd`` is the entry the model reaches (through
-``ops.FlashAttention``): it launches the kernel for CUDA tensors and runs
-the plain version (``ref.flash_attention``) for CPU tensors, and for
-nothing else.
+``ops.flash_attention``): it launches the kernel for CUDA tensors and runs
+the plain version (``ref.flash_attention``, or ``ref.flash_attention_lse``
+with ``with_lse``) for CPU tensors, and for nothing else.  With
+``with_lse`` both also return each row's log-sum-exp, (B, Sq, H) float32,
+which the backward (``kernels.flash_attention_bwd``) recomputes P from.
 
 The source holds two kernels; ``variant`` picks one from the inputs alone,
 here and nowhere else, and the C entry point launches that one or refuses
@@ -59,19 +61,20 @@ def _entry():
     fn = build.load("flash_attention").repro_flash_attention_fwd
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, I] + [L] * 12 + \
+    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, I] + [L] * 12 + \
         [I, I, F, I, F, P]
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0,
-                         q_offset: int = 0) -> torch.Tensor:
+                         softcap: float = 0.0, q_offset: int = 0,
+                         with_lse: bool = False):
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D|Dv), CUDA, float32 or bfloat16,
     last dim contiguous, D and Dv <= 256, H % KV == 0.  Returns
-    (B, Sq, H, Dv) in q's dtype.  Launches the kernel ``variant`` names, or
-    raises."""
+    (B, Sq, H, Dv) in q's dtype, and with ``with_lse`` also each row's
+    log-sum-exp (B, Sq, H) float32.  Launches the kernel ``variant`` names,
+    or raises."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention_cuda: {name} is on {t.device}, "
@@ -99,13 +102,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          f"D, Dv <= {MAX_HEAD_DIM}; got H={H} KV={KV} D={D} "
                          f"Dv={Dv}")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     kind = variant(q, k, v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], VARIANTS.index(kind), B, Sq, Sk, H, KV, D, Dv,
+        lse.data_ptr() if with_lse else None, _DTYPE_CODE[q.dtype],
+        VARIANTS.index(kind), B, Sq, Sk, H, KV, D, Dv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), int(window), float(softcap or 0.0), int(q_offset),
         1.0 / math.sqrt(D), stream)
@@ -115,17 +121,19 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                            f"{_REFUSALS.get(err, '')}".rstrip())
     LAUNCHES.count += 1
     LAUNCHES_BY_VARIANT[kind].count += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0,
-                        q_offset: int = 0) -> torch.Tensor:
+                        softcap: float = 0.0, q_offset: int = 0,
+                        with_lse: bool = False):
     """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    opts = dict(causal=causal, window=window, softcap=softcap,
+                q_offset=q_offset)
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    softcap=softcap, q_offset=q_offset)
+        return flash_attention_cuda(q, k, v, **opts, with_lse=with_lse)
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, q_offset=q_offset)
+        if with_lse:
+            return ref.flash_attention_lse(q, k, v, **opts)
+        return ref.flash_attention(q, k, v, **opts)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")

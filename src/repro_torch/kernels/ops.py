@@ -3,10 +3,16 @@
 
 The forward runs the kernel (``flash_attention_fwd``, ``ssd_scan_fwd``,
 ``rmsnorm_fwd``: the CUDA kernel for CUDA tensors, the plain version for
-CPU tensors).  The backward recomputes through the plain version, exactly
-as the reference's custom VJPs ``_fa_bwd``, ``_ssd_bwd`` and ``_rn_bwd``
-differentiate through ``ref.flash_attention``, ``ref.ssd_scan`` and
-``ref.rmsnorm``.
+CPU tensors).
+
+Attention's backward is a kernel too, the JAX package's flash custom VJP
+(``repro/models/flash_vjp.py``, its ``kernel="flash"`` path): the forward
+saves (q, k, v, o) and each row's log-sum-exp, and the backward
+(``flash_attention_bwd``: the CUDA kernel for CUDA tensors, the plain
+version for CPU tensors) recomputes P from them, so no (Sq, Sk) tensor is
+stored.  The SSD scan and RMSNorm backward recompute through the plain
+version, exactly as the reference's custom VJPs ``_ssd_bwd`` and
+``_rn_bwd`` differentiate through ``ref.ssd_scan`` and ``ref.rmsnorm``.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
@@ -21,24 +28,31 @@ from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_offset):
-        ctx.save_for_backward(q, k, v)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap,
                         q_offset=q_offset)
-        return flash_attention_fwd(q, k, v, **ctx.opts)
+        o, lse = flash_attention_fwd(q, k, v, **ctx.opts, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = (t.detach().requires_grad_(True)
-                   for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = ref.flash_attention(q, k, v, **ctx.opts)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g.contiguous(),
+                                         **ctx.opts)
         return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
-    return FlashAttention.apply(q, k, v, causal, window, softcap, q_offset)
+    """Attention of ``ref.flash_attention``'s contract.  Where autograd has
+    nothing to record (grad off, or no input requires it: serving) the
+    forward is called without the ``autograd.Function``, so it writes no
+    log-sum-exp."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, softcap,
+                                    q_offset)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset)
 
 
 class SsdScan(torch.autograd.Function):

@@ -4,9 +4,11 @@
 They are what the CPU runs, what ``chip_smoke.py`` holds each kernel
 against on the card, and what the kernels' backward passes recompute
 through.  ``simple_attention`` and ``blocked_attention`` port the jnp
-oracles of ``repro/models/layers.py``; ``ssd_scan`` ports
-``repro/models/ssm.py:ssd_chunked``; ``rmsnorm`` is the one of
-``repro/kernels/ref.py``.
+oracles of ``repro/models/layers.py``; ``flash_attention_lse`` and
+``flash_attention_bwd`` have the mathematics of
+``repro/models/flash_vjp.py`` (``_fwd_blocked``, ``_bwd_blocked``);
+``ssd_scan`` ports ``repro/models/ssm.py:ssd_chunked``; ``rmsnorm`` is the
+one of ``repro/kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numbers
 import torch
 
 _INT_MAX = torch.iinfo(torch.int32).max
+NEG = -1e30          # repro/models/flash_vjp.py's finite mask value
 
 
 def _mask(q_pos, k_pos, causal: bool, window: int):
@@ -120,6 +123,70 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                  softcap=softcap, q_offset=q_offset)
     return simple_attention(q, k, v, causal=causal, window=window,
                             softcap=softcap, q_offset=q_offset)
+
+
+def _scores(q, k, causal, window, softcap, q_offset):
+    """(s, dcap, mask), each (B, KV, G, Sq, Sk) f32: the scaled and
+    soft-capped scores with masked entries at NEG, d s / d s_raw (1 without
+    a soft-cap), and the mask, as ``flash_vjp``'s ``p_and_dcap``."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, D).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
+    if softcap and softcap > 0.0:
+        t = torch.tanh(s / softcap)
+        s, dcap = t * softcap, 1.0 - t * t
+    else:
+        dcap = torch.ones_like(s)
+    mask = _mask(q_offset + torch.arange(Sq, device=q.device),
+                 torch.arange(Sk, device=q.device), causal, window)
+    return s.masked_fill(~mask, NEG), dcap, mask
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, q_offset: int = 0):
+    """``flash_attention``'s output and each row's log-sum-exp (B, Sq, H)
+    f32: lse = m + log(max(l, 1e-30)), m the row's max over its scores with
+    masked entries at NEG (so NEG for a row with no live key) and l the sum
+    of exp(s - m) over its live keys, as ``flash_vjp._fwd_blocked``."""
+    B, Sq, H, _ = q.shape
+    s, _, mask = _scores(q, k, causal, window, softcap, q_offset)
+    m = s.amax(dim=-1)
+    l = torch.where(mask, torch.exp(s - m[..., None]), 0.0).sum(dim=-1)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        softcap=softcap, q_offset=q_offset)
+    return o, lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        q_offset: int = 0):
+    """(dq, dk, dv) of attention at (q, k, v) for the output gradient
+    ``do``, from the forward's ``o`` and ``lse`` (``flash_attention_lse``),
+    in the inputs' dtypes; f32 arithmetic, unblocked.  The mathematics of
+    ``repro/models/flash_vjp.py:_bwd_blocked``: Dvec = rowsum(do * o),
+    P = exp(s - lse) on live entries (0 elsewhere), dS = P (dP - Dvec)
+    dcap / sqrt(D), dq = dS K, dk = dS^T Q and dv = P^T dO, each summed
+    over the G query heads of a KV head."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    s, dcap, mask = _scores(q, k, causal, window, softcap, q_offset)
+
+    def grouped(x):           # (B, Sq, H, ...) -> (B, KV, G, Sq, ...)
+        x = x.float().reshape((B, Sq, KV, G) + x.shape[3:])
+        return x.permute((0, 2, 3, 1) + tuple(range(4, x.dim())))
+    dof = grouped(do)
+    dvec = (dof * grouped(o)).sum(dim=-1)
+    p = torch.where(mask, torch.exp(s - grouped(lse)[..., None]), 0.0)
+    dp = torch.einsum("bkgqd,bskd->bkgqs", dof, v.float())
+    ds = p * (dp - dvec[..., None]) * dcap / math.sqrt(D)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float())
+    dk = torch.einsum("bkgqs,bkgqd->bskd", ds, grouped(q))
+    dv = torch.einsum("bkgqs,bkgqd->bskd", p, dof)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):

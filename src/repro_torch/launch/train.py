@@ -5,10 +5,11 @@ Runs the Unicron-managed loop on one device: deterministic data pipeline
 statistical monitor watching iteration times, the hierarchical checkpoint
 manager (in-memory + persistent tiers) saving state, and optional
 mid-run failure injection through the §6.2 micro-batch redistribution
-path.  On the card, attention runs the Hopper flash-attention kernel,
-every Mamba2 layer the Hopper SSD scan kernel and every RMSNorm the Hopper
-RMSNorm kernel; each step records how many times it launched each, and a
-fused step its loss and MoE router aux loss (0 without MoE).
+path.  On the card, attention runs the Hopper flash-attention kernel and
+its backward the Hopper flash-attention backward kernel, every Mamba2 layer
+the Hopper SSD scan kernel and every RMSNorm the Hopper RMSNorm kernel;
+each step records how many times it launched each, and a fused step its
+loss and MoE router aux loss (0 without MoE).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
         --reduced --steps 50 --seq 128 --batch 8 --n-micro 4 --inject-fail 10
@@ -39,7 +40,8 @@ from repro_torch.core.detection import ErrorKind
 from repro_torch.core.kvstore import KVStore
 from repro_torch.core.resumption import run_iteration_with_failure
 from repro_torch.data.pipeline import SyntheticLM, stack_microbatches
-from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                 rmsnorm, ssd_scan)
 from repro_torch.models.model import build_model
 from repro_torch.optim import AdamW, cosine_with_warmup
 from repro_torch.train.state import TrainState, init_train_state
@@ -49,6 +51,7 @@ from repro_torch.train.step import (finalize_step, make_grad_fn,
 
 # kernel name -> its launch counter (see chip_smoke.py's kernels line)
 KERNEL_LAUNCHES = {"flash_attention": flash_attention.LAUNCHES,
+                   "flash_attention_bwd": flash_attention_bwd.LAUNCHES,
                    "ssd_scan": ssd_scan.LAUNCHES,
                    "rmsnorm": rmsnorm.LAUNCHES}
 

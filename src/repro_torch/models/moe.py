@@ -8,6 +8,17 @@ batched matmuls of static shape.  Tokens beyond an expert's capacity are
 dropped (GShard semantics); the router's aux loss keeps the load balanced.
 Shared experts (DeepSeek) are a plain MLP over all tokens.
 
+A chip's share of expert parallelism (``MoEConfig.expert_shards`` > 1) is
+the reference's ``_moe_local`` (the body of its shard_map variant) in this
+dispatch: the router keeps its published width and top-k and the aux loss
+comes from the routing over all E experts, while only the
+``experts_held`` experts of block ``expert_shard`` are held and computed;
+assignments to the others go to the trash slot, so ``moe_apply`` returns
+this chip's part of the routed result (plus the shared expert, which
+every chip computes alike).  No collective: what the other chips' experts
+add is left out, as a deployment's exchange would bring it.  The default
+share (1 of 1) is the whole layer.
+
 The reference's two dispatch layouts (``DISPATCH_3D``) compute the same
 function; the port has one.  Its combine is deterministic on the card:
 each token gathers its K slots into (T, K, d) and adds them in ascending
@@ -36,12 +47,12 @@ def capacity(n_tokens: int, n_experts: int, top_k: int,
 
 def init_moe(gen, count: int, cfg, dtype, device) -> dict:
     """``count`` stacked MoE FFNs: a float32 router (d, E) whatever
-    ``dtype`` is, as the reference's, and the experts stacked (E, d, f) /
-    (E, f, d)."""
+    ``dtype`` is, as the reference's, and the experts held here stacked
+    (E_held, d, f) / (E_held, f, d)."""
     m, d = cfg.moe, cfg.d_model
-    E, f = m.n_experts, m.d_ff_expert
-    p = {"router": layers.init_dense(gen, (count, d, E), torch.float32,
-                                     device),
+    E, f = m.experts_held, m.d_ff_expert
+    p = {"router": layers.init_dense(gen, (count, d, m.n_experts),
+                                     torch.float32, device),
          "w_in": layers.init_dense(gen, (count, E, d, f), dtype, device),
          "w_gate": layers.init_dense(gen, (count, E, d, f), dtype, device),
          "w_out": layers.init_dense(gen, (count, E, f, d), dtype, device)}
@@ -55,11 +66,14 @@ def init_moe(gen, count: int, cfg, dtype, device) -> dict:
 class Routing(NamedTuple):
     """Where each of T tokens' K assignments goes, in (token, k) order with
     each token's experts ascending: its expert (T, K), its renormalised
-    router weight (T, K) f32, its slot in the flat (E*C + 1) buffer (T*K,;
-    E*C, the trash slot, where dropped) and whether it was kept (T*K,)."""
+    router weight (T, K) f32, its slot in the flat (E_held*C + 1) buffer
+    (T*K,; E_held*C, the trash slot, where dropped or held elsewhere),
+    whether its expert is held here (T*K,) and whether it was kept here
+    (T*K,: held and within capacity)."""
     expert: torch.Tensor
     weight: torch.Tensor
     slot: torch.Tensor
+    held: torch.Tensor
     keep: torch.Tensor
     capacity: int
     aux: torch.Tensor
@@ -67,7 +81,8 @@ class Routing(NamedTuple):
 
 def route(router: torch.Tensor, cfg, xt: torch.Tensor) -> Routing:
     """The router, the Switch aux loss and the capacity dispatch of ``xt``
-    (T, d), as the reference computes them."""
+    (T, d) to the experts held here, as the reference computes them
+    (``moe_apply``, and ``_moe_local`` for a share)."""
     m = cfg.moe
     T = xt.shape[0]
     E, K = m.n_experts, m.top_k
@@ -89,25 +104,30 @@ def route(router: torch.Tensor, cfg, xt: torch.Tensor) -> Routing:
     # expert orders its assignments by token whatever the order of a
     # token's K: ordering them by expert here changes no rank and makes
     # the combine's sum over K the reference's scatter-add order.
+    # Assignments to experts held elsewhere sort last, as expert E_held.
     top_e, k_order = torch.sort(top_e, dim=-1)
     top_p = top_p.gather(-1, k_order)
     C = capacity(T, E, K, m.capacity_factor)
-    flat_e = top_e.reshape(T * K)
-    order = torch.sort(flat_e, stable=True).indices
-    se = flat_e[order]
-    seg_start = torch.searchsorted(se, experts)
+    E_l = m.experts_held
+    flat_e = top_e.reshape(T * K) - m.expert_shard * E_l
+    held = (flat_e >= 0) & (flat_e < E_l)
+    local_e = torch.where(held, flat_e, E_l)
+    order = torch.sort(local_e, stable=True).indices
+    se = local_e[order]
+    seg_start = torch.searchsorted(se, experts[:E_l + 1])
     ar = torch.arange(T * K, device=xt.device)
     rank = torch.empty_like(order).scatter_(0, order, ar - seg_start[se])
-    keep = rank < C                                   # rank within expert
-    slot = torch.where(keep, flat_e * C + rank, E * C)      # E*C = trash
-    return Routing(top_e, top_p, slot, keep, C, aux)
+    keep = held & (rank < C)                          # rank within expert
+    slot = torch.where(keep, local_e * C + rank, E_l * C)  # E_l*C = trash
+    return Routing(top_e, top_p, slot, held, keep, C, aux)
 
 
 def moe_apply(p: dict, cfg, x: torch.Tensor):
-    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar f32)."""
+    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar f32): with a share,
+    the part of y the experts held here give, plus the shared expert."""
     m = cfg.moe
     B, S, d = x.shape
-    T, E, K = B * S, m.n_experts, m.top_k
+    T, E, K = B * S, m.experts_held, m.top_k
     xt = x.reshape(T, d)
     r = route(p["router"], cfg, xt)
     C = r.capacity

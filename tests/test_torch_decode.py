@@ -31,7 +31,8 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.model import build_model as tbuild  # noqa: E402
 from repro_torch.serve.decode import prefill as tprefill  # noqa: E402
 from test_torch_helpers import (DECODE_TOL, F32_ATOL, F32_RTOL,  # noqa: E402
-                                assert_close, randn, to_torch_tree)
+                                assert_close, moe_as_reference, randn,
+                                to_torch_tree)
 
 ARCHS = ["gemma-2b", "qwen3-4b", "gemma3-12b", "granite-3-8b", "gpt3-1.3b",
          "mamba2-780m", "zamba2-1.2b", "granite-moe-3b-a800m"]
@@ -49,7 +50,7 @@ def test_dense_configs_agree(arch):
             assert getattr(a, f) == getattr(b, f), f
         assert dataclasses.asdict(a.attn) == dataclasses.asdict(b.attn)
         assert (a.moe is None and b.moe is None) or \
-            dataclasses.asdict(a.moe) == dataclasses.asdict(b.moe)
+            dataclasses.asdict(a.moe) == moe_as_reference(b.moe)
         assert a.block_pattern == b.block_pattern
         assert a.param_count() == b.param_count()
     assert t.reduced().attn.window == (min(t.attn.window, 64)

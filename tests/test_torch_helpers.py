@@ -67,6 +67,16 @@ def jax_shapes(tree):
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
+def moe_as_reference(moe):
+    """The port's ``MoEConfig`` as a dict of the reference's fields: its
+    own expert-share fields dropped, which must hold the whole layer (one
+    shard)."""
+    import dataclasses
+    d = dataclasses.asdict(moe)
+    assert (d.pop("expert_shards"), d.pop("expert_shard")) == (1, 0)
+    return d
+
+
 def to_torch_tree(jax_tree):
     """A JAX tree of arrays as the port's tree of CPU tensors."""
     from repro_torch import bridge

@@ -35,11 +35,13 @@ from repro.models.model import build_model as jbuild  # noqa: E402
 from repro.serve.decode import generate as jgenerate  # noqa: E402
 from repro.serve.decode import prefill as jprefill  # noqa: E402
 from repro_torch import bridge, tree  # noqa: E402
+from repro_torch.configs import deepseek_v3_671b as ds  # noqa: E402
 from repro_torch.configs import get_arch as tget_arch  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import mla as tmla  # noqa: E402
+from repro_torch.models.model import MTP_WEIGHT  # noqa: E402
 from repro_torch.models.model import build_model as tbuild  # noqa: E402
 from repro_torch.serve.decode import (GraphDecoder, generate,  # noqa: E402
                                       prefill)
@@ -48,8 +50,8 @@ from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
 from repro_torch.train.step import make_grad_fn  # noqa: E402
 from test_torch_helpers import (DECODE_TOL, F32_ATOL, F32_RTOL,  # noqa: E402
                                 LOSS_RTOL, MODEL_GRAD_ATOL, MODEL_GRAD_RTOL,
-                                assert_close, jax_flat, jax_shapes, randn,
-                                to_torch_tree)
+                                assert_close, jax_flat, jax_shapes,
+                                moe_as_reference, randn, to_torch_tree)
 
 ARCH = "deepseek-v3-671b"
 _FIELDS = ("name", "arch_type", "source", "n_layers", "d_model", "d_ff",
@@ -68,9 +70,10 @@ def test_configs_agree_and_count_the_reference_params():
     for a, b in ((j, t), (j.reduced(), t.reduced())):
         for f in _FIELDS:
             assert getattr(a, f) == getattr(b, f), f
-        for sub in ("attn", "moe", "mla"):
+        for sub in ("attn", "mla"):
             assert dataclasses.asdict(getattr(a, sub)) == \
                 dataclasses.asdict(getattr(b, sub)), sub
+        assert dataclasses.asdict(a.moe) == moe_as_reference(b.moe)
         assert a.block_pattern == b.block_pattern
         assert a.param_count() == b.param_count()
         assert a.active_param_count() == b.active_param_count()
@@ -241,6 +244,79 @@ def test_loss_terms_and_every_gradient_leaf_match_reference(models):
         assert_close(got[k], want[k], MODEL_GRAD_ATOL, MODEL_GRAD_RTOL)
 
 
+def test_loss_and_every_gradient_leaf_match_reference_flash_vjp(models):
+    """The port's one attention path against the reference's
+    ``kernel="flash"`` path (``repro/models/flash_vjp.py``: the forward
+    saves (o, lse), the backward recomputes P in two passes): the loss
+    terms and every gradient leaf, the MTP block's included."""
+    jcfg, tcfg, jm, tm, jparams, tparams = models
+    batch = JData(jcfg, seq_len=32, global_batch=2, seed=5).batch(0)
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jm.loss(p, b, kernel="flash"), has_aux=True))(
+        jparams, batch)
+    tgrads, metrics = make_grad_fn(tm)(tparams, {
+        "tokens": torch.from_numpy(np.array(batch["tokens"]))})
+    assert_close(metrics["loss"], jloss, 0, LOSS_RTOL)
+    for k in ("ce", "aux", "mtp_ce"):
+        assert_close(metrics[k], jmet[k], 0, LOSS_RTOL)
+    want = jax_flat(jgrads)
+    got = dict(tree.leaves_with_path(tgrads))
+    assert list(got) == list(want)
+    for k in want:
+        assert_close(got[k], want[k], MODEL_GRAD_ATOL, MODEL_GRAD_RTOL)
+
+
+def test_one_chip_share_is_the_stated_cut():
+    """``ONE_CHIP``: every width as published, only the keys
+    ``ONE_CHIP_REDUCED`` lists changed (2 layers, 1 dense, a vocabulary
+    eighth, 4 of 256 experts held), 1.81 B parameters, and the registry
+    still the published model."""
+    full, one = ds.ARCH, ds.ONE_CHIP
+    assert tget_arch(ARCH) is full
+    changed = {f.name for f in dataclasses.fields(full)
+               if getattr(full, f.name) != getattr(one, f.name)}
+    assert changed == {"n_layers", "n_dense_prefix", "vocab", "moe"}
+    assert dataclasses.replace(one.moe, expert_shards=1) == full.moe
+    assert (one.n_layers, one.n_dense_prefix, one.vocab) == (2, 1, 16160)
+    assert one.moe.experts_held == 4 and one.moe.expert_shard == 0
+    assert one.block_pattern == (("mla_dense", 1), ("mla_moe", 1))
+    assert set(ds.ONE_CHIP_REDUCED) == {"n_layers", "n_dense_prefix",
+                                        "vocab", "experts_held"}
+    mtp = one._block_params("mla_dense")
+    assert 1.80e9 < one.param_count() + mtp < 1.82e9
+
+
+def _reduced_share(**moe):
+    """Reduced deepseek holding 2 of 8 routed experts (shard 1 of 4)."""
+    t = tget_arch(ARCH).reduced()
+    return dataclasses.replace(t, moe=dataclasses.replace(
+        t.moe, n_experts=8, expert_shards=4, expert_shard=1, **moe))
+
+
+def test_mtp_and_aux_losses_reach_the_gradient():
+    """On a reduced share: the loss is ce + aux + MTP_WEIGHT * mtp_ce; the
+    MTP block's leaves get a gradient (their only path is the MTP loss);
+    the routers' gradient moves with the aux loss's weight; the expert
+    leaves hold the share's 2 experts."""
+    cfg = _reduced_share()
+    model = tbuild(cfg, "cpu")
+    params = model.init(0)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32))}
+    grads, m = make_grad_fn(model)(params, batch)
+    assert_close(m["loss"], m["ce"] + m["aux"] + MTP_WEIGHT * m["mtp_ce"],
+                 0, 1e-6)
+    assert all(float(g.abs().max()) > 0 for g in tree.leaves(grads["mtp"]))
+    moe = params["segments"][1][0]["moe"]
+    assert moe["w_in"].shape[1] == 2 and moe["router"].shape[-1] == 8
+    no_aux = _reduced_share(router_aux_weight=0.0)
+    g0, m0 = make_grad_fn(tbuild(no_aux, "cpu"))(params, batch)
+    assert float(m0["aux"]) == 0.0 and float(m["aux"]) > 0
+    key = "['segments'][1][0]['moe']['router']"
+    r, r0 = (dict(tree.leaves_with_path(g))[key] for g in (grads, g0))
+    assert not torch.equal(r, r0)
+
+
 PROMPT, STEPS = 12, 6
 
 
@@ -334,7 +410,8 @@ def test_training_loop_recovers_an_injected_failure(tmp_path):
         assert np.isfinite(r["grad_norm"])
         if r["kind"] == "fused":
             assert np.isfinite(r["loss"]) and r["aux"] > 0
-        assert r["launches"] == {"flash_attention": 0, "ssd_scan": 0,
+        assert r["launches"] == {"flash_attention": 0,
+                                 "flash_attention_bwd": 0, "ssd_scan": 0,
                                  "rmsnorm": 0}
 
 

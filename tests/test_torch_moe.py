@@ -38,6 +38,7 @@ from repro.train.step import make_train_step as jstep  # noqa: E402
 from repro_torch import bridge, tree  # noqa: E402
 from repro_torch.configs import get_arch as tget_arch  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.model import build_model as tbuild  # noqa: E402
 from repro_torch.optim import AdamW, cosine_with_warmup  # noqa: E402
@@ -49,7 +50,7 @@ from repro_torch.train.step import make_grad_fn, make_train_step  # noqa
 from test_torch_helpers import (DECODE_TOL, F32_ATOL, F32_RTOL,  # noqa: E402
                                 LOSS_RTOL, MODEL_GRAD_ATOL, MODEL_GRAD_RTOL,
                                 assert_close, jax_flat, jax_shapes,
-                                to_torch_tree)
+                                moe_as_reference, to_torch_tree)
 
 ARCH = "granite-moe-3b-a800m"
 _FIELDS = ("name", "arch_type", "source", "n_layers", "d_model", "d_ff",
@@ -81,7 +82,7 @@ def test_configs_agree():
         for f in _FIELDS:
             assert getattr(a, f) == getattr(b, f), f
         assert dataclasses.asdict(a.attn) == dataclasses.asdict(b.attn)
-        assert dataclasses.asdict(a.moe) == dataclasses.asdict(b.moe)
+        assert dataclasses.asdict(a.moe) == moe_as_reference(b.moe)
         assert a.block_pattern == b.block_pattern
         assert a.param_count() == b.param_count()
         assert a.active_param_count() == b.active_param_count()
@@ -229,6 +230,124 @@ def test_moe_apply_reads_nothing_on_the_host():
                             "unique", "_unique2", "masked_select", "item"}
 
 
+# ---- a chip's share of expert parallelism -----------------------------------
+
+N_SHARDS = 4
+
+
+def _share_pair(capacity_factor, n_shared=0):
+    """Reduced granite-moe with 8 experts top-2 in both packages."""
+    return _pair(n_experts=8, top_k=2, capacity_factor=capacity_factor,
+                 n_shared_experts=n_shared)
+
+
+def _share(tcfg, shard):
+    return dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, expert_shards=N_SHARDS, expert_shard=shard))
+
+
+def _share_params(p, shard):
+    """The reference's whole layer ``p`` cut to ``shard``'s experts by
+    ``bridge.expert_share`` (the port's tree of one layer)."""
+    flat = bridge.expert_share(jax_flat({"moe": p}), N_SHARDS, shard)
+    return bridge.from_flat(flat)["moe"]
+
+
+@pytest.mark.parametrize("capacity_factor", [4.0, 1.25])
+@pytest.mark.parametrize("shard", range(N_SHARDS))
+def test_share_matches_reference_moe_local(shard, capacity_factor):
+    """Each share's partial y and aux loss against the reference's
+    ``_moe_local`` (the body of its shard_map variant) called directly
+    with an integer ``shard_idx`` and the same experts' weights; its aux
+    sums normalised as ``moe_apply_shardmap`` does.  F32_ATOL / F32_RTOL."""
+    jcfg, tcfg = _share_pair(capacity_factor)
+    p = jmoe.init_moe(jax.random.PRNGKey(11), jcfg, jnp.float32)
+    x = _tokens(jcfg, seed=12)
+    T, E = x.shape[0] * x.shape[1], jcfg.moe.n_experts
+    held = E // N_SHARDS
+    cut = {k: p[k][shard * held:(shard + 1) * held]
+           for k in ("w_in", "w_gate", "w_out")}
+    jy, me_sum, ce_sum = jmoe._moe_local(
+        jcfg, jnp.asarray(x).reshape(T, -1), p["router"], cut["w_in"],
+        cut["w_gate"], cut["w_out"], "model", ("data",), N_SHARDS, shard)
+    jaux = jnp.sum(me_sum / T * ce_sum / T) * E * jcfg.moe.router_aux_weight
+    tp = _share_params(p, shard)
+    assert tuple(tp["w_in"].shape) == (held, jcfg.d_model,
+                                       jcfg.moe.d_ff_expert)
+    ty, taux = tmoe.moe_apply(tp, _share(tcfg, shard), torch.from_numpy(x))
+    assert_close(ty.reshape(T, -1), jy, F32_ATOL, F32_RTOL)
+    assert_close(taux, jaux, F32_ATOL, F32_RTOL)
+
+
+def test_shares_sum_to_the_whole_layer():
+    """At capacity factor 1.25 (assignments dropped): the shares' partial
+    results, with the shared expert every chip computes counted once, add
+    up to the reference's whole layer (``moe_apply``, no shard_map); their
+    kept assignments are the reference's; every share's aux loss is the
+    whole routing's.  F32_ATOL / F32_RTOL."""
+    jcfg, tcfg = _share_pair(1.25, n_shared=1)
+    p = jmoe.init_moe(jax.random.PRNGKey(13), jcfg, jnp.float32)
+    x = _tokens(jcfg, seed=14)
+    assert jmoe.SHARD_MAP is None
+    jy, jaux = jmoe.moe_apply(p, jcfg, jnp.asarray(x))
+    tx = torch.from_numpy(x)
+    shared = layers.mlp_apply(to_torch_tree(p)["shared"],
+                              tx.reshape(-1, tcfg.d_model), tcfg.mlp_act,
+                              True).reshape(tx.shape)
+    total, kept = -(N_SHARDS - 1) * shared, set()
+    for shard in range(N_SHARDS):
+        cfg = _share(tcfg, shard)
+        tp = _share_params(p, shard)
+        ty, taux = tmoe.moe_apply(tp, cfg, tx)
+        assert_close(taux, jaux, F32_ATOL, F32_RTOL)
+        total = total + ty
+        r = tmoe.route(tp["router"], cfg, tx.reshape(-1, tcfg.d_model))
+        kept |= _port_kept(r)
+    assert_close(total, jy, F32_ATOL, F32_RTOL)
+    want = _reference_kept(p, jcfg, x)
+    assert kept == want and len(want) < x.shape[0] * x.shape[1] * 2
+
+
+def test_one_share_is_the_whole_layer_bit_for_bit():
+    """The default share (1 of 1) leaves ``moe_apply`` as it was: an
+    explicit ``expert_shards=1`` gives the same bits."""
+    jcfg, tcfg = _share_pair(1.25, n_shared=1)
+    p = to_torch_tree(jmoe.init_moe(jax.random.PRNGKey(15), jcfg,
+                                    jnp.float32))
+    x = torch.from_numpy(_tokens(jcfg, seed=16))
+    one = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, expert_shards=1, expert_shard=0))
+    for a, b in zip(tmoe.moe_apply(p, tcfg, x), tmoe.moe_apply(p, one, x)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        dataclasses.replace(tcfg.moe, expert_shards=3)
+    with pytest.raises(ValueError):
+        dataclasses.replace(tcfg.moe, expert_shards=4, expert_shard=4)
+
+
+def test_share_trains_through_an_injected_failure(tmp_path):
+    """A reduced share (2 of 8 experts, shard 1 of 4, capacity factor
+    1.25) through the launcher with a rank-1 failure at step 1: the
+    recovered gradient within 1e-5 of the largest gradient of the
+    fault-free one, finite losses with a positive aux loss, the expert
+    leaves of the share's width."""
+    _, tcfg = _share_pair(1.25, n_shared=1)
+    cfg = _share(tcfg, 1)
+    result = train(cfg, steps=3, seq=32, batch=8, n_micro=4, dp=4,
+                   inject_fail=1, verify_recovery=True, device="cpu",
+                   ckpt_dir=str(tmp_path), ckpt_every=3, log=lambda s: None)
+    assert [r["kind"] for r in result.history] == \
+        ["fused", "recovered", "fused"]
+    rec = result.history[1]
+    assert rec["recovery_max_abs_diff"] <= 1e-5 * rec["grad_sum_max_abs"]
+    for r in result.history:
+        assert np.isfinite(r["grad_norm"])
+        if r["kind"] == "fused":
+            assert np.isfinite(r["loss"]) and r["aux"] > 0
+    moe = result.state.params["segments"][0][0]["moe"]
+    assert moe["w_in"].shape[1] == 2 and moe["router"].shape[-1] == 8
+
+
 # ---- the reduced model as a whole -------------------------------------------
 
 
@@ -300,7 +419,8 @@ def test_training_loop_recovers_an_injected_failure(tmp_path):
         assert np.isfinite(r["grad_norm"])
         if r["kind"] == "fused":
             assert np.isfinite(r["loss"]) and r["aux"] > 0
-        assert r["launches"] == {"flash_attention": 0, "ssd_scan": 0,
+        assert r["launches"] == {"flash_attention": 0,
+                                 "flash_attention_bwd": 0, "ssd_scan": 0,
                                  "rmsnorm": 0}
 
 

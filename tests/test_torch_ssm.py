@@ -180,6 +180,7 @@ def test_training_loop_recovers_an_injected_failure(tmp_path):
     for r in result.history:
         assert np.isfinite(r["grad_norm"])
         assert r["loss"] is None or np.isfinite(r["loss"])
-        assert r["launches"] == {"flash_attention": 0, "ssd_scan": 0,
+        assert r["launches"] == {"flash_attention": 0,
+                                 "flash_attention_bwd": 0, "ssd_scan": 0,
                                  "rmsnorm": 0}
     assert int(result.state.step) == 3
