@@ -17,8 +17,11 @@ Phases, each printing one JSON line:
                     (GQA group 3: 24 heads over 8 KV heads) training shapes
                     and deepseek-v3-671b's MLA shapes (D = 192, Dv = 128, H =
                     KV = 128, "cuda_core": B = 2, S = 1024 and serve_mla's
-                    forward check, B = 8, S = 128) beside SDPA's, with
-                    gemma-2b's last causal q tile alone and B = 8
+                    forward check, B = 8, S = 128), hubert-xlarge's
+                    (bidirectional, H = KV = 16, D = 80, "cuda_core") and
+                    internvl2-2b's (S = 1280, GQA 16 / 8, D = 128) beside
+                    SDPA's, with gemma-2b's last causal q tile alone and
+                    B = 8
   kernel:flash_attention_bwd
                     kernel 1's log-sum-exp (both variants) against
                     ref.flash_attention_lse, and the attention backward
@@ -28,7 +31,8 @@ Phases, each printing one JSON line:
                     (window, soft-cap, q_offset, ragged Sk, masked rows,
                     GQA, MQA, D != Dv, f32 and bf16), then the train
                     phases' shapes (deepseek-v3-671b's MLA, gemma-2b,
-                    qwen3-4b, zamba2-1.2b, granite-moe), timed (graph,
+                    qwen3-4b, zamba2-1.2b, granite-moe, hubert-xlarge
+                    bidirectional at D = 80, internvl2-2b), timed (graph,
                     device, back to back, each pass's device time) beside
                     the bound, the plain version and SDPA's backward
   kernel:maxplus    the three max-plus kernels against their plain
@@ -67,6 +71,19 @@ Phases, each printing one JSON line:
                     F.rms_norm's), the profiler's device time, and ``graph_ms``
                     (20 calls in one CUDA graph, as inside the decode
                     step's graph) for the kernel and for F.rms_norm
+  kernel:rmsnorm_bwd
+                    the RMSNorm backward kernel (the analytic VJP of the
+                    reference's rmsnorm_fused) against ref.rmsnorm_bwd:
+                    the rmsnorm cases, a width past 48 KB of shared
+                    memory, a transposed g, strided x and g read in place,
+                    a misaligned x, then the training shapes (internvl2-2b
+                    and gemma-2b block norms, qwen3-4b's q-norm, the
+                    mamba2 gate, deepseek's strided kv_norm, f32); dx
+                    within 1e-5 (f32) / 2e-2 (bf16) abs + rel, dscale
+                    within that share of its largest element, both equal
+                    bit for bit over two calls; times (back to back,
+                    graph, device) beside the bound, the plain version and
+                    F.rms_norm's backward
   plan              launch.plan.replan: the coordinator's replans on the
                     first SEV1 events of trace-b on the Fig. 11 fleet (128
                     GPUs) and a 12-step churn walk at 1024 workers / 64
@@ -135,7 +152,9 @@ Phases, each printing one JSON line:
                     bitwise.  Every train phase counts each kernel's
                     launches every step: kernel 1 once per attention of a
                     forward, the attention backward kernel once per
-                    attention of each backward pass
+                    attention of each backward pass, kernel 2 once per
+                    RMSNorm of a forward and its backward kernel once per
+                    RMSNorm of each backward pass
   train_ssm         the same on mamba2-780m at full width (depth cut 48 ->
                     24 for the script's time: its two restores of the
                     state take most of the phase): every layer through
@@ -158,6 +177,15 @@ Phases, each printing one JSON line:
                     times a pass, each step's aux loss and drop share, the
                     MTP block's and the routers' gradients non-zero; no
                     checkpoint round trip
+  train_vlm         internvl2-2b at full width and depth (24 layers, 1.89
+                    B params; 256 patch embeddings ahead of 1024 tokens):
+                    the train phase's steps and failure, kernel 1
+                    ("wgmma") and its backward once per layer, kernels 2
+                    and 2-bwd on every norm; no checkpoint round trip
+  train_audio       hubert-xlarge at full width and depth (48 layers, 1.26
+                    B params; 1024 frames, masked-unit loss, LayerNorm):
+                    the same, kernel 1 and its backward bidirectional at
+                    D = 80 ("cuda_core"), no RMSNorm
   self_heal         launch.self_healing: three injected failures and the
                     strict-semantics check against a fault-free shadow run
   serve             launch.serve on qwen3-4b at full width and full depth:
@@ -209,8 +237,9 @@ Phases, each printing one JSON line:
                     where the batcher's greedy tokens must equal
                     generate()'s
   profile           device time by kernel over one traced steady step of
-                    the train, train_ssm and train_moe phases'
-                    configurations, and the idle share
+                    the train, train_ssm (24 of 48 layers, cut for the
+                    script's time) and train_moe phases' configurations,
+                    and the idle share
 
 Then a line with the card's name and power limit, a line with every
 kernel's numbers, and the result line.  Any failure exits non-zero before
@@ -236,7 +265,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernel", "plan", "replay", "control",
           "train", "train_ssm", "train_hybrid", "train_moe", "train_mla",
-          "self_heal",
+          "train_vlm", "train_audio", "self_heal",
           "serve", "serve_ssm", "serve_moe", "serve_mla", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
@@ -322,6 +351,15 @@ MLA_ATTN_SHAPE = (2, 1024, 1024, 128, 128, 192, 128, True, 0, 0.0, 0,
                   "bfloat16")
 MLA_FORWARD_SHAPE = (8, 128, 128, 128, 128, 192, 128, True, 0, 0.0, 0,
                      "bfloat16")
+# hubert-xlarge's at the train_audio phase's micro-batch: bidirectional
+# (the only encoder in the repo) at D = 80, which is not a wgmma width, so
+# "cuda_core"
+HUBERT_ATTN_SHAPE = (2, 1024, 1024, 16, 16, 80, 80, False, 0, 0.0, 0,
+                     "bfloat16")
+# internvl2-2b's at the train_vlm phase's micro-batch: 256 patch embeddings
+# ahead of 1024 tokens, GQA 16 / 8 at D = 128 ("wgmma")
+INTERNVL_ATTN_SHAPE = (2, 1280, 1280, 16, 8, 128, 128, True, 0, 0.0, 0,
+                       "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # The attention backward kernel against its plain version: float32 sums
 # over up to 1000 keys and 8 heads of O(1) products, in another order than
@@ -340,7 +378,11 @@ BWD_SHAPES = {
     "qwen3-4b B=2 S=1024 H=32 KV=8 D=128 causal bf16": QWEN3_ATTN_SHAPE,
     "zamba2-1.2b B=2 S=1024 H=KV=32 D=64 causal bf16": ZAMBA2_ATTN_SHAPE,
     "granite-moe-3b-a800m B=2 S=1024 H=24 KV=8 D=64 causal bf16":
-        GRANITE_ATTN_SHAPE}
+        GRANITE_ATTN_SHAPE,
+    "hubert-xlarge B=2 S=1024 H=KV=16 D=80 bidirectional bf16":
+        HUBERT_ATTN_SHAPE,
+    "internvl2-2b B=2 S=1280 H=16 KV=8 D=128 causal bf16":
+        INTERNVL_ATTN_SHAPE}
 
 
 def emit(obj) -> None:
@@ -619,9 +661,10 @@ def phase_kernel(ctx) -> None:
     cases = [(c, "contiguous", None) for c in ATTN_CASES] + \
         [(c, "contiguous", "wgmma") for c in WGMMA_CASES +
          [GEMMA_SHAPE, ZAMBA2_ATTN_SHAPE, QWEN3_ATTN_SHAPE,
-          GRANITE_ATTN_SHAPE]] + \
+          GRANITE_ATTN_SHAPE, INTERNVL_ATTN_SHAPE]] + \
         [(c, "contiguous", "cuda_core") for c in (MLA_ATTN_SHAPE,
-                                                  MLA_FORWARD_SHAPE)] + \
+                                                  MLA_FORWARD_SHAPE,
+                                                  HUBERT_ATTN_SHAPE)] + \
         [(c, layout, want) for layout, c, want in ATTN_LAYOUT_CASES]
     worst, ran = 0.0, {}
     for case, layout, expect in cases:
@@ -659,17 +702,22 @@ def phase_kernel(ctx) -> None:
               "deepseek-v3-671b MLA B=2 S=1024 H=KV=128 D=192 Dv=128 causal "
               "bf16": MLA_ATTN_SHAPE,
               "deepseek-v3-671b MLA B=8 S=128 H=KV=128 D=192 Dv=128 causal "
-              "bf16 (serve_mla forward check)": MLA_FORWARD_SHAPE}
+              "bf16 (serve_mla forward check)": MLA_FORWARD_SHAPE,
+              "hubert-xlarge B=2 S=1024 H=KV=16 D=80 bidirectional bf16":
+                  HUBERT_ATTN_SHAPE,
+              "internvl2-2b B=2 S=1280 H=16 KV=8 D=128 causal bf16":
+                  INTERNVL_ATTN_SHAPE}
     for i, (label, case) in enumerate(shapes.items()):
         q, k, v = attn_inputs(case, seed=1)
-        opts = dict(causal=True, window=0, softcap=0.0, q_offset=0)
+        causal = case[7]
+        opts = dict(causal=causal, window=0, softcap=0.0, q_offset=0)
         kernel = lambda: fa.flash_attention_cuda(q, k, v, **opts)  # noqa
         got = kernel()
         want = ref.flash_attention(q, k, v, **opts)
         err = (got.float() - want.float()).abs().max().item()
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=case[3] != case[4])
+            qt, kt, vt, is_causal=causal, enable_gqa=case[3] != case[4])
         bound_ms, bound_by = attn_bound(case)
         rec = {"name": "flash_attention", "route": "cuda",
                "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -693,6 +741,7 @@ def phase_kernel(ctx) -> None:
     phase_kernel_maxplus(ctx)
     phase_kernel_ssd(ctx)
     phase_kernel_rmsnorm(ctx)
+    phase_kernel_rmsnorm_bwd(ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -801,21 +850,24 @@ def phase_kernel_flash_bwd(ctx) -> None:
 
     for i, (label, case) in enumerate(BWD_SHAPES.items()):
         q, k, v = attn_inputs(case, seed=6)
-        o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
-        lse_err = _lse_check(case, lse, ref.flash_attention_lse(q, k, v)[1])
+        causal = case[7]
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                         with_lse=True)
+        lse_err = _lse_check(case, lse, ref.flash_attention_lse(
+            q, k, v, causal=causal)[1])
         do = torch.randn_like(o)
         kernel = lambda: fb.flash_attention_bwd_cuda(  # noqa: E731
-            q, k, v, o, lse, do)
+            q, k, v, o, lse, do, causal=causal)
         got = kernel()
-        err = _bwd_check("plain", case, got,
-                         ref.flash_attention_bwd(q, k, v, o, lse, do))
+        err = _bwd_check("plain", case, got, ref.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal))
         del got
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
         dot = do.transpose(1, 2).contiguous()
         gqa = case[3] != case[4]
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=gqa)
+            qt, kt, vt, is_causal=causal, enable_gqa=gqa)
         sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
             sdpa(), (qt, kt, vt), dot)
         with torch.no_grad():
@@ -829,7 +881,7 @@ def phase_kernel_flash_bwd(ctx) -> None:
                "launches": None, "max_abs_err": err, "lse_max_abs_err":
                    lse_err, "ms": ms,
                "plain_ms": cuda_ms(lambda: ref.flash_attention_bwd(
-                   q, k, v, o, lse, do), iters=3, warmup=1),
+                   q, k, v, o, lse, do, causal=causal), iters=3, warmup=1),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": cuda_ms(sdpa_bwd, iters=5, warmup=1)
                - sdpa_fwd_ms,
@@ -1686,6 +1738,169 @@ def phase_kernel_rmsnorm(ctx) -> None:
           "max_abs_err_all_cases": worst})
 
 
+# ---------------------------------------------------------------------------
+# the RMSNorm backward (kernel 2's analytic VJP)
+# ---------------------------------------------------------------------------
+
+# dx against the plain version: the same f32 arithmetic but the row's two
+# sums in another order, so float32 within a few ulps of |dx| <= ~10 and
+# bf16 within one rounding (2^-8 relative) plus RMS_TOL's 2e-2; dscale sums
+# up to 65536 rows in another order: float32 within 1e-5 of the largest
+# |dscale|, bf16 (one rounding of the f32 sum) within 2e-2 of it.
+RMS_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# (x shape, x dtype, scale dtype): the reference's test shapes, ragged
+# widths and row counts on both paths (a warp per row up to d = 1024, a
+# block per row above), d = 1, mixed dtypes, and a width past 48 KB of
+# shared memory for the block's accumulator row
+RMS_BWD_CASES = RMS_CASES + [((3, 16384), "float32", "float32"),
+                             ((4, 13000), "bfloat16", "bfloat16")]
+# the training paths: (label, x shape, dtype[, parent width of a strided
+# slice]); every micro-batch is 2 sequences
+RMS_BWD_SHAPES = [
+    ("internvl2-2b train block norm", (2, 1280, 2048), "bfloat16"),
+    ("gemma-2b train block norm", (2, 1024, 2048), "bfloat16"),
+    ("qwen3-4b train q-norm", (2, 1024, 32, 128), "bfloat16"),
+    ("mamba2-780m train gate norm", (2, 1024, 3072), "bfloat16"),
+    # x[..., :512] of the (2, 1024, 576) latent projection, read in place
+    ("deepseek-v3-671b train kv_norm (strided slice of 576)",
+     (2, 1024, 512), "bfloat16", 576),
+    ("reduced configs (f32)", (2, 1024, 256), "float32"),
+]
+RMS_BWD_MAIN = "internvl2-2b train block norm"     # the kernels line's row
+
+
+def rms_bwd_bound(shape, dtype, sdtype):
+    """Least time for one call: x and g read once, dx written once, scale
+    read and dscale written once, against ~10 f32 operations an element
+    (two sums, dx, dscale)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    selt = 2 if sdtype == "bfloat16" else 4
+    d = shape[-1]
+    n = math.prod(shape)
+    t_bytes = (3 * n * elt + 2 * d * selt) / HBM_BYTES_PER_S
+    t_ops = 10.0 * n / PEAK_OPS_PER_S["float32"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _rms_bwd_check(name, got, want, x, scale) -> dict:
+    """dx within RMS_BWD_TOL (abs + rel) and dscale within it of the largest
+    |dscale|, both finite, in x's and scale's dtype and shape."""
+    import torch
+    (dx, ds), (wdx, wds) = got, want
+    if dx.dtype != x.dtype or dx.shape != x.shape or \
+            ds.dtype != scale.dtype or ds.shape != scale.shape:
+        raise AssertionError(f"rmsnorm_bwd {name}: got dx {dx.dtype} "
+                             f"{tuple(dx.shape)}, dscale {ds.dtype} "
+                             f"{tuple(ds.shape)}")
+    tol = RMS_BWD_TOL[str(x.dtype).split(".")[-1]]
+    err_dx = (dx.float() - wdx.float()).abs()
+    err_ds = (ds.float() - wds.float()).abs().max().item()
+    ds_tol = RMS_BWD_TOL[str(scale.dtype).split(".")[-1]] * \
+        max(wds.float().abs().max().item(), 1.0)
+    if (err_dx > tol + tol * wdx.float().abs()).any() or \
+            not err_ds <= ds_tol or not torch.isfinite(dx.float()).all() \
+            or not torch.isfinite(ds.float()).all():
+        raise AssertionError(f"rmsnorm_bwd {name}: dx max abs err "
+                             f"{err_dx.max().item():.3e} (tol {tol} abs + "
+                             f"rel), dscale {err_ds:.3e} (tol {ds_tol:.3e})")
+    return {"dx_max_abs_err": err_dx.max().item(),
+            "dscale_max_abs_err": err_ds}
+
+
+def phase_kernel_rmsnorm_bwd(ctx) -> None:
+    """The RMSNorm backward kernel against ``ref.rmsnorm_bwd`` on the card:
+    RMS_BWD_CASES, a transposed g, a strided x and g read in place, a
+    misaligned x, then the training shapes; every case's dx and dscale
+    equal bit for bit over two calls; at the training shapes its times
+    beside the bound, the plain version and ``F.rms_norm``'s backward
+    ((forward + backward) - forward, a yardstick never on the path)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm_bwd as rb
+
+    phase = "kernel:rmsnorm_bwd"
+    worst = {"dx": 0.0, "dscale": 0.0}
+
+    def check(name, x, s, g):
+        before = rb.LAUNCHES.count
+        got = rb.rmsnorm_bwd_cuda(x, s, g)
+        torch.cuda.synchronize()
+        if rb.LAUNCHES.count != before + 1:
+            raise AssertionError(f"rmsnorm_bwd {name}: no launch counted")
+        errs = _rms_bwd_check(name, got, ref.rmsnorm_bwd(x, s, g), x, s)
+        again = rb.rmsnorm_bwd_cuda(x, s, g)
+        if not (torch.equal(got[0], again[0])
+                and torch.equal(got[1], again[1])):
+            raise AssertionError(f"rmsnorm_bwd {name}: two calls differ")
+        worst["dx"] = max(worst["dx"], errs["dx_max_abs_err"])
+        worst["dscale"] = max(worst["dscale"], errs["dscale_max_abs_err"])
+        return errs
+
+    n = 0
+    for i, (shape, dt, sdt) in enumerate(RMS_BWD_CASES):
+        x, s = rms_inputs(shape, dt, sdt, seed=100 + i)
+        g = rms_inputs(shape, dt, dt, seed=200 + i)[0]
+        emit({"phase": phase, "case": [list(shape), dt, sdt],
+              **check(str((shape, dt, sdt)), x, s, g)})
+        n += 1
+    # layouts: g transposed (copied by the wrapper), x and g strided slices
+    # of wider rows (read in place), x 2 bytes off 16-byte alignment
+    x, s = rms_inputs((64, 512), "bfloat16", "bfloat16", seed=300)
+    gt = rms_inputs((512, 64), "bfloat16", "bfloat16", seed=301)[0].t()
+    wide = rms_inputs((64, 640), "bfloat16", "bfloat16", seed=302)[0]
+    flat = rms_inputs((64 * 512 + 1,), "bfloat16", "bfloat16", seed=303)[0]
+    layouts = {"transposed_g": (x, gt), "strided_x_and_g":
+               (wide[:, :512], wide[:, 128:]),
+               "misaligned_x": (flat[1:].view(64, 512), gt.contiguous())}
+    for name, (xv, gv) in layouts.items():
+        emit({"phase": phase, "layout": name, **check(name, xv, s, gv)})
+        n += 1
+    emit({"phase": phase, "cases": n, "tol": RMS_BWD_TOL,
+          "max_abs_err_all_cases": worst})
+
+    rows = {}
+    for i, (label, shape, dt, *parent) in enumerate(RMS_BWD_SHAPES):
+        if parent:
+            full, s = rms_inputs(shape[:-1] + (parent[0],), dt, dt,
+                                 seed=400 + i)
+            x, s = full[..., :shape[-1]], s[:shape[-1]]
+        else:
+            x, s = rms_inputs(shape, dt, dt, seed=400 + i)
+        g = rms_inputs(shape, dt, dt, seed=500 + i)[0]
+        errs = check(label, x, s, g)
+        kernel = lambda: rb.rmsnorm_bwd_cuda(x, s, g)  # noqa: E731
+        xr, sr = (t.detach().clone().requires_grad_(True) for t in (x, s))
+        lib_fwd = lambda: F.rms_norm(xr, (shape[-1],), sr, 1e-6)  # noqa
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            lib_fwd(), (xr, sr), g)
+        with torch.no_grad():
+            lib_fwd_ms = cuda_ms(lib_fwd, iters=50)
+        bound_ms, bound_by = rms_bwd_bound(shape, dt, dt)
+        rec = {"name": "rmsnorm_bwd", "route": "cuda",
+               "source": "src/repro_torch/csrc/rmsnorm_bwd.cu",
+               "replaces": "src/repro/models/layers.py:372 "
+                           "(_rmsnorm_fused_bwd, pure jnp: no TPU kernel)",
+               "launches": None, "max_abs_err": errs["dx_max_abs_err"],
+               "dscale_max_abs_err": errs["dscale_max_abs_err"],
+               "ms": cuda_ms(kernel, iters=50),
+               "plain_ms": cuda_ms(lambda: ref.rmsnorm_bwd(x, s, g),
+                                   iters=20),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": cuda_ms(lib, iters=50) - lib_fwd_ms,
+               "library_fwd_ms": lib_fwd_ms,
+               "graph_ms": graph_ms(kernel),
+               "device_ms": device_ms(kernel),
+               "plain_device_ms": device_ms(
+                   lambda: ref.rmsnorm_bwd(x, s, g), iters=10)}
+        rows[label] = rec
+        emit({"phase": phase, "shape": f"{label} "
+              f"{'x'.join(map(str, shape))} {dt}", **rec,
+              "nvidia_smi": ctx["smi"]})
+    ctx["kernels"]["rmsnorm_bwd"] = rows[RMS_BWD_MAIN]
+
+
 def _bits(x: float) -> str:
     return float(x).hex()
 
@@ -2523,30 +2738,37 @@ def launches_per_pass(cfg, mtp: bool = True, backward: bool = True) -> dict:
     """Launches of each kernel in one forward pass of ``cfg`` and, with
     ``backward``, the backward pass of a training micro-batch, from the
     config alone (not from the model's segment plan): one attention per
-    dense, MoE or MLA layer, one SSD scan per Mamba2 layer, and one
-    attention per shared-block application, after every ``shared_period``
-    layers of a hybrid stack; two RMSNorms per attention block (four with
-    qk-norm, four in an MLA block: its q_norm and kv_norm), two per Mamba2
-    layer (the block's and the gate's) and the final one; with ``mtp`` and
-    an MTP head, its block's and its norm's.  An MoE layer's FFN (router,
-    dispatch, expert products) is PyTorch ops, as the reference's is XLA,
-    so it counts as a dense layer.  The backward launches the attention
-    backward kernel once per attention of the forward; the SSD scan and
-    RMSNorm backward recompute through the plain versions and launch
+    dense, MoE, MLA, vision- or audio-stub layer, one SSD scan per Mamba2
+    layer, and one attention per shared-block application, after every
+    ``shared_period`` layers of a hybrid stack; two RMSNorms per attention
+    block (four with qk-norm, four in an MLA block: its q_norm and
+    kv_norm), two per Mamba2 layer (the block's and the gate's) and the
+    final one; with ``mtp`` and an MTP head, its block's and its norm's.
+    A LayerNorm model (hubert) launches none for its block and final norms
+    (LayerNorm is PyTorch ops, as the reference's is jnp).  An MoE layer's
+    FFN (router, dispatch, expert products) is PyTorch ops, as the
+    reference's is XLA, so it counts as a dense layer.  The backward
+    launches the attention backward kernel once per attention of the
+    forward and the RMSNorm backward kernel once per RMSNorm; the SSD
+    scan's backward recomputes through the plain version and launches
     nothing."""
     a = cfg.attn
-    per_attn = 4 if cfg.mla is not None \
-        else 2 + (2 if a is not None and a.qk_norm else 0)
-    if cfg.arch_type in ("dense", "moe"):
+    block = 2 if cfg.norm == "rmsnorm" else 0
+    final = int(cfg.norm == "rmsnorm")
+    per_attn = block + (2 if cfg.mla is not None
+                        or (a is not None and a.qk_norm) else 0)
+    if cfg.arch_type in ("dense", "moe", "vlm", "audio"):
         head = int(mtp and cfg.mtp)
         out = {"flash_attention": cfg.n_layers + head, "ssd_scan": 0,
-               "rmsnorm": per_attn * (cfg.n_layers + head) + 1 + head}
+               "rmsnorm": per_attn * (cfg.n_layers + head)
+               + final * (1 + head)}
     else:
         shared = cfg.n_layers // cfg.shared_period \
             if cfg.arch_type == "hybrid" else 0
         out = {"flash_attention": shared, "ssd_scan": cfg.n_layers,
-               "rmsnorm": 2 * cfg.n_layers + per_attn * shared + 1}
+               "rmsnorm": 2 * cfg.n_layers + per_attn * shared + final}
     out["flash_attention_bwd"] = out["flash_attention"] if backward else 0
+    out["rmsnorm_bwd"] = out["rmsnorm"] if backward else 0
     return out
 
 
@@ -2556,7 +2778,8 @@ def launches_per_decode_step(cfg) -> dict:
     MLA's absorbed step and the one-token SSM update are plain PyTorch, as
     in the reference)."""
     return {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
-            "rmsnorm": launches_per_pass(cfg, mtp=False)["rmsnorm"]}
+            "rmsnorm": launches_per_pass(cfg, mtp=False)["rmsnorm"],
+            "rmsnorm_bwd": 0}
 
 
 def _model_fields(cfg) -> dict:
@@ -2577,6 +2800,10 @@ def _model_fields(cfg) -> dict:
     if cfg.mla is not None:
         out.update(dataclasses.asdict(cfg.mla), mtp=cfg.mtp,
                    n_dense_prefix=cfg.n_dense_prefix)
+    if cfg.modality != "text":
+        out.update(modality=cfg.modality, norm=cfg.norm,
+                   causal=cfg.attn.causal, encoder_only=cfg.encoder_only,
+                   n_prefix_embeds=cfg.n_prefix_embeds)
     return out
 
 
@@ -2670,6 +2897,7 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
                              f"expected {total}")
     out = {"phase": phase, "ok": True, "seconds": secs,
            "launches": launches, "launches_expected": total,
+           "launches_per_fused_step": per_pass,
            "attention_by_variant": attention_variants_check(
                phase, launches["flash_attention"], variant)}
     rec = next((r for r in result.history if r["kind"] == "recovered"), None)
@@ -2850,6 +3078,41 @@ def phase_train_mla(ctx) -> None:
     if "flash_attention_bwd" in ctx["kernels"]:
         ctx["kernels"]["flash_attention_bwd"]["launches"] = \
             launches["flash_attention_bwd"]
+
+
+VLM_LAYERS = 24                 # internvl2-2b's full depth: no reduction
+AUDIO_LAYERS = 48               # hubert-xlarge's full depth: no reduction
+
+
+def phase_train_vlm(ctx) -> None:
+    """internvl2-2b at full width and depth (the vision stub: 256 patch
+    embeddings ahead of each 1024-token sequence, 1280 positions through
+    the stack, the loss on the last 1024): the train phase's steps and
+    injected failure, kernel 1 ("wgmma", D = 128, GQA 16 / 8) and its
+    backward once per layer, kernel 2 and its backward on every norm, no
+    checkpoint round trip."""
+    from repro_torch.configs import get_arch
+    full = get_arch("internvl2-2b")
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    launches = run_train(ctx, "train_vlm", cfg,
+                         {"n_layers": [full.n_layers, VLM_LAYERS]}, TRAIN,
+                         checkpoint=False)
+    if "rmsnorm_bwd" in ctx["kernels"]:
+        ctx["kernels"]["rmsnorm_bwd"]["launches"] = launches["rmsnorm_bwd"]
+
+
+def phase_train_audio(ctx) -> None:
+    """hubert-xlarge at full width and depth (the audio stub: 1024 frames a
+    sequence, masked-unit cross-entropy over 504 codes, LayerNorm, the
+    embedding leaf unread): the train phase's steps and injected failure,
+    kernel 1 and its backward bidirectional at D = 80 ("cuda_core") once
+    per layer, no RMSNorm, no checkpoint round trip."""
+    from repro_torch.configs import get_arch
+    full = get_arch("hubert-xlarge")
+    cfg = dataclasses.replace(full, n_layers=AUDIO_LAYERS)
+    run_train(ctx, "train_audio", cfg,
+              {"n_layers": [full.n_layers, AUDIO_LAYERS]}, TRAIN,
+              checkpoint=False, variant="cuda_core")
 
 
 def phase_self_heal(ctx) -> None:
@@ -3613,7 +3876,8 @@ def profile_step(cfg) -> dict:
 def phase_profile(ctx) -> None:
     from repro_torch.configs import get_arch
     for cfg in (dataclasses.replace(get_arch("gemma-2b"), n_layers=N_LAYERS),
-                get_arch("mamba2-780m"),
+                dataclasses.replace(get_arch("mamba2-780m"),
+                                    n_layers=SSM_LAYERS),
                 dataclasses.replace(get_arch("granite-moe-3b-a800m"),
                                     n_layers=MOE_LAYERS)):
         emit({"phase": "profile", **profile_step(cfg),
@@ -3685,6 +3949,7 @@ def main() -> int:
            "ab_attn": phase_ab_attn, "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
            "train_moe": phase_train_moe, "train_mla": phase_train_mla,
+           "train_vlm": phase_train_vlm, "train_audio": phase_train_audio,
            "self_heal": phase_self_heal,
            "serve": phase_serve, "serve_ssm": phase_serve_ssm,
            "serve_moe": phase_serve_moe, "serve_mla": phase_serve_mla,

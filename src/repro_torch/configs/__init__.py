@@ -1,6 +1,7 @@
-from repro_torch.configs.base import (ArchConfig, AttnConfig, MLAConfig,
-                                     MoEConfig, SSMConfig, get_arch,
-                                     register)
+from repro_torch.configs.base import (SHAPES, ArchConfig, AttnConfig,
+                                     MLAConfig, MoEConfig, ShapeConfig,
+                                     SSMConfig, get_arch, register,
+                                     supports_shape)
 
 __all__ = ["ArchConfig", "AttnConfig", "MLAConfig", "MoEConfig", "SSMConfig",
-           "get_arch", "register"]
+           "ShapeConfig", "SHAPES", "get_arch", "register", "supports_shape"]

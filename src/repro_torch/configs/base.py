@@ -1,10 +1,12 @@
-"""Architecture configs for the port (own copy of ``repro/configs/base.py``,
-trimmed to the dense, mixture-of-experts, MLA, Mamba2 (SSD) and
-zamba2-hybrid stacks the port runs).
+"""Architecture configs for the port (own copy of ``repro/configs/base.py``:
+the dense, mixture-of-experts, MLA, Mamba2 (SSD) and zamba2-hybrid stacks
+and the vision and audio stubs).
 
 The fields, ``block_pattern``, ``param_count`` and ``reduced()`` match the
-reference for these archs, so a config built here describes the same
-model as its ``repro`` namesake.
+reference, so a config built here describes the same model as its
+``repro`` namesake.  The four input shapes (train_4k / prefill_32k /
+decode_32k / long_500k) are :class:`ShapeConfig` instances in ``SHAPES``;
+``supports_shape`` says which (arch, shape) pairs run.
 """
 from __future__ import annotations
 
@@ -102,7 +104,7 @@ class AttnConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                     # dense | moe | ssm | hybrid
+    arch_type: str                     # dense | moe | ssm | hybrid | vlm | audio
     source: str                        # citation for the config numbers
     n_layers: int
     d_model: int
@@ -120,16 +122,12 @@ class ArchConfig:
     gated_mlp: bool = True             # False = classic 2-matrix MLP (GPT-3)
     norm: str = "rmsnorm"              # rmsnorm | layernorm
     tie_embeddings: bool = False
-    modality: str = "text"
+    encoder_only: bool = False         # hubert: no decode step
+    modality: str = "text"             # text | vision_stub | audio_stub
+    n_prefix_embeds: int = 0           # VLM patch / audio frame positions
     mtp: bool = False                  # DeepSeek multi-token-prediction head
     embed_scale: bool = False          # gemma: scale embeddings by sqrt(d)
     param_dtype: str = "bfloat16"
-
-    def __post_init__(self):
-        if self.modality != "text":
-            raise NotImplementedError(
-                f"{self.name}: modality {self.modality!r} arrives with the "
-                f"modality-stub slice of the port")
 
     @property
     def block_pattern(self) -> Tuple[Tuple[str, int], ...]:
@@ -243,7 +241,44 @@ class ArchConfig:
             moe=moe, ssm=ssm, mla=mla,
             n_dense_prefix=min(self.n_dense_prefix, 1),
             shared_period=2 if self.shared_period else 0,
+            n_prefix_embeds=min(self.n_prefix_embeds, 8),
             param_dtype="float32")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def supports_shape(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is runnable; returns (ok, reason-if-not).
+
+    Encoder-only archs have no decode step.  ``long_500k`` decode requires
+    sub-quadratic attention over the 524k context: SSM / hybrid always
+    qualify; dense archs qualify only with a sliding-window variant
+    (gemma3's native 5:1 local:global pattern)."""
+    if shape.kind == "decode" and cfg.encoder_only:
+        return False, "encoder-only architecture has no autoregressive decode"
+    if shape.name == "long_500k":
+        subquadratic = (
+            cfg.arch_type in ("ssm", "hybrid")
+            or (cfg.attn is not None and cfg.attn.window > 0)
+        )
+        if not subquadratic:
+            return False, ("full-attention architecture without sliding-window "
+                           "variant; 524k KV cache rules it out (DESIGN.md)")
+    return True, ""
 
 
 _REGISTRY: dict = {}
@@ -257,7 +292,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get_arch(name: str) -> ArchConfig:
     from repro_torch.configs import (  # noqa: F401
         deepseek_v3_671b, gemma3_12b, gemma_2b, gpt3, granite_3_8b,
-        granite_moe_3b, mamba2_780m, qwen3_4b, zamba2_1p2b)
+        granite_moe_3b, hubert_xlarge, internvl2_2b, mamba2_780m, qwen3_4b,
+        zamba2_1p2b)
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet; ported: "
                        f"{sorted(_REGISTRY)}")

@@ -9,6 +9,16 @@ previous token plus one (mod vocab), so the loss has structure to learn.
 The reference draws with JAX's threefry; the port draws each sequence from
 a CPU ``torch.Generator`` seeded from ``(seed, step, index)``, so the two
 give different tokens under the same contract.
+
+The modality stubs add leaves of the reference's shapes and types: an
+``audio_stub`` batch is ``frames`` (n, S, d_model) f32 standard normal,
+``labels`` (the tokens mod vocab) and ``loss_mask`` (n, S) f32 (uniform <
+0.35); a ``vision_stub`` batch adds ``prefix_embeds`` (n, n_prefix_embeds,
+d_model) f32 standard normal to the tokens.  Every leaf of sequence ``i``
+is drawn from ``(seed, step, i)`` and the leaf's own tag, so a slice of the
+batch equals the same rows of the whole batch for every leaf.  (The
+reference keys these three leaves by the slice's start instead, so its
+slices differ from its whole batch there.)
 """
 from __future__ import annotations
 
@@ -19,6 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+
+
+# the modality leaves' tags in a sequence's seed (the tokens have none)
+_FRAMES, _MASK, _PREFIX = 1, 2, 3
 
 
 def _zipf_probs(vocab: int) -> torch.Tensor:
@@ -36,8 +50,9 @@ class SyntheticLM:
     seed: int = 0
     device: str = "cuda"
 
-    def _generator(self, step: int, index: int) -> torch.Generator:
-        state = np.random.SeedSequence([self.seed, step, index])
+    def _generator(self, step: int, index: int, *tag: int
+                   ) -> torch.Generator:
+        state = np.random.SeedSequence([self.seed, step, index, *tag])
         seed = int(state.generate_state(1, dtype=np.uint64)[0] >> np.uint64(1))
         return torch.Generator().manual_seed(seed)
 
@@ -56,9 +71,25 @@ class SyntheticLM:
               n: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Slice [start, start+n) of the global batch at ``step``."""
         n = self.global_batch if n is None else n
-        toks = torch.cat([self.tokens(step, i)
-                          for i in range(start, start + n)], dim=0)
-        return {"tokens": toks.to(self.device)}
+        rows = range(start, start + n)
+        cfg, S = self.cfg, self.seq_len
+        toks = torch.cat([self.tokens(step, i) for i in rows], dim=0)
+        if cfg.modality == "audio_stub":
+            out = {"frames": torch.stack([torch.randn(
+                       (S, cfg.d_model), generator=self._generator(
+                           step, i, _FRAMES)) for i in rows]),
+                   "labels": toks % cfg.vocab,
+                   "loss_mask": torch.stack([(torch.rand(
+                       S, generator=self._generator(step, i, _MASK)) < 0.35)
+                       for i in rows]).float()}
+        else:
+            out = {"tokens": toks}
+            if cfg.modality == "vision_stub":
+                out["prefix_embeds"] = torch.stack([torch.randn(
+                    (cfg.n_prefix_embeds, cfg.d_model),
+                    generator=self._generator(step, i, _PREFIX))
+                    for i in rows])
+        return {k: v.to(self.device) for k, v in out.items()}
 
 
 def microbatches(batch: Dict[str, torch.Tensor], n_micro: int):

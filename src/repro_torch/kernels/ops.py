@@ -10,9 +10,13 @@ Attention's backward is a kernel too, the JAX package's flash custom VJP
 saves (q, k, v, o) and each row's log-sum-exp, and the backward
 (``flash_attention_bwd``: the CUDA kernel for CUDA tensors, the plain
 version for CPU tensors) recomputes P from them, so no (Sq, Sk) tensor is
-stored.  The SSD scan and RMSNorm backward recompute through the plain
-version, exactly as the reference's custom VJPs ``_ssd_bwd`` and
-``_rn_bwd`` differentiate through ``ref.ssd_scan`` and ``ref.rmsnorm``.
+stored.  RMSNorm's backward is a kernel as well, the analytic VJP of the
+reference's ``rmsnorm_fused`` (``repro/models/layers.py:_rmsnorm_fused_bwd``):
+the forward saves (x, scale) and the backward (``rmsnorm_bwd``) computes
+dx and dscale from them and the cotangent without re-running the
+forward.  The SSD scan's backward recomputes through the plain version,
+exactly as the reference's custom VJP ``_ssd_bwd`` differentiates through
+``ref.ssd_scan``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
 
@@ -92,11 +97,8 @@ class RmsNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, scale = (t.detach().requires_grad_(True)
-                    for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = ref.rmsnorm(x, scale, eps=ctx.eps)
-            dx, dscale = torch.autograd.grad(out, (x, scale), g)
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, g, eps=ctx.eps)
         return dx, dscale, None
 
 

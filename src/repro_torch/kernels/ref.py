@@ -8,7 +8,8 @@ oracles of ``repro/models/layers.py``; ``flash_attention_lse`` and
 ``flash_attention_bwd`` have the mathematics of
 ``repro/models/flash_vjp.py`` (``_fwd_blocked``, ``_bwd_blocked``);
 ``ssd_scan`` ports ``repro/models/ssm.py:ssd_chunked``; ``rmsnorm`` is the
-one of ``repro/kernels/ref.py``.
+one of ``repro/kernels/ref.py`` and ``rmsnorm_bwd`` its analytic backward
+(``repro/models/layers.py:_rmsnorm_fused_bwd``).
 """
 from __future__ import annotations
 
@@ -283,6 +284,22 @@ def rmsnorm(x, scale, *, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd(x, scale, g, *, eps: float = 1e-6):
+    """(dx, dscale) of ``rmsnorm`` at (x, scale) for the output cotangent
+    ``g``: the analytic VJP of ``repro/models/layers.py:_rmsnorm_fused_bwd``
+    op for op, in float32; dx in x's dtype and shape, dscale (d,) in
+    scale's dtype, summed over every row of x (..., d)."""
+    xf, gf = x.float(), g.float()
+    d = x.shape[-1]
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(ms + eps)
+    gs = gf * scale.float()
+    dot = (gs * xf).sum(dim=-1, keepdim=True) / d
+    dx = (r * gs - xf * (r * r * r) * dot).to(x.dtype)
+    dscale = (gf * xf * r).reshape(-1, d).sum(dim=0).to(scale.dtype)
+    return dx, dscale
 
 
 def _clamp_band(band, n: int) -> int:

@@ -7,9 +7,12 @@ manager (in-memory + persistent tiers) saving state, and optional
 mid-run failure injection through the §6.2 micro-batch redistribution
 path.  On the card, attention runs the Hopper flash-attention kernel and
 its backward the Hopper flash-attention backward kernel, every Mamba2 layer
-the Hopper SSD scan kernel and every RMSNorm the Hopper RMSNorm kernel;
-each step records how many times it launched each, and a fused step its
-loss and MoE router aux loss (0 without MoE).
+the Hopper SSD scan kernel and every RMSNorm the Hopper RMSNorm kernel and
+its backward the Hopper RMSNorm backward kernel; each step records how many
+times it launched each, its tokens/s over the positions that reach the
+layer stack (``batch x (seq + n_prefix_embeds)``: a vision stub's patch
+embeddings count), and a fused step its loss and MoE router aux loss (0
+without MoE).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
         --reduced --steps 50 --seq 128 --batch 8 --n-micro 4 --inject-fail 10
@@ -19,6 +22,8 @@ loss and MoE router aux loss (0 without MoE).
         --arch granite-moe-3b-a800m --reduced --device cpu --inject-fail 2
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch deepseek-v3-671b --reduced --device cpu --inject-fail 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
+        --reduced --device cpu --inject-fail 2
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from repro_torch.core.kvstore import KVStore
 from repro_torch.core.resumption import run_iteration_with_failure
 from repro_torch.data.pipeline import SyntheticLM, stack_microbatches
 from repro_torch.kernels import (flash_attention, flash_attention_bwd,
-                                 rmsnorm, ssd_scan)
+                                 rmsnorm, rmsnorm_bwd, ssd_scan)
 from repro_torch.models.model import build_model
 from repro_torch.optim import AdamW, cosine_with_warmup
 from repro_torch.train.state import TrainState, init_train_state
@@ -53,7 +58,8 @@ from repro_torch.train.step import (finalize_step, make_grad_fn,
 KERNEL_LAUNCHES = {"flash_attention": flash_attention.LAUNCHES,
                    "flash_attention_bwd": flash_attention_bwd.LAUNCHES,
                    "ssd_scan": ssd_scan.LAUNCHES,
-                   "rmsnorm": rmsnorm.LAUNCHES}
+                   "rmsnorm": rmsnorm.LAUNCHES,
+                   "rmsnorm_bwd": rmsnorm_bwd.LAUNCHES}
 
 
 def launch_counts() -> dict:
@@ -142,7 +148,8 @@ def train(cfg: ArchConfig, *, steps: int = 50, seq: int = 128,
         dt = time.perf_counter() - t0
         if rec["kind"] == "fused":
             agent.observe_iteration(dt)
-        rec.update(seconds=dt, tokens_per_s=batch * seq / dt,
+        rec.update(seconds=dt,
+                   tokens_per_s=batch * (seq + cfg.n_prefix_embeds) / dt,
                    launches={k: n - launches0[k]
                              for k, n in launch_counts().items()})
         if device.type == "cuda":

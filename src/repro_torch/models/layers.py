@@ -5,7 +5,9 @@ Functional, as in the reference: ``init_*`` builds a param dict,
 ``*_apply`` consumes it.  Full-sequence attention always goes through
 ``kernels.ops.flash_attention`` and every RMSNorm through
 ``kernels.ops.rmsnorm``: the Hopper kernels for CUDA tensors, the plain
-versions for CPU tensors.  ``attention_decode`` is the one-token step of
+versions for CPU tensors.  ``ops.RmsNorm`` is the counterpart of the
+reference's ``rmsnorm_fused`` (its analytic custom VJP): its backward is
+that VJP, so every RMSNorm here differentiates as ``rmsnorm_fused`` does.  ``attention_decode`` is the one-token step of
 the serving path, plain PyTorch as in the reference.
 """
 from __future__ import annotations

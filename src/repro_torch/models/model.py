@@ -1,5 +1,5 @@
-"""Building the models (dense, MoE, MLA, Mamba2 and zamba2-hybrid subset of
-``repro/models/model.py``).
+"""Building the models (port of ``repro/models/model.py``: dense, MoE, MLA,
+Mamba2, zamba2-hybrid and the vision and audio stubs).
 
 ``build_model(cfg, device)`` returns a :class:`Model` bundle of functions:
 
@@ -20,6 +20,12 @@ prediction head (``params["mtp"]``: one unstacked ``mla_dense`` block and
 a norm) runs on the last layer's output in ``forward`` (``extras[
 "mtp_logits"]``) and adds ``MTP_WEIGHT`` times its cross-entropy against
 the token two ahead to ``loss``; decode does not run it, as in the
+reference.  The modality stubs enter in ``forward``: an ``audio_stub``
+model takes ``batch["frames"]`` in place of token embeddings (its
+``embed`` leaf is never read) and its loss is the masked cross-entropy
+against ``batch["labels"]`` with no shift; a ``vision_stub`` model puts
+``batch["prefix_embeds"]`` ahead of the token embeddings and scores only
+the last T positions.  Decode embeds text tokens only, as in the
 reference.  Decode caches keep the same
 layout: per segment ``{"slots": [...], "shared": ...}`` with leaves of
 shape (count, batch, ...), so axis 1 of every cache leaf is the lane.
@@ -185,9 +191,17 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
                     if remat else body(x, aux)
         return x, aux
 
-    def forward(params, batch, *, remat: bool = False):
+    def _embed_inputs(params, batch):
+        if cfg.modality == "audio_stub":
+            return batch["frames"].to(dtype)
         x = layers.embed_apply(params["embed"], batch["tokens"],
                                cfg.embed_scale, cfg.d_model)
+        if cfg.modality == "vision_stub":
+            x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
+        return x
+
+    def forward(params, batch, *, remat: bool = False):
+        x = _embed_inputs(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         x, aux = _run_segments(params, x, positions, remat)
@@ -205,14 +219,23 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
 
     def loss(params, batch, *, remat: bool = False):
         logits, extras = forward(params, batch, remat=remat)
-        toks = batch["tokens"]
         mask = batch.get("loss_mask")
-        ce = cross_entropy(logits[:, :-1], toks[:, 1:],
-                           None if mask is None else mask[:, 1:])
+        if cfg.modality == "audio_stub":
+            ce = cross_entropy(logits, batch["labels"], mask)
+        else:
+            toks = batch["tokens"]
+            T = toks.shape[1]
+            if cfg.modality == "vision_stub":
+                logits = logits[:, -T:]
+            ce = cross_entropy(logits[:, :-1], toks[:, 1:],
+                               None if mask is None else mask[:, 1:])
         total = ce + extras["aux"]
         metrics = {"ce": ce, "aux": extras["aux"]}
         if "mtp_logits" in extras:
-            mtp_ce = cross_entropy(extras["mtp_logits"][:, :-2], toks[:, 2:])
+            ml = extras["mtp_logits"]
+            if cfg.modality == "vision_stub":
+                ml = ml[:, -T:]
+            mtp_ce = cross_entropy(ml[:, :-2], toks[:, 2:])
             total = total + MTP_WEIGHT * mtp_ce
             metrics["mtp_ce"] = mtp_ce
         metrics["loss"] = total

@@ -32,7 +32,10 @@ def make_grad_fn(model, remat: bool = False):
     """Per-micro-batch gradient: (params, micro_batch) -> (grads, metrics).
 
     Gradients are means over the micro-batch's tokens, so accumulation
-    across micro-batches is a plain sum divided by the count (Eq. 6/7)."""
+    across micro-batches is a plain sum divided by the count (Eq. 6/7).  A
+    leaf the loss never reads (an ``audio_stub`` model's ``embed``) gets a
+    zero gradient of its own dtype, as JAX's ``grad`` gives it, so AdamW
+    still decays it."""
     loss_fn = make_loss_fn(model, remat)
 
     def grad_fn(params, batch):
@@ -40,7 +43,9 @@ def make_grad_fn(model, remat: bool = False):
                   for p in tree.leaves(params)]
         with torch.enable_grad():
             loss, metrics = loss_fn(tree.unflatten(params, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         metrics = {k: v.detach() for k, v in metrics.items()}
         return tree.unflatten(params, grads), metrics
     return grad_fn

@@ -98,12 +98,21 @@ def test_loss_and_every_gradient_leaf_match_jax(name):
 
 
 def test_refuses_features_of_later_slices():
-    """The modality stubs are refused; MoE and MLA (with the MTP head),
-    each ported in its own slice, now build."""
+    """Every slice now builds: the modality stubs (vision and audio, with
+    their encoder-only flag and prefix positions), MoE and MLA (with the
+    MTP head), each ported in its own slice.  An audio stub's params keep
+    the reference's tree, ``embed`` included, though its loss never reads
+    it."""
     t = tget_arch("gemma-2b")
     for modality in ("vision_stub", "audio_stub"):
-        with pytest.raises(NotImplementedError, match="modality-stub slice"):
-            dataclasses.replace(t, modality=modality)
+        assert dataclasses.replace(t, modality=modality).modality == modality
+    vlm = tget_arch("internvl2-2b").reduced()
+    assert (vlm.modality, vlm.n_prefix_embeds) == ("vision_stub", 8)
+    audio = tget_arch("hubert-xlarge").reduced()
+    assert audio.encoder_only and not audio.attn.causal
+    params = tbuild(audio, device="cpu").init(0)
+    assert sorted(params) == ["embed", "final_norm", "head", "segments"]
+    assert "bias" in params["final_norm"]
     moe = tget_arch("granite-moe-3b-a800m").reduced()
     assert moe.moe is not None and moe.block_pattern[-1][0] == "attn_moe"
     params = tbuild(moe, device="cpu").init(0)

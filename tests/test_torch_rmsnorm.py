@@ -63,21 +63,36 @@ def test_rmsnorm_grad_matches_reference():
         assert_close(got, want, GRAD_TOL, GRAD_TOL)
 
 
-def test_backward_recomputes_through_the_plain_version():
-    """ops.rmsnorm's gradient is autograd's of ref.rmsnorm, bit for bit
-    (the reference's _rn_bwd), in float32 and bfloat16."""
+def test_backward_recomputes_through_the_plain_version(monkeypatch):
+    """ops.rmsnorm's backward is the analytic VJP: on the CPU it calls
+    ref.rmsnorm_bwd once and never re-runs the forward (neither the
+    plain ref.rmsnorm nor ops.rmsnorm_fwd), and its gradients are
+    ref.rmsnorm_bwd's, bit for bit, in float32 and bfloat16."""
+    calls = {"fwd": 0, "plain_fwd": 0, "bwd": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+    monkeypatch.setattr(tops, "rmsnorm_fwd",
+                        counted("fwd", tops.rmsnorm_fwd))
+    monkeypatch.setattr(tref, "rmsnorm", counted("plain_fwd", tref.rmsnorm))
+    monkeypatch.setattr(tref, "rmsnorm_bwd",
+                        counted("bwd", tref.rmsnorm_bwd))
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.from_numpy(randn(4, 3, 5, 48)).to(dtype)
         s = torch.from_numpy(randn(5, 48)).to(dtype)
         g = torch.from_numpy(randn(6, 3, 5, 48)).to(dtype)
-        grads = []
-        for fn in (tops.rmsnorm, tref.rmsnorm):
-            xx, ss = x.clone().requires_grad_(True), \
-                s.clone().requires_grad_(True)
-            fn(xx, ss).backward(g)
-            grads.append((xx.grad, ss.grad))
-        for a, b in zip(*grads):
-            assert torch.equal(a, b)
+        xx, ss = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+        out = tops.rmsnorm(xx, ss)
+        assert calls == {"fwd": 1, "plain_fwd": 1, "bwd": 0}
+        out.backward(g)
+        assert calls == {"fwd": 1, "plain_fwd": 1, "bwd": 1}
+        want = tref.rmsnorm_bwd(x, s, g)
+        assert torch.equal(xx.grad, want[0]) and torch.equal(ss.grad, want[1])
+        assert xx.grad.dtype == dtype and ss.grad.dtype == dtype
+        calls.update(fwd=0, plain_fwd=0, bwd=0)
 
 
 def test_the_plain_version_keeps_the_reference_order_of_products():
