@@ -23,18 +23,25 @@ Phases, each printing one JSON line:
                     SDPA's, with gemma-2b's last causal q tile alone and
                     B = 8
   kernel:flash_attention_bwd
-                    kernel 1's log-sum-exp (both variants) against
+                    the backward's wgmma kernels' ptxas lines (no spills,
+                    no serialised wgmma, each setmaxnreg split at the
+                    entry count it assumes); kernel 1's
+                    log-sum-exp (both variants) against
                     ref.flash_attention_lse, and the attention backward
                     kernel against its plain version (ref.flash_attention_
                     bwd) and against autograd through ref.flash_attention
                     (float32 1e-4, bf16 2e-2, abs + rel): every case above
-                    (window, soft-cap, q_offset, ragged Sk, masked rows,
-                    GQA, MQA, D != Dv, f32 and bf16), then the train
+                    and BWD_VARIANT_CASES (window, soft-cap, q_offset,
+                    ragged Sk, masked rows, GQA, MQA, D != Dv, D = 80, f32
+                    and bf16, a misaligned q), each counted on the variant
+                    it took ("wgmma" or "cuda_core"); then the train
                     phases' shapes (deepseek-v3-671b's MLA, gemma-2b,
                     qwen3-4b, zamba2-1.2b, granite-moe, hubert-xlarge
-                    bidirectional at D = 80, internvl2-2b), timed (graph,
-                    device, back to back, each pass's device time) beside
-                    the bound, the plain version and SDPA's backward
+                    bidirectional at D = 80, internvl2-2b), each on
+                    "wgmma" and bit for bit the same over two calls, timed
+                    (graph, device, back to back, each kernel's device
+                    time) beside the bound, the plain version and SDPA's
+                    backward
   kernel:maxplus    the three max-plus kernels against their plain
                     versions on the card, bitwise (int64/int32 views) in
                     float32 and float64, at the reference's test cases and
@@ -152,9 +159,10 @@ Phases, each printing one JSON line:
                     bitwise.  Every train phase counts each kernel's
                     launches every step: kernel 1 once per attention of a
                     forward, the attention backward kernel once per
-                    attention of each backward pass, kernel 2 once per
-                    RMSNorm of a forward and its backward kernel once per
-                    RMSNorm of each backward pass
+                    attention of each backward pass (every one of them
+                    "wgmma" in a bf16 phase), kernel 2 once per RMSNorm of
+                    a forward and its backward kernel once per RMSNorm of
+                    each backward pass
   train_ssm         the same on mamba2-780m at full width (depth cut 48 ->
                     24 for the script's time: its two restores of the
                     state take most of the phase): every layer through
@@ -173,10 +181,10 @@ Phases, each printing one JSON line:
                     1 dense MLA + 1 MLA-MoE layer holding 4 of 256 experts,
                     the MTP block, a vocabulary eighth of 16160; 1.81 B
                     params): the train phase's steps and failure, kernel 1
-                    ("cuda_core", D = 192, Dv = 128) and its backward 3
-                    times a pass, each step's aux loss and drop share, the
-                    MTP block's and the routers' gradients non-zero; no
-                    checkpoint round trip
+                    ("cuda_core", D = 192, Dv = 128) and its backward
+                    ("wgmma") 3 times a pass, each step's aux loss and
+                    drop share, the MTP block's and the routers' gradients
+                    non-zero; no checkpoint round trip
   train_vlm         internvl2-2b at full width and depth (24 layers, 1.89
                     B params; 256 patch embeddings ahead of 1024 tokens):
                     the train phase's steps and failure, kernel 1
@@ -184,8 +192,8 @@ Phases, each printing one JSON line:
                     and 2-bwd on every norm; no checkpoint round trip
   train_audio       hubert-xlarge at full width and depth (48 layers, 1.26
                     B params; 1024 frames, masked-unit loss, LayerNorm):
-                    the same, kernel 1 and its backward bidirectional at
-                    D = 80 ("cuda_core"), no RMSNorm
+                    the same, kernel 1 ("cuda_core") and its backward
+                    ("wgmma") bidirectional at D = 80, no RMSNorm
   self_heal         launch.self_healing: three injected failures and the
                     strict-semantics check against a fault-free shadow run
   serve             launch.serve on qwen3-4b at full width and full depth:
@@ -246,8 +254,9 @@ kernel's numbers, and the result line.  Any failure exits non-zero before
 the result line.  ``--phases`` runs a subset (for debugging).  Phase
 ``ab``, outside the default run, times kernel 3 at its four shapes and the
 segtree and batched churn walks through the port that ``--src`` names:
-run it on two trees in turns to compare them on one card.  Phase
-``ab_attn`` does the same for kernel 1 at two shapes.
+run it on two trees in turns to compare them on one card.  Phases
+``ab_attn`` and ``ab_attn_bwd`` do the same for kernel 1 and for its
+backward at two shapes (deepseek-v3-671b's MLA and gemma-2b).
 """
 from __future__ import annotations
 
@@ -383,6 +392,39 @@ BWD_SHAPES = {
         HUBERT_ATTN_SHAPE,
     "internvl2-2b B=2 S=1280 H=16 KV=8 D=128 causal bf16":
         INTERNVL_ATTN_SHAPE}
+# The backward's variant (kernels.flash_attention_bwd.variant: "wgmma" at
+# bf16 with (D, Dv) in WGMMA_WIDTHS and 16-byte aligned q, k, v, o, dO,
+# else "cuda_core"), each case with the variant it must take: bf16 at every
+# width "wgmma" takes (D = 80 and MLA's 192 over 128 besides WGMMA_CASES'
+# 64, 128 and 256) with windows, soft-caps, q_offset, ragged Sk, masked
+# rows, MQA (gemma-2b's 256 with the 8-way head split) and GQA 3; then
+# float32, a misaligned q and a width "wgmma" does not take ("cuda_core")
+BWD_VARIANT_CASES = [
+    ("contiguous", (1, 200, 200, 4, 4, 80, 80, False, 0, 0.0, 0,
+                    "bfloat16"), "wgmma"),
+    ("contiguous", (1, 300, 300, 4, 2, 80, 80, True, 64, 0.0, 0,
+                    "bfloat16"), "wgmma"),
+    ("contiguous", (1, 100, 170, 4, 2, 80, 80, True, 0, 5.0, 70,
+                    "bfloat16"), "wgmma"),
+    ("contiguous", (1, 130, 250, 4, 4, 192, 128, True, 0, 0.0, 120,
+                    "bfloat16"), "wgmma"),
+    ("contiguous", (2, 100, 100, 8, 8, 192, 128, True, 0, 20.0, 0,
+                    "bfloat16"), "wgmma"),
+    ("contiguous", (1, 96, 96, 4, 1, 192, 128, True, 32, 0.0, -20,
+                    "bfloat16"), "wgmma"),
+    ("contiguous", (1, 160, 160, 8, 1, 256, 256, True, 0, 0.0, 0,
+                    "bfloat16"), "wgmma"),
+    ("contiguous", (2, 333, 333, 6, 2, 64, 64, True, 0, 0.0, 0,
+                    "bfloat16"), "wgmma"),
+    ("contiguous", (1, 64, 64, 4, 2, 128, 128, True, 0, 0.0, 0,
+                    "float32"), "cuda_core"),
+    ("contiguous", (1, 90, 90, 4, 2, 80, 80, True, 0, 0.0, 0, "float32"),
+     "cuda_core"),
+    ("misaligned_q", (1, 130, 130, 4, 2, 64, 64, True, 0, 0.0, 0,
+                      "bfloat16"), "cuda_core"),
+    ("contiguous", (1, 100, 100, 4, 2, 96, 96, True, 0, 0.0, 0,
+                    "bfloat16"), "cuda_core"),
+]
 
 
 def emit(obj) -> None:
@@ -779,9 +821,15 @@ def _lse_check(case, got, want) -> float:
     return err.max().item()
 
 
+BWD_KERNELS = ("dvec_kernel", "dq_kernel", "dkdv_kernel",     # "cuda_core"
+               "rowstat_kernel", "dq_wgmma_kernel", "dkdv_wgmma_kernel",
+               "reduce_kernel")                             # "wgmma"
+
+
 def bwd_pass_ms(fn, calls: int = 3) -> dict:
-    """Device time per call of each of the backward's three kernels, from
-    one traced run of ``calls`` calls."""
+    """Device time per call of each of the backward's kernels (either
+    variant's, BWD_KERNELS: no name holds another), from one traced run
+    of ``calls`` calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -796,22 +844,54 @@ def bwd_pass_ms(fn, calls: int = 3) -> dict:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        for name in ("dvec_kernel", "dq_kernel", "dkdv_kernel"):
+        for name in BWD_KERNELS:
             if name in e.key:
                 out[name] = out.get(name, 0.0) + \
                     e.self_device_time_total / 1e3 / calls
     return out
 
 
+def bwd_wgmma_build_report(ctx) -> dict:
+    """The backward's wgmma kernels' ptxas lines from this run's build (the
+    dq and dk, dv passes at each of the five widths): none may spill or be
+    serialised, and each setmaxnreg split must find the entry count it
+    assumes (the launcher refuses another count too): 168 for the dk, dv
+    pass, 128 for the dq pass where it runs two blocks an SM (D, Dv <=
+    128)."""
+    entries = ctx.get("ptxas", {}).get("flash_attention_bwd")
+    if entries is None:
+        return {"built_in_this_run": False}
+    wg = {name: rec for name, rec in entries.items()
+          if "wgmma_kernel" in name}
+    if len(wg) != 10:
+        raise AssertionError(f"expected 10 wgmma instantiations of the "
+                             f"backward, ptxas reported {sorted(wg)}")
+    import re
+    out = {}
+    for name, rec in wg.items():
+        if rec.get("spill_stores") or rec.get("spill_loads") or rec["notes"]:
+            raise AssertionError(f"{name}: spills or serialised wgmma: {rec}")
+        kind = "dkdv" if "dkdv_wgmma" in name else "dq"
+        d, dv = re.search(r"ILi(\d+)ELi(\d+)E", name).groups()
+        entry = 168 if kind == "dkdv" else 128 if int(d) <= 128 else None
+        if entry is not None and rec.get("registers") != entry:
+            raise AssertionError(f"{name}: {rec.get('registers')} registers,"
+                                 f" the setmaxnreg split assumes {entry}")
+        out[f"{kind} D={d} Dv={dv}"] = rec
+    return {"built_in_this_run": True, "entries": out}
+
+
 def phase_kernel_flash_bwd(ctx) -> None:
     """Kernel 1's lse against ``ref.flash_attention_lse`` and the backward
     kernel against ``ref.flash_attention_bwd`` (the plain version) and
-    against autograd through ``ref.flash_attention``: every ATTN_CASES
-    and WGMMA_CASES case (window, soft-cap, q_offset, ragged Sk, masked
-    rows, GQA, MQA, D != Dv; float32 and bfloat16), then the train phases'
-    shapes, where the backward is timed beside its bound, its plain
-    version and SDPA's backward ((forward + backward) - forward, a
-    yardstick never on the path)."""
+    against autograd through ``ref.flash_attention``: every ATTN_CASES,
+    WGMMA_CASES and BWD_VARIANT_CASES case (window, soft-cap, q_offset,
+    ragged Sk, masked rows, GQA, MQA, D != Dv; float32 and bfloat16), each
+    counted on the variant ``variant()`` names (BWD_VARIANT_CASES and
+    WGMMA_CASES on the one they must take); then the train phases' shapes,
+    each on "wgmma", bit for bit the same over two calls, timed beside its
+    bound, its plain version and SDPA's backward ((forward + backward) -
+    forward, a yardstick never on the path)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -819,22 +899,32 @@ def phase_kernel_flash_bwd(ctx) -> None:
     from repro_torch.kernels import ref
 
     phase = "kernel:flash_attention_bwd"
+    emit({"phase": phase, "ptxas_wgmma": bwd_wgmma_build_report(ctx)})
     worst = {"lse": 0.0, "plain": 0.0, "autograd": 0.0}
-    cases = ATTN_CASES + WGMMA_CASES
-    for case in cases:
+    cases = [("contiguous", c, None) for c in ATTN_CASES] + \
+        [("contiguous", c, "wgmma") for c in WGMMA_CASES] + BWD_VARIANT_CASES
+    ran = dict.fromkeys(fb.VARIANTS, 0)
+    for layout, case, expect in cases:
         causal, window, softcap, q_off = case[7:11]
         opts = dict(causal=causal, window=window, softcap=softcap,
                     q_offset=q_off)
-        q, k, v = attn_inputs(case, seed=4)
+        q, k, v = attn_inputs(case, seed=4, layout=layout)
         o, lse = fa.flash_attention_cuda(q, k, v, **opts, with_lse=True)
         worst["lse"] = max(worst["lse"], _lse_check(
             case, lse, ref.flash_attention_lse(q, k, v, **opts)[1]))
         do = attn_inputs(case[:5] + (case[6],) * 2 + case[7:], seed=5)[0]
-        before = fb.LAUNCHES.count
+        kind = fb.variant(q, k, v, o, do)
+        if expect is not None and kind != expect:
+            raise AssertionError(f"{layout} {case}: backward variant {kind},"
+                                 f" expected {expect}")
+        before = (fb.LAUNCHES.count, fb.LAUNCHES_BY_VARIANT[kind].count)
         got = fb.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts)
         torch.cuda.synchronize()
-        if fb.LAUNCHES.count != before + 1:
-            raise AssertionError(f"{case}: no backward launch counted")
+        if (fb.LAUNCHES.count, fb.LAUNCHES_BY_VARIANT[kind].count) != \
+                (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"{case}: no {kind} backward launch "
+                                 f"counted")
+        ran[kind] += 1
         err = _bwd_check("plain", case, got, ref.flash_attention_bwd(
             q, k, v, o, lse, do, **opts))
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -843,10 +933,12 @@ def phase_kernel_flash_bwd(ctx) -> None:
         err_auto = _bwd_check("autograd", case, got, auto)
         worst["plain"] = max(worst["plain"], err)
         worst["autograd"] = max(worst["autograd"], err_auto)
-        emit({"phase": phase, "case": list(case), "max_abs_err": err,
+        emit({"phase": phase, "case": list(case), "layout": layout,
+              "variant": kind, "max_abs_err": err,
               "max_abs_err_vs_autograd": err_auto})
-    emit({"phase": phase, "cases": len(cases), "tol": BWD_TOL,
-          "lse_tol": TOL["float32"], "max_abs_err_all_cases": worst})
+    emit({"phase": phase, "cases": len(cases), "by_variant": ran,
+          "tol": BWD_TOL, "lse_tol": TOL["float32"],
+          "max_abs_err_all_cases": worst})
 
     for i, (label, case) in enumerate(BWD_SHAPES.items()):
         q, k, v = attn_inputs(case, seed=6)
@@ -856,9 +948,16 @@ def phase_kernel_flash_bwd(ctx) -> None:
         lse_err = _lse_check(case, lse, ref.flash_attention_lse(
             q, k, v, causal=causal)[1])
         do = torch.randn_like(o)
+        kind = fb.variant(q, k, v, o, do)
+        if kind != "wgmma":
+            raise AssertionError(f"{label}: backward variant {kind}, the "
+                                 f"training shapes take wgmma")
         kernel = lambda: fb.flash_attention_bwd_cuda(  # noqa: E731
             q, k, v, o, lse, do, causal=causal)
-        got = kernel()
+        got, again = kernel(), kernel()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: two calls differ")
+        del again
         err = _bwd_check("plain", case, got, ref.flash_attention_bwd(
             q, k, v, o, lse, do, causal=causal))
         del got
@@ -874,6 +973,8 @@ def phase_kernel_flash_bwd(ctx) -> None:
             sdpa_fwd_ms = cuda_ms(sdpa, iters=5, warmup=1)
         bound_ms, bound_by = attn_bwd_bound(case)
         ms = cuda_ms(kernel, iters=5, warmup=1)
+        B, Sq, Sk, H, KV, D, Dv = case[:7]
+        plan = fb.plan(B, Sq, Sk, H, KV, D, Dv)
         rec = {"name": "flash_attention_bwd", "route": "cuda",
                "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
                "replaces": "src/repro/models/flash_vjp.py:99 (_bwd_blocked,"
@@ -885,7 +986,9 @@ def phase_kernel_flash_bwd(ctx) -> None:
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": cuda_ms(sdpa_bwd, iters=5, warmup=1)
                - sdpa_fwd_ms,
-               "library_fwd_ms": sdpa_fwd_ms,
+               "library_fwd_ms": sdpa_fwd_ms, "variant": kind,
+               "bitwise_repeat": True, "head_split": plan.split,
+               "workspace_bytes": plan.workspace_bytes,
                "device_ms": device_ms(kernel, iters=3),
                "graph_ms": graph_ms(kernel, n=5, reps=3),
                "pass_device_ms": bwd_pass_ms(kernel)}
@@ -2809,19 +2912,26 @@ def _model_fields(cfg) -> dict:
 
 def attention_variants_reset() -> None:
     from repro_torch.kernels import flash_attention as fa
-    for counter in fa.LAUNCHES_BY_VARIANT.values():
+    from repro_torch.kernels import flash_attention_bwd as fb
+    for counter in (*fa.LAUNCHES_BY_VARIANT.values(),
+                    *fb.LAUNCHES_BY_VARIANT.values()):
         counter.count = 0
 
 
 def attention_variants_check(phase: str, total: int,
-                             expected: str = "wgmma") -> dict:
-    """Every one of the phase's ``total`` kernel-1 launches was of the
-    ``expected`` variant; returns the counts by variant."""
+                             expected: str = "wgmma",
+                             backward: bool = False) -> dict:
+    """Every one of the phase's ``total`` kernel-1 launches (with
+    ``backward``, its backward's) was of the ``expected`` variant; returns
+    the counts by variant."""
     from repro_torch.kernels import flash_attention as fa
-    by = {k: c.count for k, c in fa.LAUNCHES_BY_VARIANT.items()}
+    from repro_torch.kernels import flash_attention_bwd as fb
+    counters = fb.LAUNCHES_BY_VARIANT if backward else fa.LAUNCHES_BY_VARIANT
+    by = {k: c.count for k, c in counters.items()}
     if by[expected] != total or sum(by.values()) != total:
-        raise AssertionError(f"{phase}: {total} attention launches, by "
-                             f"variant {by}: not all {expected}")
+        raise AssertionError(f"{phase}: {total} attention "
+                             f"{'backward ' if backward else ''}launches, "
+                             f"by variant {by}: not all {expected}")
     return by
 
 
@@ -2831,7 +2941,9 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
     """launch.train.train() on ``cfg`` with ``opts``; every step's launches
     of each kernel checked against ``launches_per_pass`` (twice on the
     verified recovered step), every kernel-1 launch of the ``variant``
-    kernel, losses and gradient norms finite, the recovered gradient within
+    kernel and every backward launch of a bf16 training pass "wgmma"
+    (the backward takes every training width, D = 80 and D != Dv too),
+    losses and gradient norms finite, the recovered gradient within
     RECOVERY_RTOL of the fault-free one and, with ``checkpoint``, the
     step-0 in-memory and persistent saves restored bitwise.
     ``step_fields()`` adds fields to each step's line and
@@ -2899,7 +3011,11 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
            "launches": launches, "launches_expected": total,
            "launches_per_fused_step": per_pass,
            "attention_by_variant": attention_variants_check(
-               phase, launches["flash_attention"], variant)}
+               phase, launches["flash_attention"], variant),
+           "attention_bwd_by_variant": attention_variants_check(
+               phase, launches["flash_attention_bwd"],
+               "wgmma" if cfg.param_dtype == "bfloat16" else "cuda_core",
+               backward=True)}
     rec = next((r for r in result.history if r["kind"] == "recovered"), None)
     if rec is not None:
         tol = RECOVERY_RTOL * rec["grad_sum_max_abs"]
@@ -3060,7 +3176,8 @@ def phase_train_mla(ctx) -> None:
     """deepseek-v3-671b at full width on one card's share of its EP-64
     deployment (configs.deepseek_v3_671b.ONE_CHIP): the train phase's
     steps and injected failure, kernel 1 ("cuda_core", D = 192, Dv = 128)
-    and its backward three times a pass (2 layers and the MTP block), each
+    and its backward ("wgmma") three times a pass (2 layers and the MTP
+    block), each
     step's aux loss and drop share, no checkpoint round trip (a 1.8 B
     parameter state would take ~25 GB of host copies)."""
     from repro_torch import tree
@@ -3105,8 +3222,8 @@ def phase_train_audio(ctx) -> None:
     """hubert-xlarge at full width and depth (the audio stub: 1024 frames a
     sequence, masked-unit cross-entropy over 504 codes, LayerNorm, the
     embedding leaf unread): the train phase's steps and injected failure,
-    kernel 1 and its backward bidirectional at D = 80 ("cuda_core") once
-    per layer, no RMSNorm, no checkpoint round trip."""
+    kernel 1 ("cuda_core") and its backward ("wgmma") bidirectional at D =
+    80 once per layer, no RMSNorm, no checkpoint round trip."""
     from repro_torch.configs import get_arch
     full = get_arch("hubert-xlarge")
     cfg = dataclasses.replace(full, n_layers=AUDIO_LAYERS)
@@ -3145,12 +3262,15 @@ def phase_self_heal(ctx) -> None:
                              f"{bwd} backward launches, {evals} evaluated "
                              f"losses of {per_eval} each")
     # the scenario trains a float32 reduced gemma-2b (head_dim 64), whose
-    # attention is the CUDA-core kernel's by variant()
+    # attention and its backward are the CUDA-core kernels' by variant()
     by_variant = attention_variants_check("self_heal", launches, "cuda_core")
+    bwd_by_variant = attention_variants_check("self_heal", bwd, "cuda_core",
+                                              backward=True)
     emit({"phase": "self_heal", "ok": True,
           "seconds": time.perf_counter() - t0, "launches": launches,
           "backward_launches": bwd,
           "attention_by_variant": by_variant,
+          "attention_bwd_by_variant": bwd_by_variant,
           "max_param_diff": worst, "atol": self_healing.ATOL,
           "log": lines})
 
@@ -3924,6 +4044,29 @@ def phase_ab_attn(ctx) -> None:
         emit({**rec, "nvidia_smi": ctx["smi"]})
 
 
+def phase_ab_attn_bwd(ctx) -> None:
+    """Not in the default run: kernel 1's backward's graph time at
+    deepseek-v3-671b's MLA shape and gemma-2b's, through the port that
+    ``--src`` names.  Run once per tree, in turns, to compare two trees on
+    one card."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    for label, case in (("deepseek-v3-671b MLA", MLA_ATTN_SHAPE),
+                        ("gemma-2b", GEMMA_SHAPE)):
+        q, k, v = attn_inputs(case, seed=1)
+        o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+        do = torch.randn_like(o)
+        rec = {"phase": "ab_attn_bwd", "src": ctx["src"], "shape": label,
+               "graph_ms": graph_ms(lambda: fb.flash_attention_bwd_cuda(
+                   q, k, v, o, lse, do), n=5, reps=5)}
+        if hasattr(fb, "variant"):
+            rec["variant"] = fb.variant(q, k, v, o, do)
+        emit({**rec, "nvidia_smi": ctx["smi"]})
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3946,7 +4089,8 @@ def main() -> int:
     fns = {"device": phase_device, "build": phase_build, "ab": phase_ab,
            "kernel": phase_kernel, "plan": phase_plan,
            "replay": phase_replay, "control": phase_control,
-           "ab_attn": phase_ab_attn, "train": phase_train,
+           "ab_attn": phase_ab_attn, "ab_attn_bwd": phase_ab_attn_bwd,
+           "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
            "train_moe": phase_train_moe, "train_mla": phase_train_mla,
            "train_vlm": phase_train_vlm, "train_audio": phase_train_audio,

@@ -173,28 +173,55 @@ def test_forward_without_grad_writes_no_lse(monkeypatch):
 # ---- on the card ------------------------------------------------------------
 
 
+# each case's widths widened to a pair the "wgmma" backward takes
+# (kernels.flash_attention_bwd.WGMMA_WIDTHS), by its D
+WGMMA_WIDTHS = {32: (64, 64), 16: (128, 128), 48: (192, 128),
+                24: (80, 80)}
+
+
+def _misaligned(t):
+    """A copy of ``t`` whose base is 2 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:].copy_(t.reshape(-1))
+    return flat[1:].view(t.shape)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_kernel_matches_plain_version(dtype):
     """Kernel 1's lse and the backward kernel against the plain versions on
     the card, every case: float32 at F32 tolerances scaled to the
     gradients' size (the kernel sums in another order), bfloat16 at 2e-2
-    (inputs and outputs rounded to bf16, f32 arithmetic inside)."""
+    (inputs and outputs rounded to bf16, f32 arithmetic inside).  Each
+    case runs through every variant that applies: "cuda_core" at its own
+    widths (and in float32), and in bfloat16 also at "wgmma" widths, once
+    aligned ("wgmma") and once with a misaligned q ("cuda_core")."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dt = getattr(torch, dtype)
     tol = 1e-4 if dtype == "float32" else 2e-2
-    for case in CASES.values():
+    runs = [(case, False) for case in CASES.values()]
+    if dtype == "bfloat16":
+        runs += [(case[:5] + WGMMA_WIDTHS[case[5]] + case[7:], misaligned)
+                 for case in CASES.values() for misaligned in (False, True)]
+    for case, misaligned in runs:
         q, k, v, do = (torch.from_numpy(a).to("cuda", dt)
                        for a in _inputs(case))
+        if misaligned:
+            q = _misaligned(q)
         opts = _opts(case)
         o, lse = tfa.flash_attention_cuda(q, k, v, **opts, with_lse=True)
         _, want_lse = tref.flash_attention_lse(q, k, v, **opts)
         assert_close(lse, want_lse, F32_ATOL, F32_RTOL)
-        before = tfb.LAUNCHES.count
+        kind = tfb.variant(q, k, v, o, do)
+        assert kind == ("wgmma" if dtype == "bfloat16" and not misaligned
+                        and tuple(case[5:7]) in tfb.WGMMA_WIDTHS
+                        else "cuda_core")
+        before = (tfb.LAUNCHES.count, tfb.LAUNCHES_BY_VARIANT[kind].count)
         got = tfb.flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts)
         torch.cuda.synchronize()
-        assert tfb.LAUNCHES.count == before + 1
+        assert (tfb.LAUNCHES.count, tfb.LAUNCHES_BY_VARIANT[kind].count) \
+            == (before[0] + 1, before[1] + 1)
         want = tref.flash_attention_bwd(q, k, v, o, lse, do, **opts)
         for g, w in zip(got, want):
             assert g.dtype == dt
