@@ -16,12 +16,14 @@ Phases, each printing one JSON line:
                     zamba2-1.2b's, qwen3-4b's and granite-moe-3b-a800m's
                     (GQA group 3: 24 heads over 8 KV heads) training shapes
                     and deepseek-v3-671b's MLA shapes (D = 192, Dv = 128, H =
-                    KV = 128, "cuda_core": B = 2, S = 1024 and serve_mla's
-                    forward check, B = 8, S = 128), hubert-xlarge's
-                    (bidirectional, H = KV = 16, D = 80, "cuda_core") and
-                    internvl2-2b's (S = 1280, GQA 16 / 8, D = 128) beside
-                    SDPA's, with gemma-2b's last causal q tile alone and
-                    B = 8
+                    KV = 128: B = 2, S = 1024 and serve_mla's forward
+                    check, B = 8, S = 128), hubert-xlarge's (bidirectional,
+                    H = KV = 16, D = 80) and internvl2-2b's (S = 1280, GQA
+                    16 / 8, D = 128), all "wgmma" and bit for bit the same
+                    over two calls, beside SDPA's, with gemma-2b's last
+                    causal q tile alone and B = 8, and hubert's heads at D
+                    = 64 and 128 beside its 80 (what padding 80 to 128
+                    columns in P V costs)
   kernel:flash_attention_bwd
                     the backward's wgmma kernels' ptxas lines (no spills,
                     no serialised wgmma, each setmaxnreg split at the
@@ -181,7 +183,7 @@ Phases, each printing one JSON line:
                     1 dense MLA + 1 MLA-MoE layer holding 4 of 256 experts,
                     the MTP block, a vocabulary eighth of 16160; 1.81 B
                     params): the train phase's steps and failure, kernel 1
-                    ("cuda_core", D = 192, Dv = 128) and its backward
+                    ("wgmma", D = 192, Dv = 128) and its backward
                     ("wgmma") 3 times a pass, each step's aux loss and
                     drop share, the MTP block's and the routers' gradients
                     non-zero; no checkpoint round trip
@@ -192,8 +194,8 @@ Phases, each printing one JSON line:
                     and 2-bwd on every norm; no checkpoint round trip
   train_audio       hubert-xlarge at full width and depth (48 layers, 1.26
                     B params; 1024 frames, masked-unit loss, LayerNorm):
-                    the same, kernel 1 ("cuda_core") and its backward
-                    ("wgmma") bidirectional at D = 80, no RMSNorm
+                    the same, kernel 1 and its backward (both "wgmma")
+                    bidirectional at D = 80, no RMSNorm
   self_heal         launch.self_healing: three injected failures and the
                     strict-semantics check against a fault-free shadow run
   serve             launch.serve on qwen3-4b at full width and full depth:
@@ -238,7 +240,7 @@ Phases, each printing one JSON line:
                     forward that drops no token (capacity factor E / K),
                     with the 1.25 forward's distance and drop share beside
                     it, each forward launching kernel 1 five times (4
-                    layers and the MTP block), all "cuda_core"; one step
+                    layers and the MTP block), all "wgmma"; one step
                     with the kernel's norms against the plain norms; the
                     graph step against eager; a traced replayed step; then
                     the 3 dense-prefix layers at full width in float32,
@@ -246,8 +248,8 @@ Phases, each printing one JSON line:
                     generate()'s
   profile           device time by kernel over one traced steady step of
                     the train, train_ssm (24 of 48 layers, cut for the
-                    script's time) and train_moe phases' configurations,
-                    and the idle share
+                    script's time), train_moe and train_audio phases'
+                    configurations, and the idle share
 
 Then a line with the card's name and power limit, a line with every
 kernel's numbers, and the result line.  Any failure exits non-zero before
@@ -255,8 +257,9 @@ the result line.  ``--phases`` runs a subset (for debugging).  Phase
 ``ab``, outside the default run, times kernel 3 at its four shapes and the
 segtree and batched churn walks through the port that ``--src`` names:
 run it on two trees in turns to compare them on one card.  Phases
-``ab_attn`` and ``ab_attn_bwd`` do the same for kernel 1 and for its
-backward at two shapes (deepseek-v3-671b's MLA and gemma-2b).
+``ab_attn`` and ``ab_attn_bwd`` do the same for kernel 1 (at
+deepseek-v3-671b's MLA, gemma-2b's and hubert-xlarge's shapes) and for
+its backward (at the first two).
 """
 from __future__ import annotations
 
@@ -306,14 +309,16 @@ ATTN_CASES = [
     (1, 40, 40, 2, 1, 24, 40, True, 0, 0.0, 0, "float32"),
 ]
 # every case runs in float32 (the CUDA-core kernel) and in bfloat16
-# (kernels.flash_attention.variant: "wgmma" at D = Dv in {64, 128, 256},
+# (kernels.flash_attention.variant: "wgmma" at (D, Dv) in WGMMA_WIDTHS,
 # else "cuda_core")
 ATTN_CASES = [c[:-1] + (dt,) for c in ATTN_CASES
               for dt in ("float32", "bfloat16")]
 # the wgmma kernel's edges, each expected on "wgmma": ragged Sq and Sk with
 # q_offset = Sk - Sq and a negative one (fully masked rows), a window, a
-# soft-cap, MQA, GQA and H = KV, D in {64, 128, 256}, bidirectional, a
-# single query row, fewer keys than a tile
+# soft-cap, MQA, GQA and H = KV, bidirectional, a single query row, fewer
+# keys than a tile, at every pair of WGMMA_WIDTHS (MLA's 192 over 128 with
+# three q/k boxes and two v boxes a row; 80 as two boxes, the second
+# zero-filled past column 80)
 WGMMA_CASES = [
     (1, 100, 1000, 8, 1, 256, 256, True, 0, 0.0, 900, "bfloat16"),
     (2, 1000, 1000, 4, 2, 128, 128, True, 0, 0.0, 0, "bfloat16"),
@@ -325,6 +330,20 @@ WGMMA_CASES = [
     # one query row at the end of 100 keys, and fewer keys than one tile
     (1, 1, 100, 8, 1, 256, 256, True, 0, 0.0, 99, "bfloat16"),
     (2, 37, 10, 4, 2, 128, 128, False, 0, 0.0, 0, "bfloat16"),
+    # D = 192, Dv = 128
+    (1, 130, 250, 4, 4, 192, 128, True, 0, 0.0, 120, "bfloat16"),
+    (2, 100, 100, 8, 2, 192, 128, True, 0, 20.0, 0, "bfloat16"),
+    (1, 96, 96, 4, 1, 192, 128, True, 32, 0.0, -20, "bfloat16"),
+    (1, 300, 300, 8, 8, 192, 128, True, 0, 0.0, 0, "bfloat16"),
+    (1, 1, 77, 4, 4, 192, 128, True, 0, 0.0, 76, "bfloat16"),
+    (2, 37, 10, 4, 2, 192, 128, False, 0, 0.0, 0, "bfloat16"),
+    # D = Dv = 80
+    (2, 200, 200, 4, 4, 80, 80, False, 0, 0.0, 0, "bfloat16"),
+    (1, 300, 300, 4, 2, 80, 80, True, 64, 0.0, 0, "bfloat16"),
+    (1, 100, 170, 4, 2, 80, 80, True, 0, 5.0, 70, "bfloat16"),
+    (1, 100, 100, 4, 1, 80, 80, True, 0, 0.0, -40, "bfloat16"),
+    (1, 1, 100, 2, 2, 80, 80, False, 0, 0.0, 0, "bfloat16"),
+    (2, 37, 10, 4, 2, 80, 80, False, 0, 0.0, 0, "bfloat16"),
 ]
 # non-contiguous inputs, with the variant each must take: q, k, v sliced
 # out of one fused (B, S, H + 2 KV, D) projection, a q strided over every
@@ -354,15 +373,14 @@ QWEN3_ATTN_SHAPE = (2, 1024, 1024, 32, 8, 128, 128, True, 0, 0.0, 0,
 GRANITE_ATTN_SHAPE = (2, 1024, 1024, 24, 8, 64, 64, True, 0, 0.0, 0,
                       "bfloat16")
 # deepseek-v3-671b's MLA: [q_nope, q_rope] is D = 192 over Dv = 128, with
-# k_rope broadcast to every head (KV = H = 128); D != Dv gives "cuda_core".
-# A training micro-batch, and serve_mla's forward check (8 prompts of 128)
+# k_rope broadcast to every head (KV = H = 128), on "wgmma".  A training
+# micro-batch, and serve_mla's forward check (8 prompts of 128)
 MLA_ATTN_SHAPE = (2, 1024, 1024, 128, 128, 192, 128, True, 0, 0.0, 0,
                   "bfloat16")
 MLA_FORWARD_SHAPE = (8, 128, 128, 128, 128, 192, 128, True, 0, 0.0, 0,
                      "bfloat16")
 # hubert-xlarge's at the train_audio phase's micro-batch: bidirectional
-# (the only encoder in the repo) at D = 80, which is not a wgmma width, so
-# "cuda_core"
+# (the only encoder in the repo) at D = 80 ("wgmma")
 HUBERT_ATTN_SHAPE = (2, 1024, 1024, 16, 16, 80, 80, False, 0, 0.0, 0,
                      "bfloat16")
 # internvl2-2b's at the train_vlm phase's micro-batch: 256 patch embeddings
@@ -639,27 +657,39 @@ def _attn_check(case, got, want, q_off, window, sk) -> float:
     return err.max().item()
 
 
+# registers at entry each forward wgmma instantiation's setmaxnreg split
+# assumes (wg::Cfg): three blocks an SM at D = 64, two consumer warpgroups
+# at 80, 128 and MLA's 192 / 128; D = 256 has no split
+FWD_ENTRY_REGS = {(64, 64): 80, (80, 80): 168, (128, 128): 168,
+                  (192, 128): 168, (256, 256): None}
+
+
 def wgmma_build_report(ctx) -> dict:
-    """The wgmma kernels' ptxas lines from this run's build: registers at
-    entry (setmaxnreg moves them between producer and consumers; the
-    launcher itself refuses a build whose entry count its split does not
-    assume), spill bytes and performance notes; none may spill or be
-    serialised.  Checked before any launch."""
+    """The wgmma kernels' ptxas lines from this run's build, one
+    instantiation per pair of WGMMA_WIDTHS: registers at entry
+    (setmaxnreg moves them between producer and consumers, so each split
+    must find the count it assumes; the launcher itself refuses another),
+    spill bytes and performance notes; none may spill or be serialised.
+    Checked before any launch."""
     entries = ctx.get("ptxas", {}).get("flash_attention")
     if entries is None:
         return {"built_in_this_run": False}
     wg = {name: rec for name, rec in entries.items()
           if "attn_fwd_wgmma_kernel" in name}
-    if len(wg) != 3:
-        raise AssertionError(f"expected 3 wgmma instantiations, ptxas "
-                             f"reported {sorted(wg)}")
+    if len(wg) != len(FWD_ENTRY_REGS):
+        raise AssertionError(f"expected {len(FWD_ENTRY_REGS)} wgmma "
+                             f"instantiations, ptxas reported {sorted(wg)}")
     import re
     entries = {}
     for name, rec in wg.items():
-        d = re.search(r"ILi(\d+)E", name).group(1)
+        d, dv = map(int, re.search(r"ILi(\d+)ELi(\d+)E", name).groups())
         if rec.get("spill_stores") or rec.get("spill_loads") or rec["notes"]:
             raise AssertionError(f"{name}: spills or serialised wgmma: {rec}")
-        entries[f"D={d}"] = rec
+        entry = FWD_ENTRY_REGS[(d, dv)]
+        if entry is not None and rec.get("registers") != entry:
+            raise AssertionError(f"{name}: {rec.get('registers')} registers,"
+                                 f" the setmaxnreg split assumes {entry}")
+        entries[f"D={d} Dv={dv}"] = rec
     return {"built_in_this_run": True, "entries": entries}
 
 
@@ -669,7 +699,8 @@ def attention_diagnostics(ctx) -> None:
     per (batch, head), the longest block of the training call) and the
     training shape at B = 8 (four waves of blocks, so the steady rate per
     tile rather than one block's latency), each beside SDPA where SDPA
-    computes the same function."""
+    computes the same function; then hubert-xlarge's heads at three
+    widths."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     B, S, _, H, KV, D = GEMMA_SHAPE[:6]
@@ -688,6 +719,19 @@ def attention_diagnostics(ctx) -> None:
                        qt, kt, vt, is_causal=True, enable_gqa=True)),
                b8_bound_ms=attn_bound(wide)[0])
     emit(out)
+    # hubert-xlarge's heads at D = Dv = 64, 80 and 128: "wgmma" runs 80's
+    # P V over two 64-column groups, the second zero past column 80, so
+    # 80's time against 64's and 128's bounds what a narrower last group
+    # (wgmma.m64n16k16) could save
+    out = {"phase": "kernel:flash_attention", "diagnostics": "hubert-xlarge "
+           "P V padding", "nvidia_smi": ctx["smi"]}
+    for d in (64, 80, 128):
+        case = HUBERT_ATTN_SHAPE[:5] + (d, d) + HUBERT_ATTN_SHAPE[7:]
+        q, k, v = attn_inputs(case, seed=3)
+        out[f"D={d}_graph_ms"] = graph_ms(
+            lambda: fa.flash_attention_cuda(q, k, v, causal=False))
+        out[f"D={d}_bound_ms"] = attn_bound(case)[0]
+    emit(out)
 
 
 def phase_kernel(ctx) -> None:
@@ -703,10 +747,8 @@ def phase_kernel(ctx) -> None:
     cases = [(c, "contiguous", None) for c in ATTN_CASES] + \
         [(c, "contiguous", "wgmma") for c in WGMMA_CASES +
          [GEMMA_SHAPE, ZAMBA2_ATTN_SHAPE, QWEN3_ATTN_SHAPE,
-          GRANITE_ATTN_SHAPE, INTERNVL_ATTN_SHAPE]] + \
-        [(c, "contiguous", "cuda_core") for c in (MLA_ATTN_SHAPE,
-                                                  MLA_FORWARD_SHAPE,
-                                                  HUBERT_ATTN_SHAPE)] + \
+          GRANITE_ATTN_SHAPE, INTERNVL_ATTN_SHAPE, MLA_ATTN_SHAPE,
+          MLA_FORWARD_SHAPE, HUBERT_ATTN_SHAPE]] + \
         [(c, layout, want) for layout, c, want in ATTN_LAYOUT_CASES]
     worst, ran = 0.0, {}
     for case, layout, expect in cases:
@@ -732,8 +774,8 @@ def phase_kernel(ctx) -> None:
     emit({"phase": "kernel:flash_attention", "cases": len(cases),
           "by_variant": ran, "tol": TOL, "max_abs_err_all_cases": worst})
 
-    # the training shapes: times and the bound; the kernels line keeps
-    # gemma-2b's
+    # the training shapes: each "wgmma" and bit for bit the same over two
+    # calls, times and the bound; the kernels line keeps gemma-2b's
     shapes = {"gemma-2b B=2 S=1024 H=8 KV=1 D=256 causal bf16": GEMMA_SHAPE,
               "zamba2-1.2b B=2 S=1024 H=KV=32 D=64 causal bf16":
                   ZAMBA2_ATTN_SHAPE,
@@ -754,7 +796,12 @@ def phase_kernel(ctx) -> None:
         causal = case[7]
         opts = dict(causal=causal, window=0, softcap=0.0, q_offset=0)
         kernel = lambda: fa.flash_attention_cuda(q, k, v, **opts)  # noqa
+        if fa.variant(q, k, v) != "wgmma":
+            raise AssertionError(f"{label}: variant {fa.variant(q, k, v)}, "
+                                 f"the training shapes take wgmma")
         got = kernel()
+        if not torch.equal(got, kernel()):
+            raise AssertionError(f"{label}: two calls differ")
         want = ref.flash_attention(q, k, v, **opts)
         err = (got.float() - want.float()).abs().max().item()
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -770,6 +817,7 @@ def phase_kernel(ctx) -> None:
                                                                **opts)),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": cuda_ms(sdpa), "variant": fa.variant(q, k, v),
+               "bitwise_repeat": True,
                "device_ms": device_ms(kernel),
                "library_device_ms": device_ms(sdpa),
                "graph_ms": graph_ms(kernel),
@@ -2936,13 +2984,12 @@ def attention_variants_check(phase: str, total: int,
 
 
 def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
-              step_fields=None, final_fields=None,
-              variant: str = "wgmma") -> dict:
+              step_fields=None, final_fields=None) -> dict:
     """launch.train.train() on ``cfg`` with ``opts``; every step's launches
     of each kernel checked against ``launches_per_pass`` (twice on the
-    verified recovered step), every kernel-1 launch of the ``variant``
-    kernel and every backward launch of a bf16 training pass "wgmma"
-    (the backward takes every training width, D = 80 and D != Dv too),
+    verified recovered step), every kernel-1 launch and every backward
+    launch of a bf16 training pass "wgmma" (both take every training
+    width, D = 80 and MLA's D != Dv too),
     losses and gradient norms finite, the recovered gradient within
     RECOVERY_RTOL of the fault-free one and, with ``checkpoint``, the
     step-0 in-memory and persistent saves restored bitwise.
@@ -3007,14 +3054,14 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
     if launches != total:
         raise AssertionError(f"{phase}: {launches} launches in the run, "
                              f"expected {total}")
+    variant = "wgmma" if cfg.param_dtype == "bfloat16" else "cuda_core"
     out = {"phase": phase, "ok": True, "seconds": secs,
            "launches": launches, "launches_expected": total,
            "launches_per_fused_step": per_pass,
            "attention_by_variant": attention_variants_check(
                phase, launches["flash_attention"], variant),
            "attention_bwd_by_variant": attention_variants_check(
-               phase, launches["flash_attention_bwd"],
-               "wgmma" if cfg.param_dtype == "bfloat16" else "cuda_core",
+               phase, launches["flash_attention_bwd"], variant,
                backward=True)}
     rec = next((r for r in result.history if r["kind"] == "recovered"), None)
     if rec is not None:
@@ -3175,9 +3222,9 @@ def loss_terms_reach_gradient(cfg, params) -> dict:
 def phase_train_mla(ctx) -> None:
     """deepseek-v3-671b at full width on one card's share of its EP-64
     deployment (configs.deepseek_v3_671b.ONE_CHIP): the train phase's
-    steps and injected failure, kernel 1 ("cuda_core", D = 192, Dv = 128)
-    and its backward ("wgmma") three times a pass (2 layers and the MTP
-    block), each
+    steps and injected failure, kernel 1 and its backward (both "wgmma",
+    D = 192, Dv = 128) three times a pass (2 layers and the MTP block),
+    each
     step's aux loss and drop share, no checkpoint round trip (a 1.8 B
     parameter state would take ~25 GB of host copies)."""
     from repro_torch import tree
@@ -3191,7 +3238,7 @@ def phase_train_mla(ctx) -> None:
     with DropCounter() as drops:
         launches = run_train(ctx, "train_mla", cfg, ds.ONE_CHIP_REDUCED,
                              TRAIN, checkpoint=False, step_fields=drops.take,
-                             final_fields=final_fields, variant="cuda_core")
+                             final_fields=final_fields)
     if "flash_attention_bwd" in ctx["kernels"]:
         ctx["kernels"]["flash_attention_bwd"]["launches"] = \
             launches["flash_attention_bwd"]
@@ -3222,14 +3269,14 @@ def phase_train_audio(ctx) -> None:
     """hubert-xlarge at full width and depth (the audio stub: 1024 frames a
     sequence, masked-unit cross-entropy over 504 codes, LayerNorm, the
     embedding leaf unread): the train phase's steps and injected failure,
-    kernel 1 ("cuda_core") and its backward ("wgmma") bidirectional at D =
-    80 once per layer, no RMSNorm, no checkpoint round trip."""
+    kernel 1 and its backward (both "wgmma") bidirectional at D = 80 once
+    per layer, no RMSNorm, no checkpoint round trip."""
     from repro_torch.configs import get_arch
     full = get_arch("hubert-xlarge")
     cfg = dataclasses.replace(full, n_layers=AUDIO_LAYERS)
     run_train(ctx, "train_audio", cfg,
               {"n_layers": [full.n_layers, AUDIO_LAYERS]}, TRAIN,
-              checkpoint=False, variant="cuda_core")
+              checkpoint=False)
 
 
 def phase_self_heal(ctx) -> None:
@@ -3831,22 +3878,22 @@ MLA_F32_LAYERS = 3
 def kernel1_forward(model, params, tokens, phase: str) -> tuple:
     """``model.forward``'s last-position logits over ``tokens``, and the
     kernel-1 launches it made by variant: one per layer and one for the
-    MTP block, every one "cuda_core" at MLA's D != Dv, or the phase
-    fails."""
+    MTP block, every one "wgmma" (MLA's D = 192 over Dv = 128, bf16), or
+    the phase fails."""
     import torch
     cfg = model.cfg
     attention_variants_reset()
     with torch.no_grad():
         logits = model.forward(params, {"tokens": tokens})[0][:, -1]
     want = launches_per_pass(cfg)["flash_attention"]
-    return logits, attention_variants_check(phase, want, "cuda_core")
+    return logits, attention_variants_check(phase, want, "wgmma")
 
 
 def phase_serve_mla(ctx) -> None:
     """deepseek-v3-671b at full width, depth 4, through launch.serve (the
     serve phase's two parts) on the graphed decoder, whose step is MLA's
     absorbed decode over the latent cache; then the decode path against a
-    forward that drops no token, both forwards on kernel 1 ("cuda_core"),
+    forward that drops no token, both forwards on kernel 1 ("wgmma"),
     the kernel's norms against the plain norms, one graph step against
     eager, a traced replayed step, and the float32 batcher check."""
     import torch
@@ -3999,7 +4046,9 @@ def phase_profile(ctx) -> None:
                 dataclasses.replace(get_arch("mamba2-780m"),
                                     n_layers=SSM_LAYERS),
                 dataclasses.replace(get_arch("granite-moe-3b-a800m"),
-                                    n_layers=MOE_LAYERS)):
+                                    n_layers=MOE_LAYERS),
+                dataclasses.replace(get_arch("hubert-xlarge"),
+                                    n_layers=AUDIO_LAYERS)):
         emit({"phase": "profile", **profile_step(cfg),
               "nvidia_smi": ctx["smi"]})
 
@@ -4026,22 +4075,138 @@ def phase_ab(ctx) -> None:
 
 def phase_ab_attn(ctx) -> None:
     """Not in the default run: kernel 1's graph time at deepseek-v3-671b's
-    MLA shape ("cuda_core") and gemma-2b's ("wgmma"), through the port
-    that ``--src`` names (and, where that port writes it, with the
-    log-sum-exp).  Run once per tree, in turns, to compare two trees on
-    one card."""
+    MLA shape, gemma-2b's and hubert-xlarge's, through the port that
+    ``--src`` names (and, where that port writes it, with the
+    log-sum-exp), each with the variant it took.  Run once per tree, in
+    turns, to compare two trees on one card."""
     import inspect
     from repro_torch.kernels import flash_attention as fa
     lse = "with_lse" in inspect.signature(fa.flash_attention_cuda).parameters
     for label, case in (("deepseek-v3-671b MLA", MLA_ATTN_SHAPE),
-                        ("gemma-2b", GEMMA_SHAPE)):
+                        ("gemma-2b", GEMMA_SHAPE),
+                        ("hubert-xlarge", HUBERT_ATTN_SHAPE)):
         q, k, v = attn_inputs(case, seed=1)
+        causal = case[7]
         rec = {"phase": "ab_attn", "src": ctx["src"], "shape": label,
-               "graph_ms": graph_ms(lambda: fa.flash_attention_cuda(q, k, v))}
+               "variant": fa.variant(q, k, v),
+               "graph_ms": graph_ms(lambda: fa.flash_attention_cuda(
+                   q, k, v, causal=causal))}
         if lse:
             rec["with_lse_graph_ms"] = graph_ms(
-                lambda: fa.flash_attention_cuda(q, k, v, with_lse=True))
+                lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                                with_lse=True))
         emit({**rec, "nvidia_smi": ctx["smi"]})
+
+
+# configurations of the forward's "wgmma" kernel that phase probe_attn
+# builds beside the shipped one: (width D, consumers, blocks an SM, ring
+# slots), each replacing wg::Cfg's choice at that width only
+FWD_PROBES = [(192, 1, 2, 2), (192, 2, 1, 2), (192, 1, 1, 4),
+              (192, 2, 1, 3),
+              (80, 1, 2, 2), (80, 2, 1, 2), (80, 1, 1, 3), (80, 2, 1, 4),
+              (80, 2, 1, 5), (80, 2, 1, 6),
+              (128, 1, 2, 2), (128, 2, 1, 4)]
+# the shapes each probed width is timed at
+FWD_PROBE_SHAPES = {192: {"deepseek-v3-671b MLA": MLA_ATTN_SHAPE,
+                          "serve_mla check forward": MLA_FORWARD_SHAPE},
+                    80: {"hubert-xlarge": HUBERT_ATTN_SHAPE},
+                    128: {"qwen3-4b": QWEN3_ATTN_SHAPE}}
+
+
+def _probe_libraries(probes) -> dict:
+    """Each probe's edited copy of csrc/flash_attention.cu compiled with
+    the port's nvcc flags into build/probe_attn/, all at once; its ctypes
+    entry (with the wrapper's argtypes) and ptxas lines by probe."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    text = (build.CSRC / "flash_attention.cu").read_text()
+    lines = {"NC": "static constexpr int NC = ",
+             "BLOCKS": "static constexpr int BLOCKS = ",
+             "STAGES": "static constexpr int STAGES = "}
+    out_dir = ROOT / "build" / "probe_attn"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for probe in probes:
+        d, nc, blocks, stages = probe
+        src = text
+        for key, value in zip(lines, (nc, blocks, stages)):
+            head = lines[key]
+            i = src.index(head) + len(head)
+            j = src.index(";", i)
+            src = src[:i] + f"D == {d} ? {value} : ({src[i:j]})" + src[j:]
+        name = f"fa_D{d}_nc{nc}_b{blocks}_s{stages}"
+        (out_dir / f"{name}.cu").write_text(src)
+        so = out_dir / f"lib{name}.so"
+        procs[probe] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+             str(out_dir / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    ref_fn = fa._entry()
+    libs = {}
+    for probe, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"probe {probe}: nvcc failed:\n{log}")
+        fn = ctypes.CDLL(str(so)).repro_flash_attention_fwd
+        fn.argtypes, fn.restype = ref_fn.argtypes, ref_fn.restype
+        entries = ptxas_entries(log)
+        libs[probe] = (fn, {n: rec for n, rec in entries.items()
+                            if "attn_fwd_wgmma_kernel" in n
+                            and f"ILi{probe[0]}E" in n})
+    return libs
+
+
+def phase_probe_attn(ctx) -> None:
+    """Not in the default run: kernel 1's "wgmma" forward in the
+    configurations of FWD_PROBES, each built from an edited copy of the
+    source and swapped in for the library through the wrapper's ctypes
+    entry, held bit for bit against the shipped build (every
+    configuration walks each row's KV tiles in the same order) and timed
+    by graph_ms at its width's training shapes (with the log-sum-exp, as
+    the training forward writes it; serve_mla's check forward without), in
+    turns with the shipped build."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    shipped = fa._entry
+    libs = _probe_libraries(FWD_PROBES)
+    try:
+        for d, shapes in FWD_PROBE_SHAPES.items():
+            fns = {"shipped": shipped()}
+            fns.update({f"nc={p[1]} blocks={p[2]} stages={p[3]}": libs[p][0]
+                        for p in FWD_PROBES if p[0] == d})
+            for label, case in shapes.items():
+                q, k, v = attn_inputs(case, seed=1)
+                lse = case[0] == 2
+
+                def call():
+                    return fa.flash_attention_cuda(q, k, v, causal=case[7],
+                                                   with_lse=lse)
+                outs, times = {}, {name: [] for name in fns}
+                for r in range(2):
+                    for name in (list(fns) if r == 0 else list(fns)[::-1]):
+                        fa._entry = lambda fn=fns[name]: fn  # noqa: E731
+                        if r == 0:
+                            outs[name] = call()
+                        times[name].append(graph_ms(call))
+                fa._entry = shipped
+                want = outs["shipped"]
+                for name in fns:
+                    got = outs[name]
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        got if lse else (got,), want if lse else (want,)))
+                    emit({"phase": "probe_attn", "shape": label,
+                          "config": name, "graph_ms": times[name],
+                          "bitwise_equal_to_shipped": same,
+                          "ptxas": next((libs[p][1] for p in FWD_PROBES
+                                         if p[0] == d and name ==
+                                         f"nc={p[1]} blocks={p[2]} "
+                                         f"stages={p[3]}"), None),
+                          "nvidia_smi": ctx["smi"]})
+                del q, k, v, outs
+                torch.cuda.empty_cache()
+    finally:
+        fa._entry = shipped
 
 
 def phase_ab_attn_bwd(ctx) -> None:
@@ -4090,6 +4255,7 @@ def main() -> int:
            "kernel": phase_kernel, "plan": phase_plan,
            "replay": phase_replay, "control": phase_control,
            "ab_attn": phase_ab_attn, "ab_attn_bwd": phase_ab_attn_bwd,
+           "probe_attn": phase_probe_attn,
            "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
            "train_moe": phase_train_moe, "train_mla": phase_train_mla,

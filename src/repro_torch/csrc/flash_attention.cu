@@ -21,8 +21,9 @@
 // Two kernels.  The wrapper picks one (variant() in the Python module) and
 // passes it here; the entry point checks that the chosen kernel takes the
 // inputs and never substitutes the other:
-//   * "wgmma" (namespace wg, the training path): bf16 with D = Dv in
-//     {64, 128, 256}, 16-byte aligned bases and strides.  TMA loads into an
+//   * "wgmma" (namespace wg, the training path): bf16 with (D, Dv) in
+//     WGMMA_WIDTHS (D = Dv in {64, 80, 128, 256} and MLA's D = 192 over
+//     Dv = 128), 16-byte aligned bases and strides.  TMA loads into an
 //     mbarrier ring, a producer warpgroup and one or two consumer
 //     warpgroups, wgmma for both products.  Its design note is above the
 //     namespace.
@@ -282,15 +283,30 @@ bool aligned16(const void* ptr, long long s0, long long s1, long long s2) {
 // ---------------------------------------------------------------------------
 //
 // The training path's kernel (gemma-2b: D = Dv = 256, MQA; zamba2-1.2b:
-// D = 64, H = KV = 32; qwen3-4b and granite: D = 128).  A block is one
-// producer warpgroup and NC consumer warpgroups of 64 query rows each
-// (BQ = 64 NC rows of one batch and head):
+// D = 64, H = KV = 32; qwen3-4b, granite and internvl2-2b: D = 128;
+// deepseek-v3-671b's MLA: D = 192 over Dv = 128; hubert-xlarge: D = 80,
+// bidirectional).  A block is one producer warpgroup and NC consumer
+// warpgroups of 64 query rows each (BQ = 64 NC rows of one batch and
+// head):
 //   * The producer's one issuing thread loads Q once (one TMA box per 64
 //     columns), then K and V tiles of BK = 64 keys into a ring of STAGES
 //     slots, each slot with a "K full", a "V full" and an "empty"
 //     mbarrier.  TMA writes each row of a box as 128 bytes in the 128-byte
-//     swizzle that wgmma reads, zero-fills rows past Sq and Sk, and counts
-//     its bytes into the full barrier.
+//     swizzle that wgmma reads, zero-fills rows past Sq and Sk and columns
+//     past the row's width, and counts the whole box's bytes into the full
+//     barrier, zero-filled ones included (K_BYTES and V_BYTES apart: a K
+//     tile is ND boxes, a V tile NV).
+//   * Widths: a q or k row is ND = ceil(D / 64) boxes, a v or o row NV =
+//     ceil(Dv / 64).  MLA's 192 over 128 is three boxes of Q and K and two
+//     of V: S runs 12 k-steps, O is two 64-column groups (64 f32 a lane,
+//     as at D = 128), in D = 128's configuration but for a fourth ring
+//     slot (209 KB of shared memory: Q 48 KB + 4 x (K 24 + V 16 KB)).
+//     hubert's 80 is two boxes,
+//     the second zero past column 80: S runs at its own 80 (five k-steps),
+//     P V over two full 64-column groups (the second's last 48 columns
+//     multiply zeros: 1.6x P V's multiply-adds, as the backward pays), and
+//     the epilogue stores columns below Dv only, since in a (B, S, H, 80)
+//     output columns 80 to 127 are the next head's.
 //   * Each consumer, per KV tile: S = Q K^T as D/16 wgmma.m64n64k16 with
 //     both operands K-major in shared memory (a descriptor step of 32 bytes
 //     per 16 columns, of one Q or K box per 64 columns); scale and
@@ -329,15 +345,27 @@ bool aligned16(const void* ptr, long long s0, long long s1, long long s2) {
 //     sharing K and V are faster, so D = 128 keeps them (setmaxnreg 40 and
 //     232).  At D = 256 one block of 256 threads has 255 registers each.
 //   * Shared memory at D = 256: Q 32 KB + 3 x (K 32 KB + V 32 KB) = 224 KB,
-//     one block per SM; D = 128: 32 KB + 3 x 32 KB; D = 64, three blocks of
-//     8 KB + 4 x 16 KB.
+//     one block per SM; D = 128 and 80: 32 KB + 3 x 32 KB; MLA: 48 KB + 4
+//     x 40 KB; D = 64, three blocks of 8 KB + 4 x 16 KB.
+//   * MLA's and hubert's configuration, measured the same way (chip_smoke
+//     phase probe_attn: each configuration built from an edited copy of
+//     this source, bitwise equal to the shipped one, timed in turns).  At
+//     MLA's training shape two consumers with four slots beat three slots
+//     by 4% and two slots by 20%; one consumer, at one or two blocks an
+//     SM, was 1.6x slower.  At hubert's, three to six slots were alike and
+//     two 30% slower; one consumer was 1.2x-1.4x slower.  Padding 80 to
+//     128 columns in P V costs little: hubert's heads at D = 80 take 0.041
+//     ms against 0.034 at 64 and 0.048 at 128, so a 16-column last group
+//     (wgmma.m64n16k16, with V's last box in the 32-byte swizzle) could
+//     save at most ~0.005 ms of 0.041.
 // Tried on the card and not kept, as no faster at the training shapes:
 // the heaviest causal q tiles split over two blocks with a combine (its
 // workspace traffic cost more than the shorter critical path gained), two
 // consumers taking turns at the tensor cores through named barriers
 // (FA3's ping-pong), ex2.approx with the scale folded into an FFMA.
 // Not done yet: a TMA store of O, a persistent grid that balances the
-// causal tiles over the SMs.
+// causal tiles over the SMs, tiles of 128 keys (S as wgmma n128: half the
+// softmax rounds and barrier waits per key at MLA's width).
 
 namespace wg {
 
@@ -345,34 +373,55 @@ constexpr int BK = 64;          // keys per tile
 constexpr int ROW = 128;        // bytes of one swizzled box row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// (D, Dv) pairs the "wgmma" kernel takes: every training head width of the
+// port.  The same list as kernels/flash_attention.py WGMMA_WIDTHS and as
+// csrc/flash_attention_bwd.cu's (a CPU test holds all three equal).
+constexpr int WGMMA_WIDTHS[][2] = {
+    {64, 64}, {80, 80}, {128, 128}, {256, 256}, {192, 128}};
+
+template <int D, int Dv>
 struct Cfg {
-  static constexpr int NCH = D / 64;  // 64-column boxes per row
-  // consumer warpgroups (64 query rows each) and blocks per SM, chosen by
-  // measurement at the port's training shapes (see the note above)
-  static constexpr int NC = D == 128 ? 2 : 1;
+  static constexpr int ND = (D + 63) / 64;   // boxes of a q or k row
+  static constexpr int NV = (Dv + 63) / 64;  // boxes of a v or o row
+  static constexpr int KD = D / 16;          // k-steps of S over D
+  // consumer warpgroups (64 query rows each), blocks per SM and ring
+  // slots, chosen by measurement at the port's training shapes (see the
+  // note above)
+  static constexpr int NC = D == 64 || D == 256 ? 1 : 2;
   static constexpr int BLOCKS = D == 64 ? 3 : 1;
+  static constexpr int STAGES = D == 64 || D == 192 ? 4 : 3;
   static constexpr int BQ = 64 * NC;
   static constexpr int THREADS = 128 * (1 + NC);
   // registers each role keeps after setmaxnreg (0: none).  Under the
   // launch bounds ptxas gives every thread ENTRY_REGS, 65536 / (THREADS x
   // BLOCKS) rounded down to a multiple of 8, and 128 x PRODUCER + 128 NC x
-  // CONSUMER must equal THREADS x that: 384 x 168 at D = 128, 256 x 80 at
-  // D = 64.  At D = 256 one block of 256 threads has 255 each (the most a
-  // thread can hold) and needs no rebalancing.  launch() refuses a build
-  // whose entry count differs (check_regs).
+  // CONSUMER must equal THREADS x that: 384 x 168 with two consumers (40
+  // and 232), 256 x 80 at D = 64 (24 and 136).  At D = 256 one block of
+  // 256 threads has 255 each (the most a thread can hold) and needs no
+  // rebalancing.  launch() refuses a build whose entry count differs
+  // (check_regs).
   static constexpr int ENTRY_REGS = 65536 / (THREADS * BLOCKS) / 8 * 8;
-  static constexpr int PRODUCER_REGS = D == 64 ? 24 : (D == 128 ? 40 : 0);
-  static constexpr int CONSUMER_REGS = D == 64 ? 136 : (D == 128 ? 232 : 0);
+  static constexpr int PRODUCER_REGS =
+      ENTRY_REGS >= 248 ? 0 : (NC == 2 ? 40 : 24);
+  static constexpr int CONSUMER_REGS =
+      PRODUCER_REGS == 0
+          ? 0
+          : (THREADS * ENTRY_REGS - 128 * PRODUCER_REGS) / (128 * NC);
   static_assert(PRODUCER_REGS == 0 ||
-                    128 * PRODUCER_REGS + 128 * NC * CONSUMER_REGS ==
-                        THREADS * ENTRY_REGS,
+                    (128 * PRODUCER_REGS + 128 * NC * CONSUMER_REGS ==
+                         THREADS * ENTRY_REGS &&
+                     CONSUMER_REGS % 8 == 0 && CONSUMER_REGS <= 256),
                 "the setmaxnreg split must hand out exactly the entry count");
-  static constexpr int STAGES = D == 256 ? 3 : (D == 128 ? 3 : 4);
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;  // one K or one V tile
+  static constexpr int Q_BYTES = ND * BQ * ROW;  // one box per 64 columns
+  static constexpr int K_BYTES = ND * BK * ROW;  // one K tile
+  static constexpr int V_BYTES = NV * BK * ROW;  // one V tile
   // + 1024 to align the tiles to the 1024-byte swizzle atom
-  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES);
+  static_assert(SMEM + 8 * (1 + 3 * STAGES) <= 232448,
+                "shared memory of one block, its barriers included");
+  static_assert(BLOCKS * (SMEM + 8 * (1 + 3 * STAGES) + 1024) <= 233472,
+                "BLOCKS blocks fit an SM's shared memory (1 KB each reserved)");
+  static_assert(D % 16 == 0 && Dv % 8 == 0, "k-steps of 16, stores of 8");
 };
 
 struct WgParams {
@@ -546,10 +595,10 @@ __device__ __forceinline__ void kv_tiles(const WgParams& p, int lo, int hi,
 }
 
 // One consumer warpgroup's state and steps (64 query rows).
-template <int D>
+template <int D, int Dv>
 struct Consumer {
-  static constexpr int NCH = Cfg<D>::NCH;
-  float o[NCH][32];  // O accumulator: wgmma's m64n64 layout per 64 columns
+  using C = Cfg<D, Dv>;
+  float o[C::NV][32];  // O accumulator: wgmma's m64n64 layout per 64 columns
   float m[2], l[2];  // running max (log2 units) and this lane's row sums
   int qpos[2];       // positions of this lane's rows g and g + 8
 
@@ -558,8 +607,8 @@ struct Consumer {
                                             uint32_t sk) {
     const unsigned long long dq = desc(qa), dk = desc(sk);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, dq + (((kk / 4) * Cfg<D>::BQ * ROW + (kk % 4) * 32) >> 4),
+    for (int kk = 0; kk < C::KD; ++kk)
+      wgmma_ss(s, dq + (((kk / 4) * C::BQ * ROW + (kk % 4) * 32) >> 4),
                dk + (((kk / 4) * BK * ROW + (kk % 4) * 32) >> 4), kk > 0);
     wgmma_commit();
   }
@@ -571,7 +620,7 @@ struct Consumer {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int n = 0; n < NCH; ++n)
+      for (int n = 0; n < C::NV; ++n)
         wgmma_rs(o[n], pa[j], dv + ((n * BK * ROW + j * 16 * ROW) >> 4));
     wgmma_commit();
   }
@@ -643,20 +692,20 @@ struct Consumer {
 
   __device__ __forceinline__ void rescale(const float (&corr)[2]) {
 #pragma unroll
-    for (int n = 0; n < NCH; ++n)
+    for (int n = 0; n < C::NV; ++n)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[n][i] *= corr[(i >> 1) & 1];
   }
 };
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::BLOCKS)
+template <int D, int Dv>
+__global__ void __launch_bounds__(Cfg<D, Dv>::THREADS, Cfg<D, Dv>::BLOCKS)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const WgParams p) {
-  using C = Cfg<D>;
-  constexpr int NCH = C::NCH, STAGES = C::STAGES;
+  using C = Cfg<D, Dv>;
+  constexpr int ND = C::ND, NV = C::NV, STAGES = C::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // Q full, then per slot: K full, V full, empty
   __shared__ __align__(8) unsigned long long bars[1 + 3 * STAGES];
@@ -667,7 +716,10 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto bar_k = [&](int s) { return bar_q + 8u * (1 + s); };
   auto bar_v = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
   auto bar_e = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
-  auto slot_k = [&](int it) { return sKV + (it % STAGES) * 2 * C::KV_BYTES; };
+  auto slot_k = [&](int it) {
+    return sKV + (it % STAGES) * (C::K_BYTES + C::V_BYTES);
+  };
+  auto slot_v = [&](int it) { return slot_k(it) + C::K_BYTES; };
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (p.n_qtiles - 1 - int(blockIdx.z)) * C::BQ;
@@ -701,7 +753,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int kvh = h / (p.H / p.KV);
       mbar_expect_tx(bar_q, C::Q_BYTES);
 #pragma unroll 1
-      for (int j = 0; j < NCH; ++j)
+      for (int j = 0; j < ND; ++j)
         load_box(sQ + j * C::BQ * ROW, &tm_q, bar_q, p.slots_q, 64 * j, h, q0,
                  b);
 #pragma unroll 1
@@ -709,16 +761,17 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int s = it % STAGES, k0 = (kb + it) * BK;
         mbar_wait(bar_e(s), ((it / STAGES) & 1) ^ 1);
         const uint32_t sk = slot_k(it);
-        mbar_expect_tx(bar_k(s), C::KV_BYTES);
+        mbar_expect_tx(bar_k(s), C::K_BYTES);
 #pragma unroll 1
-        for (int j = 0; j < NCH; ++j)
+        for (int j = 0; j < ND; ++j)
           load_box(sk + j * BK * ROW, &tm_k, bar_k(s), p.slots_k, 64 * j, kvh,
                    k0, b);
-        mbar_expect_tx(bar_v(s), C::KV_BYTES);
+        const uint32_t sv = slot_v(it);
+        mbar_expect_tx(bar_v(s), C::V_BYTES);
 #pragma unroll 1
-        for (int j = 0; j < NCH; ++j)
-          load_box(sk + C::KV_BYTES + j * BK * ROW, &tm_v, bar_v(s),
-                   p.slots_v, 64 * j, kvh, k0, b);
+        for (int j = 0; j < NV; ++j)
+          load_box(sv + j * BK * ROW, &tm_v, bar_v(s), p.slots_v, 64 * j, kvh,
+                   k0, b);
       }
     }
   } else {
@@ -745,9 +798,9 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) mbar_arrive(bar_e(it % STAGES));
     };
 
-    Consumer<D> st;
+    Consumer<D, Dv> st;
 #pragma unroll
-    for (int n = 0; n < NCH; ++n)
+    for (int n = 0; n < NV; ++n)
 #pragma unroll
       for (int i = 0; i < 32; ++i) st.o[n][i] = 0.f;
     st.m[0] = st.m[1] = NEG_INF;
@@ -773,36 +826,36 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
       wait_k(it);
       wgmma_fence();
-      Consumer<D>::qk(s, qa, slot_k(it));
+      Consumer<D, Dv>::qk(s, qa, slot_k(it));
       wgmma_wait<0>();
       fence_regs(s);
       st.softmax(s, (kb + it) * BK, pos0, tig, p, corr);
-      Consumer<D>::pack(s, pa);
+      Consumer<D, Dv>::pack(s, pa);
       for (; it + 1 < hi; ++it) {
         wait_k(it + 1);
         wait_v(it);
         wgmma_fence();
-        Consumer<D>::qk(s, qa, slot_k(it + 1));
-        st.pv(pa, slot_k(it) + C::KV_BYTES);
+        Consumer<D, Dv>::qk(s, qa, slot_k(it + 1));
+        st.pv(pa, slot_v(it));
         wgmma_wait<1>();  // S of tile it + 1; P V of tile it may run on
         fence_regs(s);
         st.softmax(s, (kb + it + 1) * BK, pos0, tig, p, corr);
         wgmma_wait<0>();
 #pragma unroll
-        for (int n = 0; n < NCH; ++n) fence_regs(st.o[n]);
+        for (int n = 0; n < NV; ++n) fence_regs(st.o[n]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) fence_regs(pa[j]);
         release(it);
         st.rescale(corr);
-        Consumer<D>::pack(s, pa);
+        Consumer<D, Dv>::pack(s, pa);
       }
       // the last live tile: P V alone
       wait_v(it);
       wgmma_fence();
-      st.pv(pa, slot_k(it) + C::KV_BYTES);
+      st.pv(pa, slot_v(it));
       wgmma_wait<0>();
 #pragma unroll
-      for (int n = 0; n < NCH; ++n) fence_regs(st.o[n]);
+      for (int n = 0; n < NV; ++n) fence_regs(st.o[n]);
 #pragma unroll
       for (int j = 0; j < 4; ++j) fence_regs(pa[j]);
       release(it);
@@ -829,14 +882,18 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         p.lse[(size_t(b) * p.Sq + row) * p.H + h] =
             (st.m[r] == NEG_INF ? NEG_INF : st.m[r] * (1.f / LOG2E)) +
             logf(fmaxf(l, 1e-30f));
+      // columns up to Dv only: at Dv = 80 the second group's columns 80
+      // to 127 are the padding's zeros, and in a (B, S, H, 80) output the
+      // next head's place
 #pragma unroll
-      for (int n = 0; n < NCH; ++n)
+      for (int n = 0; n < NV; ++n)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(O + row * p.os1 + 64 * n +
-                                             8 * j + 2 * tig) =
-              __floats2bfloat162_rn(st.o[n][4 * j + 2 * r] * inv,
-                                    st.o[n][4 * j + 2 * r + 1] * inv);
+          if (64 * n + 8 * j < Dv)
+            *reinterpret_cast<__nv_bfloat162*>(O + row * p.os1 + 64 * n +
+                                               8 * j + 2 * tig) =
+                __floats2bfloat162_rn(st.o[n][4 * j + 2 * r] * inv,
+                                      st.o[n][4 * j + 2 * r + 1] * inv);
     }
   }
 }
@@ -860,15 +917,17 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D tensor map over the (D, head, seq, batch) view of a bf16 tensor with
-// element extents `ext` and strides `stride` of (head, seq, batch): boxes
-// of 64 columns x `rows` rows of one head and batch, in the 128-byte
-// swizzle, zero fill past the end.  The three outer dims go to TMA in
+// A 4-D tensor map over the (width, head, seq, batch) view of a bf16 tensor
+// with element extents `ext` and strides `stride` of (head, seq, batch):
+// boxes of 64 columns x `rows` rows of one head and batch, in the 128-byte
+// swizzle, zero fill past the end (past `width` too: a row of 80 reads as
+// two boxes).  The three outer dims go to TMA in
 // increasing order of stride (a dim of size 1 last, with the stride that
 // follows the one before it, as it is never stepped); `slots` records which
 // TMA coordinate each of head, seq and batch became, 2 bits each.
-bool make_map(CUtensorMap* map, const void* ptr, int D, const long long* ext,
-              const long long* stride, int rows, int* slots) {
+bool make_map(CUtensorMap* map, const void* ptr, int width,
+              const long long* ext, const long long* stride, int rows,
+              int* slots) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   int order[3] = {0, 1, 2};
@@ -882,11 +941,11 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, const long long* ext,
       order[j] = order[j - 1];
       order[j - 1] = t;
     }
-  cuuint64_t dims[4] = {cuuint64_t(D), 1, 1, 1};
+  cuuint64_t dims[4] = {cuuint64_t(width), 1, 1, 1};
   cuuint64_t strides[3];
   cuuint32_t box[4] = {64, 1, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  long long prev = 2LL * D;  // bytes spanned by the dims placed so far
+  long long prev = 2LL * width;  // bytes spanned by the dims placed so far
   *slots = 0;
   for (int i = 0; i < 3; ++i) {
     const int w = order[i];
@@ -904,11 +963,12 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, const long long* ext,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// bf16, D = Dv in {64, 128, 256}, at least one key, 16-byte aligned bases
-// and (batch, seq, head) strides of q, k, v and o.
+// bf16 (checked by the entry), (D, Dv) in WGMMA_WIDTHS, at least one key,
+// 16-byte aligned bases and (batch, seq, head) strides of q, k, v and o.
 bool takes(const Params& p) {
-  return p.D == p.Dv && (p.D == 64 || p.D == 128 || p.D == 256) &&
-         p.Sk > 0 && aligned16(p.q, p.qs0, p.qs1, p.qs2) &&
+  bool width = false;
+  for (const auto& w : WGMMA_WIDTHS) width |= p.D == w[0] && p.Dv == w[1];
+  return width && p.Sk > 0 && aligned16(p.q, p.qs0, p.qs1, p.qs2) &&
          aligned16(p.k, p.ks0, p.ks1, p.ks2) &&
          aligned16(p.v, p.vs0, p.vs1, p.vs2) &&
          aligned16(p.o, p.os0, p.os1, p.os2);
@@ -921,29 +981,31 @@ bool takes(const Params& p) {
 // the barrier poll traps, so such a build is refused before any launch.
 // Checked once per instantiation (the count is the binary's, the same on
 // every device).
-template <int D>
+template <int D, int Dv>
 cudaError_t check_regs() {
-  if constexpr (Cfg<D>::PRODUCER_REGS == 0) {
+  if constexpr (Cfg<D, Dv>::PRODUCER_REGS == 0) {
     return cudaSuccess;
   } else {
     static std::atomic<bool> ok{false};
     if (ok.load()) return cudaSuccess;
     cudaFuncAttributes attr;
     const cudaError_t err =
-        cudaFuncGetAttributes(&attr, attn_fwd_wgmma_kernel<D>);
+        cudaFuncGetAttributes(&attr, attn_fwd_wgmma_kernel<D, Dv>);
     if (err != cudaSuccess) return err;
-    if (attr.numRegs != Cfg<D>::ENTRY_REGS) return cudaErrorInvalidKernelImage;
+    if (attr.numRegs != Cfg<D, Dv>::ENTRY_REGS)
+      return cudaErrorInvalidKernelImage;
     ok.store(true);
     return cudaSuccess;
   }
 }
 
-template <int D>
+template <int D, int Dv>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  cudaError_t err = check_regs<D>();
+  using C = Cfg<D, Dv>;
+  cudaError_t err = check_regs<D, Dv>();
   if (err != cudaSuccess) return err;
   WgParams w{p.o,     p.lse,  p.os0,  p.os1,      p.os2,  p.Sq,   p.Sk,
-             p.H,     p.KV,   (p.Sq + Cfg<D>::BQ - 1) / Cfg<D>::BQ, p.causal,
+             p.H,     p.KV,   (p.Sq + C::BQ - 1) / C::BQ, p.causal,
              p.window,
              p.q_offset, p.softcap, p.scale, 0, 0, 0};
   if (B > 65535 || w.n_qtiles > 65535) return cudaErrorInvalidValue;
@@ -951,23 +1013,26 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const long long ke[3] = {p.KV, p.Sk, B}, ks[3] = {p.ks2, p.ks1, p.ks0};
   const long long vs[3] = {p.vs2, p.vs1, p.vs0};
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, p.q, D, qe, qs, Cfg<D>::BQ, &w.slots_q) ||
+  if (!make_map(&tq, p.q, D, qe, qs, C::BQ, &w.slots_q) ||
       !make_map(&tk, p.k, D, ke, ks, BK, &w.slots_k) ||
-      !make_map(&tv, p.v, D, ke, vs, BK, &w.slots_v))
+      !make_map(&tv, p.v, Dv, ke, vs, BK, &w.slots_v))
     return cudaErrorInvalidValue;
-  err = set_smem<attn_fwd_wgmma_kernel<D>>(Cfg<D>::SMEM);
+  err = set_smem<attn_fwd_wgmma_kernel<D, Dv>>(C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.H, B, w.n_qtiles);
-  attn_fwd_wgmma_kernel<D><<<grid, Cfg<D>::THREADS, Cfg<D>::SMEM, stream>>>(
+  attn_fwd_wgmma_kernel<D, Dv><<<grid, C::THREADS, C::SMEM, stream>>>(
       tq, tk, tv, w);
   return cudaGetLastError();
 }
 
+// One instantiation per pair of WGMMA_WIDTHS (takes() has checked it).
 cudaError_t dispatch(const Params& p, int B, cudaStream_t stream) {
   switch (p.D) {
-    case 64: return launch<64>(p, B, stream);
-    case 128: return launch<128>(p, B, stream);
-    default: return launch<256>(p, B, stream);
+    case 64: return launch<64, 64>(p, B, stream);
+    case 80: return launch<80, 80>(p, B, stream);
+    case 128: return launch<128, 128>(p, B, stream);
+    case 192: return launch<192, 128>(p, B, stream);
+    default: return launch<256, 256>(p, B, stream);
   }
 }
 

@@ -1524,13 +1524,17 @@ bool make_map(CUtensorMap* map, const void* ptr, int width,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// bf16, (D, Dv) one of the widths above, at least one key, 16-byte aligned
-// bases and (batch, seq, head) strides of q, k, v, o and dO.
+// (D, Dv) pairs the "wgmma" kernels take: every training head width of the
+// port.  The same list as kernels/flash_attention.py WGMMA_WIDTHS and as
+// csrc/flash_attention.cu's (a CPU test holds all three equal).
+constexpr int WGMMA_WIDTHS[][2] = {
+    {64, 64}, {80, 80}, {128, 128}, {256, 256}, {192, 128}};
+
+// bf16, (D, Dv) in WGMMA_WIDTHS, at least one key, 16-byte aligned bases
+// and (batch, seq, head) strides of q, k, v, o and dO.
 bool takes(const Params& p) {
-  const bool widths =
-      (p.D == p.Dv &&
-       (p.D == 64 || p.D == 80 || p.D == 128 || p.D == 256)) ||
-      (p.D == 192 && p.Dv == 128);
+  bool widths = false;
+  for (const auto& w : WGMMA_WIDTHS) widths |= p.D == w[0] && p.Dv == w[1];
   return p.bf16 == 1 && widths && p.Sk > 0 &&
          aligned16(p.q, p.qs0, p.qs1, p.qs2) &&
          aligned16(p.k, p.ks0, p.ks1, p.ks2) &&

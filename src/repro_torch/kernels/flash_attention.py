@@ -27,6 +27,10 @@ from repro_torch.kernels import build, ref
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("cuda_core", "wgmma")     # their codes in the C entry
+# (D, Dv) the "wgmma" kernels of both directions take: every training head
+# width of the port (the C entries of csrc/flash_attention.cu and
+# csrc/flash_attention_bwd.cu list the same pairs)
+WGMMA_WIDTHS = ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
 # the errors the C entry returns by itself, before any launch
 _REFUSALS = {
     1: "cudaErrorInvalidValue: the variant cannot take these inputs",
@@ -47,11 +51,12 @@ def variant(q, k, v) -> str:
     from their dtype, head widths, base alignment and strides (and, for
     "wgmma", at least one key: a TMA map has no empty dimension):
 
-    * "wgmma": bf16, D = Dv in {64, 128, 256}, q, k, v 16-byte aligned;
+    * "wgmma": bf16, (D, Dv) in ``WGMMA_WIDTHS``, q, k, v 16-byte
+      aligned;
     * "cuda_core": everything else, float32 included."""
     D, Dv = q.shape[3], v.shape[3]
     if all(t.dtype == torch.bfloat16 and _aligned16(t) for t in (q, k, v)) \
-            and D == Dv and D in (64, 128, 256) and k.shape[1] > 0:
+            and (D, Dv) in WGMMA_WIDTHS and k.shape[1] > 0:
         return "wgmma"
     return "cuda_core"
 

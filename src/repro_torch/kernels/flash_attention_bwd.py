@@ -27,11 +27,10 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _REFUSALS,
-                                                 MAX_HEAD_DIM, _aligned16)
+                                                 MAX_HEAD_DIM, WGMMA_WIDTHS,
+                                                 _aligned16)
 
 VARIANTS = ("cuda_core", "wgmma")     # their codes in the C entry
-# (D, Dv) the "wgmma" kernels take: every training head width of the port
-WGMMA_WIDTHS = ((64, 64), (80, 80), (128, 128), (256, 256), (192, 128))
 TILE = 64           # rows of a "wgmma" tile: query rows or keys
 WAVE = 132          # SMs of an H100 SXM: blocks in one wave
 PASSES = ("dvec", "dq", "dkdv", "reduce")

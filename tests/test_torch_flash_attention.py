@@ -136,13 +136,21 @@ def _bf16(*shape):
     ((2, 1024, 8, 256), (2, 1024, 1, 256)),     # gemma-2b, MQA
     ((2, 1024, 32, 64), (2, 1024, 32, 64)),     # zamba2-1.2b, H = KV
     ((2, 1024, 32, 128), (2, 1024, 8, 128)),    # qwen3-4b, GQA
+    # deepseek-v3-671b's MLA (D = 192 over Dv = 128): a training
+    # micro-batch and serve_mla's check forward
+    ((2, 1024, 128, 192), ((2, 1024, 128, 192), (2, 1024, 128, 128))),
+    ((8, 128, 128, 192), ((8, 128, 128, 192), (8, 128, 128, 128))),
+    ((2, 1024, 16, 80), (2, 1024, 16, 80)),     # hubert-xlarge, D = 80
 ])
 def test_variant_training_shapes_take_wgmma(q_shape, kv_shape):
-    q, kv = _bf16(*q_shape), _bf16(*kv_shape)
-    assert tfa.variant(q, kv, kv) == "wgmma"
+    """``kv_shape`` is k's and v's shape, or the pair (k's, v's)."""
+    k_shape, v_shape = kv_shape if isinstance(kv_shape[0], tuple) \
+        else (kv_shape, kv_shape)
+    q, k, v = _bf16(*q_shape), _bf16(*k_shape), _bf16(*v_shape)
+    assert tfa.variant(q, k, v) == "wgmma"
 
 
-@pytest.mark.parametrize("d, dv", [(32, 32), (16, 32), (192, 128),
+@pytest.mark.parametrize("d, dv", [(32, 32), (16, 32), (96, 96),
                                    (64, 32)])
 def test_variant_other_bf16_widths_take_cuda_core(d, dv):
     q, k, v = _bf16(1, 64, 4, d), _bf16(1, 64, 2, d), _bf16(1, 64, 2, dv)
@@ -193,37 +201,60 @@ def test_variant_needs_a_key_for_wgmma():
     assert tfa.variant(q, kv, kv) == "cuda_core"
 
 
-# the wgmma kernel's edges (B, Sq, Sk, H, KV, D, causal, window, softcap,
-# q_offset): ragged Sq and Sk with q_offset = Sk - Sq and a negative one,
-# a window, a soft-cap, MQA / GQA / H = KV, D in {64, 128, 256},
-# bidirectional, one query row, fewer keys than a tile
+# the wgmma kernel's edges (B, Sq, Sk, H, KV, D, Dv, causal, window,
+# softcap, q_offset): ragged Sq and Sk with q_offset = Sk - Sq and a
+# negative one, a window, a soft-cap, MQA / GQA / H = KV, bidirectional,
+# one query row, fewer keys than a tile, at every pair of WGMMA_WIDTHS
+# (MLA's D = 192 over Dv = 128; D = 80, read as two 64-column boxes)
 WGMMA_CASES = [
-    (1, 100, 1000, 8, 1, 256, True, 0, 0.0, 900),
-    (2, 1000, 1000, 4, 2, 128, True, 0, 0.0, 0),
-    (1, 100, 100, 4, 4, 64, True, 0, 0.0, -40),
-    (1, 300, 300, 4, 1, 128, True, 16, 0.0, 0),
-    (1, 257, 257, 8, 2, 256, True, 0, 30.0, 0),
-    (2, 200, 200, 2, 2, 64, False, 0, 0.0, 0),
-    (1, 1, 100, 8, 1, 256, True, 0, 0.0, 99),      # one query row
-    (2, 37, 10, 4, 2, 128, False, 0, 0.0, 0),      # fewer keys than a tile
+    (1, 100, 1000, 8, 1, 256, 256, True, 0, 0.0, 900),
+    (2, 1000, 1000, 4, 2, 128, 128, True, 0, 0.0, 0),
+    (1, 100, 100, 4, 4, 64, 64, True, 0, 0.0, -40),
+    (1, 300, 300, 4, 1, 128, 128, True, 16, 0.0, 0),
+    (1, 257, 257, 8, 2, 256, 256, True, 0, 30.0, 0),
+    (2, 200, 200, 2, 2, 64, 64, False, 0, 0.0, 0),
+    (1, 1, 100, 8, 1, 256, 256, True, 0, 0.0, 99),     # one query row
+    (2, 37, 10, 4, 2, 128, 128, False, 0, 0.0, 0),     # fewer keys than a tile
+    (1, 130, 250, 4, 4, 192, 128, True, 0, 0.0, 120),
+    (2, 100, 100, 8, 2, 192, 128, True, 0, 20.0, 0),
+    (1, 96, 96, 4, 1, 192, 128, True, 32, 0.0, -20),
+    (1, 1, 77, 4, 4, 192, 128, True, 0, 0.0, 76),
+    (2, 37, 10, 4, 2, 192, 128, False, 0, 0.0, 0),
+    (2, 200, 200, 4, 4, 80, 80, False, 0, 0.0, 0),
+    (1, 300, 300, 4, 2, 80, 80, True, 64, 0.0, 0),
+    (1, 100, 170, 4, 2, 80, 80, True, 0, 5.0, 70),
+    (1, 100, 100, 4, 1, 80, 80, True, 0, 0.0, -40),
+    (1, 1, 100, 2, 2, 80, 80, False, 0, 0.0, 0),
+    (2, 37, 10, 4, 2, 80, 80, False, 0, 0.0, 0),
 ]
+
+
+def test_wgmma_cases_cover_every_width():
+    assert {c[5:7] for c in WGMMA_CASES} == set(tfa.WGMMA_WIDTHS)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", WGMMA_CASES)
 def test_wgmma_kernel_matches_plain_version(case):
+    """Output and each row's log-sum-exp against the plain version (bf16
+    2e-2; lse f32, 2e-5 abs + rel as in chip_smoke.py), one "wgmma"
+    launch counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    *_, causal, window, softcap, off = case
-    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
-               for a in _inputs(case, seed=5))
+    B, Sq, Sk, H, KV, D, Dv, causal, window, softcap, off = case
+    q, k, v = (torch.from_numpy(randn(5 + i, *shape)).to("cuda",
+                                                         torch.bfloat16)
+               for i, shape in enumerate(((B, Sq, H, D), (B, Sk, KV, D),
+                                          (B, Sk, KV, Dv))))
     opts = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
     assert tfa.variant(q, k, v) == "wgmma"
     before = tfa.LAUNCHES_BY_VARIANT["wgmma"].count
-    got = tfa.flash_attention_cuda(q, k, v, **opts)
+    got, lse = tfa.flash_attention_cuda(q, k, v, **opts, with_lse=True)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES_BY_VARIANT["wgmma"].count == before + 1
-    assert_close(got, tref.flash_attention(q, k, v, **opts), 2e-2, 2e-2)
+    want, want_lse = tref.flash_attention_lse(q, k, v, **opts)
+    assert_close(got, want, 2e-2, 2e-2)
+    assert_close(lse, want_lse, 2e-5, 2e-5)
     if off < 0:
         assert got[:, :-off].abs().max().item() == 0.0
 

@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as tfb  # noqa: E402
 
 # the port's training shapes (B, S, H, KV, D, Dv) and the head split each
@@ -89,6 +90,41 @@ def test_aligned_views_stay_on_wgmma():
     assert tfb.variant(qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:], o,
                        o) == "wgmma"
     assert tfb.variant(*_inputs(1, 3, 2, 2, 80, 80)) == "wgmma"
+
+
+def test_forward_and_backward_read_one_width_list():
+    assert tfb.WGMMA_WIDTHS is tfa.WGMMA_WIDTHS
+
+
+@pytest.mark.parametrize("source", ["flash_attention.cu",
+                                    "flash_attention_bwd.cu"])
+def test_c_entries_take_the_same_widths(source):
+    """Each C entry's ``WGMMA_WIDTHS``, the (D, Dv) pairs its ``takes()``
+    accepts, is the Python tuple, in order."""
+    src = (build.CSRC / source).read_text()
+    body = re.search(r"constexpr int WGMMA_WIDTHS\[\]\[2\] = \{(.*?)\};",
+                     src, re.S).group(1)
+    pairs = tuple((int(d), int(dv))
+                  for d, dv in re.findall(r"\{(\d+),\s*(\d+)\}", body))
+    assert pairs == tfa.WGMMA_WIDTHS
+
+
+@pytest.mark.parametrize("layout", ["aligned", "misaligned_q"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d, dv", list(tfa.WGMMA_WIDTHS) + [
+    (32, 32), (96, 96), (16, 48), (128, 64), (192, 192), (80, 64),
+    (256, 128), (80, 128), (192, 64)])
+def test_forward_and_backward_variants_agree(d, dv, dtype, layout):
+    """Kernel 1's forward and its backward pick the same variant for the
+    same q, k, v (o and dO aligned): "wgmma" exactly at bf16, aligned,
+    (D, Dv) in WGMMA_WIDTHS."""
+    q, k, v, o, do = _inputs(1, 64, 4, 2, d, dv, dtype=dtype)
+    if layout == "misaligned_q":
+        q = torch.zeros(q.numel() + 1, dtype=dtype)[1:].view(q.shape)
+    want = "wgmma" if dtype == torch.bfloat16 and layout == "aligned" and \
+        (d, dv) in tfa.WGMMA_WIDTHS else "cuda_core"
+    assert tfa.variant(q, k, v) == want
+    assert tfb.variant(q, k, v, o, do) == want
 
 
 def test_needs_a_key_for_wgmma():

@@ -427,8 +427,9 @@ def _needs_cuda():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_kernel1_at_mla_width_matches_its_plain_version(dtype):
     """Kernel 1 at MLA's full-width head shape (D = 192, Dv = 128, H = KV =
-    128), causal, on the "cuda_core" variant, against its plain version
-    (2e-2 in bf16, 2e-5 in f32, tests/test_kernels.py:56)."""
+    128), causal, against its plain version (2e-2 in bf16, 2e-5 in f32,
+    tests/test_kernels.py:56): bf16 on the "wgmma" variant, f32 on
+    "cuda_core"."""
     _needs_cuda()
     rng = np.random.default_rng(7)
     dt = getattr(torch, dtype)
@@ -437,10 +438,11 @@ def test_kernel1_at_mla_width_matches_its_plain_version(dtype):
         return torch.from_numpy(rng.standard_normal(s, dtype=np.float32)) \
             .to("cuda", dt)
     q, k, v = mk(2, 256, 128, 192), mk(2, 256, 128, 192), mk(2, 256, 128, 128)
-    assert tfa.variant(q, k, v) == "cuda_core"
-    before = tfa.LAUNCHES_BY_VARIANT["cuda_core"].count
+    kind = "wgmma" if dtype == "bfloat16" else "cuda_core"
+    assert tfa.variant(q, k, v) == kind
+    before = tfa.LAUNCHES_BY_VARIANT[kind].count
     got = tfa.flash_attention_cuda(q, k, v, causal=True)
-    assert tfa.LAUNCHES_BY_VARIANT["cuda_core"].count == before + 1
+    assert tfa.LAUNCHES_BY_VARIANT[kind].count == before + 1
     want = tref.flash_attention(q, k, v, causal=True)
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     assert got.shape == (2, 256, 128, 128) and got.dtype == dt
