@@ -43,7 +43,7 @@ Phases, each printing one JSON line:
                     "wgmma" and bit for bit the same over two calls, timed
                     (graph, device, back to back, each kernel's device
                     time) beside the bound, the plain version and SDPA's
-                    backward
+                    backward (graph, device and back to back)
   kernel:maxplus    the three max-plus kernels against their plain
                     versions on the card, bitwise (int64/int32 views) in
                     float32 and float64, at the reference's test cases and
@@ -81,18 +81,26 @@ Phases, each printing one JSON line:
                     (20 calls in one CUDA graph, as inside the decode
                     step's graph) for the kernel and for F.rms_norm
   kernel:rmsnorm_bwd
-                    the RMSNorm backward kernel (the analytic VJP of the
-                    reference's rmsnorm_fused) against ref.rmsnorm_bwd:
-                    the rmsnorm cases, a width past 48 KB of shared
-                    memory, a transposed g, strided x and g read in place,
-                    a misaligned x, then the training shapes (internvl2-2b
+                    the RMSNorm backward kernels (the analytic VJP of the
+                    reference's rmsnorm_fused) against ref.rmsnorm_bwd,
+                    each case through the variant variant() names ("bulk":
+                    a cp.async.bulk ring, or "direct") and through
+                    "direct", which takes every input ("bulk" refuses what
+                    it is not named for), the C entry's plan equal to
+                    plan(): the rmsnorm cases, a width past 48 KB of shared
+                    memory, the plan's edges (one row, ragged stages,
+                    fewer rows than blocks, the widest "bulk" row), a
+                    transposed g, strided x and g read in place, a
+                    misaligned x, then the training shapes (internvl2-2b
                     and gemma-2b block norms, qwen3-4b's q-norm, the
-                    mamba2 gate, deepseek's strided kv_norm, f32); dx
-                    within 1e-5 (f32) / 2e-2 (bf16) abs + rel, dscale
-                    within that share of its largest element, both equal
-                    bit for bit over two calls; times (back to back,
-                    graph, device) beside the bound, the plain version and
-                    F.rms_norm's backward
+                    mamba2 gate, deepseek's strided kv_norm, f32), all
+                    "bulk"; dx within 1e-5 (f32) / 2e-2 (bf16) abs + rel,
+                    dscale within that share of its largest element, both
+                    equal bit for bit over two calls; times (back to back,
+                    graph with the L2 warm and flushed, device, each
+                    launch's device time, "direct"'s) beside the bound, the
+                    plain version, F.rms_norm's backward (graph, device and
+                    back to back) and x + g as one elementwise kernel
   plan              launch.plan.replan: the coordinator's replans on the
                     first SEV1 events of trace-b on the Fig. 11 fleet (128
                     GPUs) and a 12-step churn walk at 1024 workers / 64
@@ -164,7 +172,7 @@ Phases, each printing one JSON line:
                     attention of each backward pass (every one of them
                     "wgmma" in a bf16 phase), kernel 2 once per RMSNorm of
                     a forward and its backward kernel once per RMSNorm of
-                    each backward pass
+                    each backward pass (every one of them "bulk")
   train_ssm         the same on mamba2-780m at full width (depth cut 48 ->
                     24 for the script's time: its two restores of the
                     state take most of the phase): every layer through
@@ -257,9 +265,14 @@ the result line.  ``--phases`` runs a subset (for debugging).  Phase
 ``ab``, outside the default run, times kernel 3 at its four shapes and the
 segtree and batched churn walks through the port that ``--src`` names:
 run it on two trees in turns to compare them on one card.  Phases
-``ab_attn`` and ``ab_attn_bwd`` do the same for kernel 1 (at
-deepseek-v3-671b's MLA, gemma-2b's and hubert-xlarge's shapes) and for
-its backward (at the first two).
+``ab_attn``, ``ab_attn_bwd`` and ``ab_rms_bwd`` do the same for kernel 1
+(at deepseek-v3-671b's MLA, gemma-2b's and hubert-xlarge's shapes), for
+its backward (at the first two) and for 2-bwd (at its training shapes).  Phases ``probe_attn`` and
+``probe_rms_bwd`` time configurations of kernel 1's "wgmma" forward and
+of 2-bwd's "bulk" variant (stages, stage bytes, cluster size, blocks an
+SM, the column sums' split), each built from an edited copy of the
+source, in turns with the shipped build (``kernel_rms_bwd`` runs the kernel phase's 2-bwd part
+alone).
 """
 from __future__ import annotations
 
@@ -479,6 +492,21 @@ def graph_ms(fn, n: int = 20, reps: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / n)
     return sorted(times)[len(times) // 2]
+
+
+L2_FLUSH_BYTES = 128 << 20        # over twice the H100's 50 MB L2 cache
+
+
+def cold_graph_ms(fn, n: int = 10, reps: int = 5) -> float:
+    """``graph_ms`` of ``fn`` with the L2 cache flushed before every call:
+    n (flush, call) pairs in one graph less n flushes alone, the flush a
+    sum over L2_FLUSH_BYTES.  (``graph_ms`` replays the same inputs, so
+    inputs that fit the 50 MB L2 are read from it, not from HBM.)"""
+    import torch
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                      device="cuda")
+    both = graph_ms(lambda: (buf.sum(), fn()), n=n, reps=reps)
+    return both - graph_ms(buf.sum, n=n, reps=reps)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -874,10 +902,10 @@ BWD_KERNELS = ("dvec_kernel", "dq_kernel", "dkdv_kernel",     # "cuda_core"
                "reduce_kernel")                             # "wgmma"
 
 
-def bwd_pass_ms(fn, calls: int = 3) -> dict:
-    """Device time per call of each of the backward's kernels (either
-    variant's, BWD_KERNELS: no name holds another), from one traced run
-    of ``calls`` calls."""
+def bwd_pass_ms(fn, calls: int = 3, names=BWD_KERNELS) -> dict:
+    """Device time per call of each of a backward's kernels (``names``, by
+    default 1-bwd's of either variant: no name holds another), from one
+    traced run of ``calls`` calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -892,7 +920,7 @@ def bwd_pass_ms(fn, calls: int = 3) -> dict:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        for name in BWD_KERNELS:
+        for name in names:
             if name in e.key:
                 out[name] = out.get(name, 0.0) + \
                     e.self_device_time_total / 1e3 / calls
@@ -939,7 +967,8 @@ def phase_kernel_flash_bwd(ctx) -> None:
     WGMMA_CASES on the one they must take); then the train phases' shapes,
     each on "wgmma", bit for bit the same over two calls, timed beside its
     bound, its plain version and SDPA's backward ((forward + backward) -
-    forward, a yardstick never on the path)."""
+    forward, in graph, device and back-to-back time: a yardstick never on
+    the path)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1039,7 +1068,8 @@ def phase_kernel_flash_bwd(ctx) -> None:
                "workspace_bytes": plan.workspace_bytes,
                "device_ms": device_ms(kernel, iters=3),
                "graph_ms": graph_ms(kernel, n=5, reps=3),
-               "pass_device_ms": bwd_pass_ms(kernel)}
+               "pass_device_ms": bwd_pass_ms(kernel),
+               **library_bwd_times(sdpa, sdpa_bwd, n=5, reps=3, iters=3)}
         if i == 0:
             ctx["kernels"]["flash_attention_bwd"] = rec
         emit({"phase": phase, "shape": label, **rec,
@@ -1959,13 +1989,67 @@ def _rms_bwd_check(name, got, want, x, scale) -> dict:
             "dscale_max_abs_err": err_ds}
 
 
+RMS_BWD_KERNELS = ("rmsnorm_bwd_bulk", "rmsnorm_bwd_direct",
+                   "rmsnorm_bwd_dscale")
+# the plan's edges on "bulk" (one row, row counts that are no multiple of a
+# stage's rows, fewer rows than blocks, the widest "bulk" row) and a width
+# one pack past "bulk"'s widest
+RMS_BWD_EDGES = [((1, 2048), "bfloat16", "bfloat16"),
+                 ((1, 128), "float32", "float32"),
+                 ((2561, 2048), "bfloat16", "bfloat16"),
+                 ((65537, 128), "bfloat16", "bfloat16"),
+                 ((5, 3072), "bfloat16", "bfloat16"),
+                 ((3, 512), "float32", "bfloat16"),
+                 ((70, 8192), "bfloat16", "float32"),
+                 ((3, 8200), "bfloat16", "bfloat16")]
+
+
+def rms_bwd_inputs(shape, dt, sdt, seed, parent=None):
+    """x (a strided slice of ``parent``-wide rows where given), scale and g
+    of a 2-bwd case on the card."""
+    if parent:
+        full, s = rms_inputs(shape[:-1] + (parent,), dt, sdt, seed=seed)
+        x, s = full[..., :shape[-1]], s[:shape[-1]]
+    else:
+        x, s = rms_inputs(shape, dt, sdt, seed=seed)
+    return x, s, rms_inputs(shape, dt, dt, seed=seed + 100)[0]
+
+
+def library_bwd_times(fwd, bwd, n: int = 20, reps: int = 7,
+                      iters: int = 20) -> dict:
+    """A library call's backward alone, as (forward + backward) - forward,
+    in graph and device time (``bwd`` runs the forward and the backward)."""
+    import torch
+    out = {}
+    try:
+        with torch.no_grad():
+            fwd_graph = graph_ms(fwd, n=n, reps=reps)
+        out["library_graph_ms"] = graph_ms(bwd, n=n, reps=reps) - fwd_graph
+        out["library_fwd_graph_ms"] = fwd_graph
+    except RuntimeError as err:            # a capture the library refuses
+        out["library_graph_error"] = str(err)[:200]
+    with torch.no_grad():
+        fwd_dev = device_ms(fwd, iters=iters)
+    bwd_dev = device_ms(bwd, iters=iters)
+    out["library_device_ms"] = None if fwd_dev is None or bwd_dev is None \
+        else bwd_dev - fwd_dev
+    return out
+
+
 def phase_kernel_rmsnorm_bwd(ctx) -> None:
-    """The RMSNorm backward kernel against ``ref.rmsnorm_bwd`` on the card:
-    RMS_BWD_CASES, a transposed g, a strided x and g read in place, a
-    misaligned x, then the training shapes; every case's dx and dscale
-    equal bit for bit over two calls; at the training shapes its times
-    beside the bound, the plain version and ``F.rms_norm``'s backward
-    ((forward + backward) - forward, a yardstick never on the path)."""
+    """The RMSNorm backward kernels against ``ref.rmsnorm_bwd`` on the
+    card: the C entry's plan equal to ``plan()`` at every case and shape;
+    RMS_BWD_CASES, RMS_BWD_EDGES, a transposed g, a strided x and g read in
+    place and a misaligned x, each through the variant ``variant()`` names
+    and through "direct" too (which takes every input; "bulk" refuses what
+    it does not name); every case's dx and dscale equal bit for bit over
+    two calls; then the training shapes, each on "bulk", its plan, its
+    graph (L2-warm and cold), device and back-to-back times and each
+    launch's device time beside the bound, "direct" at the same shape, the
+    plain version, ``F.rms_norm``'s backward ((forward + backward) -
+    forward, in graph and device time) and x + g into a third tensor (the
+    same three streams of bytes in one elementwise kernel): yardsticks
+    never on the path."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -1973,28 +2057,65 @@ def phase_kernel_rmsnorm_bwd(ctx) -> None:
 
     phase = "kernel:rmsnorm_bwd"
     worst = {"dx": 0.0, "dscale": 0.0}
+    ran = dict.fromkeys(rb.VARIANTS, 0)
 
-    def check(name, x, s, g):
-        before = rb.LAUNCHES.count
-        got = rb.rmsnorm_bwd_cuda(x, s, g)
+    def check_plans(rows, d, dtype):
+        for kind in rb.VARIANTS:
+            want = rb.plan(rows, d, getattr(torch, dtype), kind)
+            got = rb.c_plan(rows, d, getattr(torch, dtype), kind)
+            if got != want:
+                raise AssertionError(f"rmsnorm_bwd plan ({rows}, {d}, "
+                                     f"{dtype}) {kind}: C {got}, Python "
+                                     f"{want}")
+
+    def check(name, x, s, g, kind):
+        counter = rb.LAUNCHES_BY_VARIANT[kind]
+        before = counter.count
+        call = (lambda: rb.rmsnorm_bwd_cuda(x, s, g)) \
+            if kind == rb.variant(x, g, s) \
+            else (lambda: rb.run_variant(kind, x, s, g))
+        got = call()
         torch.cuda.synchronize()
-        if rb.LAUNCHES.count != before + 1:
-            raise AssertionError(f"rmsnorm_bwd {name}: no launch counted")
-        errs = _rms_bwd_check(name, got, ref.rmsnorm_bwd(x, s, g), x, s)
-        again = rb.rmsnorm_bwd_cuda(x, s, g)
+        if counter.count != before + 1:
+            raise AssertionError(f"rmsnorm_bwd {name}: no {kind} launch "
+                                 f"counted")
+        errs = _rms_bwd_check(f"{name} {kind}", got,
+                              ref.rmsnorm_bwd(x, s, g), x, s)
+        again = call()
         if not (torch.equal(got[0], again[0])
                 and torch.equal(got[1], again[1])):
-            raise AssertionError(f"rmsnorm_bwd {name}: two calls differ")
+            raise AssertionError(f"rmsnorm_bwd {name} {kind}: two calls "
+                                 f"differ")
         worst["dx"] = max(worst["dx"], errs["dx_max_abs_err"])
         worst["dscale"] = max(worst["dscale"], errs["dscale_max_abs_err"])
+        ran[kind] += 1
         return errs
 
+    def both(name, x, s, g):
+        """The case on the variant ``variant()`` names and on "direct";
+        "bulk" must refuse what it is not named for."""
+        kind = rb.variant(x, g, s)
+        check_plans(x.numel() // x.shape[-1], x.shape[-1],
+                    str(x.dtype).split(".")[-1])
+        out = {"variant": kind, kind: check(name, x, s, g, kind)}
+        if kind == "bulk":
+            out["direct"] = check(name, x, s, g, "direct")
+        else:
+            try:
+                rb.run_variant("bulk", x, s, g)
+            except RuntimeError as err:
+                if "cannot take" not in str(err):
+                    raise
+            else:
+                raise AssertionError(f"rmsnorm_bwd {name}: bulk took inputs "
+                                     f"variant() routes to direct")
+        return out
+
     n = 0
-    for i, (shape, dt, sdt) in enumerate(RMS_BWD_CASES):
-        x, s = rms_inputs(shape, dt, sdt, seed=100 + i)
-        g = rms_inputs(shape, dt, dt, seed=200 + i)[0]
+    for i, (shape, dt, sdt) in enumerate(RMS_BWD_CASES + RMS_BWD_EDGES):
+        x, s, g = rms_bwd_inputs(shape, dt, sdt, seed=100 + i)
         emit({"phase": phase, "case": [list(shape), dt, sdt],
-              **check(str((shape, dt, sdt)), x, s, g)})
+              **both(str((shape, dt, sdt)), x, s, g)})
         n += 1
     # layouts: g transposed (copied by the wrapper), x and g strided slices
     # of wider rows (read in place), x 2 bytes off 16-byte alignment
@@ -2006,22 +2127,22 @@ def phase_kernel_rmsnorm_bwd(ctx) -> None:
                (wide[:, :512], wide[:, 128:]),
                "misaligned_x": (flat[1:].view(64, 512), gt.contiguous())}
     for name, (xv, gv) in layouts.items():
-        emit({"phase": phase, "layout": name, **check(name, xv, s, gv)})
+        emit({"phase": phase, "layout": name, **both(name, xv, s, gv)})
         n += 1
-    emit({"phase": phase, "cases": n, "tol": RMS_BWD_TOL,
-          "max_abs_err_all_cases": worst})
+    emit({"phase": phase, "cases": n, "checks_by_variant": ran,
+          "tol": RMS_BWD_TOL, "max_abs_err_all_cases": worst})
 
     rows = {}
     for i, (label, shape, dt, *parent) in enumerate(RMS_BWD_SHAPES):
-        if parent:
-            full, s = rms_inputs(shape[:-1] + (parent[0],), dt, dt,
-                                 seed=400 + i)
-            x, s = full[..., :shape[-1]], s[:shape[-1]]
-        else:
-            x, s = rms_inputs(shape, dt, dt, seed=400 + i)
-        g = rms_inputs(shape, dt, dt, seed=500 + i)[0]
-        errs = check(label, x, s, g)
+        x, s, g = rms_bwd_inputs(shape, dt, dt, seed=400 + i,
+                                 parent=parent[0] if parent else None)
+        kind = rb.variant(x, g, s)
+        if kind != "bulk":
+            raise AssertionError(f"rmsnorm_bwd {label}: variant {kind}, the "
+                                 f"training shapes take bulk")
+        errs = both(label, x, s, g)["bulk"]
         kernel = lambda: rb.rmsnorm_bwd_cuda(x, s, g)  # noqa: E731
+        direct = lambda: rb.run_variant("direct", x, s, g)  # noqa: E731
         xr, sr = (t.detach().clone().requires_grad_(True) for t in (x, s))
         lib_fwd = lambda: F.rms_norm(xr, (shape[-1],), sr, 1e-6)  # noqa
         lib = lambda: torch.autograd.grad(  # noqa: E731
@@ -2029,6 +2150,8 @@ def phase_kernel_rmsnorm_bwd(ctx) -> None:
         with torch.no_grad():
             lib_fwd_ms = cuda_ms(lib_fwd, iters=50)
         bound_ms, bound_by = rms_bwd_bound(shape, dt, dt)
+        pl = rb.plan(x.numel() // shape[-1], shape[-1], x.dtype)
+        stream_out = torch.empty(shape, dtype=x.dtype, device=x.device)
         rec = {"name": "rmsnorm_bwd", "route": "cuda",
                "source": "src/repro_torch/csrc/rmsnorm_bwd.cu",
                "replaces": "src/repro/models/layers.py:372 "
@@ -2041,10 +2164,23 @@ def phase_kernel_rmsnorm_bwd(ctx) -> None:
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": cuda_ms(lib, iters=50) - lib_fwd_ms,
                "library_fwd_ms": lib_fwd_ms,
+               "variant": kind, "plan": dataclasses.asdict(pl),
                "graph_ms": graph_ms(kernel),
                "device_ms": device_ms(kernel),
+               "launch_device_ms": bwd_pass_ms(kernel, 20, RMS_BWD_KERNELS),
+               "direct_graph_ms": graph_ms(direct),
+               "direct_launch_device_ms": bwd_pass_ms(direct, 20,
+                                                      RMS_BWD_KERNELS),
                "plain_device_ms": device_ms(
-                   lambda: ref.rmsnorm_bwd(x, s, g), iters=10)}
+                   lambda: ref.rmsnorm_bwd(x, s, g), iters=10),
+               # what three streams of these bytes take on this card: x + g
+               # into a contiguous output, one elementwise kernel
+               "stream_graph_ms": graph_ms(
+                   lambda: torch.add(x, g, out=stream_out)),
+               "cold_graph_ms": cold_graph_ms(kernel),
+               "stream_cold_graph_ms": cold_graph_ms(
+                   lambda: torch.add(x, g, out=stream_out)),
+               **library_bwd_times(lib_fwd, lib)}
         rows[label] = rec
         emit({"phase": phase, "shape": f"{label} "
               f"{'x'.join(map(str, shape))} {dt}", **rec,
@@ -2959,11 +3095,26 @@ def _model_fields(cfg) -> dict:
 
 
 def attention_variants_reset() -> None:
+    """Sets the by-variant counts of kernel 1, its backward and 2-bwd to 0."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import rmsnorm_bwd as rb
     for counter in (*fa.LAUNCHES_BY_VARIANT.values(),
-                    *fb.LAUNCHES_BY_VARIANT.values()):
+                    *fb.LAUNCHES_BY_VARIANT.values(),
+                    *rb.LAUNCHES_BY_VARIANT.values()):
         counter.count = 0
+
+
+def rms_bwd_variants_check(phase: str, total: int) -> dict:
+    """Every one of the phase's ``total`` 2-bwd launches was counted on a
+    variant, all on "bulk" (every training norm's layout takes it); returns
+    the counts by variant."""
+    from repro_torch.kernels import rmsnorm_bwd as rb
+    by = {k: c.count for k, c in rb.LAUNCHES_BY_VARIANT.items()}
+    if by["bulk"] != total or sum(by.values()) != total:
+        raise AssertionError(f"{phase}: {total} RMSNorm backward launches, "
+                             f"by variant {by}: not all bulk")
+    return by
 
 
 def attention_variants_check(phase: str, total: int,
@@ -3062,7 +3213,9 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
                phase, launches["flash_attention"], variant),
            "attention_bwd_by_variant": attention_variants_check(
                phase, launches["flash_attention_bwd"], variant,
-               backward=True)}
+               backward=True),
+           "rmsnorm_bwd_by_variant": rms_bwd_variants_check(
+               phase, launches["rmsnorm_bwd"])}
     rec = next((r for r in result.history if r["kind"] == "recovered"), None)
     if rec is not None:
         tol = RECOVERY_RTOL * rec["grad_sum_max_abs"]
@@ -3283,12 +3436,13 @@ def phase_self_heal(ctx) -> None:
     from repro_torch.core.detection import ErrorKind
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import rmsnorm_bwd as rb
     from repro_torch.launch import self_healing
 
     ckpt_dir = ROOT / "build" / "chip_smoke_self_heal"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     lines = []
-    fa.LAUNCHES.count = fb.LAUNCHES.count = 0
+    fa.LAUNCHES.count = fb.LAUNCHES.count = rb.LAUNCHES.count = 0
     attention_variants_reset()
     t0 = time.perf_counter()
     worst = self_healing.run(
@@ -3318,6 +3472,8 @@ def phase_self_heal(ctx) -> None:
           "backward_launches": bwd,
           "attention_by_variant": by_variant,
           "attention_bwd_by_variant": bwd_by_variant,
+          "rmsnorm_bwd_by_variant": rms_bwd_variants_check(
+              "self_heal", rb.LAUNCHES.count),
           "max_param_diff": worst, "atol": self_healing.ATOL,
           "log": lines})
 
@@ -4209,6 +4365,154 @@ def phase_probe_attn(ctx) -> None:
         fa._entry = shipped
 
 
+# configurations of 2-bwd's "bulk" variant that phase probe_rms_bwd builds
+# beside the shipped one (2 stages of 24 KB, clusters of 2, 2 blocks an SM,
+# 16 runs of rows a column sum): (stages, stage bytes, cluster, blocks an
+# SM, runs of rows a column sum takes), each replacing the C constants of
+# those names
+RMS_BWD_PROBE_KEYS = ("BULK_STAGES", "BULK_STAGE_BYTES", "BULK_CLUSTER",
+                      "BULK_BLOCKS_PER_SM", "SUM_CHUNKS")
+RMS_BWD_PROBES = [(4, 16384, 2, 2, 16), (2, 16384, 2, 2, 16),
+                  (3, 24576, 2, 2, 16), (2, 32768, 2, 2, 16),
+                  (2, 24576, 1, 2, 16), (2, 24576, 4, 2, 16),
+                  (2, 24576, 2, 3, 16), (2, 24576, 2, 2, 8),
+                  (4, 16384, 4, 2, 8)]
+
+
+def _rms_bwd_probe_libraries(probes) -> dict:
+    """Each probe's edited copy of csrc/rmsnorm_bwd.cu compiled with the
+    port's nvcc flags into build/probe_rms_bwd/, all at once; its ctypes
+    library by probe."""
+    import ctypes
+    import re
+    from repro_torch.kernels import build
+    text = (build.CSRC / "rmsnorm_bwd.cu").read_text()
+    out_dir = ROOT / "build" / "probe_rms_bwd"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for probe in probes:
+        src = text
+        for key, value in zip(RMS_BWD_PROBE_KEYS, probe):
+            src, n = re.subn(rf"constexpr int {key} = \d+;",
+                             f"constexpr int {key} = {value};", src)
+            if n != 1:
+                raise AssertionError(f"probe {probe}: no line for {key}")
+        name = "rb_" + "_".join(map(str, probe))
+        (out_dir / f"{name}.cu").write_text(src)
+        so = out_dir / f"lib{name}.so"
+        procs[probe] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+             str(out_dir / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for probe, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"probe {probe}: nvcc failed:\n{log}")
+        libs[probe] = ctypes.CDLL(str(so))
+    return libs
+
+
+def phase_probe_rms_bwd(ctx) -> None:
+    """Not in the default run: 2-bwd's "bulk" variant in the configurations
+    of RMS_BWD_PROBES, each built from an edited copy of the source and
+    swapped in for the library (with the wrapper's plan constants set to
+    the probe's, its C plan held equal to plan()), held against the plain
+    version within RMS_BWD_TOL, its dx compared bit for bit with the
+    shipped build's (every configuration sums a row in the same order),
+    and timed by graph_ms at the six training shapes, in turns with the
+    shipped build."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm_bwd as rb
+    import re
+    from repro_torch.kernels import build
+    shipped_entry = rb._entry
+    text = (build.CSRC / "rmsnorm_bwd.cu").read_text()
+    shipped = tuple(int(re.search(rf"constexpr int {k} = (\d+);",
+                                  text).group(1))
+                    for k in RMS_BWD_PROBE_KEYS)
+    libs = _rms_bwd_probe_libraries(RMS_BWD_PROBES)
+    configs = {"shipped": (shipped, None)}
+    configs.update({"stages={} stage_bytes={} cluster={} blocks_per_sm={} "
+                    "sum_chunks={}".format(*p): (p, libs[p])
+                    for p in RMS_BWD_PROBES})
+
+    def use(values, lib):
+        # the wrapper's plan() reads the constants it mirrors
+        for key, value in zip(RMS_BWD_PROBE_KEYS, values):
+            if hasattr(rb, key):
+                setattr(rb, key, value)
+        rb.plan.cache_clear()
+        if lib is None:
+            rb._entry = shipped_entry
+        else:
+            fn = lib.repro_rmsnorm_bwd
+            fn.argtypes, fn.restype = rb.ARGTYPES, shipped_entry().restype
+            rb._entry = lambda fn=fn: fn  # noqa: E731
+
+    try:
+        for i, (label, shape, dt, *parent) in enumerate(RMS_BWD_SHAPES):
+            x, s, g = rms_bwd_inputs(shape, dt, dt, seed=400 + i,
+                                     parent=parent[0] if parent else None)
+            rows, d = x.numel() // shape[-1], shape[-1]
+            want = ref.rmsnorm_bwd(x, s, g)
+            outs, times = {}, {name: [] for name in configs}
+            for r in range(2):
+                for name in (list(configs) if r == 0 else
+                             list(configs)[::-1]):
+                    values, lib = configs[name]
+                    use(values, lib)
+                    pl = rb.plan(rows, d, x.dtype)
+                    if lib is not None and \
+                            rb.c_plan(rows, d, x.dtype, lib=lib) != pl:
+                        raise AssertionError(f"probe {name}: C plan "
+                                             f"differs from plan()")
+
+                    def call():
+                        return rb.run_variant("bulk", x, s, g)
+                    if r == 0:
+                        outs[name] = (call(), pl)
+                        _rms_bwd_check(f"probe {name} {label}",
+                                       outs[name][0], want, x, s)
+                    times[name].append(graph_ms(call))
+            use(shipped, None)
+            base = outs["shipped"][0]
+            for name, (got, pl) in outs.items():
+                emit({"phase": "probe_rms_bwd", "shape": label,
+                      "config": name, "plan": dataclasses.asdict(pl),
+                      "graph_ms": times[name],
+                      "dx_bitwise_equal_to_shipped": torch.equal(got[0],
+                                                                 base[0]),
+                      "dscale_bitwise_equal_to_shipped": torch.equal(
+                          got[1], base[1]), "nvidia_smi": ctx["smi"]})
+            del x, s, g, outs, want
+            torch.cuda.empty_cache()
+    finally:
+        use(shipped, None)
+
+
+def phase_ab_rms_bwd(ctx) -> None:
+    """Not in the default run: 2-bwd's graph time, L2-warm and cold, at
+    RMS_BWD_SHAPES through the port that ``--src`` names (with the variant,
+    where that port has variants).  Run once per tree, in turns, to compare two trees on one
+    card."""
+    import torch
+    from repro_torch.kernels import rmsnorm_bwd as rb
+    for i, (label, shape, dt, *parent) in enumerate(RMS_BWD_SHAPES):
+        x, s, g = rms_bwd_inputs(shape, dt, dt, seed=400 + i,
+                                 parent=parent[0] if parent else None)
+        rec = {"phase": "ab_rms_bwd", "src": ctx["src"], "shape": label,
+               "graph_ms": graph_ms(lambda: rb.rmsnorm_bwd_cuda(x, s, g)),
+               "cold_graph_ms": cold_graph_ms(
+                   lambda: rb.rmsnorm_bwd_cuda(x, s, g))}
+        if hasattr(rb, "variant"):
+            rec["variant"] = rb.variant(x, g, s)
+        emit({**rec, "nvidia_smi": ctx["smi"]})
+        del x, s, g
+        torch.cuda.empty_cache()
+
+
 def phase_ab_attn_bwd(ctx) -> None:
     """Not in the default run: kernel 1's backward's graph time at
     deepseek-v3-671b's MLA shape and gemma-2b's, through the port that
@@ -4256,6 +4560,9 @@ def main() -> int:
            "replay": phase_replay, "control": phase_control,
            "ab_attn": phase_ab_attn, "ab_attn_bwd": phase_ab_attn_bwd,
            "probe_attn": phase_probe_attn,
+           "probe_rms_bwd": phase_probe_rms_bwd,
+           "kernel_rms_bwd": phase_kernel_rmsnorm_bwd,
+           "ab_rms_bwd": phase_ab_rms_bwd,
            "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
            "train_moe": phase_train_moe, "train_mla": phase_train_mla,

@@ -172,14 +172,30 @@ def test_rows_reads_a_strided_slice_in_place_and_copies_otherwise():
     assert stride == 32 and v.is_contiguous()
 
 
-@pytest.mark.parametrize("rows,d,want", [(1, 64, 1), (8, 64, 1), (9, 64, 2),
-                                         (2048, 2048, 528), (100, 1025, 100),
-                                         (65536, 128, 528)])
-def test_grid_is_a_function_of_the_shape_alone(rows, d, want):
-    """The block count (hence the dscale partials' order) depends on (rows,
-    d) alone: a warp per row (8 a block) up to d = 1024, a block per row
-    above, at most MAX_BLOCKS."""
-    assert trb.grid(rows, d) == want
+# the ids are the cases' ids from before the plan replaced grid()
+@pytest.mark.parametrize("rows,d,dtype,want", [
+    pytest.param(1, 64, "bfloat16", ("bulk", 2, 96, 1), id="1-64-1"),
+    pytest.param(8, 64, "float32", ("bulk", 2, 48, 1), id="8-64-1"),
+    pytest.param(9, 64, "float32", ("bulk", 2, 48, 1), id="9-64-2"),
+    pytest.param(2048, 2048, "bfloat16", ("bulk", 264, 2, 132),
+                 id="2048-2048-528"),
+    pytest.param(100, 1025, "float32", ("direct", 100, 0, 100),
+                 id="100-1025-100"),
+    pytest.param(65536, 128, "bfloat16", ("bulk", 264, 48, 132),
+                 id="65536-128-528")])
+def test_grid_is_a_function_of_the_shape_alone(rows, d, dtype, want):
+    """The plan (hence the dscale partials' order) depends on (rows, d,
+    dtype) alone: "bulk" where the width takes 16-byte packs, a persistent
+    grid of at most 2 blocks on each of 132 SMs in clusters of 2, one
+    workspace row a cluster; "direct" otherwise (a warp per row, 8 a block,
+    up to d = 1024, a block per row above, at most 528 blocks, one
+    workspace row a block)."""
+    dt = getattr(torch, dtype)
+    kind = want[0]
+    got = trb.plan(rows, d, dt, kind)
+    assert (got.variant, got.grid, got.rows_per_stage, got.ws_rows) == want
+    assert trb.plan(1, d, dt) is None or kind == "bulk"
+    assert got == trb.plan(rows, d, dt, kind)
 
 
 @pytest.mark.gpu
