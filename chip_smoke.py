@@ -290,7 +290,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernel", "plan", "replay", "control",
           "train", "train_ssm", "train_hybrid", "train_moe", "train_mla",
-          "train_vlm", "train_audio", "self_heal",
+          "train_vlm", "train_audio", "self_heal", "train_dist",
           "serve", "serve_ssm", "serve_moe", "serve_mla", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
@@ -3479,6 +3479,136 @@ def phase_self_heal(ctx) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the sharded step over torch.distributed (NCCL at world size 1)
+# ---------------------------------------------------------------------------
+
+DIST = dict(steps=2, seq=1024, batch=8, n_micro=4)   # the train phase's shape
+DIST_MOE = dict(batch=2, seq=1024)                  # one granite-moe layer
+
+
+def dist_moe_check() -> dict:
+    """One granite-moe-3b-a800m MoE FFN at full width (40 experts top-8 of
+    512, one layer, bf16) through ``moe_apply_ep`` on the (1, 1) mesh and
+    through ``moe_apply``, forward and backward of mean(y * w) + aux from
+    the same weights and tokens.  On one rank both run the same routing,
+    dispatch and expert products with no atomics, and the region functions
+    and the sums over the one-rank groups leave every value as it is, so
+    y, aux and the gradients of every leaf and of x must be equal bit for
+    bit."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    cfg = get_arch("granite-moe-3b-a800m")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p = tree.tree_map(lambda t: t[0], moe.init_moe(gen, 1, cfg,
+                                                   torch.bfloat16, "cuda"))
+    shape = (DIST_MOE["batch"], DIST_MOE["seq"], cfg.d_model)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    mesh = make_host_mesh(1)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in tree.leaves(p)]
+        xx = x.clone().requires_grad_(True)
+        y, aux = fn(tree.unflatten(p, leaves), xx)
+        obj = (y.float() * w.float()).mean() + aux
+        grads = torch.autograd.grad(obj, leaves + [xx])
+        return [y.detach(), aux.detach()] + list(grads)
+    names = ["y", "aux"] + [k for k, _ in tree.leaves_with_path(p)] + ["x"]
+    got = run(lambda q, xx: moe.moe_apply_ep(q, cfg, xx, mesh))
+    want = run(lambda q, xx: moe.moe_apply(q, cfg, xx))
+    out = {}
+    for name, a, b in zip(names, got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        out[name] = {"max_abs_diff": err, "max_abs": scale,
+                     "bitwise_equal": torch.equal(a, b)}
+        if not out[name]["bitwise_equal"]:
+            raise AssertionError(f"train_dist: moe_apply_ep's {name} off "
+                                 f"moe_apply's by {err} (largest {scale})")
+    return out
+
+
+def phase_train_dist(ctx) -> None:
+    """The sharded step (``train.sharded``) over NCCL at world size 1 (the
+    card holds one rank; ranks meet through an in-process HashStore, no
+    TCP): gemma-2b at full width and the train phase's depth on the (1, 1)
+    mesh, DIST's two steps sharded and two fused from the same parameters
+    and batches (``launch.sharded.compare``).  With one data and one model
+    rank the sharded step computes in the fused step's order, so loss,
+    grad_norm and every parameter leaf must be equal bit for bit, and each
+    step's launches of kernels 1, 1-bwd, 2 and 2-bwd must equal the fused
+    step's and ``launches_per_pass`` x n_micro, all "wgmma" / "bulk".
+    Then one granite-moe layer through ``moe_apply_ep``
+    (``dist_moe_check``).  The group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharded import compare
+    from repro_torch.launch.train import KERNEL_LAUNCHES
+
+    full = get_arch("gemma-2b")
+    cfg = dataclasses.replace(full, n_layers=N_LAYERS)
+    emit({"phase": "train_dist", **_model_fields(cfg),
+          "reduced": {"n_layers": [full.n_layers, N_LAYERS]}, **DIST,
+          "mesh": {"data": 1, "model": 1}, "backend": "nccl"})
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        for counter in KERNEL_LAUNCHES.values():
+            counter.count = 0
+        attention_variants_reset()
+        t0 = time.perf_counter()
+        recs = compare(cfg, make_host_mesh(1), **DIST)
+        secs = time.perf_counter() - t0
+        moe_check = dist_moe_check()
+    finally:
+        dist.destroy_process_group()
+    per_step = {k: n * DIST["n_micro"]
+                for k, n in launches_per_pass(cfg).items()}
+    launches = dict.fromkeys(per_step, 0)
+    for r in recs:
+        emit({"phase": "train_dist", **r, "nvidia_smi": ctx["smi"]})
+        for name in ("fused", "sharded"):
+            if r[name]["launches"] != per_step:
+                raise AssertionError(f"train_dist step {r['step']}: {name} "
+                                     f"launches {r[name]['launches']}, "
+                                     f"expected {per_step}")
+        for k in launches:
+            launches[k] += r["sharded"]["launches"][k]
+        if not (r["params_bitwise_equal"]
+                and r["max_abs_diff"]["loss"] == 0.0
+                and r["max_abs_diff"]["grad_norm"] == 0.0):
+            raise AssertionError(f"train_dist step {r['step']}: sharded "
+                                 f"off fused by {r['max_abs_diff']}")
+    ctx["phase_launches"]["train_dist"] = launches
+    both = {k: 2 * n for k, n in launches.items()}
+    emit({"phase": "train_dist", "ok": True, "seconds": secs,
+          "launches": launches, "launches_per_step": per_step,
+          "attention_by_variant": attention_variants_check(
+              "train_dist", both["flash_attention"]),
+          "attention_bwd_by_variant": attention_variants_check(
+              "train_dist", both["flash_attention_bwd"], backward=True),
+          "rmsnorm_bwd_by_variant": rms_bwd_variants_check(
+              "train_dist", both["rmsnorm_bwd"]),
+          "steady_step_s": {n: [r[n]["seconds"] for r in recs[1:]]
+                            for n in ("fused", "sharded")},
+          "tokens_per_s": {n: [r[n]["tokens_per_s"] for r in recs]
+                           for n in ("fused", "sharded")},
+          "peak_mem_gb": {n: max(r[n]["peak_mem_gb"] for r in recs)
+                          for n in ("fused", "sharded")},
+          "moe_apply_ep_vs_moe_apply": moe_check,
+          "process_group_after": dist.is_initialized(),
+          "nvidia_smi": ctx["smi"]})
+    if dist.is_initialized():
+        raise AssertionError("train_dist: the process group outlived the "
+                             "phase")
+
+
+# ---------------------------------------------------------------------------
 # serving (prefill by decode steps, greedy decode, continuous batching)
 # ---------------------------------------------------------------------------
 
@@ -4196,17 +4326,27 @@ def profile_step(cfg) -> dict:
                      "share_of_busy": ms / busy} for k, ms, n in rows[:15]]}
 
 
+# the profile phase's depths of mamba2-780m and hubert-xlarge, cut from the
+# train phases' 24 and 48 to keep the script within half its time limit
+# with the train_dist phase (every layer of either model is alike, so the
+# trace shows the same kernels a layer)
+PROFILE_SSM_LAYERS = 12
+PROFILE_AUDIO_LAYERS = 24
+
+
 def phase_profile(ctx) -> None:
     from repro_torch.configs import get_arch
     for cfg in (dataclasses.replace(get_arch("gemma-2b"), n_layers=N_LAYERS),
                 dataclasses.replace(get_arch("mamba2-780m"),
-                                    n_layers=SSM_LAYERS),
+                                    n_layers=PROFILE_SSM_LAYERS),
                 dataclasses.replace(get_arch("granite-moe-3b-a800m"),
                                     n_layers=MOE_LAYERS),
                 dataclasses.replace(get_arch("hubert-xlarge"),
-                                    n_layers=AUDIO_LAYERS)):
-        emit({"phase": "profile", **profile_step(cfg),
-              "nvidia_smi": ctx["smi"]})
+                                    n_layers=PROFILE_AUDIO_LAYERS)):
+        t0 = time.perf_counter()
+        rec = profile_step(cfg)
+        emit({"phase": "profile", **rec,
+              "seconds": time.perf_counter() - t0, "nvidia_smi": ctx["smi"]})
 
 
 def phase_ab(ctx) -> None:
@@ -4567,7 +4707,7 @@ def main() -> int:
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,
            "train_moe": phase_train_moe, "train_mla": phase_train_mla,
            "train_vlm": phase_train_vlm, "train_audio": phase_train_audio,
-           "self_heal": phase_self_heal,
+           "self_heal": phase_self_heal, "train_dist": phase_train_dist,
            "serve": phase_serve, "serve_ssm": phase_serve_ssm,
            "serve_moe": phase_serve_moe, "serve_mla": phase_serve_mla,
            "profile": phase_profile}

@@ -289,12 +289,21 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-def get_arch(name: str) -> ArchConfig:
+def _load_all() -> None:
     from repro_torch.configs import (  # noqa: F401
         deepseek_v3_671b, gemma3_12b, gemma_2b, gpt3, granite_3_8b,
         granite_moe_3b, hubert_xlarge, internvl2_2b, mamba2_780m, qwen3_4b,
         zamba2_1p2b)
+
+
+def get_arch(name: str) -> ArchConfig:
+    _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet; ported: "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_archs() -> list:
+    _load_all()
+    return sorted(_REGISTRY)

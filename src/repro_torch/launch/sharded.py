@@ -1,0 +1,205 @@
+"""Sharded training over ``torch.distributed`` (``train/sharded.py``), held
+against the single-process fused step from the same parameters and
+batches.
+
+One process per rank on one host; the ranks meet through a ``FileStore``
+(no TCP port).  On the CPU the backend is gloo, on GPUs NCCL with one rank
+per GPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.sharded --arch gemma-2b \\
+        --reduced --device cpu --world 4 --model 2
+    PYTHONPATH=src python -m repro_torch.launch.sharded \\
+        --arch granite-moe-3b-a800m --reduced --device cpu --world 2
+
+Rank 0 prints each step's loss and gradient norm from both steps and the
+largest difference of the loss, the norm and every parameter leaf.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+from typing import Callable, Dict, List
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree
+from repro_torch.configs import get_arch
+from repro_torch.data.pipeline import SyntheticLM, stack_microbatches
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.train import launch_counts
+from repro_torch.models.model import build_model
+from repro_torch.optim import AdamW, cosine_with_warmup
+from repro_torch.train.sharded import (make_sharded_train_step,
+                                       shard_train_state)
+from repro_torch.train.state import init_train_state
+from repro_torch.train.step import make_train_step
+
+
+def init_rank(rank: int, world: int, store_path: str, device: str) -> None:
+    """Joins the world of ``world`` ranks meeting at ``store_path``: gloo
+    for ``cpu``, NCCL on GPU ``rank`` for ``cuda``."""
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+
+
+def _entry(rank: int, fn: Callable, world: int, store_path: str, *args):
+    torch.set_num_threads(1)
+    try:
+        fn(rank, world, store_path, *args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# imported once by the fork server, ahead of every rank it forks
+PRELOAD = ("torch", "torch._dynamo", "torch.distributed.tensor",
+           "repro_torch.launch.sharded")
+
+
+def spawn(fn: Callable, world: int, *args, store_dir: str = None,
+          timeout: float = 300.0) -> None:
+    """Runs ``fn(rank, world, store_path, *args)`` in ``world`` new
+    processes (``fn`` and ``args`` picklable; ``store_path`` a fresh file
+    under ``store_dir`` for ``init_rank``).  Raises with a rank's error if
+    one fails, and kills them all and raises if they are not done within
+    ``timeout`` seconds.
+
+    The ranks are forked from Python's fork server, a fresh process that
+    imports ``PRELOAD`` once (the first call in a process starts it), so
+    neither they nor it inherit this process's threads or device
+    state."""
+    import multiprocessing
+    import torch.multiprocessing as mp
+    multiprocessing.set_forkserver_preload(list(PRELOAD))
+    store_dir = store_dir or tempfile.mkdtemp(prefix="sharded_store_")
+    store_path = os.path.join(store_dir, f"store_{os.getpid()}_"
+                                         f"{time.monotonic_ns()}")
+    ctx = mp.start_processes(_entry, args=(fn, world, store_path) + args,
+                             nprocs=world, join=False,
+                             start_method="forkserver")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} ranks not done in {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _max_diff(a: List[torch.Tensor], b: List[torch.Tensor]) -> float:
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(a, b))
+
+
+def compare(cfg, mesh, *, steps: int = 2, seq: int = 32, batch: int = 8,
+            n_micro: int = 2, lr: float = 1e-3, seed: int = 0,
+            fsdp: bool = False) -> List[Dict]:
+    """``steps`` sharded steps over ``mesh`` and as many fused steps of one
+    process, from the same parameters (seed ``seed``) and batches, on the
+    mesh's device type (``cuda`` for NCCL, ``cpu`` for gloo).  Returns
+    one record a step: each step's metrics, seconds, tokens/s, kernel
+    launches and (CUDA) peak GB, and the largest |difference| of the loss,
+    the gradient norm and every parameter leaf (sharded gathered)."""
+    device = mesh.device_type
+    model = build_model(cfg, device)
+    opt = AdamW(lr=cosine_with_warmup(lr, 2, steps))
+    fused_state = init_train_state(model, opt, seed)
+    state = shard_train_state(fused_state, mesh, fsdp=fsdp)
+    fused = make_train_step(model, opt, n_micro)
+    sharded = make_sharded_train_step(model, opt, n_micro, mesh, fsdp=fsdp)
+    data = SyntheticLM(cfg, seq_len=seq, global_batch=batch, seed=seed,
+                       device=str(model.device))
+    tokens = batch * (seq + cfg.n_prefix_embeds)
+    out = []
+    for s in range(steps):
+        b = stack_microbatches(data.batch(s), n_micro)
+        rec = {"step": s}
+        for name, fn in (("fused", fused), ("sharded", sharded)):
+            if model.device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            before = launch_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            if name == "fused":
+                fused_state, m = fn(fused_state, b)
+            else:
+                state, m = fn(state, b)
+            _sync(device)
+            secs = time.perf_counter() - t0
+            rec[name] = {"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "aux": float(m["aux"]), "seconds": secs,
+                         "tokens_per_s": tokens / secs,
+                         "launches": {k: n - before[k] for k, n in
+                                      launch_counts().items()}}
+            if model.device.type == "cuda":
+                rec[name]["peak_mem_gb"] = \
+                    torch.cuda.max_memory_allocated() / 1e9
+        got = [p.full_tensor() for p in tree.leaves(state.params)]
+        want = tree.leaves(fused_state.params)
+        rec["max_abs_diff"] = {
+            "loss": abs(rec["fused"]["loss"] - rec["sharded"]["loss"]),
+            "grad_norm": abs(rec["fused"]["grad_norm"]
+                             - rec["sharded"]["grad_norm"]),
+            "params": _max_diff(got, want)}
+        rec["params_bitwise_equal"] = all(
+            torch.equal(x, y) for x, y in zip(got, want))
+        del got
+        out.append(rec)
+    return out
+
+
+def _rank_main(rank, world, store_path, args) -> None:
+    init_rank(rank, world, store_path, args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    mesh = make_host_mesh(args.model)
+    for rec in compare(cfg, mesh, steps=args.steps, seq=args.seq,
+                       batch=args.batch, n_micro=args.n_micro, lr=args.lr,
+                       fsdp=args.fsdp):
+        if rank == 0:
+            f, s = rec["fused"], rec["sharded"]
+            print(f"step {rec['step']} loss {f['loss']:.6f} / "
+                  f"{s['loss']:.6f} grad_norm {f['grad_norm']:.6f} / "
+                  f"{s['grad_norm']:.6f} max|diff| {rec['max_abs_diff']}",
+                  flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the 2-layer smoke variant")
+    ap.add_argument("--world", type=int, default=2)
+    ap.add_argument("--model", type=int, default=1,
+                    help="the model axis' size; data gets world // model")
+    ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--n-micro", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    resolve_device(args.device)
+    spawn(_rank_main, args.world, args)
+
+
+if __name__ == "__main__":
+    main()

@@ -66,8 +66,10 @@ def init_shared_block(gen, cfg, dtype, device) -> dict:
 
 
 def block_apply(p: dict, cfg, kind: str, x: torch.Tensor, positions, *,
-                layer_is_local: bool = False):
-    """Returns (x, aux): aux the MoE router's loss, ``None`` without MoE."""
+                layer_is_local: bool = False, groups=None):
+    """Returns (x, aux): aux the MoE router's loss, ``None`` without MoE.
+    With a mesh's ``groups`` (``sharding.collectives.MeshGroups``), an MoE
+    FFN is expert-parallel over them (``moe.moe_apply_ep``)."""
     if kind in _MAMBA_KINDS:
         h = layers.norm_apply(p["norm"], x, cfg.norm)
         return x + ssm.mamba_apply(p["mamba"], cfg, h), None
@@ -79,14 +81,16 @@ def block_apply(p: dict, cfg, kind: str, x: torch.Tensor, positions, *,
                                        layer_is_local=layer_is_local,
                                        positions=positions)
     h = layers.norm_apply(p["norm2"], x, cfg.norm)
-    y, aux = _ffn(p, cfg, h)
+    y, aux = _ffn(p, cfg, h, groups)
     return x + y, aux
 
 
-def _ffn(p: dict, cfg, h: torch.Tensor):
+def _ffn(p: dict, cfg, h: torch.Tensor, groups=None):
     """The block's feed-forward: (y, aux), the MoE FFN's router loss or
     ``None`` for the dense MLP."""
     if "moe" in p:
+        if groups is not None:
+            return moe.moe_apply_ep(p["moe"], cfg, h, groups)
         return moe.moe_apply(p["moe"], cfg, h)
     return layers.mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp), None
 

@@ -44,6 +44,7 @@ from repro_torch.configs.base import (ArchConfig, BLOCK_ATTN_DENSE,
                                      BLOCK_HYBRID_SHARED, BLOCK_MLA_DENSE)
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
+from repro_torch.sharding import collectives
 
 MTP_WEIGHT = 0.3
 
@@ -114,11 +115,19 @@ class Model:
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None):
-    """Mean masked token cross-entropy.  logits f32 (..., V)."""
+                  mask: Optional[torch.Tensor] = None, groups=()):
+    """Mean masked token cross-entropy.  logits f32 (..., V).  With data
+    ``groups``, this rank's share of the mean over the ranks' tokens: its
+    sum over the count summed over the groups."""
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = lse - ll
+    if groups:
+        if mask is None:
+            mask = torch.ones_like(nll)
+        mask = mask.float()
+        count = collectives.all_reduce(mask.sum(), groups)
+        return (nll * mask).sum() / torch.clamp(count, min=1.0)
     if mask is None:
         return nll.mean()
     mask = mask.float()
@@ -133,8 +142,11 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
 
     def init(seed: int = 0) -> dict:
         """Random params of the reference's shapes and dtypes, drawn from a
-        ``torch.Generator`` seeded with ``seed`` (not JAX's bits)."""
-        gen = torch.Generator(device=device).manual_seed(seed)
+        ``torch.Generator`` seeded with ``seed`` (not JAX's bits).  On the
+        ``meta`` device nothing is drawn or allocated: the tree holds only
+        shapes and dtypes."""
+        gen = None if device.type == "meta" \
+            else torch.Generator(device=device).manual_seed(seed)
         params: dict = {"embed": layers.init_embed(gen, cfg.vocab,
                                                    cfg.d_model, dtype,
                                                    device)}
@@ -169,7 +181,7 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
             return [{k: parts[k][i] for k in tree} for i in range(count)]
         return list(tree.unbind(0))
 
-    def _run_segments(params, x, positions, remat):
+    def _run_segments(params, x, positions, remat, groups):
         """Returns (x, aux): the layers' router aux losses summed in f32 in
         layer order, as the reference's scan carry sums them."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -180,7 +192,7 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
                     for j in range(seg.inner):
                         h, aj = blocks.block_apply(
                             per_slot[j][c], cfg, seg.kind, h, positions,
-                            layer_is_local=seg.locality[j])
+                            layer_is_local=seg.locality[j], groups=groups)
                         if aj is not None:
                             a = a + aj
                     if seg.shared_after:
@@ -200,11 +212,13 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
             x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
         return x
 
-    def forward(params, batch, *, remat: bool = False):
+    def forward(params, batch, *, remat: bool = False, groups=None):
+        """(logits, extras).  With a mesh's ``groups`` (the sharded
+        step's), each MoE FFN is expert-parallel over them."""
         x = _embed_inputs(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        x, aux = _run_segments(params, x, positions, remat)
+        x, aux = _run_segments(params, x, positions, remat, groups)
         h = layers.norm_apply(params["final_norm"], x, cfg.norm)
         logits = layers.logits_apply(_head_w(params), h)
         extras = {"aux": aux}
@@ -212,30 +226,38 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
             # the MTP block on the last layer's (pre-norm) output; its aux
             # loss is dropped, as the reference drops it
             hm, _ = blocks.block_apply(params["mtp"]["block"], cfg, mtp_kind,
-                                       x, positions)
+                                       x, positions, groups=groups)
             hm = layers.norm_apply(params["mtp"]["norm"], hm, cfg.norm)
             extras["mtp_logits"] = layers.logits_apply(_head_w(params), hm)
         return logits, extras
 
-    def loss(params, batch, *, remat: bool = False):
-        logits, extras = forward(params, batch, remat=remat)
+    def loss(params, batch, *, remat: bool = False, groups=None):
+        """(total, metrics).  With a mesh's ``groups`` (the sharded step's,
+        ``batch`` this rank's rows), MoE FFNs are expert-parallel and, over
+        more than one data rank, each cross-entropy is this rank's share of
+        the mean over the ranks' tokens (``cross_entropy``)."""
+        data_groups = groups.data_groups \
+            if groups is not None and groups.n_data > 1 else ()
+        logits, extras = forward(params, batch, remat=remat, groups=groups)
         mask = batch.get("loss_mask")
         if cfg.modality == "audio_stub":
-            ce = cross_entropy(logits, batch["labels"], mask)
+            ce = cross_entropy(logits, batch["labels"], mask, data_groups)
         else:
             toks = batch["tokens"]
             T = toks.shape[1]
             if cfg.modality == "vision_stub":
                 logits = logits[:, -T:]
             ce = cross_entropy(logits[:, :-1], toks[:, 1:],
-                               None if mask is None else mask[:, 1:])
+                               None if mask is None else mask[:, 1:],
+                               data_groups)
         total = ce + extras["aux"]
         metrics = {"ce": ce, "aux": extras["aux"]}
         if "mtp_logits" in extras:
             ml = extras["mtp_logits"]
             if cfg.modality == "vision_stub":
                 ml = ml[:, -T:]
-            mtp_ce = cross_entropy(ml[:, :-2], toks[:, 2:])
+            mtp_ce = cross_entropy(ml[:, :-2], toks[:, 2:],
+                                   groups=data_groups)
             total = total + MTP_WEIGHT * mtp_ce
             metrics["mtp_ce"] = mtp_ce
         metrics["loss"] = total

@@ -27,9 +27,17 @@ copies each token into its K slots by value, so neither direction
 accumulates with atomics.  Nothing reads a device value on the host: the
 capacity is a Python int of the shapes, so a CUDA graph can capture the
 decode step.
+
+``moe_apply_ep`` is expert parallelism over a mesh's model axis (the port
+of the reference's ``moe_apply_shardmap``): each model rank runs the share
+body on the expert block it holds, the partial results are summed over the
+model ranks, and the router's statistics over the data ranks, so the aux
+loss is the global batch's.  A block takes that path when the model's
+forward is given a mesh's groups (``blocks.block_apply(..., groups=)``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -37,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.sharding import collectives
 
 
 def capacity(n_tokens: int, n_experts: int, top_k: int,
@@ -69,13 +78,15 @@ class Routing(NamedTuple):
     router weight (T, K) f32, its slot in the flat (E_held*C + 1) buffer
     (T*K,; E_held*C, the trash slot, where dropped or held elsewhere),
     whether its expert is held here (T*K,) and whether it was kept here
-    (T*K,: held and within capacity)."""
+    (T*K,: held and within capacity); the router's probabilities (T, E)
+    f32 and the aux loss from them."""
     expert: torch.Tensor
     weight: torch.Tensor
     slot: torch.Tensor
     held: torch.Tensor
     keep: torch.Tensor
     capacity: int
+    probs: torch.Tensor
     aux: torch.Tensor
 
 
@@ -119,18 +130,27 @@ def route(router: torch.Tensor, cfg, xt: torch.Tensor) -> Routing:
     rank = torch.empty_like(order).scatter_(0, order, ar - seg_start[se])
     keep = held & (rank < C)                          # rank within expert
     slot = torch.where(keep, local_e * C + rank, E_l * C)  # E_l*C = trash
-    return Routing(top_e, top_p, slot, held, keep, C, aux)
+    return Routing(top_e, top_p, slot, held, keep, C, probs, aux)
 
 
 def moe_apply(p: dict, cfg, x: torch.Tensor):
     """x: (B, S, d) -> (y (B, S, d), aux_loss scalar f32): with a share,
     the part of y the experts held here give, plus the shared expert."""
-    m = cfg.moe
     B, S, d = x.shape
-    T, E, K = B * S, m.experts_held, m.top_k
-    xt = x.reshape(T, d)
+    xt = x.reshape(B * S, d)
     r = route(p["router"], cfg, xt)
-    C = r.capacity
+    y = _experts(p, cfg, xt, r, r.weight)
+    if cfg.moe.n_shared_experts:
+        y = y + layers.mlp_apply(p["shared"], xt, cfg.mlp_act, True)
+    return y.reshape(B, S, d), r.aux
+
+
+def _experts(p: dict, cfg, xt: torch.Tensor, r: Routing,
+             weight: torch.Tensor) -> torch.Tensor:
+    """The routed experts held here on xt (T, d): dispatch by ``r``, the
+    expert products, and the combine weighted by ``weight`` (T, K)."""
+    T, d = xt.shape
+    E, K, C = cfg.moe.experts_held, cfg.moe.top_k, r.capacity
 
     # each token copied into its K slots; the expand's backward sums the
     # K slots' gradients with no atomics
@@ -148,11 +168,61 @@ def moe_apply(p: dict, cfg, x: torch.Tensor):
     # ---- combine back: each token's K slots, summed in expert order ----
     yb = torch.cat([yb, yb.new_zeros(1, d)])          # the trash slot, zero
     yk = (yb.index_select(0, r.slot)
-          * r.weight.reshape(T * K, 1).to(x.dtype)).view(T, K, d)
+          * weight.reshape(T * K, 1).to(xt.dtype)).view(T, K, d)
     y = yk[:, 0]
     for k in range(1, K):
         y = y + yk[:, k]
+    return y
 
+
+def moe_apply_ep(p: dict, cfg, x: torch.Tensor, mesh):
+    """Expert-parallel MoE over ``mesh`` (a ``DeviceMesh`` or its
+    ``MeshGroups``; the port of ``moe_apply_shardmap``).  x: (B, S, d),
+    this rank's tokens, the same on every model rank; ``p``'s expert
+    leaves the block of ``n_experts // n_model`` experts of this model
+    rank, its router and shared expert whole.  Returns (y (B, S, d), aux):
+    y summed over the model ranks, then the shared expert added once; aux
+    from the router's statistics summed over the data ranks and divided by
+    the global token count, the same on every rank.
+
+    Capacity comes from this rank's token count, as in ``_moe_local``.
+
+    Gradients: the model ranks' sum is the identity backward (each rank's
+    loss reads the whole sum), while the dispatched tokens and the combine
+    weights, which each rank reads for its own experts only, get their
+    gradients summed over the model ranks; the router's statistics, whose
+    sum every data rank reads, pass their gradient through as it is.  So a
+    leaf held whole gets the same gradient on every model rank, and its
+    gradients summed over the data ranks are those of the global batch."""
+    g = mesh if isinstance(mesh, collectives.MeshGroups) \
+        else collectives.MeshGroups(mesh)
+    m = cfg.moe
+    if m.expert_shards != 1 or m.n_experts % g.n_model:
+        raise ValueError(f"{m.n_experts} experts ({m.expert_shards} shards "
+                         f"in the config) over {g.n_model} model ranks")
+    share = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, expert_shards=g.n_model, expert_shard=g.model_rank))
+    held = share.moe.experts_held
+    if p["w_in"].shape[-3] != held:
+        raise ValueError(f"w_in holds {p['w_in'].shape[-3]} experts; a "
+                         f"model rank's block is {held}")
+    B, S, d = x.shape
+    T, E = B * S, m.n_experts
+    xt = x.reshape(T, d)
+    r = route(p["router"], share, xt)
+    model = [g.model_group]
+    y = _experts(p, share, collectives.copy_to_region(xt, model), r,
+                 collectives.copy_to_region(r.weight, model))
+    y = collectives.reduce_from_region(y, model)
+
+    experts = torch.arange(E, device=x.device)
+    me_sum = collectives.reduce_from_region(r.probs.sum(0), g.data_groups)
+    ce_sum = collectives.all_reduce(
+        (r.expert[:, :, None] == experts).float().sum((0, 1)),
+        g.data_groups)
+    t_global = T * g.n_data
+    aux = (me_sum / t_global * (ce_sum / t_global)).sum() * E \
+        * m.router_aux_weight
     if m.n_shared_experts:
         y = y + layers.mlp_apply(p["shared"], xt, cfg.mlp_act, True)
-    return y.reshape(B, S, d), r.aux
+    return y.reshape(B, S, d), aux

@@ -58,12 +58,15 @@ class AdamW:
                           mu=zeros(), nu=zeros(), master=master)
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, gnorm=None):
         """Returns (new_params, new_state), updated in place (see module
-        docstring).  Grads may be any float dtype; they are not modified."""
+        docstring).  Grads may be any float dtype; they are not modified.
+        ``gnorm``: the clip's global norm where ``grads`` are shards of a
+        larger tree (``train.sharded``); else it is ``grads``' own."""
         g_leaves = [g.float() for g in tree.leaves(grads)]
         if self.grad_clip and self.grad_clip > 0:
-            gnorm = global_norm(g_leaves)
+            if gnorm is None:
+                gnorm = global_norm(g_leaves)
             scale = torch.clamp(self.grad_clip /
                                 torch.clamp(gnorm, min=1e-12), max=1.0)
         else:

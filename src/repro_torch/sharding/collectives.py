@@ -1,0 +1,86 @@
+"""A mesh's process groups, and the collectives of the sharded step and of
+expert parallelism over them.
+
+``MeshGroups`` reads a ``DeviceMesh`` whose last axis is ``model`` and whose
+other axes are data axes (``("data", "model")`` or ``("pod", "data",
+"model")``).  A sum over the data axes is a sum over each data axis's group
+in turn, so no flattened group is made.
+
+The two autograd functions are Megatron's region functions:
+``copy_to_region`` is the identity forward and sums the gradient over the
+groups backward (a tensor every rank holds whole, read by a computation
+whose parts the ranks divide); ``reduce_from_region`` sums over the groups
+forward and is the identity backward (the parts' sum, which every rank then
+uses whole).  ``torch.distributed.nn.functional.all_reduce`` would sum
+again backward, giving each rank n times its gradient.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.rules import data_axes_of, layout_of
+
+
+class MeshGroups:
+    """The groups of ``mesh`` and this rank's place in them: ``n_data`` and
+    ``data_rank`` over the data axes together (the first axis outermost, as
+    a dim split over ``("pod", "data")`` is), ``n_model`` and
+    ``model_rank`` on the model axis."""
+
+    def __init__(self, mesh):
+        lay = layout_of(mesh)
+        if lay.axis_names[-1:] != ("model",):
+            raise ValueError(f"mesh axes {lay.axis_names}: the last must be "
+                             f"'model'")
+        self.mesh = mesh
+        self.data_axes, self.n_data = data_axes_of(mesh)
+        self.data_groups = [mesh.get_group(a) for a in self.data_axes]
+        self.model_group = mesh.get_group("model")
+        self.n_model = lay.size("model")
+        self.model_rank = mesh.get_local_rank("model")
+        rank = 0
+        for a in self.data_axes:
+            rank = rank * lay.size(a) + mesh.get_local_rank(a)
+        self.data_rank = rank
+
+
+def all_reduce(t: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """Sums ``t`` in place over each group in turn; returns it."""
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return t
+
+
+class _CopyToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.groups), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        return all_reduce(x.contiguous().clone(), groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_region(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """``x`` forward; its gradient summed over ``groups`` backward."""
+    return _CopyToRegion.apply(x, list(groups))
+
+
+def reduce_from_region(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """``x`` summed over ``groups`` forward; the gradient as it is
+    backward."""
+    return _ReduceFromRegion.apply(x, list(groups))

@@ -1,0 +1,279 @@
+"""Sharding rules for every architecture (port of
+``repro/sharding/rules.py``).
+
+The rules are path-driven: each parameter leaf's dict path (``wq``,
+``w_out``, ``moe/w_in``, ...) selects which dimension is sharded over the
+``model`` mesh axis, with divisibility fallbacks (GQA KV heads of 8 do not
+divide a 16-wide model axis, so ``wk``/``wv`` fall back to the input d_model
+dim).  Leading stack dims (the layer axis) are always unsharded, so every
+rule indexes from the end of the shape.  Optimizer state (mu/nu/master)
+additionally gets ZeRO-1 sharding of its largest unsharded dim over the
+data axes.
+
+A leaf's spec is a plain tuple with one entry per tensor dim, of the form
+of JAX's ``PartitionSpec``: ``None`` (replicated), an axis name, or a tuple
+of axis names (one dim split over several axes, the first outermost).
+Spec trees keep the shape tree's structure with such tuples as leaves
+(``is_spec``).  The rules read only a mesh's axis names and sizes
+(``Layout``, or a live ``DeviceMesh``), so a production layout needs no
+process group; ``to_placements`` turns a spec into DTensor placements over
+a mesh's dims.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Sequence, Tuple
+
+from repro_torch import tree
+from repro_torch.bridge import parse_keystr
+
+Spec = Tuple[Any, ...]
+
+
+def is_spec(x) -> bool:
+    """A spec tree's leaf: a plain tuple (never a NamedTuple node)."""
+    return type(x) is tuple
+
+
+@dataclass(frozen=True)
+class Layout:
+    """What the rules read of a mesh: its axis names and their sizes."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    def size(self, axis: str) -> int:
+        return self.sizes[self.axis_names.index(axis)]
+
+
+def layout_of(mesh) -> Layout:
+    """``mesh``'s names and sizes: a ``Layout`` as it is, or a
+    ``DeviceMesh`` (``mesh_dim_names`` and ``mesh.shape``)."""
+    if isinstance(mesh, Layout):
+        return mesh
+    names = tuple(mesh.mesh_dim_names)
+    return Layout(names, tuple(int(n) for n in mesh.mesh.shape))
+
+
+# ---------------------------------------------------------------------------
+# Path helpers
+# ---------------------------------------------------------------------------
+
+
+def path_names(keystr: str) -> Tuple[str, ...]:
+    """The dict keys and attribute names of a ``tree.leaves_with_path``
+    path, list indices dropped (the reference's ``_dict_names``)."""
+    return tuple(p for p in parse_keystr(keystr) if isinstance(p, str))
+
+
+def map_with_path(fn, shape_tree) -> Any:
+    """``shape_tree`` with each leaf replaced by ``fn(names, leaf)``."""
+    return tree.unflatten(shape_tree, [
+        fn(path_names(k), leaf)
+        for k, leaf in tree.leaves_with_path(shape_tree)])
+
+
+# ---------------------------------------------------------------------------
+# Parameter rules
+# ---------------------------------------------------------------------------
+
+# leaf name -> preferred negative dims to shard over the model axis,
+# tried in order until one divides.
+_PREFER_LAST = ("wq", "w_uq", "w_dq", "w_dkv", "w_uk", "w_uv",
+                "w_in", "w_gate", "conv_w", "conv_b", "gate_norm")
+_PREFER_SECOND = ("wo", "w_out")
+_KV = ("wk", "wv")
+_REPLICATED = ("router", "dt_bias", "A_log", "D", "scale", "bias",
+               "q_norm", "k_norm", "kv_norm")
+EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
+
+
+def param_spec(names: Tuple[str, ...], shape: Sequence[int],
+               model_size: int) -> Spec:
+    """The spec of one parameter leaf."""
+    last = names[-1] if names else ""
+    parent = names[-2] if len(names) > 1 else ""
+    nd = len(shape)
+    spec: list = [None] * nd
+
+    def try_dims(*negs: int) -> bool:
+        for neg in negs:
+            d = nd + neg
+            if 0 <= d < nd and shape[d] % model_size == 0 and shape[d] > 1:
+                spec[d] = "model"
+                return True
+        return False
+
+    if last == "w" and parent in ("embed", "head"):
+        try_dims(-2, -1)                    # vocab, else d_model
+    elif parent == "moe" and last in EXPERT_LEAVES and nd >= 3:
+        # (E, d, f) / (E, f, d): expert-parallel when E divides, else d_ff
+        try_dims(-3, -2) if last == "w_out" else try_dims(-3, -1)
+    elif last in _REPLICATED:
+        pass
+    elif last in _PREFER_LAST:
+        try_dims(-1, -2)
+    elif last in _PREFER_SECOND:
+        try_dims(-2, -1)
+    elif last in _KV:
+        try_dims(-1, -2)
+    # everything else stays replicated
+    return tuple(spec)
+
+
+def param_specs(params_shape: Any, model_size: int) -> Any:
+    """Spec tree of ``params_shape`` (any tree of leaves with a ``shape``:
+    ``abstract_train_state``'s meta tensors)."""
+    return map_with_path(lambda names, leaf: param_spec(
+        names, tuple(leaf.shape), model_size), params_shape)
+
+
+def is_expert_leaf(names: Tuple[str, ...], spec: Spec) -> bool:
+    """An MoE routed-expert leaf whose expert dim (-3) is on the model
+    axis: expert-parallel, each model rank holding a block of experts."""
+    return (len(names) > 1 and names[-2] == "moe"
+            and names[-1] in EXPERT_LEAVES and len(spec) >= 3
+            and spec[-3] == "model")
+
+
+def zero1_spec(spec: Spec, shape: Sequence[int], data_axes: Tuple[str, ...],
+               data_size: int) -> Spec:
+    """Additionally shard the largest unsharded dim over the data axes
+    (ZeRO-1 optimizer-state partitioning); the last such dim among equals."""
+    if len(shape) < 2:
+        return spec
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    cands = sorted((s, i) for i, s in enumerate(shape)
+                   if parts[i] is None and s % data_size == 0 and s > 1)
+    if not cands:
+        return spec
+    _, dim = cands[-1]
+    parts[dim] = data_axes if len(data_axes) > 1 else data_axes[0]
+    return tuple(parts)
+
+
+def opt_specs(params_shape: Any, pspecs: Any, data_axes: Tuple[str, ...],
+              data_size: int) -> Any:
+    return tree.tree_map(
+        lambda leaf, spec: zero1_spec(spec, tuple(leaf.shape), data_axes,
+                                      data_size), params_shape, pspecs)
+
+
+# ---------------------------------------------------------------------------
+# Batch / cache rules
+# ---------------------------------------------------------------------------
+
+
+def batch_specs(batch_shape: Any, data_axes: Tuple[str, ...],
+                data_size: int, *, stacked: bool) -> Any:
+    """Shard the batch dim over the data axes.  ``stacked``: leaves carry a
+    leading (n_micro,) dim before the batch dim."""
+    bdim = 1 if stacked else 0
+    da = data_axes if len(data_axes) > 1 else data_axes[0]
+
+    def one(leaf):
+        shape = tuple(leaf.shape)
+        parts = [None] * len(shape)
+        if len(shape) > bdim and shape[bdim] % data_size == 0 \
+                and shape[bdim] > 1:
+            parts[bdim] = da
+        return tuple(parts)
+    return tree.tree_map(one, batch_shape)
+
+
+def cache_specs(cache_shape: Any, data_axes: Tuple[str, ...],
+                data_size: int, model_size: int, *,
+                shard_seq: bool = False, kv_model: bool = False) -> Any:
+    """Decode-cache sharding.
+
+    Default: the batch dim over data.  ``shard_seq``: long-context mode,
+    batch 1, so the attention caches' capacity dim is sharded over data
+    instead (flash-decoding style).  ``kv_model``: where the KV heads do not
+    divide the model axis, the capacity dim goes over model.  SSM state
+    heads and conv channels go over model.
+    """
+    da = data_axes if len(data_axes) > 1 else data_axes[0]
+
+    def one(names, leaf):
+        shape = tuple(leaf.shape)
+        last = names[-1] if names else ""
+        nd = len(shape)
+        parts: list = [None] * nd
+
+        def set_neg(neg, axis, size):
+            d = nd + neg
+            if 0 <= d < nd and parts[d] is None \
+                    and shape[d] % size == 0 and shape[d] > 1:
+                parts[d] = axis
+                return True
+            return False
+
+        if last in ("k", "v"):                    # (..., B, C, KV, D)
+            set_neg(-4, da, data_size)
+            if shard_seq and parts[nd - 3] is None:
+                set_neg(-3, da, data_size)
+            if not set_neg(-2, "model", model_size) and kv_model:
+                set_neg(-3, "model", model_size)
+        elif last in ("ckv", "k_rope"):           # (..., B, C, r)
+            set_neg(-3, da, data_size)
+            if shard_seq and parts[nd - 2] is None:
+                set_neg(-2, da, data_size)
+            if kv_model and parts[nd - 2] is None:
+                set_neg(-2, "model", model_size)
+        elif last == "ssm":                       # (..., B, H, P, N)
+            set_neg(-4, da, data_size)
+            set_neg(-3, "model", model_size)
+        elif last == "conv":                      # (..., B, K, C)
+            set_neg(-3, da, data_size)
+            set_neg(-1, "model", model_size)
+        return tuple(parts)
+    return map_with_path(one, cache_shape)
+
+
+# ---------------------------------------------------------------------------
+# Assembled bundles
+# ---------------------------------------------------------------------------
+
+
+def data_axes_of(mesh) -> Tuple[Tuple[str, ...], int]:
+    """Every axis but ``model``, in mesh order, and their product."""
+    lay = layout_of(mesh)
+    axes = tuple(a for a in lay.axis_names if a != "model")
+    size = 1
+    for a in axes:
+        size *= lay.size(a)
+    return axes, size
+
+
+def train_state_specs(state_shape, mesh, *, fsdp: bool = False) -> Any:
+    """Spec tree of a ``TrainState`` (params + AdamW state).
+
+    ``fsdp``: the parameters too get their ZeRO-1 spec (ZeRO-3 style),
+    gathered over the data axes for each step's forward.
+    """
+    model_size = layout_of(mesh).size("model")
+    data_axes, data_size = data_axes_of(mesh)
+    pspecs = param_specs(state_shape.params, model_size)
+    ospecs = opt_specs(state_shape.params, pspecs, data_axes, data_size)
+    if fsdp:
+        pspecs = ospecs
+    master = None if state_shape.opt.master is None else ospecs
+    opt = type(state_shape.opt)(step=(), mu=ospecs, nu=ospecs, master=master)
+    return type(state_shape)(params=pspecs, opt=opt, step=())
+
+
+def to_placements(spec: Spec, mesh) -> list:
+    """DTensor placements of ``spec`` over ``mesh``'s dims, in mesh order:
+    ``Shard(d)`` on each mesh dim that tensor dim ``d`` is split over,
+    ``Replicate()`` elsewhere.  A dim split over several axes, such as
+    ``("pod", "data")``, is sharded on each of them in mesh order, the
+    first outermost, as JAX splits it."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for axis in layout_of(mesh).axis_names:
+        dims = [d for d, part in enumerate(spec)
+                if part == axis or (isinstance(part, tuple) and axis in part)]
+        if len(dims) > 1:
+            raise ValueError(f"axis {axis!r} shards dims {dims} of {spec}")
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+

@@ -15,25 +15,29 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def leaves_with_path(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(keystr, leaf) pairs in JAX's flatten order."""
+def leaves_with_path(tree, prefix: str = "", is_leaf: Callable = None
+                     ) -> Iterator[Tuple[str, Any]]:
+    """(keystr, leaf) pairs in JAX's flatten order.  ``is_leaf(x)`` true
+    makes ``x`` a leaf whatever its type (a sharding spec's tuple)."""
     if tree is None:
         return
-    if isinstance(tree, dict):
+    if is_leaf is not None and is_leaf(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from leaves_with_path(tree[k], f"{prefix}[{k!r}]")
+            yield from leaves_with_path(tree[k], f"{prefix}[{k!r}]", is_leaf)
     elif _is_namedtuple(tree):
         for name, v in zip(tree._fields, tree):
-            yield from leaves_with_path(v, f"{prefix}.{name}")
+            yield from leaves_with_path(v, f"{prefix}.{name}", is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from leaves_with_path(v, f"{prefix}[{i}]")
+            yield from leaves_with_path(v, f"{prefix}[{i}]", is_leaf)
     else:
         yield prefix, tree
 
 
-def leaves(tree) -> List[Any]:
-    return [leaf for _, leaf in leaves_with_path(tree)]
+def leaves(tree, is_leaf: Callable = None) -> List[Any]:
+    return [leaf for _, leaf in leaves_with_path(tree, is_leaf=is_leaf)]
 
 
 def tree_map(fn: Callable, tree, *rest):
