@@ -174,7 +174,7 @@ Phases, each printing one JSON line:
                     a forward and its backward kernel once per RMSNorm of
                     each backward pass (every one of them "bulk")
   train_ssm         the same on mamba2-780m at full width (depth cut 48 ->
-                    24 for the script's time: its two restores of the
+                    16 for the script's time: its two restores of the
                     state take most of the phase): every layer through
                     the SSD scan kernel
   train_hybrid      zamba2-1.2b at full width (depth cut 38 -> 12, two
@@ -206,6 +206,15 @@ Phases, each printing one JSON line:
                     bidirectional at D = 80, no RMSNorm
   self_heal         launch.self_healing: three injected failures and the
                     strict-semantics check against a fault-free shadow run
+  dryrun            launch.dryrun.check_pair: the dry-run's prediction (a
+                    trace on the meta device in a fake process group)
+                    beside the same step run for real over NCCL at world
+                    size 1: gemma-2b's train_dist step (4 layers, remat)
+                    and a qwen3-4b decode step (4 layers, 8 lanes of 1024);
+                    FLOPs, HBM bytes, collectives, kernel calls and
+                    launches equal, the peak and the step time printed
+                    beside the prediction's; then gemma-2b x decode_32k at
+                    16x16 through the dry-run CLI in a child process
   serve             launch.serve on qwen3-4b at full width and full depth:
                     a static batch (8 prompts of 128 tokens, 64 new each)
                     and the continuous batcher (16 requests over 8 lanes,
@@ -255,9 +264,9 @@ Phases, each printing one JSON line:
                     where the batcher's greedy tokens must equal
                     generate()'s
   profile           device time by kernel over one traced steady step of
-                    the train, train_ssm (24 of 48 layers, cut for the
-                    script's time), train_moe and train_audio phases'
-                    configurations, and the idle share
+                    the train and train_moe phases' configurations,
+                    mamba2-780m at 12 of 48 layers and hubert-xlarge at 24
+                    of 48 (cut for the script's time), and the idle share
 
 Then a line with the card's name and power limit, a line with every
 kernel's numbers, and the result line.  Any failure exits non-zero before
@@ -291,7 +300,7 @@ SRC = ROOT / "src"
 PHASES = ("device", "build", "kernel", "plan", "replay", "control",
           "train", "train_ssm", "train_hybrid", "train_moe", "train_mla",
           "train_vlm", "train_audio", "self_heal", "train_dist",
-          "serve", "serve_ssm", "serve_moe", "serve_mla", "profile")
+          "dryrun", "serve", "serve_ssm", "serve_moe", "serve_mla", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
@@ -563,48 +572,37 @@ def attn_inputs(case, seed: int = 0, layout: str = "contiguous"):
     return mk(B, Sq, H, D), mk(B, Sk, KV, D), mk(B, Sk, KV, Dv)
 
 
-def _live_pairs(case) -> int:
-    """(query, key) pairs the mask of ``case`` leaves live, per (batch,
-    head)."""
-    _, Sq, Sk, _, _, _, _, causal, window, _, q_off, _ = case
-    live = 0
-    for i in range(Sq):
-        qp = q_off + i
-        hi = min(Sk - 1, qp) if causal else Sk - 1
-        lo = max(0, qp - window + 1) if window > 0 else 0
-        live += max(0, hi - lo + 1)
-    return live
+def _bound(work, dtype):
+    """(bound ms, "operations" | "bytes") of ``work`` = (operations,
+    bytes) at the card's peak for ``dtype`` and its HBM rate."""
+    ops, nbytes = work
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _attn_args(case):
+    B, Sq, Sk, H, KV, D, Dv, causal, window, _, q_off, dtype = case
+    return (B, Sq, Sk, H, KV, D, Dv, causal, window, q_off,
+            2 if dtype == "bfloat16" else 4)
 
 
 def attn_bwd_bound(case):
-    """Least time for the attention backward at ``case``: q, k, v, o, dO
-    and lse read once and dq, dk, dv written once, against the
-    multiply-adds each live (query, key) pair needs (S and dP recomputed,
-    dq, dk and dv: 3 D + 2 Dv), at the input type's peak."""
-    B, Sq, Sk, H, KV, D, Dv, *_, dtype = case
-    ops = 2.0 * B * H * _live_pairs(case) * (3 * D + 2 * Dv)
-    elt = 2 if dtype == "bfloat16" else 4
-    q_side = B * Sq * H * (D + 2 * Dv + D)          # q, o, dO in; dq out
-    kv_side = 2 * B * Sk * KV * (D + Dv)            # k, v in; dk, dv out
-    nbytes = elt * (q_side + kv_side) + 4 * B * Sq * H   # + lse
-    t_ops = ops / PEAK_OPS_PER_S[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    """Least time for the attention backward at ``case``
+    (``kernels.work.attention_bwd_work``: q, k, v, o, dO and lse read
+    once, dq, dk, dv written once, 2 (3 D + 2 Dv) operations a live
+    (query, key) pair and head) at the input type's peak."""
+    from repro_torch.kernels import work
+    return _bound(work.attention_bwd_work(*_attn_args(case)), case[-1])
 
 
 def attn_bound(case):
-    """Least time for the attention forward at ``case``: each input read
-    once and the output written once, against the multiply-adds the live
-    (query, key) pairs of this mask need."""
-    B, Sq, Sk, H, KV, D, Dv, *_, dtype = case
-    ops = 2.0 * B * H * _live_pairs(case) * (D + Dv)
-    elt = 2 if dtype == "bfloat16" else 4
-    nbytes = elt * (B * Sq * H * D + B * Sk * KV * (D + Dv) + B * Sq * H * Dv)
-    t_ops = ops / PEAK_OPS_PER_S[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    """Least time for the attention forward at ``case``
+    (``kernels.work.attention_work``: each input read once and the output
+    written once, 2 (D + Dv) operations a live pair and head)."""
+    from repro_torch.kernels import work
+    return _bound(work.attention_work(*_attn_args(case)), case[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -1561,32 +1559,15 @@ def _ssd_err(name, got, want) -> float:
 
 
 def ssd_work(case):
-    """(operations, bytes) of one scan: the multiply-adds of the chunked
-    algorithm for these shapes -- C.B^T once per group (causal half), the
-    (L,L)x(L,P) product per head (causal half), C.S_prev for chunks after
-    the first and the state update, each over the chunk's live tokens --
-    and every input read once and both outputs written once."""
-    B, S, H, P, G, N, chunk = case
-    L = min(chunk, S)
-    ops = 0.0
-    for c0 in range(0, S, L):
-        n = min(L, S - c0)
-        pairs = n * (n + 1) / 2
-        ops += 2.0 * B * (G * pairs * N + H * pairs * P
-                          + H * n * N * P * (2 if c0 else 1))
-    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * G * N
-                  + B * H * P * N)
-    return ops, nbytes
+    """(operations, bytes) of one scan (``kernels.work.ssd_work``)."""
+    from repro_torch.kernels import work
+    return work.ssd_work(*case)
 
 
 def ssd_bound(case):
     """Least time for one scan in f32 on the CUDA cores (the bound the
     records of earlier kernels compare with)."""
-    ops, nbytes = ssd_work(case)
-    t_ops = ops / PEAK_OPS_PER_S["float32"]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return _bound(ssd_work(case), "float32")
 
 
 def ssd_bound_tc(case):
@@ -1800,16 +1781,12 @@ def rms_inputs(shape, dtype, sdtype, seed: int = 0):
 
 
 def rms_bound(shape, dtype):
-    """Least time for one call: x read once, out written once, scale read
-    once, against ~4 f32 operations an element (square and add, two
-    products)."""
-    elt = 2 if dtype == "bfloat16" else 4
-    d = shape[-1]
-    n = math.prod(shape)
-    t_bytes = (2 * n * elt + d * elt) / HBM_BYTES_PER_S
-    t_ops = 4.0 * n / PEAK_OPS_PER_S["float32"]
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    """Least time for one call (``kernels.work.rmsnorm_work``: x read
+    once, out written once, scale read once, ~4 f32 operations an
+    element)."""
+    from repro_torch.kernels import work
+    return _bound(work.rmsnorm_work(tuple(shape), 2 if dtype == "bfloat16"
+                                    else 4), "float32")
 
 
 def device_ms(fn, iters: int = 50) -> float:
@@ -1951,17 +1928,13 @@ RMS_BWD_MAIN = "internvl2-2b train block norm"     # the kernels line's row
 
 
 def rms_bwd_bound(shape, dtype, sdtype):
-    """Least time for one call: x and g read once, dx written once, scale
-    read and dscale written once, against ~10 f32 operations an element
-    (two sums, dx, dscale)."""
-    elt = 2 if dtype == "bfloat16" else 4
-    selt = 2 if sdtype == "bfloat16" else 4
-    d = shape[-1]
-    n = math.prod(shape)
-    t_bytes = (3 * n * elt + 2 * d * selt) / HBM_BYTES_PER_S
-    t_ops = 10.0 * n / PEAK_OPS_PER_S["float32"]
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    """Least time for one call (``kernels.work.rmsnorm_bwd_work``: x and
+    g read once, dx written once, scale read and dscale written once, ~10
+    f32 operations an element)."""
+    from repro_torch.kernels import work
+    elt = {"bfloat16": 2, "float32": 4}
+    return _bound(work.rmsnorm_bwd_work(tuple(shape), elt[dtype],
+                                        elt[sdtype]), "float32")
 
 
 def _rms_bwd_check(name, got, want, x, scale) -> dict:
@@ -3002,7 +2975,7 @@ def phase_control(ctx) -> None:
 
 TRAIN = dict(steps=4, seq=1024, batch=8, n_micro=4, dp=4, inject_fail=2)
 N_LAYERS = 4                    # gemma-2b has 18; the only reduction
-SSM_LAYERS = 24                 # mamba2-780m has 48: cut for the script's time
+SSM_LAYERS = 16                 # mamba2-780m has 48: cut for the script's time
 HYBRID = dict(steps=2, seq=1024, batch=8, n_micro=4, dp=4)
 HYBRID_LAYERS = 12              # zamba2-1.2b has 38: two shared-block periods
 MOE_LAYERS = 8                  # granite-moe-3b-a800m has 32; the only reduction
@@ -3606,6 +3579,112 @@ def phase_train_dist(ctx) -> None:
     if dist.is_initialized():
         raise AssertionError("train_dist: the process group outlived the "
                              "phase")
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's prediction against real steps (launch.dryrun.check_pair)
+# ---------------------------------------------------------------------------
+
+DRYRUN_LAYERS = 4               # both pairs' depth, as the train phase's
+DRYRUN_DECODE = dict(lanes=8, capacity=1024)         # qwen3-4b's decode pair
+DRYRUN_PRODUCTION = ("gemma-2b", "decode_32k")       # traced at 16x16
+DRYRUN_PEAK_GAP = 0.15          # the prediction's gap to the measured peak
+
+
+def _production_trace(src: str) -> dict:
+    """The dry-run CLI on one production pair (16x16, a fake group of 256
+    ranks, the ``meta`` device) in a child process; its row."""
+    import os
+    import tempfile
+    arch, shape = DRYRUN_PRODUCTION
+    out = Path(tempfile.mkdtemp(prefix="dryrun_")) / "row.jsonl"
+    env = dict(os.environ, PYTHONPATH=str(Path(src).resolve()))
+    try:
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", arch, "--shape", shape, "--json",
+                            str(out)], capture_output=True, text=True,
+                           env=env, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"dryrun: {arch} x {shape} failed:\n"
+                                 f"{(r.stderr or r.stdout)[-3000:]}")
+        return json.loads(out.read_text().splitlines()[-1])
+    finally:
+        shutil.rmtree(out.parent, ignore_errors=True)
+
+
+def phase_dryrun(ctx) -> None:
+    """``launch.dryrun.check_pair`` on the card: the dry-run's prediction
+    (a trace on the ``meta`` device in a fake group at world size 1)
+    beside the same step run for real over NCCL at world size 1 on the
+    (1, 1) mesh, as train_dist runs it: gemma-2b's train_dist step
+    (full width, DRYRUN_LAYERS layers, seq 1024, batch 8 in 4
+    micro-batches, bf16, with remat) and one decode step of qwen3-4b
+    (full width, DRYRUN_LAYERS layers, 8 lanes of capacity 1024).  FLOPs,
+    HBM bytes, collectives, kernel calls and the kernels' launches must be
+    equal; the predicted peak above the arguments is printed beside
+    ``max_memory_allocated`` above what was allocated before the step
+    (gap in %), the step beside the roofline's max(compute, memory).
+    Then one production pair (gemma-2b x decode_32k at 16x16) through
+    the CLI in a child process on the host."""
+    from repro_torch.configs import SHAPES, ShapeConfig, get_arch
+    from repro_torch.launch.dryrun import check_pair
+
+    train_cfg = dataclasses.replace(get_arch("gemma-2b"),
+                                    n_layers=DRYRUN_LAYERS)
+    decode_cfg = dataclasses.replace(get_arch("qwen3-4b"),
+                                     n_layers=DRYRUN_LAYERS)
+    pairs = [
+        (train_cfg, ShapeConfig("train_dist", DIST["seq"], DIST["batch"],
+                                "train"), DIST["n_micro"]),
+        (decode_cfg, ShapeConfig("decode_8x1024", DRYRUN_DECODE["capacity"],
+                                 DRYRUN_DECODE["lanes"], "decode"), None)]
+    emit({"phase": "dryrun", "pairs": [
+        {"arch": c.name, "n_layers": c.n_layers, "shape": dataclasses.astuple(
+            sh), "n_micro": n} for c, sh, n in pairs],
+        "reduced": {"n_layers": {"gemma-2b": [18, DRYRUN_LAYERS],
+                                 "qwen3-4b": [36, DRYRUN_LAYERS]}},
+        "backend": "nccl", "mesh": {"data": 1, "model": 1}})
+    launches = {}
+    for cfg, shape, n_micro in pairs:
+        rec = check_pair(cfg, shape, device="cuda", n_micro=n_micro)
+        pred, meas = rec["predicted"], rec["measured"]
+        peak, gap = rec["peak_above_arguments"], rec.get("peak_gap")
+        line = {"phase": "dryrun", "arch": cfg.name, "kind": shape.kind,
+                "flops": [pred["flops"], meas["flops"]],
+                "hbm_bytes": [pred["hbm_bytes"], meas["hbm_bytes"]],
+                "collectives": [pred["collectives"], meas["collectives"]],
+                "collective_bytes": [pred["collective_bytes"],
+                                     meas["collective_bytes"]],
+                "kernel_calls": pred["kernel_calls"],
+                "launches": rec["launches"], "equal": rec["equal"],
+                "peak_above_arguments_bytes": [peak["predicted"],
+                                               peak["measured"]],
+                "peak_gap_pct": None if gap is None else 100.0 * gap,
+                "peak_within_limit": None if gap is None
+                else abs(gap) <= DRYRUN_PEAK_GAP,
+                "step_s": rec["step_s"], "roofline_s": rec["roofline_s"],
+                "step_over_roofline": rec["step_s"] / rec["roofline_s"],
+                "roofline": rec["roofline"], "trace_s": rec["trace_s"],
+                "nvidia_smi": ctx["smi"]}
+        emit(line)
+        if not rec["equal"]:
+            raise AssertionError(f"dryrun {cfg.name} {shape.kind}: the "
+                                 f"prediction is not the run's: {line}")
+        for k, n in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    ctx["phase_launches"]["dryrun"] = launches
+    t0 = time.perf_counter()
+    row = _production_trace(ctx["src"])
+    emit({"phase": "dryrun", "production": {
+        k: row[k] for k in ("arch", "shape", "mesh", "kind", "dp", "tp",
+                            "status", "flops", "hbm_bytes",
+                            "collective_bytes", "trace_s", "fits",
+                            "kernel_calls", "roofline")},
+        "peak_bytes": row["memory"]["peak_bytes"],
+        "child_seconds": time.perf_counter() - t0,
+        "shape": dataclasses.astuple(SHAPES[DRYRUN_PRODUCTION[1]])})
+    emit({"phase": "dryrun", "ok": True, "launches": launches,
+          "peak_gap_limit_pct": 100.0 * DRYRUN_PEAK_GAP})
 
 
 # ---------------------------------------------------------------------------
@@ -4708,6 +4787,7 @@ def main() -> int:
            "train_moe": phase_train_moe, "train_mla": phase_train_mla,
            "train_vlm": phase_train_vlm, "train_audio": phase_train_audio,
            "self_heal": phase_self_heal, "train_dist": phase_train_dist,
+           "dryrun": phase_dryrun,
            "serve": phase_serve, "serve_ssm": phase_serve_ssm,
            "serve_moe": phase_serve_moe, "serve_mla": phase_serve_mla,
            "profile": phase_profile}

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -129,10 +129,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     return (out, lse) if with_lse else out
 
 
+@work.counted("flash_attention", work.flash_attention_call)
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0, q_offset: int = 0,
                         with_lse: bool = False):
-    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    """The kernel for CUDA tensors; the plain version for CPU tensors; for
+    ``meta`` tensors (the dry-run's trace) only the outputs' shapes."""
     opts = dict(causal=causal, window=window, softcap=softcap,
                 q_offset=q_offset)
     if q.is_cuda:
@@ -141,4 +143,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         if with_lse:
             return ref.flash_attention_lse(q, k, v, **opts)
         return ref.flash_attention(q, k, v, **opts)
+    if q.device.type == "meta":
+        B, Sq, H, _ = q.shape
+        out = torch.empty((B, Sq, H, v.shape[3]), dtype=q.dtype,
+                          device="meta")
+        if with_lse:
+            return out, torch.empty((B, Sq, H), dtype=torch.float32,
+                                    device="meta")
+        return out
     raise ValueError(f"flash_attention: no kernel for device {q.device}")

@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 from repro_torch.kernels.flash_attention import (_DTYPE_CODE, _REFUSALS,
                                                  MAX_HEAD_DIM, WGMMA_WIDTHS,
                                                  _aligned16)
@@ -179,14 +179,19 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
+@work.counted("flash_attention_bwd", work.flash_attention_bwd_call)
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0,
                         q_offset: int = 0):
-    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    """The kernel for CUDA tensors; the plain version for CPU tensors; for
+    ``meta`` tensors (the dry-run's trace) only the outputs' shapes."""
     opts = dict(causal=causal, window=window, softcap=softcap,
                 q_offset=q_offset)
     if q.is_cuda:
         return flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    if q.device.type == "meta":
+        return tuple(torch.empty(t.shape, dtype=q.dtype, device="meta")
+                     for t in (q, k, v))
     raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")

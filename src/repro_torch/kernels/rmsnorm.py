@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,10 +81,14 @@ def rmsnorm_cuda(x, scale, *, eps: float = 1e-6) -> torch.Tensor:
     return out
 
 
+@work.counted("rmsnorm", work.rmsnorm_call)
 def rmsnorm_fwd(x, scale, *, eps: float = 1e-6) -> torch.Tensor:
-    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    """The kernel for CUDA tensors; the plain version for CPU tensors; for
+    ``meta`` tensors (the dry-run's trace) only the output's shape."""
     if x.is_cuda:
         return rmsnorm_cuda(x, scale, eps=eps)
     if x.device.type == "cpu":
         return ref.rmsnorm(x, scale, eps=eps)
+    if x.device.type == "meta":
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
     raise ValueError(f"rmsnorm: no kernel for device {x.device}")

@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("direct", "bulk")       # their codes in the C entry
@@ -290,10 +290,15 @@ def rmsnorm_bwd_cuda(x, scale, g, *, eps: float = 1e-6):
     return run_variant(variant(x, g, scale), x, scale, g, eps=eps)
 
 
+@work.counted("rmsnorm_bwd", work.rmsnorm_bwd_call)
 def rmsnorm_bwd(x, scale, g, *, eps: float = 1e-6):
-    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    """The kernel for CUDA tensors; the plain version for CPU tensors; for
+    ``meta`` tensors (the dry-run's trace) only the outputs' shapes."""
     if x.is_cuda:
         return rmsnorm_bwd_cuda(x, scale, g, eps=eps)
     if x.device.type == "cpu":
         return ref.rmsnorm_bwd(x, scale, g, eps=eps)
+    if x.device.type == "meta":
+        return (torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                torch.empty(scale.shape, dtype=scale.dtype, device="meta"))
     raise ValueError(f"rmsnorm_bwd: no kernel for device {x.device}")

@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 
 MAX_CHUNK = 128
 MAX_D_STATE = 256
@@ -89,10 +89,22 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int = 128):
     return y, fin
 
 
+@work.counted("ssd_scan", work.ssd_scan_call)
 def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int = 128):
-    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    """The kernel for CUDA tensors; the plain version for CPU tensors; for
+    ``meta`` tensors (the dry-run's trace) only the outputs' shapes."""
     if x.is_cuda:
         return ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk)
     if x.device.type == "cpu":
-        return ref.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        # in the kernel's layout, so what follows runs the same ops on
+        # every device (the plain version's y is (B, H, S, P) in memory)
+        return tuple(t.contiguous()
+                     for t in ref.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
+    if x.device.type == "meta":
+        B, S, H, P = x.shape
+        N = Bm.shape[3]
+        return (torch.empty((B, S, H, P), dtype=torch.float32,
+                            device="meta"),
+                torch.empty((B, H, P, N), dtype=torch.float32,
+                            device="meta"))
     raise ValueError(f"ssd_scan: no kernel for device {x.device}")

@@ -1,13 +1,14 @@
-"""Shape-and-dtype stand-ins for every model input of a training or prefill
-step (port of the batch half of ``repro/launch/inputs.py``).
+"""Shape-and-dtype stand-ins for every model input (port of
+``repro/launch/inputs.py``).
 
 ``input_specs(cfg, shape, dp)`` returns the batch of a training step
-(stacked micro-batches) or a prefill step as tensors on the ``meta``
-device: they carry shapes and dtypes and allocate nothing.
+(stacked micro-batches) or a prefill step, and ``decode_specs(model, cfg,
+shape)`` the (caches, tokens, pos) of a serve step, as tensors on the
+``meta`` device: they carry shapes and dtypes and allocate nothing.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -55,3 +56,20 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, dp: int) -> Dict:
         return batch_struct(cfg, shape.global_batch // n, shape.seq_len,
                             stacked_micro=n)
     return batch_struct(cfg, shape.global_batch, shape.seq_len)
+
+
+def decode_specs(model, cfg: ArchConfig, shape: ShapeConfig
+                 ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
+    """(caches, tokens, pos) for one serve step of ``shape``: the caches of
+    ``global_batch`` lanes and ``seq_len`` positions in the param dtype
+    from ``model``'s config built on ``meta``, tokens (B,) int32 and a 0-dim
+    int32 position."""
+    from repro_torch.models.model import build_model
+    meta = model if model.device.type == "meta" \
+        else build_model(model.cfg, "meta")
+    caches = meta.init_cache(shape.global_batch, shape.seq_len,
+                             getattr(torch, cfg.param_dtype))
+    tokens = torch.empty((shape.global_batch,), dtype=torch.int32,
+                         device="meta")
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+    return caches, tokens, pos

@@ -212,14 +212,21 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
             x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
         return x
 
-    def forward(params, batch, *, remat: bool = False, groups=None):
+    def forward(params, batch, *, remat: bool = False, groups=None,
+                last_logits_only: bool = False):
         """(logits, extras).  With a mesh's ``groups`` (the sharded
-        step's), each MoE FFN is expert-parallel over them."""
+        step's), each MoE FFN is expert-parallel over them.  With
+        ``last_logits_only`` (serving prefill) only the last position's
+        logits are made, (B, 1, vocab), and extras is ``{"aux"}`` alone (no
+        MTP logits), as in the reference."""
         x = _embed_inputs(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         x, aux = _run_segments(params, x, positions, remat, groups)
         h = layers.norm_apply(params["final_norm"], x, cfg.norm)
+        if last_logits_only:
+            return layers.logits_apply(_head_w(params), h[:, -1:]), \
+                {"aux": aux}
         logits = layers.logits_apply(_head_w(params), h)
         extras = {"aux": aux}
         if cfg.mtp:

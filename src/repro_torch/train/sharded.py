@@ -126,13 +126,16 @@ class _Leaf:
 
 
 def make_sharded_train_step(model, optimizer: AdamW, n_micro: int, mesh, *,
-                            fsdp: bool = False) -> Callable:
+                            fsdp: bool = False,
+                            remat: bool = False) -> Callable:
     """The sharded counterpart of ``make_train_step``: ``step(state, batch)
     -> (state, metrics)`` on a ``shard_train_state`` state over ``mesh``
     (a ``DeviceMesh`` whose last axis is ``model``).  ``batch`` is the
     whole stacked batch, the same on every rank (leaves (n_micro,
     micro_batch, ...)); the metrics are the global micro-batches' means,
-    as the single-process step reports them."""
+    as the single-process step reports them.  ``remat`` recomputes each
+    layer's activations in the backward (``model.loss(..., remat=True)``,
+    as ``train.step.make_train_step`` passes it)."""
     check_world(mesh)
     groups = collectives.MeshGroups(mesh)
     shapes = abstract_train_state(model, optimizer)
@@ -181,7 +184,7 @@ def make_sharded_train_step(model, optimizer: AdamW, n_micro: int, mesh, *,
         local = [p.detach().requires_grad_(True) for p in params]
         with torch.enable_grad():
             loss, metrics = model.loss(tree.unflatten(shapes.params, local),
-                                       mb, groups=groups)
+                                       mb, remat=remat, groups=groups)
             grads = torch.autograd.grad(loss, local, allow_unused=True)
         return grads, global_metrics(metrics)
 

@@ -1,5 +1,6 @@
 """The rank bodies of the port's multi-rank tests
-(``tests/test_torch_sharded_step.py``, ``tests/test_torch_moe_ep.py``).
+(``tests/test_torch_sharded_step.py``, ``tests/test_torch_moe_ep.py``,
+``tests/test_torch_dryrun.py``).
 Holds no tests of its own and imports no JAX: ``launch.sharded.spawn``
 starts each rank in a new process, which imports this module by name.
 
@@ -119,3 +120,25 @@ def moe_ep(rank, world, store_path, model_size, job_dir):
     if rank == 0:
         torch.save(out, job_dir / f"moe_{mesh_name(g.n_data, g.n_model)}"
                                   f".out")
+
+
+def dryrun_counts(rank, world, store_path, model_size, job_dir, archs,
+                  shape, n_micro):
+    """Each arch's (reduced) train step of ``launch.dryrun.build_pair`` run
+    for real on CPU tensors over a (world // model_size, model_size) mesh
+    under a ``WorkCounter``; rank 0 saves each one's counts as
+    ``dryrun_{arch}.out``."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import build_pair, count_step
+    init_rank(rank, world, store_path, "cpu")
+    mesh = make_host_mesh(model_size)
+    for arch in archs:
+        step, args, _ = build_pair(reduced(arch), ShapeConfig(*shape), mesh,
+                                   n_micro=n_micro, device="cpu")
+        counter, _ = count_step(step, args, mesh)
+        if rank == 0:
+            torch.save({"flops": counter.flops,
+                        "hbm_bytes": counter.hbm_bytes,
+                        "collectives": counter.collectives,
+                        "kernel_calls": dict(counter.kernel_calls)},
+                       Path(job_dir) / f"dryrun_{arch}.out")

@@ -12,6 +12,8 @@ as tests/test_kernels.py's ``test_rmsnorm_grad``, in float32.  The CUDA
 kernel is held against the plain version by the ``gpu`` test below and
 by ``chip_smoke.py``.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -111,8 +113,14 @@ def test_wrapper_routes_by_device_and_has_no_other_path():
     dx, ds = trb.rmsnorm_bwd(x, s, torch.ones(2, 8))
     assert dx.shape == x.shape and ds.shape == s.shape
     assert trb.LAUNCHES.count == before            # the plain version
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        trb.rmsnorm_bwd(x.to("meta"), s.to("meta"), x.to("meta"))
+    # meta tensors (the dry-run's trace): the outputs' shapes, no launch
+    mdx, mds = trb.rmsnorm_bwd(x.to("meta"), s.to("meta"), x.to("meta"))
+    assert (mdx.device.type, mdx.shape, mds.shape) == ("meta", x.shape,
+                                                       s.shape)
+    assert trb.LAUNCHES.count == before
+    other = types.SimpleNamespace(is_cuda=False, device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        trb.rmsnorm_bwd(other, s, other)
 
 
 def test_cuda_wrapper_raises_on_cpu_tensors_and_does_not_fall_back():
