@@ -23,7 +23,9 @@ Phases, each printing one JSON line:
                     over two calls, beside SDPA's, with gemma-2b's last
                     causal q tile alone and B = 8, and hubert's heads at D
                     = 64 and 128 beside its 80 (what padding 80 to 128
-                    columns in P V costs)
+                    columns in P V costs); the train_tp phase's local
+                    shapes (qwen3-4b's 16 / 4 heads at tp 2, gemma-2b's
+                    2 / 1 at tp 4) checked on "wgmma"
   kernel:flash_attention_bwd
                     the backward's wgmma kernels' ptxas lines (no spills,
                     no serialised wgmma, each setmaxnreg split at the
@@ -182,8 +184,9 @@ Phases, each printing one JSON line:
                     steps through both kernels
   train_moe         the train phase on granite-moe-3b-a800m at full width
                     (40 experts top-8, capacity factor 1.25; depth cut 32 ->
-                    8): kernels 1 and 2 counted every step, the recovered
-                    gradient, the checkpoint round trips, each step's router
+                    4, 8 until train_tp took its time): kernels 1 and 2
+                    counted every step, the recovered gradient, the
+                    checkpoint round trips, each step's router
                     aux loss and share of assignments dropped, and one
                     micro-batch's gradient computed twice, equal bit for bit
   train_mla         deepseek-v3-671b at full width on one chip's share of
@@ -215,6 +218,25 @@ Phases, each printing one JSON line:
                     launches equal, the peak and the step time printed
                     beside the prediction's; then gemma-2b x decode_32k at
                     16x16 through the dry-run CLI in a child process
+  train_tp          tensor-parallel compute (train/sharded.py over a model
+                    axis): (a) two processes on the one card over gloo
+                    with CUDA tensors, mesh (1, 2): qwen3-4b at full width
+                    (depth cut 36 -> 4), two sharded steps against two
+                    fused steps from the same parameters and batches,
+                    loss and grad-norm within TP_RTOL, the worst
+                    parameter leaf's mean |difference| within
+                    TP_PARAM_MEAN_ATOL, each rank's launches of kernels 1,
+                    1-bwd, 2 and 2-bwd equal to the fused step's, all
+                    "wgmma" / "bulk", kernel 1 at 16 q / 4 KV heads in the
+                    sharded steps, each rank's step time and peak; (b)
+                    rank 0's real share of a (1, 4) layout: gemma-2b's
+                    train_dist step (4 layers, remat) through
+                    launch.dryrun.check_pair in a fake group of 4 (no
+                    data moves; values not checked): FLOPs, bytes,
+                    collectives, kernel calls and launches equal to the
+                    meta prediction, the peak within DRYRUN_PEAK_GAP,
+                    kernel 1 at 2 q / 1 KV heads, the step time beside
+                    the dryrun phase's tp 1 step
   serve             launch.serve on qwen3-4b at full width and full depth:
                     a static batch (8 prompts of 128 tokens, 64 new each)
                     and the continuous batcher (16 requests over 8 lanes,
@@ -265,7 +287,7 @@ Phases, each printing one JSON line:
                     generate()'s
   profile           device time by kernel over one traced steady step of
                     the train and train_moe phases' configurations,
-                    mamba2-780m at 12 of 48 layers and hubert-xlarge at 24
+                    mamba2-780m at 12 of 48 layers and hubert-xlarge at 12
                     of 48 (cut for the script's time), and the idle share
 
 Then a line with the card's name and power limit, a line with every
@@ -276,12 +298,12 @@ segtree and batched churn walks through the port that ``--src`` names:
 run it on two trees in turns to compare them on one card.  Phases
 ``ab_attn``, ``ab_attn_bwd`` and ``ab_rms_bwd`` do the same for kernel 1
 (at deepseek-v3-671b's MLA, gemma-2b's and hubert-xlarge's shapes), for
-its backward (at the first two) and for 2-bwd (at its training shapes).  Phases ``probe_attn`` and
-``probe_rms_bwd`` time configurations of kernel 1's "wgmma" forward and
-of 2-bwd's "bulk" variant (stages, stage bytes, cluster size, blocks an
-SM, the column sums' split), each built from an edited copy of the
-source, in turns with the shipped build (``kernel_rms_bwd`` runs the kernel phase's 2-bwd part
-alone).
+its backward (at the first two) and for 2-bwd (at its training shapes).
+Phases ``probe_attn`` and ``probe_rms_bwd`` time configurations of kernel
+1's "wgmma" forward and of 2-bwd's "bulk" variant (stages, stage bytes,
+cluster size, blocks an SM, the column sums' split), each built from an
+edited copy of the source, in turns with the shipped build
+(``kernel_rms_bwd`` runs the kernel phase's 2-bwd part alone).
 """
 from __future__ import annotations
 
@@ -300,7 +322,8 @@ SRC = ROOT / "src"
 PHASES = ("device", "build", "kernel", "plan", "replay", "control",
           "train", "train_ssm", "train_hybrid", "train_moe", "train_mla",
           "train_vlm", "train_audio", "self_heal", "train_dist",
-          "dryrun", "serve", "serve_ssm", "serve_moe", "serve_mla", "profile")
+          "dryrun", "train_tp", "serve", "serve_ssm", "serve_moe",
+          "serve_mla", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
@@ -409,6 +432,12 @@ HUBERT_ATTN_SHAPE = (2, 1024, 1024, 16, 16, 80, 80, False, 0, 0.0, 0,
 # ahead of 1024 tokens, GQA 16 / 8 at D = 128 ("wgmma")
 INTERNVL_ATTN_SHAPE = (2, 1280, 1280, 16, 8, 128, 128, True, 0, 0.0, 0,
                        "bfloat16")
+# one rank's share of a tensor-parallel layout (train_tp): qwen3-4b's at
+# tp 2 (16 / 4 heads) and gemma-2b's at tp 4 (2 / 1: MQA's KV head whole)
+QWEN3_TP_ATTN_SHAPE = (2, 1024, 1024, 16, 4, 128, 128, True, 0, 0.0, 0,
+                       "bfloat16")
+GEMMA_TP_ATTN_SHAPE = (2, 1024, 1024, 2, 1, 256, 256, True, 0, 0.0, 0,
+                       "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # The attention backward kernel against its plain version: float32 sums
 # over up to 1000 keys and 8 heads of O(1) products, in another order than
@@ -453,6 +482,13 @@ BWD_VARIANT_CASES = [
     ("contiguous", (1, 96, 96, 4, 1, 192, 128, True, 32, 0.0, -20,
                     "bfloat16"), "wgmma"),
     ("contiguous", (1, 160, 160, 8, 1, 256, 256, True, 0, 0.0, 0,
+                    "bfloat16"), "wgmma"),
+    # the tensor-parallel shares: qwen3-4b's 16 / 4 heads at tp 2,
+    # gemma-2b's 2 / 1 at tp 4 (the dk, dv head split narrows from 8 to 2)
+    # and 1 / 1 at tp 16 (no split)
+    ("contiguous", QWEN3_TP_ATTN_SHAPE, "wgmma"),
+    ("contiguous", GEMMA_TP_ATTN_SHAPE, "wgmma"),
+    ("contiguous", (2, 1024, 1024, 1, 1, 256, 256, True, 0, 0.0, 0,
                     "bfloat16"), "wgmma"),
     ("contiguous", (2, 333, 333, 6, 2, 64, 64, True, 0, 0.0, 0,
                     "bfloat16"), "wgmma"),
@@ -774,7 +810,8 @@ def phase_kernel(ctx) -> None:
         [(c, "contiguous", "wgmma") for c in WGMMA_CASES +
          [GEMMA_SHAPE, ZAMBA2_ATTN_SHAPE, QWEN3_ATTN_SHAPE,
           GRANITE_ATTN_SHAPE, INTERNVL_ATTN_SHAPE, MLA_ATTN_SHAPE,
-          MLA_FORWARD_SHAPE, HUBERT_ATTN_SHAPE]] + \
+          MLA_FORWARD_SHAPE, HUBERT_ATTN_SHAPE, QWEN3_TP_ATTN_SHAPE,
+          GEMMA_TP_ATTN_SHAPE]] + \
         [(c, layout, want) for layout, c, want in ATTN_LAYOUT_CASES]
     worst, ran = 0.0, {}
     for case, layout, expect in cases:
@@ -1766,6 +1803,8 @@ RMS_SHAPES = [
     ("deepseek-v3-671b forward kv_norm (strided slice of 576)",
      (8, 128, 512), "bfloat16", 576),
     ("reduced configs (f32)", (2, 1024, 256), "float32"),
+    ("qwen3-4b train q-norm, 16 heads a rank at tp 2", (2, 1024, 16, 128),
+     "bfloat16"),
 ]
 RMS_MAIN = "qwen3-4b decode block norm"        # the kernels line's row
 
@@ -1923,6 +1962,8 @@ RMS_BWD_SHAPES = [
     ("deepseek-v3-671b train kv_norm (strided slice of 576)",
      (2, 1024, 512), "bfloat16", 576),
     ("reduced configs (f32)", (2, 1024, 256), "float32"),
+    ("qwen3-4b train q-norm, 16 heads a rank at tp 2", (2, 1024, 16, 128),
+     "bfloat16"),
 ]
 RMS_BWD_MAIN = "internvl2-2b train block norm"     # the kernels line's row
 
@@ -2978,7 +3019,8 @@ N_LAYERS = 4                    # gemma-2b has 18; the only reduction
 SSM_LAYERS = 16                 # mamba2-780m has 48: cut for the script's time
 HYBRID = dict(steps=2, seq=1024, batch=8, n_micro=4, dp=4)
 HYBRID_LAYERS = 12              # zamba2-1.2b has 38: two shared-block periods
-MOE_LAYERS = 8                  # granite-moe-3b-a800m has 32; the only reduction
+MOE_LAYERS = 4                  # granite-moe-3b-a800m has 32: cut (from 8) for
+                                # the script's time with train_tp
 # The recovered gradient sums the redistributed micro-batches in another
 # order than the fault-free one; f32 accumulators over bf16 gradients of
 # magnitude <= max|g| differ by a few f32 ulps of that magnitude.
@@ -3672,6 +3714,8 @@ def phase_dryrun(ctx) -> None:
                                  f"prediction is not the run's: {line}")
         for k, n in rec["launches"].items():
             launches[k] = launches.get(k, 0) + n
+        if shape.kind == "train":
+            ctx["tp1_step_s"] = rec["step_s"]
     ctx["phase_launches"]["dryrun"] = launches
     t0 = time.perf_counter()
     row = _production_trace(ctx["src"])
@@ -3685,6 +3729,230 @@ def phase_dryrun(ctx) -> None:
         "shape": dataclasses.astuple(SHAPES[DRYRUN_PRODUCTION[1]])})
     emit({"phase": "dryrun", "ok": True, "launches": launches,
           "peak_gap_limit_pct": 100.0 * DRYRUN_PEAK_GAP})
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute (train/sharded.py over a model axis)
+# ---------------------------------------------------------------------------
+
+# (a) qwen3-4b on mesh (1, 2), two gloo ranks sharing the card: 32 / 8 heads
+# of 128 are 16 / 4 a rank, vocab 151936 and d_ff 9728 divide 2, so the
+# step's only collectives are all-reduces (one-rank data axes are skipped)
+TP_GLOO = dict(steps=2, seq=1024, batch=4, n_micro=2)
+TP_GLOO_LAYERS = 4              # qwen3-4b has 36
+TP_GLOO_TIMEOUT = 240.0
+# (a)'s tolerance, the sharded bf16 step against the fused one: each
+# rank's row-parallel partials are rounded to bf16 before the all-reduce
+# (one rounding a sum in one process), and the vocab-parallel logsumexp
+# sums in another order.  Loss and grad-norm within TP_RTOL relative, and
+# the worst parameter leaf's mean |difference| within TP_PARAM_MEAN_ATOL.
+# The worst single element is printed, not held: AdamW moves an element
+# by about lr a step whatever its gradient's size, so a gradient near 0
+# whose sign the rounding flips moves it by 2 lr (the sound runs show such
+# an element at every step), while a wrong gradient moves a leaf's mean.
+# Each limit sits between the sound runs and a mutation (the PARTIAL
+# leaves' gradients left unsummed over the model axis; PERF.md, PR 31).
+# Steps 1 and 2, sound on the card (H100, this phase): loss 2.3e-5 and
+# 2.8e-4, grad-norm 5.3e-6 and 2.9e-4, leaf mean 3.3e-6 and 9.9e-6.  On
+# the CPU at a qwen3-like bf16 shape (d 512, 8 / 1 heads of 64, tp 2),
+# sound: loss 3.0e-5 and 1.2e-4, grad-norm 2.9e-5 and 1.2e-3, leaf mean
+# 3.6e-6 and 1.3e-5; the mutation: grad-norm 2.6e-2 and 2.4e-2, leaf mean
+# 2.9e-4 and 7.2e-4.
+TP_RTOL = 2e-3
+TP_PARAM_MEAN_ATOL = 1e-4
+TP_LR = 1e-3                    # launch.sharded.compare's default
+# (b) gemma-2b's rank-0 share of a (1, 4) layout: 8 / 1 heads are 2 / 1
+TP_SHARE_MODEL = 4
+
+
+def _heads_recorder(counts):
+    """Wraps ``ops.flash_attention_fwd`` to count each CUDA call's (q heads,
+    KV heads) into ``counts``; returns the function that undoes it."""
+    from repro_torch.kernels import ops
+    fwd = ops.flash_attention_fwd
+
+    def recorded(q, k, v, **kw):
+        if q.is_cuda:
+            key = f"{q.shape[2]}/{k.shape[2]}"
+            counts[key] = counts.get(key, 0) + 1
+        return fwd(q, k, v, **kw)
+    ops.flash_attention_fwd = recorded
+    return lambda: setattr(ops, "flash_attention_fwd", fwd)
+
+
+def _tp_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
+    """One rank of train_tp (a), in a process of its own: gloo on the card,
+    mesh (1, world) of device type cuda; ``launch.sharded.compare`` of
+    TP_GLOO's sharded and fused steps; writes its records, the kernel-1
+    head counts and the launches by variant as ``rank{rank}.json``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import rmsnorm_bwd as rb
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharded import compare, init_rank
+    init_rank(rank, world, store_path, "cuda", backend="gloo")
+    cfg = dataclasses.replace(get_arch("qwen3-4b"), n_layers=TP_GLOO_LAYERS)
+    heads = {}
+    undo = _heads_recorder(heads)
+    attention_variants_reset()
+    try:
+        recs = compare(cfg, make_host_mesh(world, device_type="cuda"),
+                       lr=TP_LR, **TP_GLOO)
+    finally:
+        undo()
+    by = {name: {k: c.count for k, c in counters.items()} for name, counters
+          in (("flash_attention", fa.LAUNCHES_BY_VARIANT),
+              ("flash_attention_bwd", fb.LAUNCHES_BY_VARIANT),
+              ("rmsnorm_bwd", rb.LAUNCHES_BY_VARIANT))}
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "cuda_device": torch.cuda.current_device(),
+        "backend": torch.distributed.get_backend(), "records": recs,
+        "heads": heads, "by_variant": by}))
+
+
+def _tp_gloo(ctx) -> dict:
+    """train_tp (a): two ranks on the card over gloo (``_tp_rank``),
+    checked; returns the two ranks' launches of the sharded steps."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.sharded import spawn
+    cfg = dataclasses.replace(get_arch("qwen3-4b"), n_layers=TP_GLOO_LAYERS)
+    emit({"phase": "train_tp", "part": "gloo", **_model_fields(cfg),
+          "reduced": {"n_layers": [36, TP_GLOO_LAYERS]}, **TP_GLOO,
+          "lr": TP_LR, "mesh": {"data": 1, "model": 2},
+          "backend": "gloo", "ranks_on_one_card": 2,
+          "tolerance": {"loss_grad_norm_rtol": TP_RTOL,
+                        "param_leaf_mean_atol": TP_PARAM_MEAN_ATOL}})
+    torch.cuda.empty_cache()
+    out_dir = Path(tempfile.mkdtemp(prefix="train_tp_"))
+    t0 = time.perf_counter()
+    try:
+        spawn(_tp_rank, 2, str(out_dir), store_dir=str(out_dir),
+              timeout=TP_GLOO_TIMEOUT)
+        ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    per_step = {k: n * TP_GLOO["n_micro"]
+                for k, n in launches_per_pass(cfg).items()}
+    n_attn = TP_GLOO_LAYERS * TP_GLOO["n_micro"] * TP_GLOO["steps"]
+    launches = dict.fromkeys(per_step, 0)
+    for rk in ranks:
+        for r in rk["records"]:
+            f, sh = r["fused"], r["sharded"]
+            emit({"phase": "train_tp", "part": "gloo", "rank": rk["rank"],
+                  **r, "nvidia_smi": ctx["smi"]})
+            for name in ("fused", "sharded"):
+                if r[name]["launches"] != per_step:
+                    raise AssertionError(
+                        f"train_tp rank {rk['rank']} step {r['step']}: "
+                        f"{name} launches {r[name]['launches']}, expected "
+                        f"{per_step}")
+            for k in launches:
+                launches[k] += sh["launches"][k]
+            d = r["max_abs_diff"]
+            leaf_mean = r["params_worst_leaf_mean_abs_diff"]
+            if not (d["loss"] <= TP_RTOL * abs(f["loss"])
+                    and d["grad_norm"] <= TP_RTOL * abs(f["grad_norm"])
+                    and leaf_mean <= TP_PARAM_MEAN_ATOL):
+                raise AssertionError(f"train_tp rank {rk['rank']} step "
+                                     f"{r['step']}: sharded off fused by "
+                                     f"{d}, worst leaf mean {leaf_mean}")
+        if rk["heads"] != {"32/8": n_attn, "16/4": n_attn}:
+            raise AssertionError(f"train_tp rank {rk['rank']}: kernel-1 "
+                                 f"heads {rk['heads']}, expected {n_attn} "
+                                 f"at 32/8 (fused) and at 16/4 (sharded)")
+        for name, want in (("flash_attention", "wgmma"),
+                           ("flash_attention_bwd", "wgmma"),
+                           ("rmsnorm_bwd", "bulk")):
+            by = rk["by_variant"][name]
+            total = 2 * TP_GLOO["steps"] * per_step[name]
+            if by[want] != total or sum(by.values()) != total:
+                raise AssertionError(f"train_tp rank {rk['rank']}: {name} "
+                                     f"by variant {by}, expected {total} "
+                                     f"{want}")
+    emit({"phase": "train_tp", "part": "gloo", "ok": True, "seconds": secs,
+          "backend": [rk["backend"] for rk in ranks],
+          "cuda_device": [rk["cuda_device"] for rk in ranks],
+          "kernel1_heads": [rk["heads"] for rk in ranks],
+          "by_variant": [rk["by_variant"] for rk in ranks],
+          "max_abs_diff": [[r["max_abs_diff"] for r in rk["records"]]
+                           for rk in ranks],
+          "relative_diff": [[{k: r["max_abs_diff"][k] / abs(r["fused"][k])
+                              for k in ("loss", "grad_norm")}
+                             for r in rk["records"]] for rk in ranks],
+          "params_worst_leaf_mean_abs_diff": [
+              [r["params_worst_leaf_mean_abs_diff"] for r in rk["records"]]
+              for rk in ranks],
+          "steady_step_s": {n: [[r[n]["seconds"] for r in rk["records"][1:]]
+                                for rk in ranks]
+                            for n in ("fused", "sharded")},
+          "peak_mem_gb": {n: [max(r[n]["peak_mem_gb"] for r in rk["records"])
+                              for rk in ranks] for n in ("fused", "sharded")},
+          "nvidia_smi": ctx["smi"]})
+    return launches
+
+
+def _tp_share(ctx) -> dict:
+    """train_tp (b): ``check_pair`` of gemma-2b's train_dist step on the
+    (1, TP_SHARE_MODEL) layout; returns its counted run's launches."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.dryrun import check_pair
+    from repro_torch.sharding.rules import Layout
+    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=DRYRUN_LAYERS)
+    shape = ShapeConfig("train_dist", DIST["seq"], DIST["batch"], "train")
+    layout = Layout(("data", "model"), (1, TP_SHARE_MODEL))
+    heads = {}
+    undo = _heads_recorder(heads)
+    try:
+        rec = check_pair(cfg, shape, device="cuda", n_micro=DIST["n_micro"],
+                         layout=layout)
+    finally:
+        undo()
+    pred, meas = rec["predicted"], rec["measured"]
+    gap = rec.get("peak_gap")
+    line = {"phase": "train_tp", "part": "share", "arch": cfg.name,
+            "n_layers": cfg.n_layers, "shape": dataclasses.astuple(shape),
+            "n_micro": DIST["n_micro"], "layout": rec["layout"],
+            "tp_compute": rec["tp_compute"],
+            "flops": [pred["flops"], meas["flops"]],
+            "hbm_bytes": [pred["hbm_bytes"], meas["hbm_bytes"]],
+            "collectives": [pred["collectives"], meas["collectives"]],
+            "kernel_calls": pred["kernel_calls"], "launches":
+                rec["launches"], "equal": rec["equal"],
+            "kernel1_heads": heads,
+            "peak_above_arguments_bytes": [
+                rec["peak_above_arguments"]["predicted"],
+                rec["peak_above_arguments"]["measured"]],
+            "peak_gap_pct": None if gap is None else 100.0 * gap,
+            "step_s": rec["step_s"], "tp1_step_s": ctx.get("tp1_step_s"),
+            "roofline_s": rec["roofline_s"], "trace_s": rec["trace_s"],
+            "nvidia_smi": ctx["smi"]}
+    emit(line)
+    if not (rec["equal"] and rec["tp_compute"]):
+        raise AssertionError(f"train_tp share: the prediction is not the "
+                             f"run's, or the step is not split: {line}")
+    if gap is None or abs(gap) > DRYRUN_PEAK_GAP:
+        raise AssertionError(f"train_tp share: peak gap {gap}")
+    if set(heads) != {"2/1"}:
+        raise AssertionError(f"train_tp share: kernel-1 heads {heads}, "
+                             f"expected 2/1 only")
+    return rec["launches"]
+
+
+def phase_train_tp(ctx) -> None:
+    """Tensor-parallel compute on the card: ``_tp_gloo`` (a), then
+    ``_tp_share`` (b).  The phase's launches are the sharded steps' of
+    both ranks and the share's counted run."""
+    launches = _tp_gloo(ctx)
+    for k, n in _tp_share(ctx).items():
+        launches[k] = launches.get(k, 0) + n
+    ctx["phase_launches"]["train_tp"] = launches
+    emit({"phase": "train_tp", "ok": True, "launches": launches})
 
 
 # ---------------------------------------------------------------------------
@@ -4407,10 +4675,10 @@ def profile_step(cfg) -> dict:
 
 # the profile phase's depths of mamba2-780m and hubert-xlarge, cut from the
 # train phases' 24 and 48 to keep the script within half its time limit
-# with the train_dist phase (every layer of either model is alike, so the
-# trace shows the same kernels a layer)
+# with the train_dist and train_tp phases (every layer of either model is
+# alike, so the trace shows the same kernels a layer)
 PROFILE_SSM_LAYERS = 12
-PROFILE_AUDIO_LAYERS = 24
+PROFILE_AUDIO_LAYERS = 12
 
 
 def phase_profile(ctx) -> None:
@@ -4787,7 +5055,7 @@ def main() -> int:
            "train_moe": phase_train_moe, "train_mla": phase_train_mla,
            "train_vlm": phase_train_vlm, "train_audio": phase_train_audio,
            "self_heal": phase_self_heal, "train_dist": phase_train_dist,
-           "dryrun": phase_dryrun,
+           "dryrun": phase_dryrun, "train_tp": phase_train_tp,
            "serve": phase_serve, "serve_ssm": phase_serve_ssm,
            "serve_moe": phase_serve_moe, "serve_mla": phase_serve_mla,
            "profile": phase_profile}

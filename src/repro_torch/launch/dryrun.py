@@ -12,24 +12,35 @@ port.
 
 * **train** pairs run ``make_sharded_train_step(..., fsdp=..., remat=True)``
   on ``shard_train_state(abstract_train_state(...))`` over ``input_specs``;
-* **prefill** pairs ``forward(..., last_logits_only=True)`` and the argmax
-  over the rank's data rows;
+* **prefill** pairs ``forward(..., groups=..., last_logits_only=True)`` on
+  the rank's compute shards (``train.sharded.compute_params``) and the
+  argmax over the rank's data rows;
 * **decode** pairs ``decode_step`` and the argmax on ``decode_specs`` of the
-  rank's lanes.
+  rank's lanes, with whole parameters on each rank.
 
-The port has no tensor-parallel compute (``train/sharded.py``): the model
-ranks compute every layer but the experts alike, so a rank's FLOPs are
-about ``tp`` times the reference's per-device count, and prefill and
-decode hold whole parameters on each rank.  Every row says so
-(``"tp_compute": false``), and a pair whose peak exceeds ``HBM_BYTES``
-is flagged ``"fits": false``, not skipped.
+Train and prefill pairs are tensor-parallel over the model axis as the
+sharded step is (``train/sharded.py``): attention and MLPs split by heads
+and d_ff, the embedding, head and cross-entropy by the vocabulary, the
+experts by blocks.  A row says ``"tp_compute": true`` where every
+attention, MLP, Mamba2 and MoE leaf of the pair's parameters has a split
+use (``train.sharded.compute_uses``, which the step and the prefill hand
+the forward its shards by) or the fallback its rule names (KV heads held
+whole); a vocabulary that does not divide is the embedding's and head's
+fallback.  Else ``"tp_whole"`` lists the modules a rank computes whole
+(``whole_compute``): attention whose query heads do not divide the axis,
+an MLP whose d_ff does not, MLA and Mamba2 layers, shared experts,
+experts that do not divide, and decode (tensor-parallel decode is not
+ported).  A pair whose
+peak exceeds ``HBM_BYTES`` is flagged ``"fits": false``, not skipped.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b \\
         --shape train_4k [--multi-pod | --mesh DxM] [--variant fsdp] \\
         [--json out.jsonl]
 
 ``check_pair`` holds the prediction against the same step run for real on
-the card (or, for the tests, the CPU) at world size 1.
+the card (or, for the tests, the CPU): at world size 1, or as rank 0 of a
+fake group of the layout's world (counts and peak; a fake group moves no
+data, so values are not compared).
 """
 from __future__ import annotations
 
@@ -53,16 +64,17 @@ from repro_torch.launch.inputs import (batch_struct, decode_specs,
 from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, IB_BW, NVLINK_BW,
                                      PEAK_FLOPS_BF16, _mesh,
                                      production_layout)
-from repro_torch.sharding.rules import Layout, data_axes_of
+from repro_torch.sharding.rules import (WHOLE, Layout, data_axes_of,
+                                        experts_split)
 
 # variant tokens of the reference that are the port's only path: recorded
 NATIVE = ("baseline", "", "flash", "fusednorm", "moe3d", "moesm")
 NOT_RUN = {
     "seqpar": "sequence-parallel TP shards the residual stream over the "
-              "model axis; the port has no tensor-parallel compute",
+              "model axis; the port's tensor-parallel compute keeps it "
+              "whole on every model rank",
     "cachemodel": "decode caches sharded over the model axis need "
-                  "tensor-parallel decode; the port has no tensor-parallel "
-                  "compute",
+                  "tensor-parallel decode, which the port does not have",
 }
 
 
@@ -167,6 +179,29 @@ def _rows(batch: int, dp: int) -> int:
     return batch // dp if batch % dp == 0 and batch > 1 else batch
 
 
+# the modules whose matmuls the model axis splits where the rules let it;
+# the MoE router is computed whole on every rank (the reference's too)
+_TP_MODULES = {"attn", "mlp", "mamba", "moe"}
+
+
+def whole_compute(uses, kind: str, tp: int) -> list:
+    """What a rank of a ``tp``-wide model axis computes whole, alike on
+    every model rank, in a ``kind`` step: sorted, the modules of
+    attention, MLP, Mamba2 and MoE leaves whose ``uses``
+    (``train.sharded.compute_uses`` of the step's parameters) are
+    ``WHOLE``; empty where the step is tensor-parallel.  The rules' own
+    fallbacks are not listed: KV heads held whole (``PARTIAL``, each rank
+    reads its query heads' KV heads) and a vocabulary that does not divide
+    the axis."""
+    if tp == 1:
+        return ["a model axis of 1"]
+    if kind == "decode":
+        return ["decode (tensor-parallel decode is not ported)"]
+    return sorted({"/".join(names[:-1]) for names, use, _ in uses
+                   if use == WHOLE and names[-1] != "router"
+                   and _TP_MODULES.intersection(names[:-1])})
+
+
 def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                fsdp: bool = False, n_micro: int = None,
                device="meta", seed: int = 0) -> Tuple[Callable, tuple, dict]:
@@ -181,6 +216,9 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     from repro_torch.train.state import (abstract_train_state,
                                          init_train_state)
 
+    from repro_torch.sharding.collectives import MeshGroups
+    from repro_torch.train.sharded import compute_params, compute_uses
+
     device = torch.device(device)
     real = device.type != "meta"
     _, dp = data_axes_of(mesh)
@@ -191,6 +229,8 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         opt = AdamW(lr=constant(3e-4))
         state = init_train_state(model, opt, seed) if real \
             else abstract_train_state(model, opt)
+        meta["tp_whole"] = whole_compute(
+            compute_uses(state.params, cfg, tp), shape.kind, tp)
         state = shard_train_state(state, mesh, fsdp=fsdp)
         n = n_micro or n_micro_for(shape, dp)
         specs = batch_struct(cfg, shape.global_batch // n, shape.seq_len,
@@ -201,14 +241,20 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                                        remat=True)
         return step, (state, batch), meta
     params = model.init(seed)
+    meta["tp_whole"] = whole_compute(compute_uses(params, cfg, tp),
+                                     shape.kind, tp)
     if shape.kind == "prefill":
         specs = input_specs(cfg, dataclasses.replace(
             shape, global_batch=_rows(shape.global_batch, dp)), dp)
         batch = _real_batch(cfg, specs, device, seed) if real else specs
+        groups = MeshGroups(mesh) if tp > 1 else None
+        if groups is not None:
+            params = compute_params(params, cfg, groups)
 
         @torch.no_grad()
         def prefill_step(params, batch):
-            logits, _ = model.forward(params, batch, last_logits_only=True)
+            logits, _ = model.forward(params, batch, groups=groups,
+                                      last_logits_only=True)
             return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return prefill_step, (params, batch), meta
     lanes = _rows(shape.global_batch, dp)
@@ -285,7 +331,6 @@ def _measured(counter: WorkCounter, memory: dict, trace_s: float) -> dict:
         "kernel_calls": dict(counter.kernel_calls),
         "memory": memory,
         "fits": memory["peak_bytes"] <= HBM_BYTES,
-        "tp_compute": False,
         "roofline": roofline_terms(counter.flops, counter.hbm_bytes,
                                    counter.link_bytes),
     }
@@ -301,8 +346,8 @@ def trace_pair(cfg: ArchConfig, shape: ShapeConfig, layout: Layout, *,
     step, args, meta = build_pair(cfg, shape, mesh, fsdp=fsdp,
                                   n_micro=n_micro, device="meta")
     counter, memory = count_step(step, args, mesh)
-    return {**meta, **_measured(counter, memory,
-                                time.perf_counter() - t0)}
+    return {**meta, **_measured(counter, memory, time.perf_counter() - t0),
+            "tp_compute": not meta["tp_whole"]}
 
 
 def pair_fields(arch: str, shape_name: str, *, multi_pod: bool = False,
@@ -311,8 +356,8 @@ def pair_fields(arch: str, shape_name: str, *, multi_pod: bool = False,
     a pair ``supports_shape`` refuses; else the pair, its layout's ``dp``
     and ``tp`` (and ``n_micro``), the parameter counts and
     ``model_flops``, with status ``not_run`` and its reason where the pair
-    needs what the port lacks (tensor-parallel compute, or a train pair's
-    experts that do not divide the model axis)."""
+    needs what the port lacks (a variant, or a train pair's experts that
+    do not divide the model axis)."""
     cfg = get_arch(arch)
     shape = SHAPES[shape_name]
     mesh_name, layout = mesh_layout(multi_pod, mesh)
@@ -330,12 +375,14 @@ def pair_fields(arch: str, shape_name: str, *, multi_pod: bool = False,
     moe = var.cfg.moe
     if var.not_run:
         row.update(status="not_run", reason=var.not_run)
-    elif shape.kind == "train" and moe is not None and moe.n_experts % tp:
+    elif shape.kind == "train" and moe is not None \
+            and not experts_split(var.cfg, tp):
         row.update(status="not_run", reason=(
             f"{moe.n_experts} experts do not divide the model axis of {tp}:"
-            f" the port's expert parallelism needs whole experts on each "
-            f"model rank (the reference splits each expert's FFN over it); "
-            f"variant ep48 pads to 48 experts"))
+            f" the port's expert parallelism holds whole experts on each "
+            f"model rank, and splitting each expert's FFN over the axis, as"
+            f" the reference does, is not ported; variant ep48 pads to 48 "
+            f"experts"))
     row.update(param_count=var.cfg.param_count(),
                active_param_count=var.cfg.active_param_count(),
                model_flops=model_flops(var.cfg, shape))
@@ -374,13 +421,17 @@ def _sync(device) -> None:
 
 
 def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
-               n_micro: int = None, seed: int = 0) -> dict:
-    """The dry-run's prediction for ``(cfg, shape)`` at world size 1 on the
-    (1, 1) mesh, beside the same step run for real on ``device`` (CUDA by
-    default; raises without it).  The trace runs on ``meta`` in a fake
-    group; the real step in an NCCL group (gloo on the CPU) from random
-    inputs of the same shapes: once to warm up, once under the same
-    counter, once timed with nothing around it.  Returns both sides'
+               n_micro: int = None, seed: int = 0,
+               layout: Layout = None) -> dict:
+    """The dry-run's prediction for ``(cfg, shape)`` on ``layout`` (default
+    the (1, 1) mesh, world size 1), beside the same step run for real on
+    ``device`` (CUDA by default; raises without it).  The trace runs on
+    ``meta`` in a fake group; the real step, from random inputs of the
+    same shapes, in an NCCL group (gloo on the CPU) at world size 1, else
+    as rank 0 of a fake group of the layout's world, whose collectives
+    move no data (its values mean nothing; its counts, launches, peak and
+    time are rank 0's): once to warm up, once under the same counter, once
+    timed with nothing around it.  Returns both sides'
     FLOPs, HBM bytes, collectives and kernel calls (to be equal), the
     kernels' launches in the counted run (to equal the calls), the
     predicted peak above the arguments beside ``max_memory_allocated``
@@ -388,12 +439,14 @@ def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
     step beside ``max(compute_s, memory_s)``."""
     from repro_torch.launch.train import launch_counts
     device = resolve_device(device)
-    layout = Layout(("data", "model"), (1, 1))
-    with process_group("fake", 1):
+    layout = layout or Layout(("data", "model"), (1, 1))
+    world = world_of(layout)
+    with process_group("fake", world):
         pred = trace_pair(cfg, shape, layout, n_micro=n_micro)
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    with process_group(backend, 1):
-        mesh = _mesh(layout)
+    backend = "fake" if world > 1 \
+        else "nccl" if device.type == "cuda" else "gloo"
+    with process_group(backend, world):
+        mesh = _mesh(layout, device.type)
         step, args, _ = build_pair(cfg, shape, mesh, n_micro=n_micro,
                                    device=device, seed=seed)
         step(*args)                                      # warm-up
@@ -418,7 +471,8 @@ def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
     bound_s = max(pred["roofline"]["compute_s"], pred["roofline"]["memory_s"])
     out = {
         "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
-        "n_micro": pred.get("n_micro"),
+        "layout": dict(zip(layout.axis_names, layout.sizes)),
+        "n_micro": pred.get("n_micro"), "tp_compute": pred["tp_compute"],
         "predicted": {k: pred[k] for k in ("flops", "hbm_bytes",
                                            "collective_bytes", "collectives",
                                            "kernel_calls")},

@@ -3,7 +3,10 @@
 
 Functions, not module constants: importing this module touches no process
 group.  ``make_host_mesh`` lays the world out as ``(world // model,
-model)`` named ``("data", "model")``; ``make_production_mesh`` builds the
+model)`` named ``("data", "model")`` (with ``pods``, ``(pods, world //
+(pods * model), model)`` named ``("pod", "data", "model")``), on the
+backend's device type unless ``device_type`` names one (``"cuda"`` over
+gloo: several ranks on one card); ``make_production_mesh`` builds the
 reference's production layout, one pod of 16 x 16 ranks or two pods (a
 leading ``pod`` axis), and raises unless the world has that many ranks.
 Both raise when no process group is initialised: there is no
@@ -42,11 +45,12 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def _mesh(layout: Layout):
-    """The mesh on the backend's device type: ``cuda`` for NCCL, else
-    ``cpu``."""
+def _mesh(layout: Layout, device_type: str = None):
+    """The mesh on ``device_type``, by default the backend's: ``cuda`` for
+    NCCL, else ``cpu``."""
     from torch.distributed.device_mesh import init_device_mesh
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, layout.sizes,
                             mesh_dim_names=layout.axis_names)
 
@@ -63,10 +67,16 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _mesh(layout)
 
 
-def make_host_mesh(model: int = 1):
-    """``(world // model, model)`` over the initialised world."""
+def make_host_mesh(model: int = 1, *, pods: int = 1,
+                   device_type: str = None):
+    """``(world // model, model)`` over the initialised world; with ``pods``
+    > 1, ``(pods, world // (pods * model), model)`` with a leading ``pod``
+    axis.  On ``device_type`` (``_mesh``)."""
     world = _world()
-    if model < 1 or world % model:
-        raise ValueError(f"model={model} does not divide the world of "
-                         f"{world} ranks")
-    return _mesh(Layout(("data", "model"), (world // model, model)))
+    if model < 1 or pods < 1 or world % (model * pods):
+        raise ValueError(f"model={model} x pods={pods} does not divide the "
+                         f"world of {world} ranks")
+    data = world // (model * pods)
+    layout = Layout(("data", "model"), (data, model)) if pods == 1 \
+        else Layout(("pod", "data", "model"), (pods, data, model))
+    return _mesh(layout, device_type)

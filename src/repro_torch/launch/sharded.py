@@ -4,12 +4,14 @@ batches.
 
 One process per rank on one host; the ranks meet through a ``FileStore``
 (no TCP port).  On the CPU the backend is gloo, on GPUs NCCL with one rank
-per GPU:
+per GPU, or gloo with several ranks on one card (``--backend gloo``):
 
     PYTHONPATH=src python -m repro_torch.launch.sharded --arch gemma-2b \\
         --reduced --device cpu --world 4 --model 2
     PYTHONPATH=src python -m repro_torch.launch.sharded \\
         --arch granite-moe-3b-a800m --reduced --device cpu --world 2
+    PYTHONPATH=src python -m repro_torch.launch.sharded --arch qwen3-4b \\
+        --reduced --world 2 --model 2 --backend gloo
 
 Rank 0 prints each step's loss and gradient norm from both steps and the
 largest difference of the loss, the norm and every parameter leaf.
@@ -39,13 +41,18 @@ from repro_torch.train.state import init_train_state
 from repro_torch.train.step import make_train_step
 
 
-def init_rank(rank: int, world: int, store_path: str, device: str) -> None:
+def init_rank(rank: int, world: int, store_path: str, device: str,
+              backend: str = None) -> None:
     """Joins the world of ``world`` ranks meeting at ``store_path``: gloo
-    for ``cpu``, NCCL on GPU ``rank`` for ``cuda``."""
+    for ``cpu``, NCCL on GPU ``rank`` for ``cuda``.  ``backend="gloo"``
+    with ``cuda`` puts rank r on GPU r modulo the GPUs there are, so
+    several ranks can share one card (NCCL refuses two ranks on one GPU);
+    its mesh is ``make_host_mesh(..., device_type="cuda")``."""
+    backend = backend or ("nccl" if device == "cuda" else "gloo")
     if device == "cuda":
-        torch.cuda.set_device(rank)
-    dist.init_process_group("nccl" if device == "cuda" else "gloo",
-                            store=dist.FileStore(store_path, world),
+        torch.cuda.set_device(rank if backend == "nccl"
+                              else rank % torch.cuda.device_count())
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
 
 
@@ -101,9 +108,29 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _max_diff(a: List[torch.Tensor], b: List[torch.Tensor]) -> float:
-    return max((x.float() - y.float()).abs().max().item()
-               for x, y in zip(a, b))
+def _param_diff(sharded, whole) -> tuple:
+    """(largest |difference|, the worst leaf's mean |difference|, bitwise
+    equal) of the parameter DTensors ``sharded`` and the whole tensors
+    ``whole`` (the same on every rank), over every element: each rank
+    holds its shards against the same cut of ``whole`` (a
+    Replicate-to-Shard redistribute cuts locally), a leaf's mean is over
+    the rank's shard of it, and the ranks' results are all-reduced by max.
+    No all-gather runs: gloo refuses DTensor's on CUDA tensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+    worst = torch.zeros(3, dtype=torch.float32, device=whole[0].device)
+    for p, w in zip(sharded, whole):
+        mesh = p.device_mesh
+        want = DTensor.from_local(w, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False).redistribute(
+            mesh, p.placements).to_local()
+        got = p.to_local()
+        d = (got.float() - want.float()).abs()
+        worst[0] = torch.maximum(worst[0], d.max())
+        worst[1] = torch.maximum(worst[1], d.mean())
+        if not torch.equal(got, want):
+            worst[2] = 1.0
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    return float(worst[0]), float(worst[1]), not bool(worst[2])
 
 
 def compare(cfg, mesh, *, steps: int = 2, seq: int = 32, batch: int = 8,
@@ -111,65 +138,72 @@ def compare(cfg, mesh, *, steps: int = 2, seq: int = 32, batch: int = 8,
             fsdp: bool = False) -> List[Dict]:
     """``steps`` sharded steps over ``mesh`` and as many fused steps of one
     process, from the same parameters (seed ``seed``) and batches, on the
-    mesh's device type (``cuda`` for NCCL, ``cpu`` for gloo).  Returns
-    one record a step: each step's metrics, seconds, tokens/s, kernel
-    launches and (CUDA) peak GB, and the largest |difference| of the loss,
-    the gradient norm and every parameter leaf (sharded gathered)."""
+    mesh's device type (``cuda`` for NCCL or for gloo on a ``cuda`` mesh,
+    ``cpu`` for gloo).  The fused steps run first, each step's parameters
+    kept, and their state is freed before the start is made again and
+    sharded, so the two states never share the device.  Returns one record
+    a step: each step's metrics, seconds, tokens/s, kernel launches and
+    (CUDA) peak GB, the largest |difference| of the loss, the gradient
+    norm and every parameter leaf, and the worst leaf's mean |difference|
+    (``_param_diff``)."""
     device = mesh.device_type
     model = build_model(cfg, device)
     opt = AdamW(lr=cosine_with_warmup(lr, 2, steps))
     fused_state = init_train_state(model, opt, seed)
-    state = shard_train_state(fused_state, mesh, fsdp=fsdp)
-    fused = make_train_step(model, opt, n_micro)
-    sharded = make_sharded_train_step(model, opt, n_micro, mesh, fsdp=fsdp)
     data = SyntheticLM(cfg, seq_len=seq, global_batch=batch, seed=seed,
                        device=str(model.device))
+    batches = [stack_microbatches(data.batch(s), n_micro)
+               for s in range(steps)]
     tokens = batch * (seq + cfg.n_prefix_embeds)
-    out = []
-    for s in range(steps):
-        b = stack_microbatches(data.batch(s), n_micro)
-        rec = {"step": s}
-        for name, fn in (("fused", fused), ("sharded", sharded)):
-            if model.device.type == "cuda":
-                torch.cuda.reset_peak_memory_stats()
-            before = launch_counts()
-            _sync(device)
-            t0 = time.perf_counter()
-            if name == "fused":
-                fused_state, m = fn(fused_state, b)
-            else:
-                state, m = fn(state, b)
-            _sync(device)
-            secs = time.perf_counter() - t0
-            rec[name] = {"loss": float(m["loss"]),
-                         "grad_norm": float(m["grad_norm"]),
-                         "aux": float(m["aux"]), "seconds": secs,
-                         "tokens_per_s": tokens / secs,
-                         "launches": {k: n - before[k] for k, n in
-                                      launch_counts().items()}}
-            if model.device.type == "cuda":
-                rec[name]["peak_mem_gb"] = \
-                    torch.cuda.max_memory_allocated() / 1e9
-        got = [p.full_tensor() for p in tree.leaves(state.params)]
-        want = tree.leaves(fused_state.params)
+
+    def timed(fn, state, b):
+        if model.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, m = fn(state, b)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "aux": float(m["aux"]), "seconds": secs,
+               "tokens_per_s": tokens / secs,
+               "launches": {k: n - before[k]
+                            for k, n in launch_counts().items()}}
+        if model.device.type == "cuda":
+            rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return state, rec
+
+    out = [{"step": s} for s in range(steps)]
+    fused, kept = make_train_step(model, opt, n_micro), []
+    for rec, b in zip(out, batches):
+        fused_state, rec["fused"] = timed(fused, fused_state, b)
+        kept.append([t.clone() for t in tree.leaves(fused_state.params)])
+    del fused_state
+    # the same start again (the init is seeded), sharded
+    state = shard_train_state(init_train_state(model, opt, seed), mesh,
+                              fsdp=fsdp)
+    sharded = make_sharded_train_step(model, opt, n_micro, mesh, fsdp=fsdp)
+    for rec, b, want in zip(out, batches, kept):
+        state, rec["sharded"] = timed(sharded, state, b)
+        diff, leaf_mean, equal = _param_diff(tree.leaves(state.params),
+                                             want)
         rec["max_abs_diff"] = {
             "loss": abs(rec["fused"]["loss"] - rec["sharded"]["loss"]),
             "grad_norm": abs(rec["fused"]["grad_norm"]
                              - rec["sharded"]["grad_norm"]),
-            "params": _max_diff(got, want)}
-        rec["params_bitwise_equal"] = all(
-            torch.equal(x, y) for x, y in zip(got, want))
-        del got
-        out.append(rec)
+            "params": diff}
+        rec["params_worst_leaf_mean_abs_diff"] = leaf_mean
+        rec["params_bitwise_equal"] = equal
     return out
 
 
 def _rank_main(rank, world, store_path, args) -> None:
-    init_rank(rank, world, store_path, args.device)
+    init_rank(rank, world, store_path, args.device, args.backend)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    mesh = make_host_mesh(args.model)
+    mesh = make_host_mesh(args.model, device_type=args.device)
     for rec in compare(cfg, mesh, steps=args.steps, seq=args.seq,
                        batch=args.batch, n_micro=args.n_micro, lr=args.lr,
                        fsdp=args.fsdp):
@@ -196,6 +230,8 @@ def main() -> None:
     ap.add_argument("--n-micro", type=int, default=2)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="default: nccl on cuda, gloo on cpu")
     args = ap.parse_args()
     resolve_device(args.device)
     spawn(_rank_main, args.world, args)

@@ -18,6 +18,7 @@ from repro_torch.configs.base import (BLOCK_ATTN_DENSE, BLOCK_ATTN_MOE,
                                       BLOCK_HYBRID_SHARED, BLOCK_MAMBA,
                                       BLOCK_MLA_DENSE, BLOCK_MLA_MOE)
 from repro_torch.models import layers, mla, moe, ssm
+from repro_torch.sharding import rules
 
 _MAMBA_KINDS = (BLOCK_MAMBA, BLOCK_HYBRID_SHARED)
 _MLA_KINDS = (BLOCK_MLA_DENSE, BLOCK_MLA_MOE)
@@ -69,7 +70,12 @@ def block_apply(p: dict, cfg, kind: str, x: torch.Tensor, positions, *,
                 layer_is_local: bool = False, groups=None):
     """Returns (x, aux): aux the MoE router's loss, ``None`` without MoE.
     With a mesh's ``groups`` (``sharding.collectives.MeshGroups``), an MoE
-    FFN is expert-parallel over them (``moe.moe_apply_ep``)."""
+    FFN whose experts divide the model axis is expert-parallel over them
+    (``moe.moe_apply_ep``), and attention and the MLP are tensor-parallel
+    where the rules split them (``sharding.rules.attention_splits``,
+    ``mlp_splits``; ``p`` then holds this model rank's compute shards,
+    ``layers.attention_apply``, ``layers.mlp_apply``); MLA and Mamba2
+    layers compute whole."""
     if kind in _MAMBA_KINDS:
         h = layers.norm_apply(p["norm"], x, cfg.norm)
         return x + ssm.mamba_apply(p["mamba"], cfg, h), None
@@ -77,9 +83,10 @@ def block_apply(p: dict, cfg, kind: str, x: torch.Tensor, positions, *,
     if kind in _MLA_KINDS:
         x = x + mla.mla_apply(p["attn"], cfg, h, positions)
     else:
-        x = x + layers.attention_apply(p["attn"], cfg, h,
-                                       layer_is_local=layer_is_local,
-                                       positions=positions)
+        split = rules.attention_splits(cfg, _n_model(groups))
+        x = x + layers.attention_apply(
+            p["attn"], cfg, h, layer_is_local=layer_is_local,
+            positions=positions, groups=groups if split else None)
     h = layers.norm_apply(p["norm2"], x, cfg.norm)
     y, aux = _ffn(p, cfg, h, groups)
     return x + y, aux
@@ -89,18 +96,25 @@ def _ffn(p: dict, cfg, h: torch.Tensor, groups=None):
     """The block's feed-forward: (y, aux), the MoE FFN's router loss or
     ``None`` for the dense MLP."""
     if "moe" in p:
-        if groups is not None:
+        if groups is not None and rules.experts_split(cfg, groups.n_model):
             return moe.moe_apply_ep(p["moe"], cfg, h, groups)
         return moe.moe_apply(p["moe"], cfg, h)
-    return layers.mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp), None
+    split = rules.mlp_splits(cfg, _n_model(groups))
+    return layers.mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp,
+                            groups=groups if split else None), None
+
+
+def _n_model(groups) -> int:
+    return 1 if groups is None else groups.n_model
 
 
 def shared_block_apply(p: dict, cfg, x: torch.Tensor, positions, *,
-                       layer_is_local: bool = False) -> torch.Tensor:
+                       layer_is_local: bool = False,
+                       groups=None) -> torch.Tensor:
     """Attention + MLP (``attn_dense``'s body; zamba2's shared block runs it
     with global attention)."""
     return block_apply(p, cfg, BLOCK_ATTN_DENSE, x, positions,
-                       layer_is_local=layer_is_local)[0]
+                       layer_is_local=layer_is_local, groups=groups)[0]
 
 
 # ---------------------------------------------------------------------------

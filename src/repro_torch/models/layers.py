@@ -9,6 +9,16 @@ versions for CPU tensors.  ``ops.RmsNorm`` is the counterpart of the
 reference's ``rmsnorm_fused`` (its analytic custom VJP): its backward is
 that VJP, so every RMSNorm here differentiates as ``rmsnorm_fused`` does.  ``attention_decode`` is the one-token step of
 the serving path, plain PyTorch as in the reference.
+
+Tensor parallelism over a mesh's model axis (Megatron's layout, the
+sharded step's and the dry-run's forward): given the mesh's ``groups``
+(``sharding.collectives.MeshGroups``), ``attention_apply`` and
+``mlp_apply`` take this model rank's shards (column-parallel ``wq``,
+``wk``, ``wv``, ``w_in``, ``w_gate``; row-parallel ``wo``, ``w_out``); the
+input enters through ``copy_to_region`` and the row-parallel product
+leaves through ``reduce_from_region``, one all-reduce over the model axis
+in each direction.  ``embed_apply`` and ``logits_apply`` take this rank's
+rows of the vocabulary.  Without ``groups`` every function computes whole.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import collectives
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -72,12 +83,21 @@ def init_mlp(gen, count: int, d_model: int, d_ff: int, gated: bool, dtype,
     return p
 
 
-def mlp_apply(p: dict, x: torch.Tensor, act: str, gated: bool):
+def mlp_apply(p: dict, x: torch.Tensor, act: str, gated: bool,
+              groups=None):
+    """With a mesh's ``groups``, ``p`` holds this model rank's columns of
+    ``w_in`` / ``w_gate`` and rows of ``w_out``: the rank's part of d_ff,
+    summed over the model axis."""
+    if groups is not None:
+        x = collectives.copy_to_region(x, [groups.model_group])
     h = x @ p["w_in"]
     a = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
     if gated:
         a = a * (x @ p["w_gate"])
-    return a @ p["w_out"]
+    y = a @ p["w_out"]
+    if groups is not None:
+        y = collectives.reduce_from_region(y, [groups.model_group])
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -138,24 +158,67 @@ def init_attention(gen, count: int, cfg, d_model: int, dtype, device) -> dict:
     return p
 
 
+def _kv_of_heads(wk, wv, a, first: int, n: int):
+    """Where the KV heads do not divide the model axis, each rank holds
+    ``wk`` / ``wv`` whole (the reference's KV replication) and projects only
+    the KV heads that its query heads ``first`` .. ``first + n - 1`` read
+    (global head h reads KV head h // G).  Returns those columns of ``wk``
+    and ``wv`` and, where the rank's heads read more than one KV head, the
+    index of each query head's KV head among them (else None)."""
+    hd, G = a.head_dim, a.n_heads // a.n_kv_heads
+    lo, hi = first // G, (first + n - 1) // G
+    cols = slice(lo * hd, (hi + 1) * hd)
+    index = None
+    if hi > lo:
+        index = torch.arange(first, first + n, device=wk.device) // G - lo
+    return wk[..., cols], wv[..., cols], index
+
+
 def attention_apply(p: dict, cfg, x: torch.Tensor, *, layer_is_local: bool,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor, groups=None) -> torch.Tensor:
     """Full-sequence (train / prefill) attention for one layer.
-    x: (B, S, d_model); positions: (S,) absolute positions."""
+    x: (B, S, d_model); positions: (S,) absolute positions.
+
+    With a mesh's ``groups`` (``sharding.rules.attention_splits``), ``p``
+    holds this model rank's block of query heads: its columns of ``wq``,
+    rows of ``wo`` and columns of ``wk`` / ``wv`` where the KV heads divide
+    the axis, else ``wk`` / ``wv`` whole (``_kv_of_heads``).  The head
+    counts come from the shards' shapes.  Where the axis is a multiple m of
+    the query heads, ``p`` is whole: rank r computes head r // m, and each
+    of the head's m ranks adds 1/m of its output to the sum."""
     a = cfg.attn
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, a.n_heads, a.head_dim)
-    k = (x @ p["wk"]).reshape(B, S, a.n_kv_heads, a.head_dim)
-    v = (x @ p["wv"]).reshape(B, S, a.n_kv_heads, a.head_dim)
+    hd = a.head_dim
+    wq, wo, wk, wv, index = p["wq"], p["wo"], p["wk"], p["wv"], None
+    H = wq.shape[-1] // hd
+    if groups is not None:
+        x = collectives.copy_to_region(x, [groups.model_group])
+        first = groups.model_rank * H
+        if H == a.n_heads:                       # each head on m ranks
+            m = groups.n_model // H
+            H, first = 1, groups.model_rank // m
+            cols = slice(first * hd, (first + 1) * hd)
+            wq, wo = wq[..., cols], wo[..., cols, :] / m
+        if wk.shape[-1] == a.n_kv_heads * hd:
+            wk, wv, index = _kv_of_heads(wk, wv, a, first, H)
+    KV = wk.shape[-1] // hd
+    q = (x @ wq).reshape(B, S, H, hd)
+    k = (x @ wk).reshape(B, S, KV, hd)
+    v = (x @ wv).reshape(B, S, KV, hd)
     if a.qk_norm:
         q = rms_norm_weighted(q, p["q_norm"])
         k = rms_norm_weighted(k, p["k_norm"])
     q = apply_rope(q, positions[None], a.rope_theta)
     k = apply_rope(k, positions[None], a.rope_theta)
+    if index is not None:
+        k, v = k[:, :, index], v[:, :, index]
     window = a.window if (a.window and layer_is_local) else 0
     o = ops.flash_attention(q, k, v, causal=a.causal, window=window,
                             softcap=a.logit_softcap)
-    return o.reshape(B, S, a.n_heads * a.head_dim) @ p["wo"]
+    y = o.reshape(B, S, H * hd) @ wo
+    if groups is not None:
+        y = collectives.reduce_from_region(y, [groups.model_group])
+    return y
 
 
 class DecodePositions:
@@ -259,8 +322,20 @@ def init_embed(gen, vocab: int, d: int, dtype, device) -> dict:
     return {"w": (w * 0.02).to(dtype)}
 
 
-def embed_apply(p: dict, tokens: torch.Tensor, scale: bool, d: int):
-    x = F.embedding(tokens.long(), p["w"])
+def embed_apply(p: dict, tokens: torch.Tensor, scale: bool, d: int,
+                groups=None):
+    """With a mesh's ``groups``, ``p["w"]`` is this model rank's rows of the
+    vocabulary: each token is looked up where its row lies, zeros
+    elsewhere, summed over the model axis (then scaled, as whole)."""
+    if groups is None:
+        x = F.embedding(tokens.long(), p["w"])
+    else:
+        n = p["w"].shape[0]
+        local = tokens.long() - groups.model_rank * n
+        owned = (local >= 0) & (local < n)
+        x = F.embedding(torch.where(owned, local, 0), p["w"])
+        x = collectives.reduce_from_region(
+            x.masked_fill(~owned[..., None], 0), [groups.model_group])
     if scale:
         # sqrt(d) rounded to x's dtype, as the reference's
         # ``jnp.asarray(sqrt(d), x.dtype)``; filled on the device, so a
@@ -269,6 +344,11 @@ def embed_apply(p: dict, tokens: torch.Tensor, scale: bool, d: int):
     return x
 
 
-def logits_apply(head_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """head_w: (vocab, d) (tied layout); returns f32 logits."""
+def logits_apply(head_w: torch.Tensor, x: torch.Tensor,
+                 groups=None) -> torch.Tensor:
+    """head_w: (vocab, d) (tied layout); returns f32 logits.  With a mesh's
+    ``groups``, ``head_w`` is this model rank's rows of the vocabulary and
+    the logits its slice, x entering through ``copy_to_region``."""
+    if groups is not None:
+        x = collectives.copy_to_region(x, [groups.model_group])
     return x.float() @ head_w.float().T

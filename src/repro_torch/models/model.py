@@ -44,7 +44,7 @@ from repro_torch.configs.base import (ArchConfig, BLOCK_ATTN_DENSE,
                                      BLOCK_HYBRID_SHARED, BLOCK_MLA_DENSE)
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
-from repro_torch.sharding import collectives
+from repro_torch.sharding import collectives, rules
 
 MTP_WEIGHT = 0.3
 
@@ -115,12 +115,32 @@ class Model:
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None, groups=()):
+                  mask: Optional[torch.Tensor] = None, groups=(),
+                  vocab=None):
     """Mean masked token cross-entropy.  logits f32 (..., V).  With data
     ``groups``, this rank's share of the mean over the ranks' tokens: its
-    sum over the count summed over the groups."""
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    sum over the count summed over the groups.  With ``vocab`` (a mesh's
+    ``MeshGroups``), ``logits`` is this model rank's slice of the
+    vocabulary (``layers.logits_apply``): the max is all-reduced by max
+    over the model axis, the sum of exponentials and the target's logit,
+    taken where its column lies, by sum; every model rank then holds the
+    same loss."""
+    if vocab is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    else:
+        model = [vocab.model_group]
+        n = logits.shape[-1]
+        top = collectives.all_reduce(logits.detach().amax(dim=-1), model,
+                                     op=torch.distributed.ReduceOp.MAX)
+        lse = torch.log(collectives.reduce_from_region(
+            torch.exp(logits - top[..., None]).sum(dim=-1), model)) + top
+        local = targets.long() - vocab.model_rank * n
+        owned = (local >= 0) & (local < n)
+        ll = torch.gather(logits, -1,
+                          torch.where(owned, local, 0)[..., None])[..., 0]
+        ll = collectives.reduce_from_region(ll.masked_fill(~owned, 0.0),
+                                            model)
     nll = lse - ll
     if groups:
         if mask is None:
@@ -197,37 +217,53 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
                             a = a + aj
                     if seg.shared_after:
                         h = blocks.shared_block_apply(params["shared"], cfg,
-                                                      h, positions)
+                                                      h, positions,
+                                                      groups=groups)
                     return h, a
                 x, aux = checkpoint(body, x, aux, use_reentrant=False) \
                     if remat else body(x, aux)
         return x, aux
 
-    def _embed_inputs(params, batch):
+    def _vocab_groups(groups):
+        """The mesh's groups where the embedding, head and cross-entropy
+        are vocab-parallel (``sharding.rules.vocab_splits``), else None."""
+        return groups if groups is not None and rules.vocab_splits(
+            cfg, groups.n_model) else None
+
+    def _embed_inputs(params, batch, vocab):
         if cfg.modality == "audio_stub":
             return batch["frames"].to(dtype)
         x = layers.embed_apply(params["embed"], batch["tokens"],
-                               cfg.embed_scale, cfg.d_model)
+                               cfg.embed_scale, cfg.d_model, groups=vocab)
         if cfg.modality == "vision_stub":
             x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
         return x
 
     def forward(params, batch, *, remat: bool = False, groups=None,
                 last_logits_only: bool = False):
-        """(logits, extras).  With a mesh's ``groups`` (the sharded
-        step's), each MoE FFN is expert-parallel over them.  With
-        ``last_logits_only`` (serving prefill) only the last position's
-        logits are made, (B, 1, vocab), and extras is ``{"aux"}`` alone (no
-        MTP logits), as in the reference."""
-        x = _embed_inputs(params, batch)
+        """(logits, extras).  With a mesh's ``groups`` (the sharded step's,
+        ``params`` this rank's compute shards, ``train.sharded.
+        compute_params``), each MoE FFN whose experts divide the model axis
+        is expert-parallel over them, attention and MLPs held split are
+        tensor-parallel and a head held split is vocab-parallel: the
+        logits (and MTP logits) are this model rank's vocabulary slice.
+        With ``last_logits_only`` (serving prefill) only the last
+        position's logits are made, (B, 1, vocab), gathered whole over the
+        model axis, and extras is ``{"aux"}`` alone (no MTP logits), as in
+        the reference."""
+        vocab = _vocab_groups(groups)
+        x = _embed_inputs(params, batch, vocab)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         x, aux = _run_segments(params, x, positions, remat, groups)
         h = layers.norm_apply(params["final_norm"], x, cfg.norm)
         if last_logits_only:
-            return layers.logits_apply(_head_w(params), h[:, -1:]), \
-                {"aux": aux}
-        logits = layers.logits_apply(_head_w(params), h)
+            logits = layers.logits_apply(_head_w(params), h[:, -1:], vocab)
+            if vocab is not None:
+                logits = collectives.gather_from_region(logits,
+                                                        vocab.model_group)
+            return logits, {"aux": aux}
+        logits = layers.logits_apply(_head_w(params), h, vocab)
         extras = {"aux": aux}
         if cfg.mtp:
             # the MTP block on the last layer's (pre-norm) output; its aux
@@ -235,20 +271,24 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
             hm, _ = blocks.block_apply(params["mtp"]["block"], cfg, mtp_kind,
                                        x, positions, groups=groups)
             hm = layers.norm_apply(params["mtp"]["norm"], hm, cfg.norm)
-            extras["mtp_logits"] = layers.logits_apply(_head_w(params), hm)
+            extras["mtp_logits"] = layers.logits_apply(_head_w(params), hm,
+                                                       vocab)
         return logits, extras
 
     def loss(params, batch, *, remat: bool = False, groups=None):
         """(total, metrics).  With a mesh's ``groups`` (the sharded step's,
-        ``batch`` this rank's rows), MoE FFNs are expert-parallel and, over
-        more than one data rank, each cross-entropy is this rank's share of
-        the mean over the ranks' tokens (``cross_entropy``)."""
+        ``batch`` this rank's rows), the forward is ``forward``'s with
+        groups, each cross-entropy is vocab-parallel where the head is and,
+        over more than one data rank, this rank's share of the mean over
+        the ranks' tokens (``cross_entropy``)."""
         data_groups = groups.data_groups \
             if groups is not None and groups.n_data > 1 else ()
+        vocab = _vocab_groups(groups)
         logits, extras = forward(params, batch, remat=remat, groups=groups)
         mask = batch.get("loss_mask")
         if cfg.modality == "audio_stub":
-            ce = cross_entropy(logits, batch["labels"], mask, data_groups)
+            ce = cross_entropy(logits, batch["labels"], mask, data_groups,
+                               vocab)
         else:
             toks = batch["tokens"]
             T = toks.shape[1]
@@ -256,7 +296,7 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
                 logits = logits[:, -T:]
             ce = cross_entropy(logits[:, :-1], toks[:, 1:],
                                None if mask is None else mask[:, 1:],
-                               data_groups)
+                               data_groups, vocab)
         total = ce + extras["aux"]
         metrics = {"ce": ce, "aux": extras["aux"]}
         if "mtp_logits" in extras:
@@ -264,7 +304,7 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
             if cfg.modality == "vision_stub":
                 ml = ml[:, -T:]
             mtp_ce = cross_entropy(ml[:, :-2], toks[:, 2:],
-                                   groups=data_groups)
+                                   groups=data_groups, vocab=vocab)
             total = total + MTP_WEIGHT * mtp_ce
             metrics["mtp_ce"] = mtp_ce
         metrics["loss"] = total

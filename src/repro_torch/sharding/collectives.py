@@ -11,8 +11,10 @@ The two autograd functions are Megatron's region functions:
 groups backward (a tensor every rank holds whole, read by a computation
 whose parts the ranks divide); ``reduce_from_region`` sums over the groups
 forward and is the identity backward (the parts' sum, which every rank then
-uses whole).  ``torch.distributed.nn.functional.all_reduce`` would sum
-again backward, giving each rank n times its gradient.
+uses whole); ``gather_from_region`` concatenates the ranks' parts along the
+last dim forward and takes this rank's part of the gradient backward.
+``torch.distributed.nn.functional.all_reduce`` would sum again backward,
+giving each rank n times its gradient.
 """
 from __future__ import annotations
 
@@ -47,10 +49,12 @@ class MeshGroups:
         self.data_rank = rank
 
 
-def all_reduce(t: torch.Tensor, groups: Sequence) -> torch.Tensor:
-    """Sums ``t`` in place over each group in turn; returns it."""
+def all_reduce(t: torch.Tensor, groups: Sequence,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduces ``t`` in place by ``op`` (a sum by default) over each group
+    in turn; returns it."""
     for g in groups:
-        dist.all_reduce(t, group=g)
+        dist.all_reduce(t, op=op, group=g)
     return t
 
 
@@ -75,6 +79,20 @@ class _ReduceFromRegion(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        ctx.part = (rank * x.shape[-1], (rank + 1) * x.shape[-1])
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.part[0]:ctx.part[1]].contiguous(), None
+
+
 def copy_to_region(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
     """``x`` forward; its gradient summed over ``groups`` backward."""
     return _CopyToRegion.apply(x, list(groups))
@@ -84,3 +102,9 @@ def reduce_from_region(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
     """``x`` summed over ``groups`` forward; the gradient as it is
     backward."""
     return _ReduceFromRegion.apply(x, list(groups))
+
+
+def gather_from_region(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` concatenated along the last dim, in
+    rank order, forward; this rank's part of the gradient backward."""
+    return _GatherFromRegion.apply(x, group)

@@ -8,7 +8,8 @@ divide a 16-wide model axis, so ``wk``/``wv`` fall back to the input d_model
 dim).  Leading stack dims (the layer axis) are always unsharded, so every
 rule indexes from the end of the shape.  Optimizer state (mu/nu/master)
 additionally gets ZeRO-1 sharding of its largest unsharded dim over the
-data axes.
+data axes.  ``compute_use`` says how the forward uses a leaf's model-axis
+split: column- or row-parallel, vocab-parallel, or whole.
 
 A leaf's spec is a plain tuple with one entry per tensor dim, of the form
 of JAX's ``PartitionSpec``: ``None`` (replicated), an axis name, or a tuple
@@ -127,12 +128,91 @@ def param_specs(params_shape: Any, model_size: int) -> Any:
         names, tuple(leaf.shape), model_size), params_shape)
 
 
-def is_expert_leaf(names: Tuple[str, ...], spec: Spec) -> bool:
-    """An MoE routed-expert leaf whose expert dim (-3) is on the model
-    axis: expert-parallel, each model rank holding a block of experts."""
-    return (len(names) > 1 and names[-2] == "moe"
-            and names[-1] in EXPERT_LEAVES and len(spec) >= 3
-            and spec[-3] == "model")
+# How the forward uses a leaf over the model axis (``compute_use``): split
+# by columns, by rows, by vocabulary rows, by blocks of routed experts,
+# held whole but read by this rank's heads only (its gradient a partial
+# sum over the model ranks), or computed whole, alike on every model rank.
+COLUMN, ROW, VOCAB, EXPERT, PARTIAL, WHOLE = (
+    "column", "row", "vocab", "expert", "partial", "whole")
+SPLIT_USES = (COLUMN, ROW, VOCAB, EXPERT)
+
+
+def attention_splits(cfg, model_size: int) -> bool:
+    """Whether a (non-MLA) attention layer is tensor-parallel over a model
+    axis of ``model_size`` > 1: where its query heads divide the axis each
+    rank computes its block of heads; where the axis is a multiple of them
+    (gemma-2b's 8 heads over 16), each head is computed by ``model_size //
+    n_heads`` ranks alike (``layers.attention_apply``)."""
+    if model_size == 1 or cfg.attn is None or cfg.mla is not None:
+        return False
+    h = cfg.attn.n_heads
+    return h % model_size == 0 or model_size % h == 0
+
+
+def mlp_splits(cfg, model_size: int) -> bool:
+    """Whether a dense MLP is tensor-parallel over a model axis of
+    ``model_size`` > 1: its d_ff divides the axis."""
+    return model_size > 1 and cfg.d_ff > 1 and cfg.d_ff % model_size == 0
+
+
+def vocab_splits(cfg, model_size: int) -> bool:
+    """Whether the embedding, head and cross-entropy are vocab-parallel
+    over a model axis of ``model_size`` > 1: the vocabulary divides it."""
+    return model_size > 1 and cfg.vocab > 1 and cfg.vocab % model_size == 0
+
+
+def experts_split(cfg, model_size: int) -> bool:
+    """Whether an MoE FFN is expert-parallel over a model axis of
+    ``model_size``: its routed experts divide the axis, each model rank
+    holding a block of them (``moe.moe_apply_ep``)."""
+    return cfg.moe is not None and cfg.moe.n_experts % model_size == 0
+
+
+def compute_use(names: Tuple[str, ...], cfg, model_size: int) -> str:
+    """How the forward of ``cfg`` uses the leaf at ``names`` over a model
+    axis of ``model_size``, by ``attention_splits``, ``mlp_splits`` and
+    ``vocab_splits`` (which the forward asks too); a split leaf's
+    ``param_spec`` puts the model axis on the dim its use names, so it is
+    stored as it is computed:
+
+    * ``COLUMN``: ``wq``, ``wk`` / ``wv`` where the KV heads divide the
+      axis, an MLP's ``w_in`` / ``w_gate`` (model on dim -1);
+    * ``ROW``: ``wo``, an MLP's ``w_out`` (model on dim -2);
+    * ``VOCAB``: ``embed/w`` and ``head/w`` with the vocabulary (dim -2)
+      on the model axis;
+    * ``EXPERT``: the MoE routed experts where ``experts_split`` (model on
+      the expert dim, -3);
+    * ``PARTIAL``: held whole, read by this rank's heads only: ``wk`` /
+      ``wv`` where the KV heads do not divide the axis (each rank reads the
+      KV heads its query heads use, the reference's KV replication),
+      ``q_norm`` / ``k_norm`` of a split attention, and every attention
+      leaf where the axis is a multiple of the query heads (each rank
+      slices its head);
+    * ``WHOLE``: everything else, gathered and computed alike on every
+      model rank: attention that ``attention_splits`` refuses, an MLP whose
+      d_ff does not divide the axis, a vocabulary that does not, MLA and
+      Mamba2 leaves, the MoE router, shared experts and routed experts
+      that do not divide the axis, norms."""
+    last = names[-1] if names else ""
+    parent = names[-2] if len(names) > 1 else ""
+    if parent == "moe" and last in EXPERT_LEAVES:
+        return EXPERT if experts_split(cfg, model_size) else WHOLE
+    if last == "w" and parent in ("embed", "head"):
+        return VOCAB if vocab_splits(cfg, model_size) else WHOLE
+    if parent == "mlp" and mlp_splits(cfg, model_size):
+        return ROW if last == "w_out" else COLUMN
+    if parent == "attn" and attention_splits(cfg, model_size):
+        if last in ("q_norm", "k_norm") \
+                or cfg.attn.n_heads % model_size:
+            return PARTIAL
+        if last == "wq":
+            return COLUMN
+        if last == "wo":
+            return ROW
+        if last in _KV:
+            return COLUMN if cfg.attn.n_kv_heads % model_size == 0 \
+                else PARTIAL
+    return WHOLE
 
 
 def zero1_spec(spec: Spec, shape: Sequence[int], data_axes: Tuple[str, ...],

@@ -1,23 +1,33 @@
 """The sharded training step over ``torch.distributed`` (the port of the
 reference's step jitted with ``in_shardings`` of ``train_state_specs`` and
 ``batch_specs``, ``tests/test_sharding.py``): ZeRO-1 over the data axes,
-expert parallelism over the model axis.
+tensor and expert parallelism over the model axis.
 
 * **Storage.**  Each leaf of the state is a ``DTensor`` over the mesh,
   placed by ``sharding.train_state_specs``: parameters by their
   ``param_specs`` (with ``fsdp``, their ``opt_specs``), ``mu``, ``nu`` and
   ``master`` by their ``opt_specs`` (ZeRO-1).  ``shard_train_state`` makes
   such a state from a whole one and ``full_train_state`` gathers it back.
-* **Forward and backward** run on plain local tensors: every parameter
-  leaf is gathered whole before the micro-batches, except the MoE routed
-  experts' leaves, which stay each model rank's block of experts
-  (``models.moe.moe_apply_ep``).  The kernels take raw pointers, so no
-  ``DTensor`` reaches them.  Tensor-parallel matmuls are not part of the
-  port: the model ranks compute every other layer alike, and the model
-  axis divides the storage of the parameters and optimizer state and the
-  experts.  Each rank takes its rows of every micro-batch (dim 1 of the
-  stacked batch) by ``batch_specs``; with more than one data rank each
-  cross-entropy is the rank's share of the micro-batch's global mean.
+* **Forward and backward** run on plain local tensors, each leaf
+  redistributed to its compute placement before the micro-batches
+  (``compute_uses``, by ``sharding.rules.compute_use``): attention whose
+  query heads divide the model axis and MLPs whose d_ff does are
+  tensor-parallel (column-parallel ``wq``, ``wk``, ``wv``, ``w_in``,
+  ``w_gate``, row-parallel ``wo``, ``w_out``; one all-reduce over the model
+  axis in each direction, ``layers.attention_apply`` / ``mlp_apply``), the
+  embedding, head and cross-entropy are vocab-parallel where the
+  vocabulary divides, and the MoE routed experts are each model rank's
+  block (``models.moe.moe_apply_ep``); these leaves reach the forward as
+  the rank's shard, with no gather.  ``wk`` / ``wv`` whose KV heads do not
+  divide the axis, and ``q_norm`` / ``k_norm`` of a split attention, are
+  held whole and read by the rank's heads only, so their gradients are
+  partial sums over the model ranks.  Everything else (MLA and Mamba2
+  layers, attention whose heads do not divide, norms, the router) is
+  gathered whole and computed alike on every model rank.  The kernels take
+  raw pointers, so no ``DTensor`` reaches them.  Each rank takes its rows
+  of every micro-batch (dim 1 of the stacked batch) by ``batch_specs``;
+  with more than one data rank each cross-entropy is the rank's share of
+  the micro-batch's global mean.
 * **Update.**  The accumulated gradients are reduce-scattered over the data
   axes to each rank's ZeRO-1 shard (``Partial`` to ``Shard``), the global
   gradient norm is summed over the shards, each element once, and AdamW
@@ -41,9 +51,10 @@ import torch.distributed as dist
 from repro_torch import tree
 from repro_torch.optim import AdamW
 from repro_torch.sharding import collectives
-from repro_torch.sharding.rules import (batch_specs, is_expert_leaf,
-                                        is_spec, path_names, to_placements,
-                                        train_state_specs)
+from repro_torch.sharding.rules import (PARTIAL, SPLIT_USES, batch_specs,
+                                        compute_use, experts_split, is_spec,
+                                        param_specs, path_names,
+                                        to_placements, train_state_specs)
 from repro_torch.train.state import TrainState, abstract_train_state
 
 
@@ -104,21 +115,55 @@ def full_train_state(state: TrainState) -> TrainState:
         state)
 
 
+def compute_uses(params_shape, cfg, n_model: int) -> List[Tuple]:
+    """``(names, use, dim)`` of each leaf of ``params_shape`` (in leaf
+    order) over a model axis of ``n_model``: its ``compute_use`` and the
+    dim it reaches the forward split along over the model axis, else
+    None."""
+    out = []
+    for (k, leaf), spec in zip(
+            tree.leaves_with_path(params_shape),
+            tree.leaves(param_specs(params_shape, n_model), is_leaf=is_spec)):
+        names = path_names(k)
+        use = compute_use(names, cfg, n_model)
+        out.append((names, use,
+                    spec.index("model") if use in SPLIT_USES else None))
+    return out
+
+
+def compute_params(params, cfg, groups):
+    """This model rank's compute shards of whole ``params`` (the same on
+    every rank) over ``groups``' model axis: each leaf as the sharded step
+    hands it to the forward, a copy of the rank's chunk where it is split
+    (``compute_uses``), else the leaf itself.  For a forward without the
+    step, such as the dry-run's prefill."""
+    leaves = tree.leaves(params)
+    out = [t if dim is None else
+           t.chunk(groups.n_model, dim)[groups.model_rank].clone()
+           for t, (_, _, dim) in zip(leaves, compute_uses(params, cfg,
+                                                          groups.n_model))]
+    return tree.unflatten(params, out)
+
+
 class _Leaf:
     """One parameter leaf's placements: stored, for the optimizer (ZeRO-1),
-    for the forward (gathered, or its expert block), and of its local
-    gradient (partial over the data axes); and whether this rank counts
-    its optimizer shard in the global norm (the first copy of each)."""
+    for the forward (``compute_uses``: its model-axis shard where it is
+    split, else gathered), and of its local gradient (partial over the
+    data axes; over the model axis the forward's shard, a partial sum for
+    a ``PARTIAL`` leaf, else the same on every rank); and whether this rank
+    counts its optimizer shard in the global norm (the first copy of
+    each)."""
 
-    def __init__(self, names, pspec, ospec, mesh, groups):
+    def __init__(self, use, dim, pspec, ospec, mesh, groups):
         _, Partial, Replicate, Shard = _dtensor()
         n_data_axes = len(groups.data_axes)
         self.param = to_placements(pspec, mesh)
         self.opt = to_placements(ospec, mesh)
-        self.expert = is_expert_leaf(names, pspec)
-        model = Shard(len(pspec) - 3) if self.expert else Replicate()
+        self.use = use
+        model = Replicate() if dim is None else Shard(dim)
         self.compute = [Replicate()] * n_data_axes + [model]
-        self.grad = [Partial()] * n_data_axes + [model]
+        self.grad = [Partial()] * n_data_axes + [
+            Partial() if use == PARTIAL else model]
         self.owner = all(
             mesh.get_local_rank(axis) == 0
             for axis, pl in zip(mesh.mesh_dim_names, self.opt)
@@ -140,12 +185,13 @@ def make_sharded_train_step(model, optimizer: AdamW, n_micro: int, mesh, *,
     groups = collectives.MeshGroups(mesh)
     shapes = abstract_train_state(model, optimizer)
     specs = train_state_specs(shapes, mesh, fsdp=fsdp)
-    names = [path_names(k) for k, _ in tree.leaves_with_path(shapes.params)]
     leaves: List[_Leaf] = [
-        _Leaf(n, p, o, mesh, groups) for n, p, o in zip(
-            names, tree.leaves(specs.params, is_leaf=is_spec),
+        _Leaf(use, dim, p, o, mesh, groups) for (_, use, dim), p, o in zip(
+            compute_uses(shapes.params, model.cfg, groups.n_model),
+            tree.leaves(specs.params, is_leaf=is_spec),
             tree.leaves(specs.opt.mu, is_leaf=is_spec))]
-    if model.cfg.moe is not None and not any(leaf.expert for leaf in leaves):
+    if model.cfg.moe is not None and not experts_split(model.cfg,
+                                                       groups.n_model):
         raise ValueError("the MoE experts' leaves are not on the model "
                          "axis: their count does not divide it")
     data_groups = groups.data_groups if groups.n_data > 1 else ()

@@ -1,6 +1,6 @@
 """The rank bodies of the port's multi-rank tests
 (``tests/test_torch_sharded_step.py``, ``tests/test_torch_moe_ep.py``,
-``tests/test_torch_dryrun.py``).
+``tests/test_torch_dryrun.py``, ``tests/test_torch_tensor_parallel.py``).
 Holds no tests of its own and imports no JAX: ``launch.sharded.spawn``
 starts each rank in a new process, which imports this module by name.
 
@@ -29,14 +29,20 @@ def reduced(arch, **moe):
     return cfg
 
 
-def mesh_name(data, model):
-    return f"{data}x{model}"
+def mesh_name(*sizes):
+    return "x".join(str(n) for n in sizes)
 
 
-def sharded_steps(rank, world, store_path, model_size, job_dir, cases):
-    """Each case's steps through ``make_sharded_train_step`` on a
-    (world // model_size, model_size) mesh; rank 0 saves every step's
-    metrics and the gathered parameters as ``{case}_{mesh}.out``."""
+def host_mesh(sizes):
+    """``make_host_mesh`` of (data, model) or (pod, data, model) sizes."""
+    return make_host_mesh(sizes[-1], pods=sizes[0] if len(sizes) == 3
+                          else 1)
+
+
+def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
+    """Each case's steps through ``make_sharded_train_step`` on the mesh of
+    ``sizes`` ((data, model) or (pod, data, model)); rank 0 saves every
+    step's metrics and the gathered parameters as ``{case}_{mesh}.out``."""
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamW, cosine_with_warmup
     from repro_torch.train.sharded import (full_train_state,
@@ -44,7 +50,7 @@ def sharded_steps(rank, world, store_path, model_size, job_dir, cases):
                                            shard_train_state)
     from repro_torch.train.state import TrainState
     init_rank(rank, world, store_path, "cpu")
-    mesh = make_host_mesh(model_size)
+    mesh = host_mesh(sizes)
     job_dir = Path(job_dir)
     for case in cases:
         job = torch.load(job_dir / f"{case}.in")
@@ -67,9 +73,7 @@ def sharded_steps(rank, world, store_path, model_size, job_dir, cases):
                         "params": dict(tree.leaves_with_path(full.params)),
                         "step": int(state.step)})
         if rank == 0:
-            torch.save(out, job_dir /
-                       f"{case}_{mesh_name(world // model_size, model_size)}"
-                       f".out")
+            torch.save(out, job_dir / f"{case}_{mesh_name(*sizes)}.out")
 
 
 def moe_ep(rank, world, store_path, model_size, job_dir):
@@ -142,3 +146,102 @@ def dryrun_counts(rank, world, store_path, model_size, job_dir, archs,
                         "collectives": counter.collectives,
                         "kernel_calls": dict(counter.kernel_calls)},
                        Path(job_dir) / f"dryrun_{arch}.out")
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel modules (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+TP_PARENT = {"attention": "attn", "mlp": "mlp", "vocab": "embed"}
+
+
+def tp_cfg(job):
+    """The port's reduced config of a job, with its attention fields and
+    vocabulary replaced where the job says."""
+    cfg = get_arch(job["arch"]).reduced()
+    if job.get("attn"):
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, **job["attn"]))
+    if job.get("vocab"):
+        cfg = dataclasses.replace(cfg, vocab=job["vocab"])
+    return cfg
+
+
+def tp_module(job, cfg, groups=None):
+    """``job["module"]`` forward and backward on this model rank's compute
+    shards of ``job["params"]`` (by ``compute_use``; whole without
+    ``groups``), through the split path where the rules put it as
+    ``blocks.block_apply`` and ``model.forward`` do: attention (objective
+    sum(y * probe)), the MLP (the same), or the vocab-parallel embedding,
+    logits and cross-entropy (objective ce + sum(embedding * probe)).
+    Returns each leaf's use, the outputs whole (logits gathered) and every
+    gradient whole: a split leaf's gathered, a ``PARTIAL`` leaf's summed
+    over the model ranks."""
+    import torch.distributed as dist
+    from repro_torch.models import layers
+    from repro_torch.models.model import cross_entropy
+    from repro_torch.sharding import collectives, rules
+    n = 1 if groups is None else groups.n_model
+    parent = TP_PARENT[job["module"]]
+    uses, dims, local = {}, {}, {}
+    for name, t in job["params"].items():
+        spec = rules.param_spec((parent, name), tuple(t.shape), n)
+        uses[name] = rules.compute_use((parent, name), cfg, n)
+        if uses[name] in rules.SPLIT_USES:
+            dims[name] = spec.index("model")
+            t = t.chunk(n, dims[name])[groups.model_rank]
+        local[name] = t.clone().requires_grad_(True)
+    x = job["x"].clone().requires_grad_(True)
+    if job["module"] == "attention":
+        split = groups if rules.attention_splits(cfg, n) else None
+        y = layers.attention_apply(
+            local, cfg, x, layer_is_local=False, groups=split,
+            positions=torch.arange(x.shape[1], dtype=torch.int32))
+        outs, obj = {"y": y}, (y * job["probe"]).sum()
+    elif job["module"] == "mlp":
+        split = groups if rules.mlp_splits(cfg, n) else None
+        y = layers.mlp_apply(local, x, cfg.mlp_act, cfg.gated_mlp,
+                             groups=split)
+        outs, obj = {"y": y}, (y * job["probe"]).sum()
+    else:
+        split = groups if uses["w"] == rules.VOCAB else None
+        emb = layers.embed_apply(local, job["tokens"], cfg.embed_scale,
+                                 cfg.d_model, groups=split)
+        logits = layers.logits_apply(local["w"], x, split)
+        ce = cross_entropy(logits, job["targets"], job.get("mask"),
+                           vocab=split)
+        outs = {"emb": emb, "logits": logits, "ce": ce}
+        obj = ce + (emb * job["probe"]).sum()
+    grads = torch.autograd.grad(obj, list(local.values()) + [x])
+
+    def gather(t, dim):
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=groups.model_group)
+        return torch.cat(parts, dim)
+    res = {"uses": uses, "split": split is not None}
+    for k, v in outs.items():
+        res[k] = gather(v.detach(), -1) if k == "logits" and split \
+            else v.detach()
+    for name, grad in zip(local, grads):
+        if name in dims:
+            grad = gather(grad, dims[name])
+        elif uses[name] == rules.PARTIAL:
+            grad = collectives.all_reduce(grad.clone(),
+                                          [groups.model_group])
+        res["d" + name] = grad
+    res["dx"] = grads[-1]
+    return res
+
+
+def tp_modules(rank, world, store_path, job_dir, cases):
+    """``tp_module`` of each case on a (1, world) mesh; rank 0 saves each
+    result as ``tp_{case}_{world}.out``."""
+    from repro_torch.sharding import collectives
+    init_rank(rank, world, store_path, "cpu")
+    groups = collectives.MeshGroups(make_host_mesh(world))
+    job_dir = Path(job_dir)
+    for case in cases:
+        job = torch.load(job_dir / f"tp_{case}.in")
+        res = tp_module(job, tp_cfg(job), groups)
+        if rank == 0:
+            torch.save(res, job_dir / f"tp_{case}_{world}.out")

@@ -13,8 +13,11 @@ layers' FLOPs equal a count from the config exactly; ``remat`` moves a
 sharded step's parameters within STEP_ATOL / STEP_RTOL.
 
 Every test that initialises a process group destroys it before it returns
-(``dryrun.process_group``); the two-rank run is spawned in processes of
-its own.
+(``dryrun.process_group``); the two-rank runs are spawned in processes of
+their own.  At a model axis of 2 the step is tensor-parallel: its fake
+trace counts what a gloo run's rank 0 counts, and ``tp_compute`` says
+which pairs the axis splits (``dryrun.whole_compute`` of the step's
+``compute_uses``).
 """
 import dataclasses
 import json
@@ -330,6 +333,47 @@ def test_rank0_collectives_of_a_fake_trace_equal_a_gloo_run(tmp_path):
             assert pred[k] == real[k], (arch, k)
 
 
+def test_rank0_counts_of_a_tensor_parallel_fake_trace_equal_a_gloo_run(
+        tmp_path):
+    """At mesh (1, 2) the step is tensor-parallel: the fake trace's rank 0
+    counts the same FLOPs, bytes, kernel calls and collectives (the
+    regions' all-reduces over ``model``) as rank 0 of a gloo run."""
+    from repro_torch.launch.sharded import spawn
+    from test_torch_dist_helpers import dryrun_counts
+    archs = ["gemma-2b", "qwen3-4b"]
+    spawn(dryrun_counts, 2, 2, str(tmp_path), archs,
+          dataclasses.astuple(TRAIN), N_MICRO, store_dir=str(tmp_path),
+          timeout=240)
+    layout = dryrun.Layout(("data", "model"), (1, 2))
+    for arch in archs:
+        with dryrun.process_group("fake", 2):
+            pred = dryrun.trace_pair(get_arch(arch).reduced(), TRAIN,
+                                     layout, n_micro=N_MICRO)
+        real = torch.load(tmp_path / f"dryrun_{arch}.out")
+        assert pred["tp_compute"], arch
+        assert pred["collectives"] == real["collectives"], arch
+        assert pred["collectives"]["all-reduce"]["by_axis"]["model"][
+            "count"] > 0
+        for k in ("flops", "hbm_bytes", "kernel_calls"):
+            assert pred[k] == real[k], (arch, k)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_check_pair_over_a_fake_group_of_two(kind):
+    """``check_pair`` at layout (1, 2): the real step runs as rank 0 of a
+    fake group (as the card runs one rank's share of a tp 4 layout) and
+    counts what the trace predicts."""
+    shape = TRAIN if kind == "train" else ShapeConfig("p", 16, 2, "prefill")
+    out = dryrun.check_pair(get_arch("gemma-2b").reduced(), shape,
+                            device="cpu", layout=dryrun.Layout(
+                                ("data", "model"), (1, 2)),
+                            n_micro=N_MICRO if kind == "train" else None)
+    assert out["predicted"] == out["measured"] and out["equal"]
+    assert out["tp_compute"] and out["layout"] == {"data": 1, "model": 2}
+    assert out["predicted"]["collectives"]["all-reduce"]["count"] > 0
+    assert not torch.distributed.is_initialized()
+
+
 # ---------------------------------------------------------------------------
 # (f) FLOPs against a count from the config
 # ---------------------------------------------------------------------------
@@ -385,6 +429,52 @@ def test_live_pairs_count_the_mask(Sq, Sk, causal, window, q_offset):
             mask[i, j] = (not causal or j <= qp) and \
                 (window <= 0 or j > qp - window)
     assert work.live_pairs(Sq, Sk, causal, window, q_offset) == mask.sum()
+
+
+# ---------------------------------------------------------------------------
+# tp_compute: which pairs a model axis of 16 divides
+# ---------------------------------------------------------------------------
+
+DENSE = ["gemma-2b", "qwen3-4b", "granite-3-8b", "gemma3-12b",
+         "internvl2-2b", "hubert-xlarge", "gpt3-7b"]
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", DENSE + ["deepseek-v3-671b", "mamba2-780m",
+                                          "zamba2-1.2b"])
+def test_whole_compute_names_what_is_not_split(arch, kind):
+    from repro_torch.models.model import build_model
+    from repro_torch.train.sharded import compute_uses
+    cfg = get_arch(arch)
+    params = build_model(cfg, "meta").init()
+    whole = dryrun.whole_compute(compute_uses(params, cfg, 16), kind, 16)
+    if kind == "decode":
+        assert whole == ["decode (tensor-parallel decode is not ported)"]
+    elif arch in DENSE:
+        assert whole == [], whole
+    elif arch == "deepseek-v3-671b":
+        # MLA in every layer and the MTP block; the shared experts
+        assert whole == ["mtp/block/attn", "segments/attn",
+                         "segments/moe/shared"], whole
+    else:
+        assert whole == ["segments/mamba"], whole
+    assert dryrun.whole_compute(compute_uses(params, cfg, 1), kind, 1) == \
+        ["a model axis of 1"]
+
+
+def test_tp_compute_of_reduced_pairs_at_tp2():
+    layout = dryrun.Layout(("data", "model"), (1, 2))
+    for arch, kind, want in [("gemma-2b", "train", True),
+                             ("gemma-2b", "prefill", True),
+                             ("gemma-2b", "decode", False),
+                             ("mamba2-780m", "train", False)]:
+        shape = TRAIN if kind == "train" else ShapeConfig("p", 16, 2, kind)
+        with dryrun.process_group("fake", 2):
+            row = dryrun.trace_pair(get_arch(arch).reduced(), shape, layout,
+                                    n_micro=N_MICRO if kind == "train"
+                                    else None)
+        assert row["tp_compute"] is want, (arch, kind, row["tp_whole"])
+        assert row["tp_compute"] == (not row["tp_whole"])
 
 
 # ---------------------------------------------------------------------------

@@ -3,14 +3,19 @@ gloo ranks on the CPU, against the port's single-process fused step and the
 reference's jitted step (the global function that the reference's
 ``in_shardings`` leave unchanged, ``tests/test_sharding.py:112``).
 
-Reduced gemma-2b, hubert-xlarge (bidirectional, LayerNorm, a loss mask
-whose mean is over the global micro-batch) and granite-moe-3b-a800m (at
-capacity factor E / K, where no assignment drops, through
-``moe_apply_ep``), two steps each from the reference's parameters and
-batches, on meshes (2, 1), (4, 1) and (2, 2), ZeRO-1 (gemma also with
-``fsdp``).  One spawn per mesh runs every case; the ranks meet through a
-``FileStore`` under the test's directory and the parent waits at most
-``SPAWN_TIMEOUT`` seconds.
+Reduced gemma-2b (MQA: KV heads held whole, a tied vocab-parallel
+embedding), hubert-xlarge (bidirectional, LayerNorm, a loss mask whose mean
+is over the global micro-batch, a head of 504), granite-moe-3b-a800m (at
+capacity factor E / K, where no assignment drops: split attention with
+expert-parallel experts, ``moe_apply_ep``) and qwen3-4b (qk-norm, KV whole),
+two steps each from the reference's parameters and batches, on meshes
+(data, model) (2, 1), (4, 1), (2, 2), (1, 2), (1, 4) and (pod, data, model)
+(2, 1, 2), ZeRO-1 (gemma also with ``fsdp``).  Where the model axis has
+more than one rank, attention, the MLPs and the vocabulary are
+tensor-parallel (``train/sharded.py``); at model 4 the reduced models' 4
+heads are one a rank.  One spawn per mesh runs every case; the ranks meet
+through a ``FileStore`` under the test's directory and the parent waits at
+most ``SPAWN_TIMEOUT`` seconds.
 
 Tolerances (tests/test_torch_helpers.py): each step's loss at LOSS_RTOL and
 gradient norm at STEP_RTOL, against both.  Parameters: against the
@@ -24,6 +29,7 @@ w_out, 2.0e-5).
 """
 import concurrent.futures
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -53,13 +59,15 @@ from test_torch_helpers import (LOSS_RTOL, STEP_ATOL, STEP_RTOL,  # noqa
 
 SEQ, BATCH, N_MICRO, STEPS, LR = 32, 8, 2, 2, 1e-3
 SPAWN_TIMEOUT = 240.0
-MESHES = [(2, 1), (4, 1), (2, 2)]
-ARCHS = ["gemma-2b", "hubert-xlarge", "granite-moe-3b-a800m"]
+# (data, model) and (pod, data, model)
+MESHES = [(2, 1), (4, 1), (2, 2), (1, 2), (1, 4), (2, 1, 2)]
+ARCHS = ["gemma-2b", "hubert-xlarge", "granite-moe-3b-a800m", "qwen3-4b"]
 # case -> (arch, fsdp)
 CASES = {"gemma-2b": ("gemma-2b", False),
          "gemma-2b-fsdp": ("gemma-2b", True),
          "hubert-xlarge": ("hubert-xlarge", False),
-         "granite-moe-3b-a800m": ("granite-moe-3b-a800m", False)}
+         "granite-moe-3b-a800m": ("granite-moe-3b-a800m", False),
+         "qwen3-4b": ("qwen3-4b", False)}
 
 
 def _moe(arch):
@@ -136,8 +144,8 @@ def runs(tmp_path_factory):
                    job_dir / f"{case}.in")
 
     def spawn_all():
-        for data, model in MESHES:
-            spawn(sharded_steps, data * model, model, str(job_dir),
+        for sizes in MESHES:
+            spawn(sharded_steps, math.prod(sizes), sizes, str(job_dir),
                   list(CASES), store_dir=str(job_dir),
                   timeout=SPAWN_TIMEOUT)
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
