@@ -140,9 +140,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, **opts, with_lse=with_lse)
     if q.device.type == "cpu":
+        # contiguous, as the kernel's outputs are: a caller's reshape of
+        # them is then a view on every device
         if with_lse:
-            return ref.flash_attention_lse(q, k, v, **opts)
-        return ref.flash_attention(q, k, v, **opts)
+            o, lse = ref.flash_attention_lse(q, k, v, **opts)
+            return o.contiguous(), lse.contiguous()
+        return ref.flash_attention(q, k, v, **opts).contiguous()
     if q.device.type == "meta":
         B, Sq, H, _ = q.shape
         out = torch.empty((B, Sq, H, v.shape[3]), dtype=q.dtype,

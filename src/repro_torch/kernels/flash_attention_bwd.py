@@ -190,7 +190,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if q.is_cuda:
         return flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts)
     if q.device.type == "cpu":
-        return ref.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+        # contiguous, as the kernel's outputs are
+        return tuple(t.contiguous() for t in
+                     ref.flash_attention_bwd(q, k, v, o, lse, do, **opts))
     if q.device.type == "meta":
         return tuple(torch.empty(t.shape, dtype=q.dtype, device="meta")
                      for t in (q, k, v))

@@ -22,6 +22,7 @@ window leave live.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Callable, List, Tuple
@@ -163,3 +164,20 @@ def counted(name: str, formula: Callable) -> Callable:
             return out
         return call
     return wrap
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The aten ops inside the ``with`` block go uncounted by the active
+    counters: a collective backend's own copy of its result into the
+    output (gloo's ``work.wait()`` on the CPU), which the collective's
+    count already holds."""
+    sinks = list(SINKS)
+    for s in sinks:
+        s.enter_uncounted()
+    try:
+        yield
+    finally:
+        for s in sinks:
+            s.exit_kernel()
+

@@ -192,6 +192,11 @@ class WorkCounter(TorchDispatchMode):
             self.bytes_by_op[name] += nbytes
         self._inside += 1
 
+    def enter_uncounted(self) -> None:
+        """The aten ops until the next ``exit_kernel`` go uncounted
+        (``kernels.work.uncounted``)."""
+        self._inside += 1
+
     def exit_kernel(self) -> None:
         self._inside -= 1
 

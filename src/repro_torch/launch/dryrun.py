@@ -19,19 +19,22 @@ port.
   rank's lanes, with whole parameters on each rank.
 
 Train and prefill pairs are tensor-parallel over the model axis as the
-sharded step is (``train/sharded.py``): attention and MLPs split by heads
-and d_ff, the embedding, head and cross-entropy by the vocabulary, the
-experts by blocks.  A row says ``"tp_compute": true`` where every
-attention, MLP, Mamba2 and MoE leaf of the pair's parameters has a split
-use (``train.sharded.compute_uses``, which the step and the prefill hand
-the forward its shards by) or the fallback its rule names (KV heads held
-whole); a vocabulary that does not divide is the embedding's and head's
-fallback.  Else ``"tp_whole"`` lists the modules a rank computes whole
-(``whole_compute``): attention whose query heads do not divide the axis,
-an MLP whose d_ff does not, MLA and Mamba2 layers, shared experts,
-experts that do not divide, and decode (tensor-parallel decode is not
-ported).  A pair whose
-peak exceeds ``HBM_BYTES`` is flagged ``"fits": false``, not skipped.
+sharded step is (``train/sharded.py``): attention, MLA and Mamba2 split by
+heads, MLPs and shared experts by d_ff, the embedding, head and
+cross-entropy by the vocabulary, the routed experts by blocks where they
+divide the axis and else by d_ff.  A row says ``"tp_compute": true``
+where every attention, MLP, Mamba2 and MoE leaf of the pair's parameters
+has a split use (``train.sharded.compute_uses``, which the step and the
+prefill hand the forward its shards by) or the fallback its rule names
+(``PARTIAL``: KV heads held whole, MLA's down-projections and their norms,
+Mamba2's concatenated input projection and conv); a vocabulary that does
+not divide is the embedding's and head's fallback.  Else ``"tp_whole"``
+lists the modules a rank computes whole (``whole_compute``): attention,
+MLA or Mamba2 whose heads do not divide the axis (at 16x16, granite-moe's
+24 heads), an MLP or shared expert whose d_ff does not, experts that
+divide neither way, and decode (tensor-parallel decode is not ported).  A
+pair whose peak exceeds ``HBM_BYTES`` is flagged ``"fits": false``, not
+skipped.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b \\
         --shape train_4k [--multi-pod | --mesh DxM] [--variant fsdp] \\
@@ -64,8 +67,7 @@ from repro_torch.launch.inputs import (batch_struct, decode_specs,
 from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, IB_BW, NVLINK_BW,
                                      PEAK_FLOPS_BF16, _mesh,
                                      production_layout)
-from repro_torch.sharding.rules import (WHOLE, Layout, data_axes_of,
-                                        experts_split)
+from repro_torch.sharding.rules import WHOLE, Layout, data_axes_of
 
 # variant tokens of the reference that are the port's only path: recorded
 NATIVE = ("baseline", "", "flash", "fusednorm", "moe3d", "moesm")
@@ -172,6 +174,38 @@ def _real_batch(cfg, specs, device, seed):
             for k, v in specs.items()}
 
 
+def _random_shards(state, device, seed):
+    """``state`` (a ``shard_train_state`` of ``meta`` leaves) with each
+    DTensor's local shard made on ``device``: the parameters and the f32
+    master copies random (0.02 normal), the moments and the step counter
+    zero.  Its values mean nothing; its shapes, placements and bytes are
+    this rank's."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def fill(zero):
+        def one(t):
+            local = t.to_local() if isinstance(t, DTensor) else t
+            new = torch.zeros(local.shape, dtype=local.dtype, device=device)
+            if not zero:
+                new.normal_(0.0, 0.02, generator=gen)
+            if not isinstance(t, DTensor):
+                return new
+            return DTensor.from_local(new, t.device_mesh, t.placements,
+                                      run_check=False, shape=t.shape,
+                                      stride=t.stride())
+        return one
+    opt = state.opt
+    master = None if opt.master is None \
+        else tree.tree_map(fill(False), opt.master)
+    return type(state)(
+        tree.tree_map(fill(False), state.params),
+        type(opt)(fill(True)(opt.step), tree.tree_map(fill(True), opt.mu),
+                  tree.tree_map(fill(True), opt.nu), master),
+        fill(True)(state.step))
+
+
 def _rows(batch: int, dp: int) -> int:
     """The rank's rows of a batch: a 1/dp share where the batch divides
     over the data axes (as ``batch_specs`` shards it), else all of
@@ -190,9 +224,12 @@ def whole_compute(uses, kind: str, tp: int) -> list:
     attention, MLP, Mamba2 and MoE leaves whose ``uses``
     (``train.sharded.compute_uses`` of the step's parameters) are
     ``WHOLE``; empty where the step is tensor-parallel.  The rules' own
-    fallbacks are not listed: KV heads held whole (``PARTIAL``, each rank
-    reads its query heads' KV heads) and a vocabulary that does not divide
-    the axis."""
+    fallbacks are not listed: the ``PARTIAL`` leaves (KV heads held whole,
+    each rank reading its query heads' KV heads; a split MLA's
+    down-projections and their norms, computed alike on every rank as in
+    Megatron's MLA; a split Mamba2's input projection and conv, each rank
+    reading its heads' columns) and a vocabulary that does not divide the
+    axis."""
     if tp == 1:
         return ["a model axis of 1"]
     if kind == "decode":
@@ -213,8 +250,7 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     from repro_torch.optim import AdamW, constant
     from repro_torch.train.sharded import (make_sharded_train_step,
                                            shard_train_state)
-    from repro_torch.train.state import (abstract_train_state,
-                                         init_train_state)
+    from repro_torch.train.state import abstract_train_state
 
     from repro_torch.sharding.collectives import MeshGroups
     from repro_torch.train.sharded import compute_params, compute_uses
@@ -227,11 +263,14 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     meta = {"kind": shape.kind, "dp": dp, "tp": tp}
     if shape.kind == "train":
         opt = AdamW(lr=constant(3e-4))
-        state = init_train_state(model, opt, seed) if real \
-            else abstract_train_state(model, opt)
+        # only this rank's shards are made, never the whole state: a whole
+        # state of deepseek-v3-671b's MoE layer would not fit on one card
+        state = abstract_train_state(model, opt)
         meta["tp_whole"] = whole_compute(
             compute_uses(state.params, cfg, tp), shape.kind, tp)
         state = shard_train_state(state, mesh, fsdp=fsdp)
+        if real:
+            state = _random_shards(state, device, seed)
         n = n_micro or n_micro_for(shape, dp)
         specs = batch_struct(cfg, shape.global_batch // n, shape.seq_len,
                              stacked_micro=n)
@@ -356,8 +395,7 @@ def pair_fields(arch: str, shape_name: str, *, multi_pod: bool = False,
     a pair ``supports_shape`` refuses; else the pair, its layout's ``dp``
     and ``tp`` (and ``n_micro``), the parameter counts and
     ``model_flops``, with status ``not_run`` and its reason where the pair
-    needs what the port lacks (a variant, or a train pair's experts that
-    do not divide the model axis)."""
+    needs a variant the port lacks."""
     cfg = get_arch(arch)
     shape = SHAPES[shape_name]
     mesh_name, layout = mesh_layout(multi_pod, mesh)
@@ -372,17 +410,8 @@ def pair_fields(arch: str, shape_name: str, *, multi_pod: bool = False,
            "kind": shape.kind, "dp": dp, "tp": tp, "variant": variant}
     if shape.kind == "train":
         row["n_micro"] = n_micro_for(shape, dp)
-    moe = var.cfg.moe
     if var.not_run:
         row.update(status="not_run", reason=var.not_run)
-    elif shape.kind == "train" and moe is not None \
-            and not experts_split(var.cfg, tp):
-        row.update(status="not_run", reason=(
-            f"{moe.n_experts} experts do not divide the model axis of {tp}:"
-            f" the port's expert parallelism holds whole experts on each "
-            f"model rank, and splitting each expert's FFN over the axis, as"
-            f" the reference does, is not ported; variant ep48 pads to 48 "
-            f"experts"))
     row.update(param_count=var.cfg.param_count(),
                active_param_count=var.cfg.active_param_count(),
                model_flops=model_flops(var.cfg, shape))
@@ -436,7 +465,8 @@ def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
     kernels' launches in the counted run (to equal the calls), the
     predicted peak above the arguments beside ``max_memory_allocated``
     above the bytes allocated before the timed step (CUDA), and the timed
-    step beside ``max(compute_s, memory_s)``."""
+    step beside ``max(compute_s, memory_s)``, and the modules computed
+    whole (``tp_whole``)."""
     from repro_torch.launch.train import launch_counts
     device = resolve_device(device)
     layout = layout or Layout(("data", "model"), (1, 1))
@@ -473,6 +503,7 @@ def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
         "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
         "layout": dict(zip(layout.axis_names, layout.sizes)),
         "n_micro": pred.get("n_micro"), "tp_compute": pred["tp_compute"],
+        "tp_whole": pred["tp_whole"],
         "predicted": {k: pred[k] for k in ("flops", "hbm_bytes",
                                            "collective_bytes", "collectives",
                                            "kernel_calls")},

@@ -4,7 +4,11 @@ one card (``launch.sharded.init_rank(..., backend="gloo")``).
 Each op runs in a spawn of its own, so a crash ends only that spawn's
 ranks; the script prints, one JSON line an op, the value each rank got or
 the error or signal that ended the spawn.  The sharded step over gloo on
-a ``cuda`` mesh may use only the ops that run.
+a ``cuda`` mesh may use only the ops that run: it gathers the leaves
+stored split over the model axis and computed whole, and sums their
+partial gradients, through ``sharding.collectives.all_gather`` and
+``reduce_scatter`` (along the last dim of a (4, 1024) tensor here), never
+through DTensor's Shard-to-Replicate.
 
     PYTHONPATH=src python -m repro_torch.launch.gloo_probe
 """
@@ -17,7 +21,9 @@ from pathlib import Path
 
 OPS = ("all_reduce", "all_reduce_max", "all_gather",
        "all_gather_into_tensor", "reduce_scatter_tensor",
-       "dtensor_partial_to_replicate", "dtensor_shard_to_replicate")
+       "collectives_all_gather", "collectives_reduce_scatter",
+       "dtensor_partial_to_replicate", "dtensor_partial_to_shard",
+       "dtensor_shard_to_replicate")
 
 
 def _rank(rank: int, world: int, store_path: str, op: str,
@@ -29,6 +35,7 @@ def _rank(rank: int, world: int, store_path: str, op: str,
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharded import init_rank
+    from repro_torch.sharding import collectives
     init_rank(rank, world, store_path, "cuda", backend="gloo")
     t = torch.full((1024,), rank + 1.0, device="cuda", dtype=torch.bfloat16)
     if op in ("all_reduce", "all_reduce_max"):
@@ -46,12 +53,19 @@ def _rank(rank: int, world: int, store_path: str, op: str,
     elif op == "reduce_scatter_tensor":
         out = torch.empty(t.numel() // world, device="cuda", dtype=t.dtype)
         dist.reduce_scatter_tensor(out, t)
+    elif op == "collectives_all_gather":
+        out = collectives.all_gather(t.reshape(4, -1), dist.group.WORLD,
+                                     -1)[-1, -1:]
+    elif op == "collectives_reduce_scatter":
+        out = collectives.reduce_scatter(t.reshape(4, -1).float(),
+                                         dist.group.WORLD, -1)[-1, -1:]
     else:
         mesh = make_host_mesh(world, device_type="cuda")
-        src = Partial() if op == "dtensor_partial_to_replicate" else Shard(0)
+        src = Shard(0) if op == "dtensor_shard_to_replicate" else Partial()
+        dst = Shard(0) if op == "dtensor_partial_to_shard" else Replicate()
         out = DTensor.from_local(t, mesh, [Replicate(), src],
                                  run_check=False).redistribute(
-            mesh, [Replicate(), Replicate()]).to_local()[-1:]
+            mesh, [Replicate(), dst]).to_local()[-1:]
     torch.cuda.synchronize()
     (Path(out_dir) / f"{op}_{rank}").write_text(repr(float(out[0])))
 

@@ -69,21 +69,29 @@ def init_shared_block(gen, cfg, dtype, device) -> dict:
 def block_apply(p: dict, cfg, kind: str, x: torch.Tensor, positions, *,
                 layer_is_local: bool = False, groups=None):
     """Returns (x, aux): aux the MoE router's loss, ``None`` without MoE.
-    With a mesh's ``groups`` (``sharding.collectives.MeshGroups``), an MoE
-    FFN whose experts divide the model axis is expert-parallel over them
-    (``moe.moe_apply_ep``), and attention and the MLP are tensor-parallel
-    where the rules split them (``sharding.rules.attention_splits``,
-    ``mlp_splits``; ``p`` then holds this model rank's compute shards,
-    ``layers.attention_apply``, ``layers.mlp_apply``); MLA and Mamba2
-    layers compute whole."""
+    With a mesh's ``groups`` (``sharding.collectives.MeshGroups``), ``p``
+    holds this model rank's compute shards and each module is
+    tensor-parallel where the rules split it: attention
+    (``sharding.rules.attention_splits``, ``layers.attention_apply``), MLA
+    (``mla_splits``, ``mla.mla_apply``), Mamba2 (``mamba_splits``,
+    ``ssm.mamba_apply``), the MLP (``mlp_splits``, ``layers.mlp_apply``)
+    and the MoE FFN, expert-parallel where its experts divide the model
+    axis (``experts_split``, ``moe.moe_apply_ep``), else split over d_ff
+    where that divides it (``expert_ffn_splits``, ``moe.moe_apply_dff``);
+    a module the rules do not split computes whole."""
+    n = _n_model(groups)
     if kind in _MAMBA_KINDS:
         h = layers.norm_apply(p["norm"], x, cfg.norm)
-        return x + ssm.mamba_apply(p["mamba"], cfg, h), None
+        split = rules.mamba_splits(cfg, n)
+        return x + ssm.mamba_apply(p["mamba"], cfg, h,
+                                   groups=groups if split else None), None
     h = layers.norm_apply(p["norm1"], x, cfg.norm)
     if kind in _MLA_KINDS:
-        x = x + mla.mla_apply(p["attn"], cfg, h, positions)
+        split = rules.mla_splits(cfg, n)
+        x = x + mla.mla_apply(p["attn"], cfg, h, positions,
+                              groups=groups if split else None)
     else:
-        split = rules.attention_splits(cfg, _n_model(groups))
+        split = rules.attention_splits(cfg, n)
         x = x + layers.attention_apply(
             p["attn"], cfg, h, layer_is_local=layer_is_local,
             positions=positions, groups=groups if split else None)
@@ -95,11 +103,14 @@ def block_apply(p: dict, cfg, kind: str, x: torch.Tensor, positions, *,
 def _ffn(p: dict, cfg, h: torch.Tensor, groups=None):
     """The block's feed-forward: (y, aux), the MoE FFN's router loss or
     ``None`` for the dense MLP."""
+    n = _n_model(groups)
     if "moe" in p:
-        if groups is not None and rules.experts_split(cfg, groups.n_model):
+        if groups is not None and rules.experts_split(cfg, n):
             return moe.moe_apply_ep(p["moe"], cfg, h, groups)
+        if rules.expert_ffn_splits(cfg, n):
+            return moe.moe_apply_dff(p["moe"], cfg, h, groups)
         return moe.moe_apply(p["moe"], cfg, h)
-    split = rules.mlp_splits(cfg, _n_model(groups))
+    split = rules.mlp_splits(cfg, n)
     return layers.mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp,
                             groups=groups if split else None), None
 

@@ -10,6 +10,16 @@ query and output paths, computed in f32 as the reference does.
 
 Params carry the leading ``count`` axis of a layer stack, as
 ``layers.init_attention``'s do; the functions below take one layer's.
+
+Tensor parallelism over a mesh's model axis (``sharding.rules.mla_splits``:
+the heads divide it): ``mla_apply(..., groups=)`` takes this model rank's
+head-major columns of ``w_uq``, ``w_uk``, ``w_uv`` and rows of ``wo``, and
+``w_dq``, ``w_dkv``, ``q_norm``, ``kv_norm`` whole.  The low-rank
+down-projections and their norms are computed alike on every rank (the
+named fallback of a split MLA, as in Megatron's: 7168 x (1536 + 576) of
+deepseek-v3-671b's ~187 M attention weights a layer), x enters through
+``copy_to_region`` and the row-parallel product leaves through
+``reduce_from_region``.  The head counts come from the shards' shapes.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+from repro_torch.sharding import collectives
 
 
 def init_mla(gen, count: int, cfg, dtype, device) -> dict:
@@ -46,10 +57,11 @@ def init_mla(gen, count: int, cfg, dtype, device) -> dict:
 
 def _project_q(p, cfg, x, cos, sin):
     """(q_nope (B,S,H,dn), q_rope (B,S,H,dr)), q_rope rotated by the RoPE
-    tables ``cos``, ``sin`` (``layers.rope_tables`` at width dr)."""
+    tables ``cos``, ``sin`` (``layers.rope_tables`` at width dr); H the
+    heads of ``w_uq``'s columns."""
     m = cfg.mla
-    H = cfg.attn.n_heads
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    H = p["w_uq"].shape[-1] // (dn + dr)
     B, S, _ = x.shape
     cq = layers.rms_norm_weighted(x @ p["w_dq"], p["q_norm"])
     q = (cq @ p["w_uq"]).reshape(B, S, H, dn + dr)
@@ -68,13 +80,18 @@ def _project_kv_latent(p, cfg, x, cos, sin):
     return ckv, k_rope
 
 
-def mla_apply(p: dict, cfg, x: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence (train / prefill).  x: (B,S,d); positions: (S,)."""
+def mla_apply(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+              groups=None) -> torch.Tensor:
+    """Full-sequence (train / prefill).  x: (B,S,d); positions: (S,).
+    With a mesh's ``groups``, ``p`` holds this model rank's block of heads
+    (see the module docstring) and the output is summed over the model
+    axis."""
     m = cfg.mla
-    H = cfg.attn.n_heads
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    H = p["w_uq"].shape[-1] // (dn + dr)
     B, S, _ = x.shape
+    if groups is not None:
+        x = collectives.copy_to_region(x, [groups.model_group])
     cos, sin = layers.rope_tables(positions[None], dr, cfg.attn.rope_theta)
 
     q_nope, q_rope = _project_q(p, cfg, x, cos, sin)
@@ -85,7 +102,10 @@ def mla_apply(p: dict, cfg, x: torch.Tensor,
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
     # scale 1/sqrt(dn + dr): q's last dim, as the kernel takes it
     o = ops.flash_attention(q, k, v, causal=True)
-    return o.reshape(B, S, H * dv) @ p["wo"]
+    y = o.reshape(B, S, H * dv) @ p["wo"]
+    if groups is not None:
+        y = collectives.reduce_from_region(y, [groups.model_group])
+    return y
 
 
 def mla_init_cache(cfg, batch: int, capacity: int, dtype, device) -> dict:

@@ -243,10 +243,11 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
                 last_logits_only: bool = False):
         """(logits, extras).  With a mesh's ``groups`` (the sharded step's,
         ``params`` this rank's compute shards, ``train.sharded.
-        compute_params``), each MoE FFN whose experts divide the model axis
-        is expert-parallel over them, attention and MLPs held split are
-        tensor-parallel and a head held split is vocab-parallel: the
-        logits (and MTP logits) are this model rank's vocabulary slice.
+        compute_params``), every block, the MTP block's and zamba2's
+        shared block too, is tensor-parallel where the rules split it
+        (``blocks.block_apply``) and a head held split is vocab-parallel:
+        the logits (and MTP logits) are this model rank's vocabulary
+        slice.
         With ``last_logits_only`` (serving prefill) only the last
         position's logits are made, (B, 1, vocab), gathered whole over the
         model axis, and extras is ``{"aux"}`` alone (no MTP logits), as in

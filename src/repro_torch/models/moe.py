@@ -32,7 +32,15 @@ decode step.
 of the reference's ``moe_apply_shardmap``): each model rank runs the share
 body on the expert block it holds, the partial results are summed over the
 model ranks, and the router's statistics over the data ranks, so the aux
-loss is the global batch's.  A block takes that path when the model's
+loss is the global batch's.  Where the routed experts do not divide the
+model axis but their d_ff does (``sharding.rules.expert_ffn_splits``),
+``moe_apply_dff`` splits every expert over d_ff instead, as the
+reference's GSPMD does: the routing runs whole and alike on every rank
+(the same code as ``moe_apply``, so the same tokens drop), each rank runs
+the experts on its d_ff columns and the partial outputs are summed over
+the model ranks.  Both paths run the shared expert as a tensor-parallel
+MLP where its d_ff divides the axis (``sharding.rules.
+shared_expert_splits``).  A block takes these paths when the model's
 forward is given a mesh's groups (``blocks.block_apply(..., groups=)``).
 """
 from __future__ import annotations
@@ -45,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
-from repro_torch.sharding import collectives
+from repro_torch.sharding import collectives, rules
 
 
 def capacity(n_tokens: int, n_experts: int, top_k: int,
@@ -180,8 +188,11 @@ def moe_apply_ep(p: dict, cfg, x: torch.Tensor, mesh):
     ``MeshGroups``; the port of ``moe_apply_shardmap``).  x: (B, S, d),
     this rank's tokens, the same on every model rank; ``p``'s expert
     leaves the block of ``n_experts // n_model`` experts of this model
-    rank, its router and shared expert whole.  Returns (y (B, S, d), aux):
-    y summed over the model ranks, then the shared expert added once; aux
+    rank, its router whole and its shared expert whole or, where
+    ``shared_expert_splits``, this rank's d_ff part of it (column-parallel
+    ``w_in`` / ``w_gate``, row-parallel ``w_out``).  Returns (y (B, S, d),
+    aux): y summed over the model ranks, then the shared expert added
+    once; aux
     from the router's statistics summed over the data ranks and divided by
     the global token count, the same on every rank.
 
@@ -206,23 +217,71 @@ def moe_apply_ep(p: dict, cfg, x: torch.Tensor, mesh):
     if p["w_in"].shape[-3] != held:
         raise ValueError(f"w_in holds {p['w_in'].shape[-3]} experts; a "
                          f"model rank's block is {held}")
+    return _over_model(p, share, x, g)
+
+
+def moe_apply_dff(p: dict, cfg, x: torch.Tensor, mesh):
+    """The MoE FFN with every routed expert split over d_ff on ``mesh``'s
+    model axis (a ``DeviceMesh`` or its ``MeshGroups``): the reference's
+    GSPMD partitioning of experts that do not divide the axis.  x: (B, S,
+    d), this rank's tokens, the same on every model rank; ``p``'s expert
+    leaves this model rank's d_ff columns of ``w_in`` / ``w_gate`` (E, d,
+    f / n) and rows of ``w_out`` (E, f / n, d), its router and shared
+    expert as ``moe_apply_ep`` takes them.  Returns (y (B, S, d), aux) as
+    ``moe_apply_ep`` does: the routing (router, capacity dispatch) is
+    ``moe_apply``'s on every rank, each rank's experts give their d_ff
+    part of every slot, summed over the model ranks, and the aux loss
+    comes from the router's statistics summed over the data ranks.  The
+    gradients of the dispatched tokens and of the combine weights, which
+    each rank reads for its part of d_ff, are summed over the model
+    ranks."""
+    g = mesh if isinstance(mesh, collectives.MeshGroups) \
+        else collectives.MeshGroups(mesh)
+    m = cfg.moe
+    if m.expert_shards != 1 or p["w_in"].shape[-3] != m.n_experts \
+            or p["w_in"].shape[-1] * g.n_model != m.d_ff_expert:
+        raise ValueError(f"w_in {tuple(p['w_in'].shape)}: a model rank's "
+                         f"d_ff columns of {m.n_experts} experts of "
+                         f"{m.d_ff_expert} over {g.n_model} ranks")
+    return _over_model(p, cfg, x, g)
+
+
+def _over_model(p: dict, cfg, x: torch.Tensor, g):
+    """(y, aux) of the routed experts of ``cfg`` that ``p`` holds, their
+    parts summed over ``g``'s model ranks, plus the shared expert; the aux
+    loss from the router's statistics summed over the data ranks."""
     B, S, d = x.shape
-    T, E = B * S, m.n_experts
-    xt = x.reshape(T, d)
-    r = route(p["router"], share, xt)
+    xt = x.reshape(B * S, d)
+    r = route(p["router"], cfg, xt)
     model = [g.model_group]
-    y = _experts(p, share, collectives.copy_to_region(xt, model), r,
+    y = _experts(p, cfg, collectives.copy_to_region(xt, model), r,
                  collectives.copy_to_region(r.weight, model))
     y = collectives.reduce_from_region(y, model)
+    return _add_shared(p, cfg, xt, y, g).reshape(B, S, d), \
+        _global_aux(r, cfg, g)
 
-    experts = torch.arange(E, device=x.device)
+
+def _global_aux(r: Routing, cfg, g) -> torch.Tensor:
+    """The Switch aux loss of the routing ``r`` of this rank's tokens from
+    the router's statistics summed over ``g``'s data ranks and divided by
+    the global token count, the same on every rank."""
+    m = cfg.moe
+    T, E = r.probs.shape
+    experts = torch.arange(E, device=r.probs.device)
     me_sum = collectives.reduce_from_region(r.probs.sum(0), g.data_groups)
     ce_sum = collectives.all_reduce(
         (r.expert[:, :, None] == experts).float().sum((0, 1)),
         g.data_groups)
     t_global = T * g.n_data
-    aux = (me_sum / t_global * (ce_sum / t_global)).sum() * E \
+    return (me_sum / t_global * (ce_sum / t_global)).sum() * E \
         * m.router_aux_weight
-    if m.n_shared_experts:
-        y = y + layers.mlp_apply(p["shared"], xt, cfg.mlp_act, True)
-    return y.reshape(B, S, d), aux
+
+
+def _add_shared(p: dict, cfg, xt: torch.Tensor, y: torch.Tensor, g):
+    """``y`` plus the shared expert on ``xt``, tensor-parallel over ``g``'s
+    model axis where its d_ff divides it."""
+    if not cfg.moe.n_shared_experts:
+        return y
+    split = rules.shared_expert_splits(cfg, g.n_model)
+    return y + layers.mlp_apply(p["shared"], xt, cfg.mlp_act, True,
+                                groups=g if split else None)

@@ -12,6 +12,19 @@ is no ``kernel=`` switch: the reference's ``"jnp"`` and ``"pallas"`` paths
 both map to that op.  ``ssd_decode_step`` is the token-serial recurrence:
 the scan's second oracle, and the step of ``mamba_decode`` (the serving
 path's one-token update of the conv history and the SSM state).
+
+Tensor parallelism over a mesh's model axis (``sharding.rules.
+mamba_splits``: the heads divide it): ``mamba_apply(..., groups=)`` takes
+this model rank's d_inner rows of ``w_out`` and columns of ``gate_norm``
+(both head-major), and ``w_in``, ``conv_w``, ``conv_b``, ``dt_bias``,
+``A_log`` and ``D`` whole.  The rank projects only its heads' columns of
+``w_in`` (z, x and dt of its heads, all of B and C: ``N_GROUPS`` = 1, so
+every head reads them), convolves those channels, scans its heads, and
+normalises the gated output over the whole d_inner by a sum of squares
+all-reduced over the model axis (the reference's norm as GSPMD splits it;
+kernel 2 reads whole rows, so the split path's gate norm is PyTorch ops);
+x enters through ``copy_to_region`` and the row-parallel ``w_out`` leaves
+through ``reduce_from_region``.
 """
 from __future__ import annotations
 
@@ -22,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+from repro_torch.sharding import collectives
 
 N_GROUPS = 1  # B/C projection groups
 
@@ -75,9 +89,11 @@ def _causal_conv(xbc, w, b):
     return out + b[None, None, :]
 
 
-def _split_proj(cfg, zxbcdt):
+def _split_proj(cfg, zxbcdt, di=None):
+    """(z, xbc, dt_raw) of the projection [z | x | B | C | dt], whose z
+    and x parts are ``di`` wide (d_inner by default)."""
     s = cfg.ssm
-    di = s.d_inner(cfg.d_model)
+    di = s.d_inner(cfg.d_model) if di is None else di
     gn = N_GROUPS * s.d_state
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * gn]
@@ -85,16 +101,59 @@ def _split_proj(cfg, zxbcdt):
     return z, xbc, dt_raw
 
 
-def mamba_apply(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward.  x: (B,S,d) -> (B,S,d)."""
+def _heads_of(p: dict, cfg, rank: int, n: int) -> dict:
+    """``p`` with the leaves held whole cut to model rank ``rank``'s block
+    of ``n``: its heads' columns of ``w_in`` ([z | x | B | C | dt] -> [z_r
+    | x_r | B | C | dt_r]) and channels of ``conv_w`` / ``conv_b`` ([x |
+    B | C] -> [x_r | B | C]), its heads of ``dt_bias``, ``A_log``, ``D``;
+    ``gate_norm`` and ``w_out`` are the rank's shards already."""
+    s = cfg.ssm
+    di, H = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+    gn2 = 2 * N_GROUPS * s.d_state
+    dl, hl = di // n, H // n
+    mine = slice(rank * dl, (rank + 1) * dl)
+    heads = slice(rank * hl, (rank + 1) * hl)
+    w, cw, cb = p["w_in"], p["conv_w"], p["conv_b"]
+    out = dict(p)
+    out["w_in"] = torch.cat(
+        [w[..., mine], w[..., di + mine.start:di + mine.stop],
+         w[..., 2 * di:2 * di + gn2],
+         w[..., 2 * di + gn2 + heads.start:2 * di + gn2 + heads.stop]], -1)
+    out["conv_w"] = torch.cat([cw[..., mine], cw[..., di:]], -1)
+    out["conv_b"] = torch.cat([cb[..., mine], cb[..., di:]], -1)
+    for k in ("dt_bias", "A_log", "D"):
+        out[k] = p[k][..., heads]
+    return out
+
+
+def _gate_norm_split(y: torch.Tensor, scale: torch.Tensor, d: int, groups,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over rows whose ``d`` columns lie on the model ranks of
+    ``groups``, ``y`` (..., d / n) and ``scale`` (d / n,) this rank's: the
+    f32 sum of squares summed over the model axis (both ways, each rank
+    reading it for its columns), then ``ref.rmsnorm``'s products."""
+    yf = y.float()
+    model = [groups.model_group]
+    ss = collectives.copy_to_region(collectives.reduce_from_region(
+        yf.square().sum(dim=-1, keepdim=True), model), model)
+    return (yf * torch.rsqrt(ss / d + eps) * scale.float()).to(y.dtype)
+
+
+def mamba_apply(p: dict, cfg, x: torch.Tensor, groups=None) -> torch.Tensor:
+    """Full-sequence forward.  x: (B,S,d) -> (B,S,d).  With a mesh's
+    ``groups``, ``p`` is as the module docstring says and the output is
+    summed over the model axis."""
     s = cfg.ssm
     B, S, d = x.shape
-    di = s.d_inner(d)
-    H = s.n_heads(d)
+    if groups is not None:
+        x = collectives.copy_to_region(x, [groups.model_group])
+        p = _heads_of(p, cfg, groups.model_rank, groups.n_model)
+    di = p["w_out"].shape[-2]                  # this rank's d_inner
+    H = di // s.head_dim
     N = s.d_state
     gn = N_GROUPS * N
 
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["w_in"])
+    z, xbc, dt_raw = _split_proj(cfg, x @ p["w_in"], di)
     xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
     xs = xbc[..., :di].reshape(B, S, H, s.head_dim).float()
     Bm = xbc[..., di:di + gn].reshape(B, S, N_GROUPS, N).float()
@@ -105,8 +164,13 @@ def mamba_apply(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     y, _ = ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=s.chunk)
     y = y + p["D"][None, None, :, None] * xs
     y = y.reshape(B, S, di).to(x.dtype)
-    y = layers.rms_norm_weighted(y * F.silu(z), p["gate_norm"])
-    return y @ p["w_out"]
+    if groups is None:
+        y = layers.rms_norm_weighted(y * F.silu(z), p["gate_norm"])
+        return y @ p["w_out"]
+    y = _gate_norm_split(y * F.silu(z), p["gate_norm"], s.d_inner(d),
+                         groups)
+    return collectives.reduce_from_region(y @ p["w_out"],
+                                          [groups.model_group])
 
 
 def mamba_init_state(cfg, batch: int, dtype=torch.float32,

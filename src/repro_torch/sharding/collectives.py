@@ -14,7 +14,16 @@ forward and is the identity backward (the parts' sum, which every rank then
 uses whole); ``gather_from_region`` concatenates the ranks' parts along the
 last dim forward and takes this rank's part of the gradient backward.
 ``torch.distributed.nn.functional.all_reduce`` would sum again backward,
-giving each rank n times its gradient.
+giving each rank n times its gradient; ``reduce_from_region`` inside
+``copy_to_region`` sums both ways, for a sum of parts that each rank reads
+for its own part of the computation.
+
+``all_gather`` and ``reduce_scatter`` are the plain collectives along any
+dim, ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` on the dim
+moved to the front: the sharded step gathers its stored-split leaves and
+sums their partial gradients through them, not through DTensor's
+``redistribute`` (whose Shard-to-Replicate kills a gloo rank on CUDA
+tensors, ``launch/gloo_probe.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels.work import uncounted
 from repro_torch.sharding.rules import data_axes_of, layout_of
 
 
@@ -79,14 +89,41 @@ class _ReduceFromRegion(torch.autograd.Function):
         return g, None
 
 
+def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The ranks' ``t`` of ``group`` concatenated along ``dim`` in rank
+    order: one ``all_gather_into_tensor`` of ``t`` with ``dim`` moved to
+    the front."""
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    _wait(dist.all_gather_into_tensor(out, src, group=group, async_op=True))
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``t`` summed over ``group``: one
+    ``reduce_scatter_tensor`` with ``dim`` moved to the front."""
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _wait(dist.reduce_scatter_tensor(out, src, group=group, async_op=True))
+    return out.movedim(0, dim).contiguous()
+
+
+def _wait(work) -> None:
+    """Waits for a collective launched with ``async_op``; what the backend
+    does then to deliver its result (gloo copies it into the output on
+    the CPU) is the collective's own work, so no counter counts it."""
+    with uncounted():
+        work.wait()
+
+
 class _GatherFromRegion(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        rank = dist.get_rank(group)
         ctx.part = (rank * x.shape[-1], (rank + 1) * x.shape[-1])
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=-1)
+        return all_gather(x, group, -1)
 
     @staticmethod
     def backward(ctx, g):

@@ -9,7 +9,8 @@ dim).  Leading stack dims (the layer axis) are always unsharded, so every
 rule indexes from the end of the shape.  Optimizer state (mu/nu/master)
 additionally gets ZeRO-1 sharding of its largest unsharded dim over the
 data axes.  ``compute_use`` says how the forward uses a leaf's model-axis
-split: column- or row-parallel, vocab-parallel, or whole.
+split: column- or row-parallel, vocab- or expert-parallel, held whole
+and read in part by each rank, or whole.
 
 A leaf's spec is a plain tuple with one entry per tensor dim, of the form
 of JAX's ``PartitionSpec``: ``None`` (replicated), an axis name, or a tuple
@@ -168,39 +169,98 @@ def experts_split(cfg, model_size: int) -> bool:
     return cfg.moe is not None and cfg.moe.n_experts % model_size == 0
 
 
+def expert_ffn_splits(cfg, model_size: int) -> bool:
+    """Whether the routed experts are split over d_ff on a model axis of
+    ``model_size`` > 1: their count does not divide the axis (else they
+    are expert-parallel, ``experts_split``) and each expert's d_ff does,
+    as ``param_spec`` stores them (``moe.moe_apply_dff``)."""
+    return model_size > 1 and cfg.moe is not None \
+        and not experts_split(cfg, model_size) \
+        and cfg.moe.d_ff_expert % model_size == 0
+
+
+def shared_expert_splits(cfg, model_size: int) -> bool:
+    """Whether DeepSeek's shared experts are a tensor-parallel MLP over a
+    model axis of ``model_size`` > 1: their d_ff (``n_shared_experts *
+    d_ff_expert``) divides the axis, whichever way the routed experts
+    go."""
+    if model_size == 1 or cfg.moe is None or not cfg.moe.n_shared_experts:
+        return False
+    return cfg.moe.n_shared_experts * cfg.moe.d_ff_expert % model_size == 0
+
+
+def mla_splits(cfg, model_size: int) -> bool:
+    """Whether MLA is tensor-parallel over a model axis of ``model_size`` >
+    1: its heads divide the axis, each rank up-projecting and attending
+    with its block of heads (``mla.mla_apply``)."""
+    return model_size > 1 and cfg.mla is not None \
+        and cfg.attn.n_heads % model_size == 0
+
+
+def mamba_splits(cfg, model_size: int) -> bool:
+    """Whether a Mamba2 layer is tensor-parallel over a model axis of
+    ``model_size`` > 1: its SSM heads divide the axis, each rank scanning
+    its block of heads (``ssm.mamba_apply``)."""
+    return model_size > 1 and cfg.ssm is not None \
+        and cfg.ssm.n_heads(cfg.d_model) % model_size == 0
+
+
 def compute_use(names: Tuple[str, ...], cfg, model_size: int) -> str:
     """How the forward of ``cfg`` uses the leaf at ``names`` over a model
-    axis of ``model_size``, by ``attention_splits``, ``mlp_splits`` and
-    ``vocab_splits`` (which the forward asks too); a split leaf's
-    ``param_spec`` puts the model axis on the dim its use names, so it is
-    stored as it is computed:
+    axis of ``model_size``, by the predicates above (which the forward
+    asks too); a split leaf's ``param_spec`` puts the model axis on the dim
+    its use names, so it is stored as it is computed:
 
     * ``COLUMN``: ``wq``, ``wk`` / ``wv`` where the KV heads divide the
-      axis, an MLP's ``w_in`` / ``w_gate`` (model on dim -1);
-    * ``ROW``: ``wo``, an MLP's ``w_out`` (model on dim -2);
+      axis, an MLP's ``w_in`` / ``w_gate`` (the shared experts' too), the
+      routed experts' where ``expert_ffn_splits``, MLA's ``w_uq``,
+      ``w_uk``, ``w_uv`` and Mamba2's ``gate_norm`` (model on dim -1; MLA's
+      and Mamba2's last dims are head-major);
+    * ``ROW``: ``wo``, an MLP's ``w_out`` and the same experts', Mamba2's
+      ``w_out`` (model on dim -2);
     * ``VOCAB``: ``embed/w`` and ``head/w`` with the vocabulary (dim -2)
       on the model axis;
     * ``EXPERT``: the MoE routed experts where ``experts_split`` (model on
       the expert dim, -3);
-    * ``PARTIAL``: held whole, read by this rank's heads only: ``wk`` /
-      ``wv`` where the KV heads do not divide the axis (each rank reads the
-      KV heads its query heads use, the reference's KV replication),
-      ``q_norm`` / ``k_norm`` of a split attention, and every attention
-      leaf where the axis is a multiple of the query heads (each rank
-      slices its head);
+    * ``PARTIAL``: held whole, read by this rank's heads only, so the
+      gradient is a partial sum over the model ranks: ``wk`` / ``wv``
+      where the KV heads do not divide the axis (each rank reads the KV
+      heads its query heads use, the reference's KV replication),
+      ``q_norm`` / ``k_norm`` of a split attention, every attention leaf
+      where the axis is a multiple of the query heads (each rank slices
+      its head); in a split MLA, ``w_dq``, ``w_dkv``, ``q_norm`` and
+      ``kv_norm``, the low-rank down-projections and their norms computed
+      whole on every rank (the named fallback of a split MLA, as in
+      Megatron's); in a split Mamba2, ``w_in``, ``conv_w`` and ``conv_b``
+      (their last dims are the concatenation [z | x | B | C | dt], so a
+      stored shard is not a block of heads: each rank reads its heads'
+      columns and all of B and C) and ``dt_bias``, ``A_log``, ``D``;
     * ``WHOLE``: everything else, gathered and computed alike on every
-      model rank: attention that ``attention_splits`` refuses, an MLP whose
-      d_ff does not divide the axis, a vocabulary that does not, MLA and
-      Mamba2 leaves, the MoE router, shared experts and routed experts
-      that do not divide the axis, norms."""
+      model rank: attention, MLA or Mamba2 whose heads the predicates
+      refuse, an MLP or shared expert whose d_ff does not divide the axis,
+      a vocabulary that does not, routed experts that divide neither way,
+      the MoE router, norms."""
     last = names[-1] if names else ""
     parent = names[-2] if len(names) > 1 else ""
+    grand = names[-3] if len(names) > 2 else ""
     if parent == "moe" and last in EXPERT_LEAVES:
-        return EXPERT if experts_split(cfg, model_size) else WHOLE
+        if experts_split(cfg, model_size):
+            return EXPERT
+        if expert_ffn_splits(cfg, model_size):
+            return ROW if last == "w_out" else COLUMN
+        return WHOLE
+    if parent == "shared" and grand == "moe":
+        if shared_expert_splits(cfg, model_size):
+            return ROW if last == "w_out" else COLUMN
+        return WHOLE
     if last == "w" and parent in ("embed", "head"):
         return VOCAB if vocab_splits(cfg, model_size) else WHOLE
     if parent == "mlp" and mlp_splits(cfg, model_size):
         return ROW if last == "w_out" else COLUMN
+    if parent == "attn" and mla_splits(cfg, model_size):
+        if last in ("w_uq", "w_uk", "w_uv"):
+            return COLUMN
+        return ROW if last == "wo" else PARTIAL
     if parent == "attn" and attention_splits(cfg, model_size):
         if last in ("q_norm", "k_norm") \
                 or cfg.attn.n_heads % model_size:
@@ -212,6 +272,10 @@ def compute_use(names: Tuple[str, ...], cfg, model_size: int) -> str:
         if last in _KV:
             return COLUMN if cfg.attn.n_kv_heads % model_size == 0 \
                 else PARTIAL
+    if parent == "mamba" and mamba_splits(cfg, model_size):
+        if last == "w_out":
+            return ROW
+        return COLUMN if last == "gate_norm" else PARTIAL
     return WHOLE
 
 

@@ -9,22 +9,32 @@ tensor and expert parallelism over the model axis.
   ``master`` by their ``opt_specs`` (ZeRO-1).  ``shard_train_state`` makes
   such a state from a whole one and ``full_train_state`` gathers it back.
 * **Forward and backward** run on plain local tensors, each leaf
-  redistributed to its compute placement before the micro-batches
-  (``compute_uses``, by ``sharding.rules.compute_use``): attention whose
-  query heads divide the model axis and MLPs whose d_ff does are
-  tensor-parallel (column-parallel ``wq``, ``wk``, ``wv``, ``w_in``,
-  ``w_gate``, row-parallel ``wo``, ``w_out``; one all-reduce over the model
-  axis in each direction, ``layers.attention_apply`` / ``mlp_apply``), the
-  embedding, head and cross-entropy are vocab-parallel where the
-  vocabulary divides, and the MoE routed experts are each model rank's
-  block (``models.moe.moe_apply_ep``); these leaves reach the forward as
-  the rank's shard, with no gather.  ``wk`` / ``wv`` whose KV heads do not
-  divide the axis, and ``q_norm`` / ``k_norm`` of a split attention, are
-  held whole and read by the rank's heads only, so their gradients are
-  partial sums over the model ranks.  Everything else (MLA and Mamba2
-  layers, attention whose heads do not divide, norms, the router) is
-  gathered whole and computed alike on every model rank.  The kernels take
-  raw pointers, so no ``DTensor`` reaches them.  Each rank takes its rows
+  brought to its compute placement before the micro-batches
+  (``compute_uses``, by ``sharding.rules.compute_use``), where the rules
+  split a module: attention by query heads, MLA by heads, Mamba2 by SSM
+  heads, MLPs and shared experts by d_ff (column-parallel ``wq``, ``wk``,
+  ``wv``, ``w_uq``, ``w_uk``, ``w_uv``, ``w_in``, ``w_gate``, ``gate_norm``,
+  row-parallel ``wo``, ``w_out``; one all-reduce over the model axis in
+  each direction), the embedding, head and cross-entropy by the
+  vocabulary, and the MoE routed experts by blocks where they divide the
+  axis (``models.moe.moe_apply_ep``), else by d_ff
+  (``models.moe.moe_apply_dff``); these leaves reach the forward as the
+  rank's shard, with no gather.  ``PARTIAL`` leaves are held whole and
+  read by the rank's heads only, so their gradients are partial sums over
+  the model ranks, summed once a step in f32: ``wk`` / ``wv`` whose KV
+  heads do not divide the axis, the norms of a split attention, a split
+  MLA's down-projections and their norms, a split Mamba2's ``w_in``,
+  ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log`` and ``D``.  Everything
+  else (modules whose heads or d_ff do not divide, norms, the router) is
+  gathered whole and computed alike on every model rank.  A leaf stored
+  split over the model axis but computed whole is gathered by a plain
+  ``all_gather_into_tensor`` (``sharding.collectives.all_gather``) and a
+  ``PARTIAL`` one's gradient summed back to the stored shard by a plain
+  ``reduce_scatter_tensor``, not by DTensor's ``redistribute`` (whose
+  Shard-to-Replicate kills a gloo rank on CUDA tensors,
+  ``launch/gloo_probe.py``); the data axes (ZeRO-1, ``fsdp``) stay
+  DTensor's.  The kernels take raw pointers, so no ``DTensor`` reaches
+  them.  Each rank takes its rows
   of every micro-batch (dim 1 of the stacked batch) by ``batch_specs``;
   with more than one data rank each cross-entropy is the rank's share of
   the micro-batch's global mean.
@@ -52,9 +62,10 @@ from repro_torch import tree
 from repro_torch.optim import AdamW
 from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import (PARTIAL, SPLIT_USES, batch_specs,
-                                        compute_use, experts_split, is_spec,
-                                        param_specs, path_names,
-                                        to_placements, train_state_specs)
+                                        compute_use, expert_ffn_splits,
+                                        experts_split, is_spec, param_specs,
+                                        path_names, to_placements,
+                                        train_state_specs)
 from repro_torch.train.state import TrainState, abstract_train_state
 
 
@@ -150,7 +161,10 @@ class _Leaf:
     for the forward (``compute_uses``: its model-axis shard where it is
     split, else gathered), and of its local gradient (partial over the
     data axes; over the model axis the forward's shard, a partial sum for
-    a ``PARTIAL`` leaf, else the same on every rank); and whether this rank
+    a ``PARTIAL`` leaf, else the same on every rank); ``gather``, the dim
+    of a leaf stored split over the model axis and computed whole (else
+    None), which the step gathers and, for a ``PARTIAL`` leaf, sums the
+    gradient back along by plain collectives; and whether this rank
     counts its optimizer shard in the global norm (the first copy of
     each)."""
 
@@ -164,6 +178,9 @@ class _Leaf:
         self.compute = [Replicate()] * n_data_axes + [model]
         self.grad = [Partial()] * n_data_axes + [
             Partial() if use == PARTIAL else model]
+        stored = self.param[-1]
+        self.gather = stored.dim if dim is None \
+            and isinstance(stored, Shard) else None
         self.owner = all(
             mesh.get_local_rank(axis) == 0
             for axis, pl in zip(mesh.mesh_dim_names, self.opt)
@@ -190,10 +207,12 @@ def make_sharded_train_step(model, optimizer: AdamW, n_micro: int, mesh, *,
             compute_uses(shapes.params, model.cfg, groups.n_model),
             tree.leaves(specs.params, is_leaf=is_spec),
             tree.leaves(specs.opt.mu, is_leaf=is_spec))]
-    if model.cfg.moe is not None and not experts_split(model.cfg,
-                                                       groups.n_model):
+    if model.cfg.moe is not None and not (
+            experts_split(model.cfg, groups.n_model)
+            or expert_ffn_splits(model.cfg, groups.n_model)):
         raise ValueError("the MoE experts' leaves are not on the model "
-                         "axis: their count does not divide it")
+                         "axis: neither their count nor their d_ff "
+                         "divides it")
     data_groups = groups.data_groups if groups.n_data > 1 else ()
 
     def local_rows(batch) -> Dict[str, torch.Tensor]:
@@ -234,11 +253,32 @@ def make_sharded_train_step(model, optimizer: AdamW, n_micro: int, mesh, *,
             grads = torch.autograd.grad(loss, local, allow_unused=True)
         return grads, global_metrics(metrics)
 
+    def compute_local(p, leaf: _Leaf) -> torch.Tensor:
+        """The stored DTensor ``p`` at ``leaf.compute``, as a local tensor:
+        the data axes by ``redistribute``, a model-axis gather by a plain
+        all-gather."""
+        if leaf.gather is None:
+            return p.redistribute(mesh, leaf.compute).to_local()
+        part = p.redistribute(mesh, leaf.compute[:-1] + [p.placements[-1]])
+        return collectives.all_gather(part.to_local(), groups.model_group,
+                                      leaf.gather)
+
+    def local_grad(acc: torch.Tensor, leaf: _Leaf) -> "DTensor":
+        """The accumulated gradient as a DTensor at ``leaf.grad``; a
+        ``PARTIAL`` leaf stored split is first summed to its stored shard
+        over the model axis by a plain reduce-scatter."""
+        DTensor, Partial, _, Shard = _dtensor()
+        placements = leaf.grad
+        if leaf.gather is not None and isinstance(placements[-1], Partial):
+            acc = collectives.reduce_scatter(acc, groups.model_group,
+                                             leaf.gather)
+            placements = placements[:-1] + [Shard(leaf.gather)]
+        return DTensor.from_local(acc, mesh, placements, run_check=False)
+
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         check_world(mesh)
         stored = tree.leaves(state.params)
-        params = [p.redistribute(mesh, leaf.compute).to_local()
-                  for p, leaf in zip(stored, leaves)]
+        params = [compute_local(p, leaf) for p, leaf in zip(stored, leaves)]
         batch = local_rows(batch)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in params]
@@ -253,11 +293,9 @@ def make_sharded_train_step(model, optimizer: AdamW, n_micro: int, mesh, *,
             per_mb.append(metrics)
         del params
         with torch.no_grad():
-            DTensor = _dtensor()[0]
             grads = []
             for i, leaf in enumerate(leaves):
-                g = DTensor.from_local(acc[i], mesh, leaf.grad,
-                                       run_check=False)
+                g = local_grad(acc[i], leaf)
                 acc[i] = None
                 grads.append(g.redistribute(mesh, leaf.opt).to_local()
                              / n_micro)

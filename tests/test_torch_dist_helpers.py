@@ -1,6 +1,7 @@
 """The rank bodies of the port's multi-rank tests
 (``tests/test_torch_sharded_step.py``, ``tests/test_torch_moe_ep.py``,
-``tests/test_torch_dryrun.py``, ``tests/test_torch_tensor_parallel.py``).
+``tests/test_torch_dryrun.py``, ``tests/test_torch_tensor_parallel.py``,
+``tests/test_torch_tp_ssm_mla_moe.py``).
 Holds no tests of its own and imports no JAX: ``launch.sharded.spawn``
 starts each rank in a new process, which imports this module by name.
 
@@ -62,8 +63,13 @@ def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
             TrainState(params, opt.init(params),
                        torch.zeros((), dtype=torch.int32)), mesh,
             fsdp=job["fsdp"])
-        step = make_sharded_train_step(model, opt, job["n_micro"], mesh,
-                                       fsdp=job["fsdp"])
+        undo = unsum_partial_grads() if job.get("mutate") else None
+        try:
+            step = make_sharded_train_step(model, opt, job["n_micro"], mesh,
+                                           fsdp=job["fsdp"])
+        finally:
+            if undo is not None:
+                undo()
         out = []
         for batch in job["batches"]:
             state, metrics = step(state, batch)
@@ -78,15 +84,17 @@ def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
 
 def moe_ep(rank, world, store_path, model_size, job_dir):
     """``moe_apply_ep`` forward and backward on a (world // model_size,
-    model_size) mesh: each rank takes its rows of ``x`` and its block of
-    experts, and the objective is scale * sum(y * w) + aux (summed over
-    the ranks' rows, the global objective).  Rank 0 saves y
-    and x's gradient over all rows, the aux loss, the expert blocks'
-    gradients gathered over the model ranks, and the router's and shared
-    expert's gradients summed over the data ranks."""
+    model_size) mesh: each rank takes its rows of ``x``, its block of
+    experts and, where ``shared_expert_splits``, its d_ff part of the
+    shared expert, and the objective is scale * sum(y * w) + aux (summed
+    over the ranks' rows, the global objective).  Rank 0 saves y and x's
+    gradient over all rows, the aux loss, the router's gradient summed
+    over the data ranks, and the expert blocks' and the shared expert's
+    gradients summed over the data ranks and, where split, gathered over
+    the model ranks."""
     import torch.distributed as dist
     from repro_torch.models import moe
-    from repro_torch.sharding import collectives
+    from repro_torch.sharding import collectives, rules
     init_rank(rank, world, store_path, "cpu")
     mesh = make_host_mesh(model_size)
     g = collectives.MeshGroups(mesh)
@@ -99,6 +107,12 @@ def moe_ep(rank, world, store_path, model_size, job_dir):
     p = {k: (v[g.model_rank * held:(g.model_rank + 1) * held]
              if k in ("w_in", "w_gate", "w_out") else v)
          for k, v in job["p"].items()}
+    # the shared expert's d_ff: w_in / w_gate columns, w_out rows
+    shared_dim = {"w_in": -1, "w_gate": -1, "w_out": -2}
+    split = "shared" in p and rules.shared_expert_splits(cfg, g.n_model)
+    if split:
+        p["shared"] = {k: v.chunk(g.n_model, shared_dim[k])[g.model_rank]
+                       for k, v in p["shared"].items()}
     leaves = [t.clone().requires_grad_(True) for t in tree.leaves(p)]
     x = job["x"][sl].clone().requires_grad_(True)
     y, aux = moe.moe_apply_ep(tree.unflatten(p, leaves), cfg, x, mesh)
@@ -115,11 +129,12 @@ def moe_ep(rank, world, store_path, model_size, job_dir):
     out["y"] = gather(y.detach(), data, g.n_data)
     out["dx"] = gather(grads[-1], data, g.n_data)
     for k, t in gp.items():
+        t = collectives.all_reduce(t.clone(), g.data_groups)
         if any(k == f"['{e}']" for e in ("w_in", "w_gate", "w_out")):
-            t = gather(collectives.all_reduce(t.clone(), g.data_groups),
-                       g.model_group, g.n_model)
-        else:
-            t = collectives.all_reduce(t.clone(), g.data_groups)
+            t = gather(t, g.model_group, g.n_model)
+        elif split and k.startswith("['shared']"):
+            t = gather(t, g.model_group, g.n_model,
+                       shared_dim[k.split("'")[-2]])
         out["grad" + k] = t
     if rank == 0:
         torch.save(out, job_dir / f"moe_{mesh_name(g.n_data, g.n_model)}"
@@ -127,17 +142,19 @@ def moe_ep(rank, world, store_path, model_size, job_dir):
 
 
 def dryrun_counts(rank, world, store_path, model_size, job_dir, archs,
-                  shape, n_micro):
+                  shape, n_micro, moe=None):
     """Each arch's (reduced) train step of ``launch.dryrun.build_pair`` run
     for real on CPU tensors over a (world // model_size, model_size) mesh
-    under a ``WorkCounter``; rank 0 saves each one's counts as
+    under a ``WorkCounter``, with ``moe[arch]`` (if given) replaced into
+    its MoE config; rank 0 saves each one's counts as
     ``dryrun_{arch}.out``."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.dryrun import build_pair, count_step
     init_rank(rank, world, store_path, "cpu")
     mesh = make_host_mesh(model_size)
     for arch in archs:
-        step, args, _ = build_pair(reduced(arch), ShapeConfig(*shape), mesh,
+        cfg = reduced(arch, **(moe or {}).get(arch, {}))
+        step, args, _ = build_pair(cfg, ShapeConfig(*shape), mesh,
                                    n_micro=n_micro, device="cpu")
         counter, _ = count_step(step, args, mesh)
         if rank == 0:
@@ -245,3 +262,117 @@ def tp_modules(rank, world, store_path, job_dir, cases):
         res = tp_module(job, tp_cfg(job), groups)
         if rank == 0:
             torch.save(res, job_dir / f"tp_{case}_{world}.out")
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel Mamba2, MLA and MoE (tests/test_torch_tp_ssm_mla_moe.py)
+# ---------------------------------------------------------------------------
+
+TP_BLOCK_PARENT = {"mamba": "mamba", "mla": "attn", "moe": "moe"}
+
+
+def tp_block_cfg(job):
+    """The port's reduced config of a job, its MoE fields replaced where
+    the job says."""
+    return reduced(job["arch"], **job.get("moe", {}))
+
+
+def tp_block(job, cfg, groups=None):
+    """``job["module"]`` forward and backward on this model rank's compute
+    shards of ``job["params"]`` (by ``compute_use``; whole without
+    ``groups``), through the path ``blocks.block_apply`` takes: Mamba2
+    (``ssm.mamba_apply``), MLA (``mla.mla_apply``) or the MoE FFN
+    (``moe_apply``, ``moe_apply_ep`` or ``moe_apply_dff``, the shared
+    expert inside).  Objective sum(y * probe) (plus the aux loss for MoE).
+    Returns each leaf's use, the path taken, the outputs and every
+    gradient whole: a split leaf's gathered, a ``PARTIAL`` leaf's summed
+    over the model ranks."""
+    import torch.distributed as dist
+    from repro_torch.models import mla, moe, ssm
+    from repro_torch.sharding import collectives, rules
+    from repro_torch.sharding.rules import path_names
+    n = 1 if groups is None else groups.n_model
+    parent = TP_BLOCK_PARENT[job["module"]]
+    keys, uses, dims, local = [], {}, {}, []
+    for k, t in tree.leaves_with_path(job["params"]):
+        names = (parent,) + path_names(k)
+        key = "/".join(names[1:])
+        spec = rules.param_spec(names, tuple(t.shape), n)
+        uses[key] = rules.compute_use(names, cfg, n)
+        if uses[key] in rules.SPLIT_USES and groups is not None:
+            dims[key] = spec.index("model")
+            t = t.chunk(n, dims[key])[groups.model_rank]
+        keys.append(key)
+        local.append(t.clone().requires_grad_(True))
+    p = tree.unflatten(job["params"], local)
+    x = job["x"].clone().requires_grad_(True)
+    aux = None
+    if job["module"] == "mamba":
+        path = "split" if rules.mamba_splits(cfg, n) else "whole"
+        y = ssm.mamba_apply(p, cfg, x,
+                            groups=groups if path == "split" else None)
+    elif job["module"] == "mla":
+        path = "split" if rules.mla_splits(cfg, n) else "whole"
+        y = mla.mla_apply(p, cfg, x, torch.arange(x.shape[1]),
+                          groups=groups if path == "split" else None)
+    elif groups is not None and rules.experts_split(cfg, n):
+        path = "ep"
+        y, aux = moe.moe_apply_ep(p, cfg, x, groups)
+    elif rules.expert_ffn_splits(cfg, n):
+        path = "dff"
+        y, aux = moe.moe_apply_dff(p, cfg, x, groups)
+    else:
+        path = "whole"
+        y, aux = moe.moe_apply(p, cfg, x)
+    obj = (y * job["probe"]).sum()
+    if aux is not None:
+        obj = obj + aux
+    grads = torch.autograd.grad(obj, local + [x])
+
+    def gather(t, dim):
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=groups.model_group)
+        return torch.cat(parts, dim)
+    res = {"uses": uses, "path": path, "y": y.detach()}
+    if aux is not None:
+        res["aux"] = aux.detach()
+    for key, grad in zip(keys, grads):
+        if key in dims:
+            grad = gather(grad, dims[key])
+        elif uses[key] == rules.PARTIAL:
+            grad = collectives.all_reduce(grad.clone(),
+                                          [groups.model_group])
+        res["d" + key] = grad
+    res["dx"] = grads[-1]
+    return res
+
+
+def tp_blocks(rank, world, store_path, job_dir, cases):
+    """``tp_block`` of each case on a (1, world) mesh; rank 0 saves each
+    result as ``block_{case}_{world}.out``."""
+    from repro_torch.sharding import collectives
+    init_rank(rank, world, store_path, "cpu")
+    groups = collectives.MeshGroups(make_host_mesh(world))
+    job_dir = Path(job_dir)
+    for case in cases:
+        job = torch.load(job_dir / f"block_{case}.in")
+        res = tp_block(job, tp_block_cfg(job), groups)
+        if rank == 0:
+            torch.save(res, job_dir / f"block_{case}_{world}.out")
+
+
+def unsum_partial_grads():
+    """The mutation of the sharded step that its tests must catch: each
+    ``PARTIAL`` leaf's gradient taken as the forward's placement over the
+    model axis (replicated) instead of a partial sum, so no rank sums
+    it.  Returns the function that undoes it."""
+    from repro_torch.sharding.rules import PARTIAL
+    from repro_torch.train import sharded
+    init = sharded._Leaf.__init__
+
+    def mutated(self, use, *args):
+        init(self, use, *args)
+        if use == PARTIAL:
+            self.grad[-1] = self.compute[-1]
+    sharded._Leaf.__init__ = mutated
+    return lambda: setattr(sharded._Leaf, "__init__", init)

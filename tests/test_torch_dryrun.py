@@ -213,11 +213,12 @@ def test_config_fields_match_reference_arithmetic(shape, multi_pod):
         if jshape.kind == "train":
             want["n_micro"] = jn_micro_for(jshape, dp)
         assert {k: got[k] for k in want} == want, arch
-        # only a pair that needs what the port lacks says why it does not run
+        # every pair runs: experts that do not divide the axis (granite-moe's
+        # 40 over 16) split over d_ff, as the reference's do
         moe = jcfg.moe
-        blocked = jshape.kind == "train" and moe is not None \
-            and moe.n_experts % tp
-        assert (got.get("status") == "not_run") == bool(blocked), arch
+        if moe is not None and moe.n_experts % tp:
+            assert moe.d_ff_expert % tp == 0, arch
+        assert got.get("status") != "not_run", arch
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +370,8 @@ def test_check_pair_over_a_fake_group_of_two(kind):
                                 ("data", "model"), (1, 2)),
                             n_micro=N_MICRO if kind == "train" else None)
     assert out["predicted"] == out["measured"] and out["equal"]
-    assert out["tp_compute"] and out["layout"] == {"data": 1, "model": 2}
+    assert out["tp_compute"] and out["tp_whole"] == []
+    assert out["layout"] == {"data": 1, "model": 2}
     assert out["predicted"]["collectives"]["all-reduce"]["count"] > 0
     assert not torch.distributed.is_initialized()
 
@@ -441,7 +443,8 @@ DENSE = ["gemma-2b", "qwen3-4b", "granite-3-8b", "gemma3-12b",
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("arch", DENSE + ["deepseek-v3-671b", "mamba2-780m",
-                                          "zamba2-1.2b"])
+                                          "zamba2-1.2b",
+                                          "granite-moe-3b-a800m"])
 def test_whole_compute_names_what_is_not_split(arch, kind):
     from repro_torch.models.model import build_model
     from repro_torch.train.sharded import compute_uses
@@ -450,14 +453,15 @@ def test_whole_compute_names_what_is_not_split(arch, kind):
     whole = dryrun.whole_compute(compute_uses(params, cfg, 16), kind, 16)
     if kind == "decode":
         assert whole == ["decode (tensor-parallel decode is not ported)"]
-    elif arch in DENSE:
-        assert whole == [], whole
-    elif arch == "deepseek-v3-671b":
-        # MLA in every layer and the MTP block; the shared experts
-        assert whole == ["mtp/block/attn", "segments/attn",
-                         "segments/moe/shared"], whole
+    elif arch == "granite-moe-3b-a800m":
+        # 24 heads neither divide 16 nor are divided by it; its 40
+        # experts split over d_ff
+        assert whole == ["segments/attn"], whole
     else:
-        assert whole == ["segments/mamba"], whole
+        # MLA, its MTP block and DeepSeek's shared experts, Mamba2 and
+        # zamba2's Mamba2 layers are split: their PARTIAL leaves (MLA's
+        # down-projections, Mamba2's input projection) are not listed
+        assert whole == [], whole
     assert dryrun.whole_compute(compute_uses(params, cfg, 1), kind, 1) == \
         ["a model axis of 1"]
 
@@ -467,7 +471,10 @@ def test_tp_compute_of_reduced_pairs_at_tp2():
     for arch, kind, want in [("gemma-2b", "train", True),
                              ("gemma-2b", "prefill", True),
                              ("gemma-2b", "decode", False),
-                             ("mamba2-780m", "train", False)]:
+                             ("mamba2-780m", "train", True),
+                             ("mamba2-780m", "prefill", True),
+                             ("deepseek-v3-671b", "train", True),
+                             ("zamba2-1.2b", "prefill", True)]:
         shape = TRAIN if kind == "train" else ShapeConfig("p", 16, 2, kind)
         with dryrun.process_group("fake", 2):
             row = dryrun.trace_pair(get_arch(arch).reduced(), shape, layout,

@@ -9,7 +9,9 @@ Queue 3), and at data 2 x model 2 against the reference's ``_moe_local``
 composed over the shards as ``moe_apply_shardmap`` composes it (capacity
 from each data shard's tokens, the partial results summed over the model
 shards, the shared expert added once, the router's statistics summed over
-the data shards).  Compared: y, the aux loss, and the gradients of
+the data shards).  Each model rank holds its block of experts and its d_ff
+part of the shared expert (a tensor-parallel MLP, ``sharding.rules.
+shared_expert_splits``).  Compared: y, the aux loss, and the gradients of
 mean(y * w) + aux for every expert block, the router, the shared expert
 and x.  A shared expert counted on every model rank, or a router or x
 gradient summed once too often over the model ranks, fails these.

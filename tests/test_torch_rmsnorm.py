@@ -208,3 +208,48 @@ def test_cuda_kernel_matches_plain_version(dtype):
     x, s = x.cuda(), s.cuda()
     assert_close(trms.rmsnorm_cuda(x[:, ::2], s[:128]),
                  tref.rmsnorm(x[:, ::2], s[:128]), TOL[dtype], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's limit for kernel 2 against its plain version on the card
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (the port does not import it)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("mag", [0.5, 1.5, 2.0, 3.0, 4.0, 6.5, 8.0, 100.0])
+def test_chip_smoke_rms_limit_takes_one_bf16_ulp_not_two(mag):
+    """``rms_limit``: one bf16 ulp at the plain output's magnitude, 2^(floor
+    (log2 |y|) - 7), passes wherever it exceeds the absolute 2e-2 (one ulp
+    in [4, 8) is 3.125e-2, which the absolute limit refused); two ulps
+    fail at every |y| >= 2; below 2, 2e-2 holds as before.  ``_rms_check``
+    applies it element by element."""
+    import math
+    smoke = _chip_smoke()
+    want = torch.tensor([mag, -mag, 0.25], dtype=torch.bfloat16)
+    ulp = torch.tensor([2.0 ** (math.floor(math.log2(mag)) - 7)] * 2
+                       + [2.0 ** -9])
+    limit = smoke.rms_limit(want)
+    assert limit.dtype == torch.float32
+    assert torch.equal(limit, torch.clamp(ulp, min=2e-2))
+    for n, passes in ((1, True), (2, mag < 2)):
+        got = (want.float() + n * ulp * torch.tensor([1.0, -1.0, 1.0])) \
+            .to(torch.bfloat16)
+        assert (got.float() - want.float()).abs().tolist() == \
+            (n * ulp).tolist()
+        if passes:
+            smoke._rms_check("one", got, want, want)
+        else:
+            with pytest.raises(AssertionError, match="over their limit"):
+                smoke._rms_check("two", got, want, want)
+    f32 = torch.tensor([mag])
+    assert smoke.rms_limit(f32).tolist() == \
+        torch.tensor([smoke.RMS_TOL["float32"]]).tolist()

@@ -319,13 +319,22 @@ PRODUCTION_USES = [
     ("gemma-2b", ("embed", "w"), rules.VOCAB),
     ("granite-3-8b", ("embed", "w"), rules.WHOLE),   # vocab 49155
     ("granite-moe-3b-a800m", ("attn", "wq"), rules.WHOLE),   # 24 heads
-    ("deepseek-v3-671b", ("attn", "wo"), rules.WHOLE),       # MLA
+    ("deepseek-v3-671b", ("attn", "wo"), rules.ROW),         # MLA, 128 heads
     ("deepseek-v3-671b", ("mlp", "w_in"), rules.COLUMN),
     ("hubert-xlarge", ("head", "w"), rules.WHOLE),   # vocab 504
     ("deepseek-v3-671b", ("moe", "w_out"), rules.EXPERT),    # 256 experts
-    ("deepseek-v3-671b", ("shared", "w_in"), rules.WHOLE),
+    ("deepseek-v3-671b", ("shared", "w_in"), rules.COLUMN),  # d_ff 2048
     ("deepseek-v3-671b", ("moe", "router"), rules.WHOLE),
-    ("granite-moe-3b-a800m", ("moe", "w_in"), rules.WHOLE),  # 40 experts
+    ("granite-moe-3b-a800m", ("moe", "w_in"), rules.COLUMN),  # 40 experts:
+    ("granite-moe-3b-a800m", ("moe", "w_out"), rules.ROW),    # d_ff 512
+    ("deepseek-v3-671b", ("attn", "w_uq"), rules.COLUMN),
+    ("deepseek-v3-671b", ("attn", "w_dkv"), rules.PARTIAL),  # down-proj.
+    ("deepseek-v3-671b", ("attn", "kv_norm"), rules.PARTIAL),
+    ("mamba2-780m", ("mamba", "w_out"), rules.ROW),  # 48 heads, 3 a rank
+    ("mamba2-780m", ("mamba", "gate_norm"), rules.COLUMN),
+    ("mamba2-780m", ("mamba", "w_in"), rules.PARTIAL),   # [z|x|B|C|dt]
+    ("zamba2-1.2b", ("mamba", "conv_w"), rules.PARTIAL),
+    ("zamba2-1.2b", ("mamba", "A_log"), rules.PARTIAL),
 ]
 
 
