@@ -333,8 +333,8 @@ SRC = ROOT / "src"
 PHASES = ("device", "build", "kernel", "plan", "replay", "control",
           "train", "train_ssm", "train_hybrid", "train_moe", "train_mla",
           "train_vlm", "train_audio", "self_heal", "train_dist",
-          "dryrun", "train_tp", "serve", "serve_ssm", "serve_moe",
-          "serve_mla", "profile")
+          "dryrun", "train_tp", "serve_tp", "serve", "serve_ssm",
+          "serve_moe", "serve_mla", "profile")
 
 # H100 SXM published peaks (dense): bytes/s of HBM and operations/s by
 # input type (bf16 on tensor cores; float32 on the CUDA cores).
@@ -602,14 +602,14 @@ def cuda_ms_in_turns(fns: dict, rounds: int = 4, iters: int = 20) -> dict:
 
 def attn_inputs(case, seed: int = 0, layout: str = "contiguous"):
     """q, k, v of ``case`` on the card from ``seed``, contiguous or in one
-    of ATTN_LAYOUT_CASES' layouts."""
-    import numpy as np
+    of ATTN_LAYOUT_CASES' layouts: standard normal in f32 drawn on the card
+    (the host's generator took 18 s of the kernel phase), then cast."""
     import torch
     B, Sq, Sk, H, KV, D, Dv, *_ , dtype = case
-    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
-    mk = lambda *s: torch.from_numpy(  # noqa: E731
-        rng.standard_normal(s, dtype=np.float32)).to("cuda", dt)
+    mk = lambda *s: torch.randn(  # noqa: E731
+        s, generator=gen, dtype=torch.float32, device="cuda").to(dt)
     if layout == "fused_qkv":
         qkv = mk(B, Sq, H + 2 * KV, D)
         return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
@@ -1407,7 +1407,9 @@ def conv3_times(smi) -> list:
 def conv3_variant_sweep() -> dict:
     """``graph_ms`` of both kernel-3 variants by row length and band, in
     float32 and float64: the measurement behind ``maxplus.WIDE_MIN``
-    (Fig. 11's 128 workers, the churn walk's rows of 1033, n = 4096)."""
+    (Fig. 11's 128 workers, the churn walk's rows of 1033, n = 4096), at
+    the bands around its crossover (half of PR 19's ten since PR 33, for
+    serve_tp's time)."""
     import numpy as np
     import torch
     from repro_torch.kernels import maxplus
@@ -1421,7 +1423,7 @@ def conv3_variant_sweep() -> dict:
             out[f"n={n} {dtype}"] = {
                 kind: {band: graph_ms(lambda: maxplus._conv_cuda(
                     p, q, band, kind))
-                    for band in (0, 1, 2, 4, 8, 16, 32, 64, 128, n)}
+                    for band in (0, 4, 8, 16, n)}
                 for kind in maxplus.VARIANTS}
     return out
 
@@ -3144,13 +3146,14 @@ def launches_per_pass(cfg, mtp: bool = True, backward: bool = True,
     return out
 
 
-def launches_per_decode_step(cfg) -> dict:
+def launches_per_decode_step(cfg, tp: int = 1) -> dict:
     """Launches of each kernel in one decode step: the norms of one forward
     pass without the MTP head, which decode does not run (decode attention,
     MLA's absorbed step and the one-token SSM update are plain PyTorch, as
-    in the reference)."""
+    in the reference); on one rank of a model axis of ``tp``, less the
+    split Mamba2 layers' gate norms (``split_gate_norms``)."""
     return {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
-            "rmsnorm": launches_per_pass(cfg, mtp=False)["rmsnorm"],
+            "rmsnorm": launches_per_pass(cfg, mtp=False, tp=tp)["rmsnorm"],
             "rmsnorm_bwd": 0}
 
 
@@ -4136,6 +4139,244 @@ def phase_train_tp(ctx) -> None:
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel decode (serve/decode.py over a model axis)
+# ---------------------------------------------------------------------------
+
+# (a) two gloo ranks sharing the card on mesh (1, 2), full width: qwen3-4b
+# (32 / 8 heads: 16 / 4 a rank, its KV heads split) and gemma-2b (8 / 1
+# heads: its one KV head held whole on both ranks, or with kv_model its
+# slots split over them, flash-decoding), each (arch, depth, kv_model)
+SERVE_TP = dict(prompt_len=8, n_new=16, batch=8)
+SERVE_TP_RUNS = [("qwen3-4b", 4, False), ("gemma-2b", 4, False),
+                 ("gemma-2b", 4, True)]
+SERVE_TP_TIMEOUT = 240.0
+# (a)'s limit by arch: each step's logits, the sharded step's (gathered
+# over the vocabulary) against the whole graphed step's fed the same
+# tokens, within SERVE_TP_RTOL of the whole logits' largest |value|: bf16
+# rounds each rank's row-parallel partials before the all-reduce.  The
+# card's readings (H100 80GB HBM3, 700 W; PERF.md, PR 33 call 2), worst
+# step relative: sound, qwen3-4b 1.32e-2, gemma-2b 2.84e-3 with and
+# without kv_model; a copy of src/ whose combine adds the ranks' parts
+# without their max rescale, gemma-2b with kv_model bitwise the sound run
+# until step 12 (the first slot on rank 1), then 6.06e-2 to 1.18e-1, its
+# tokens still all equal (qwen3-4b's and gemma-2b's without kv_model
+# bitwise the sound runs: no slot is split).  gemma-2b's 1e-2 sits 3.5x
+# above its sound worst and 6x below the mutant's first step off;
+# qwen3-4b's 3e-2 2.3x above its sound worst.
+SERVE_TP_RTOL = {"qwen3-4b": 3e-2, "gemma-2b": 1e-2}
+# (b) rank 0's share of a production decode pair at 16x16 in a fake group
+# of 256: (arch, n_layers or None for full depth, shape, kv_model, config
+# fields replaced)
+SERVE_TP_SHARES = [
+    ("qwen3-4b", None, "decode_32k", False, {}),
+    ("qwen3-4b", None, "decode_32k", True, {}),
+    # TP_SHARES' cut: one dense-prefix MLA layer and one MLA-MoE layer
+    ("deepseek-v3-671b", 2, "decode_32k", True, {"n_dense_prefix": 1}),
+    ("mamba2-780m", None, "long_500k", False, {}),
+    # one period of the 5:1 local:global pattern
+    ("gemma3-12b", 6, "long_500k", False, {}),
+]
+SERVE_TP_PEAK_GAP = 0.01
+# kernel 2 at the phase's shapes: (label, x shape) in bf16
+SERVE_TP_RMS = [
+    ("qwen3-4b block norm", (8, 1, 2560)),
+    ("qwen3-4b q-norm, 16 heads a rank at tp 2", (8, 1, 16, 128)),
+    ("qwen3-4b k-norm, 4 KV heads a rank at tp 2", (8, 1, 4, 128)),
+    ("qwen3-4b q-norm, 2 heads a rank at tp 16", (8, 1, 2, 128)),
+    ("qwen3-4b k-norm, 8 KV heads held whole at tp 16", (8, 1, 8, 128)),
+    ("gemma-2b block norm", (8, 1, 2048)),
+    ("deepseek-v3-671b q_norm", (8, 1, 1536)),
+    ("deepseek-v3-671b kv_norm", (8, 1, 512)),
+    ("mamba2-780m block norm, one lane", (1, 1, 1536)),
+    ("gemma3-12b block norm, one lane", (1, 1, 3840)),
+    ("gemma3-12b q-norm, 1 head a rank at tp 16", (1, 1, 1, 256)),
+    ("gemma3-12b k-norm, 8 KV heads held whole", (1, 1, 8, 256)),
+]
+
+
+def _serve_tp_rank(rank: int, world: int, store_path: str, out_dir: str,
+                   runs) -> None:
+    """One rank of serve_tp (a), in a process of its own: gloo on the card,
+    mesh (1, world) of device type cuda; ``launch.sharded.serve_compare``
+    of each of ``runs``; writes the records as ``rank{rank}.json``."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharded import init_rank, serve_compare
+    init_rank(rank, world, store_path, "cuda", backend="gloo")
+    out = []
+    for arch, n_layers, kv_model in runs:
+        recs = serve_compare(_tp_cfg(arch, n_layers),
+                             make_host_mesh(world, device_type="cuda"),
+                             kv_model=kv_model, **SERVE_TP)
+        out.append({"arch": arch, "kv_model": kv_model, "records": recs,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        torch.cuda.empty_cache()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "cuda_device": torch.cuda.current_device(),
+        "backend": torch.distributed.get_backend(), "runs": out}))
+
+
+def _serve_tp_gloo(ctx) -> dict:
+    """serve_tp (a): two ranks on the card over gloo (``_serve_tp_rank``),
+    every run checked: each step's tokens and logits against the whole
+    graphed step's, and each step's kernel launches, whole and sharded;
+    returns the sharded steps' launches of both ranks."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.sharded import spawn
+    world = 2
+    steps = SERVE_TP["prompt_len"] + SERVE_TP["n_new"]
+    for arch, n_layers, kv_model in SERVE_TP_RUNS:
+        emit({"phase": "serve_tp", "part": "gloo",
+              **_model_fields(_tp_cfg(arch, n_layers)),
+              "reduced": {"n_layers": [get_arch(arch).n_layers, n_layers]},
+              "kv_model": kv_model, **SERVE_TP,
+              "mesh": {"data": 1, "model": world}, "backend": "gloo",
+              "ranks_on_one_card": world, "rtol": SERVE_TP_RTOL[arch]})
+    torch.cuda.empty_cache()
+    out_dir = Path(tempfile.mkdtemp(prefix="serve_tp_"))
+    t0 = time.perf_counter()
+    try:
+        spawn(_serve_tp_rank, world, str(out_dir), SERVE_TP_RUNS,
+              store_dir=str(out_dir), timeout=SERVE_TP_TIMEOUT)
+        ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    launches = {}
+    failures = []
+    for (arch, n_layers, kv_model), *runs in zip(
+            SERVE_TP_RUNS, *[rk["runs"] for rk in ranks]):
+        cfg = _tp_cfg(arch, n_layers)
+        want = {"whole": launches_per_decode_step(cfg),
+                "sharded": launches_per_decode_step(cfg, tp=world)}
+        rel = [[r["max_abs_diff"] / r["max_abs_logit"] for r in run[
+            "records"]] for run in runs]
+        match = [[r["tokens_match"] for r in run["records"]]
+                 for run in runs]
+        emit({"phase": "serve_tp", "part": "gloo", "arch": arch,
+              "kv_model": kv_model, "relative_diff": rel,
+              "worst_relative_diff": max(max(x) for x in rel),
+              "max_abs_diff": [[r["max_abs_diff"] for r in run["records"]]
+                               for run in runs],
+              "tokens_match": match,
+              "steps_tokens_match": [sum(m) for m in match],
+              "seconds": {n: [[r["seconds"][n] for r in run["records"]]
+                              for run in runs]
+                          for n in ("whole", "sharded")},
+              "peak_mem_gb": [run["peak_mem_gb"] for run in runs],
+              "nvidia_smi": ctx["smi"]})
+        for rk, run in zip(ranks, runs):
+            if len(run["records"]) != steps:
+                failures.append(f"{arch} rank {rk['rank']}: "
+                                f"{len(run['records'])} steps")
+            for r in run["records"]:
+                for part in ("whole", "sharded"):
+                    if r["launches"][part] != want[part]:
+                        failures.append(
+                            f"{arch} kv_model={kv_model} rank {rk['rank']} "
+                            f"step {r['step']}: {part} launches "
+                            f"{r['launches'][part]}, expected {want[part]}")
+                for k, n in r["launches"]["sharded"].items():
+                    launches[k] = launches.get(k, 0) + n
+                if r["max_abs_diff"] > SERVE_TP_RTOL[arch] \
+                        * r["max_abs_logit"]:
+                    failures.append(
+                        f"{arch} kv_model={kv_model} rank {rk['rank']} "
+                        f"step {r['step']}: logits off by "
+                        f"{r['max_abs_diff']:.3e} of "
+                        f"{r['max_abs_logit']:.3e}")
+    emit({"phase": "serve_tp", "part": "gloo", "seconds": secs,
+          "backend": [rk["backend"] for rk in ranks],
+          "cuda_device": [rk["cuda_device"] for rk in ranks],
+          "ok": not failures})
+    if failures:
+        raise AssertionError("serve_tp (a): " + "; ".join(failures[:8]))
+    return launches
+
+
+def _serve_tp_share(ctx, arch: str, n_layers, shape_name: str,
+                    kv_model: bool, fields: dict) -> dict:
+    """serve_tp (b): ``check_pair`` of ``arch``'s ``shape_name`` decode
+    step at 16x16, rank 0 of a fake group of 256; returns its counted
+    run's launches."""
+    import torch
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch.dryrun import check_pair, mesh_layout
+    cfg = get_arch(arch)
+    if n_layers is not None or fields:
+        cfg = _tp_cfg(arch, n_layers or cfg.n_layers, fields)
+    shape = SHAPES[shape_name]
+    _, layout = mesh_layout()
+    torch.cuda.empty_cache()
+    rec = check_pair(cfg, shape, device="cuda", layout=layout,
+                     kv_model=kv_model)
+    pred, meas = rec["predicted"], rec["measured"]
+    gap = rec.get("peak_gap")
+    line = {"phase": "serve_tp", "part": "share", "arch": cfg.name,
+            "n_layers": cfg.n_layers, "fields": fields,
+            "reduced": {"n_layers": [get_arch(arch).n_layers,
+                                     cfg.n_layers]},
+            "shape": dataclasses.astuple(shape), "kv_model": kv_model,
+            "layout": rec["layout"], "tp_compute": rec["tp_compute"],
+            "tp_whole": rec["tp_whole"],
+            "flops": [pred["flops"], meas["flops"]],
+            "hbm_bytes": [pred["hbm_bytes"], meas["hbm_bytes"]],
+            "collectives": [pred["collectives"], meas["collectives"]],
+            "kernel_calls": pred["kernel_calls"],
+            "launches": rec["launches"], "equal": rec["equal"],
+            "peak_above_arguments_bytes": [
+                rec["peak_above_arguments"]["predicted"],
+                rec["peak_above_arguments"]["measured"]],
+            "peak_gap_pct": None if gap is None else 100.0 * gap,
+            "step_s": rec["step_s"], "roofline_s": rec["roofline_s"],
+            "trace_s": rec["trace_s"], "nvidia_smi": ctx["smi"]}
+    emit(line)
+    label = f"serve_tp share {arch} {shape_name} kv_model={kv_model}"
+    if not rec["equal"]:
+        raise AssertionError(f"{label}: the prediction is not the run's: "
+                             f"{line}")
+    want = launches_per_decode_step(cfg, tp=layout.size("model"))
+    if rec["launches"] != {k: n for k, n in want.items() if n}:
+        raise AssertionError(f"{label}: launches {rec['launches']}, "
+                             f"expected {want}")
+    if not rec["tp_compute"]:
+        raise AssertionError(f"{label}: computed whole {rec['tp_whole']}")
+    if gap is None or abs(gap) > SERVE_TP_PEAK_GAP:
+        raise AssertionError(f"{label}: peak gap {gap}")
+    return rec["launches"]
+
+
+def phase_serve_tp(ctx) -> None:
+    """Tensor-parallel decode on the card: kernel 2 held against its plain
+    version at SERVE_TP_RMS's shapes, ``_serve_tp_gloo`` (a), then
+    ``_serve_tp_share`` (b) for each of SERVE_TP_SHARES.  The phase's
+    launches are both ranks' sharded decode steps and the shares' counted
+    runs."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    worst = {}
+    for i, (label, shape) in enumerate(SERVE_TP_RMS):
+        x, sc = rms_inputs(shape, "bfloat16", "bfloat16", seed=300 + i)
+        got = rmsnorm_cuda(x, sc)
+        torch.cuda.synchronize()
+        worst[label] = _rms_check(label, got, ref.rmsnorm(x, sc), x)
+    emit({"phase": "serve_tp", "part": "rmsnorm", "max_abs_err": worst,
+          "tol": RMS_TOL["bfloat16"]})
+    launches = _serve_tp_gloo(ctx)
+    for share in SERVE_TP_SHARES:
+        for k, n in _serve_tp_share(ctx, *share).items():
+            launches[k] = launches.get(k, 0) + n
+    if not launches.get("rmsnorm"):
+        raise AssertionError("serve_tp: the RMSNorm kernel never launched")
+    ctx["phase_launches"]["serve_tp"] = launches
+    emit({"phase": "serve_tp", "ok": True, "launches": launches})
+
+
+# ---------------------------------------------------------------------------
 # serving (prefill by decode steps, greedy decode, continuous batching)
 # ---------------------------------------------------------------------------
 
@@ -4853,23 +5094,19 @@ def profile_step(cfg) -> dict:
                      "share_of_busy": ms / busy} for k, ms, n in rows[:15]]}
 
 
-# the profile phase's depths of mamba2-780m and hubert-xlarge, cut from the
-# train phases' 24 and 48 to keep the script within half its time limit
-# with the train_dist and train_tp phases (every layer of either model is
-# alike, so the trace shows the same kernels a layer)
+# the profile phase's depth of mamba2-780m, cut from the train phase's to
+# keep the script within half its time limit with the train_dist, train_tp
+# and serve_tp phases (every layer is alike, so the trace shows the same
+# kernels a layer); granite-moe and hubert-xlarge left the phase for
+# serve_tp's time (their last traces: PERF.md, PRs 29 and 31)
 PROFILE_SSM_LAYERS = 12
-PROFILE_AUDIO_LAYERS = 12
 
 
 def phase_profile(ctx) -> None:
     from repro_torch.configs import get_arch
     for cfg in (dataclasses.replace(get_arch("gemma-2b"), n_layers=N_LAYERS),
                 dataclasses.replace(get_arch("mamba2-780m"),
-                                    n_layers=PROFILE_SSM_LAYERS),
-                dataclasses.replace(get_arch("granite-moe-3b-a800m"),
-                                    n_layers=MOE_LAYERS),
-                dataclasses.replace(get_arch("hubert-xlarge"),
-                                    n_layers=PROFILE_AUDIO_LAYERS)):
+                                    n_layers=PROFILE_SSM_LAYERS)):
         t0 = time.perf_counter()
         rec = profile_step(cfg)
         emit({"phase": "profile", **rec,
@@ -5203,6 +5440,14 @@ def phase_ab_attn_bwd(ctx) -> None:
         torch.cuda.empty_cache()
 
 
+def stop_forkserver() -> None:
+    """Stops the fork server that ``launch.sharded.spawn`` starts for the
+    ranks of train_tp and serve_tp and waits for it to exit, so the script
+    leaves no process running."""
+    import multiprocessing.forkserver as forkserver
+    forkserver._forkserver._stop()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5236,17 +5481,21 @@ def main() -> int:
            "train_vlm": phase_train_vlm, "train_audio": phase_train_audio,
            "self_heal": phase_self_heal, "train_dist": phase_train_dist,
            "dryrun": phase_dryrun, "train_tp": phase_train_tp,
+           "serve_tp": phase_serve_tp,
            "serve": phase_serve, "serve_ssm": phase_serve_ssm,
            "serve_moe": phase_serve_moe, "serve_mla": phase_serve_mla,
            "profile": phase_profile}
     if "device" not in phases:
         phases.insert(0, "device")
     t_start = time.perf_counter()
-    for name in phases:
-        t0 = time.perf_counter()
-        fns[name](ctx)
-        emit({"phase": name, "wall_seconds": time.perf_counter() - t0,
-              "script_seconds": time.perf_counter() - t_start})
+    try:
+        for name in phases:
+            t0 = time.perf_counter()
+            fns[name](ctx)
+            emit({"phase": name, "wall_seconds": time.perf_counter() - t0,
+                  "script_seconds": time.perf_counter() - t_start})
+    finally:
+        stop_forkserver()
     for name, rec in ctx["kernels"].items():
         rec["launches_by_phase"] = {
             phase: counts[name]

@@ -15,14 +15,19 @@ port.
 * **prefill** pairs ``forward(..., groups=..., last_logits_only=True)`` on
   the rank's compute shards (``train.sharded.compute_params``) and the
   argmax over the rank's data rows;
-* **decode** pairs ``decode_step`` and the argmax on ``decode_specs`` of the
-  rank's lanes, with whole parameters on each rank.
+* **decode** pairs ``make_serve_step(model, groups, shards)``: ``decode_step``
+  on the rank's compute shards and its ``init_cache(..., mesh=)`` shards of
+  its lanes (``sharding.rules.cache_shards``: KV heads over ``model`` where
+  they divide it, else with "cachemodel" the slots; for long_500k, one
+  lane, the slots over the data axes, as the reference's ``shard_seq``),
+  and the greedy token over the vocabulary.
 
-Train and prefill pairs are tensor-parallel over the model axis as the
-sharded step is (``train/sharded.py``): attention, MLA and Mamba2 split by
-heads, MLPs and shared experts by d_ff, the embedding, head and
-cross-entropy by the vocabulary, the routed experts by blocks where they
-divide the axis and else by d_ff.  A row says ``"tp_compute": true``
+Every pair is tensor-parallel over the model axis as the sharded step is
+(``train/sharded.py``): attention, MLA and Mamba2 split by heads, MLPs and
+shared experts by d_ff, the embedding, head and cross-entropy by the
+vocabulary, the routed experts by blocks where they divide the axis and
+else by d_ff; a decode step whose cache slots are split runs its attention
+as flash-decoding over them.  A row says ``"tp_compute": true``
 where every attention, MLP, Mamba2 and MoE leaf of the pair's parameters
 has a split use (``train.sharded.compute_uses``, which the step and the
 prefill hand the forward its shards by) or the fallback its rule names
@@ -31,14 +36,13 @@ Mamba2's concatenated input projection and conv); a vocabulary that does
 not divide is the embedding's and head's fallback.  Else ``"tp_whole"``
 lists the modules a rank computes whole (``whole_compute``): attention,
 MLA or Mamba2 whose heads do not divide the axis (at 16x16, granite-moe's
-24 heads), an MLP or shared expert whose d_ff does not, experts that
-divide neither way, and decode (tensor-parallel decode is not ported).  A
-pair whose peak exceeds ``HBM_BYTES`` is flagged ``"fits": false``, not
-skipped.
+24 heads), an MLP or shared expert whose d_ff does not, and experts that
+divide neither way.  A pair whose peak exceeds ``HBM_BYTES`` is flagged
+``"fits": false``, not skipped.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b \\
-        --shape train_4k [--multi-pod | --mesh DxM] [--variant fsdp] \\
-        [--json out.jsonl]
+        --shape train_4k [--multi-pod | --mesh DxM] \\
+        [--variant fsdp|cachemodel] [--json out.jsonl]
 
 ``check_pair`` holds the prediction against the same step run for real on
 the card (or, for the tests, the CPU): at world size 1, or as rank 0 of a
@@ -75,8 +79,6 @@ NOT_RUN = {
     "seqpar": "sequence-parallel TP shards the residual stream over the "
               "model axis; the port's tensor-parallel compute keeps it "
               "whole on every model rank",
-    "cachemodel": "decode caches sharded over the model axis need "
-                  "tensor-parallel decode, which the port does not have",
 }
 
 
@@ -84,6 +86,7 @@ NOT_RUN = {
 class Variant:
     cfg: ArchConfig
     fsdp: bool = False
+    kv_model: bool = False          # decode caches' slots over ``model``
     not_run: str = ""               # why the pair does not run, or ""
 
 
@@ -91,17 +94,21 @@ def apply_variant(cfg: ArchConfig, variant: str) -> Variant:
     """The reference's perf variants (``dryrun.py:43``), tokens joined by
     '+'.  "baseline", "flash", "fusednorm", "moe3d" and "moesm" are the
     port's only paths and change nothing; "fsdp" shards the parameters
-    over the data axes too (train pairs); "ep48" pads granite-moe's 40
-    experts to 48 with the capacity factor scaled to keep the FLOPs (and,
-    as in the reference, is unknown for an arch without MoE); "seqpar"
-    and "cachemodel" need tensor-parallel compute and give a reason not to
-    run.  Any other token raises."""
-    fsdp, not_run = False, []
+    over the data axes too (train pairs); "cachemodel" splits the decode
+    caches' slots over the model axis where their KV heads do not divide
+    it (decode pairs, ``cache_specs(kv_model=True)``); "ep48" pads
+    granite-moe's 40 experts to 48 with the capacity factor scaled to keep
+    the FLOPs (and, as in the reference, is unknown for an arch without
+    MoE); "seqpar" needs sequence-parallel compute and gives a reason not
+    to run.  Any other token raises."""
+    fsdp, kv_model, not_run = False, False, []
     for tok in variant.split("+"):
         if tok in NATIVE:
             continue
         if tok == "fsdp":
             fsdp = True
+        elif tok == "cachemodel":
+            kv_model = True
         elif tok in NOT_RUN:
             not_run.append(f"{tok}: {NOT_RUN[tok]}")
         elif tok == "ep48" and cfg.moe is not None:
@@ -111,7 +118,7 @@ def apply_variant(cfg: ArchConfig, variant: str) -> Variant:
                 capacity_factor=m.capacity_factor * m.n_experts / 48))
         else:
             raise ValueError(f"unknown variant token {tok!r}")
-    return Variant(cfg, fsdp, "; ".join(not_run))
+    return Variant(cfg, fsdp, kv_model, "; ".join(not_run))
 
 
 def mesh_layout(multi_pod: bool = False, mesh: str = None
@@ -206,6 +213,18 @@ def _random_shards(state, device, seed):
         fill(True)(state.step))
 
 
+def _random_leaves(tree_, device, seed):
+    """``tree_`` of ``meta`` tensors with each leaf made on ``device``,
+    0.02 normal from ``seed``: its values mean nothing, its shapes and
+    bytes are this rank's."""
+    from repro_torch import tree
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tree.tree_map(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, device=device).normal_(0.0, 0.02,
+                                                       generator=gen),
+        tree_)
+
+
 def _rows(batch: int, dp: int) -> int:
     """The rank's rows of a batch: a 1/dp share where the batch divides
     over the data axes (as ``batch_specs`` shards it), else all of
@@ -220,7 +239,8 @@ _TP_MODULES = {"attn", "mlp", "mamba", "moe"}
 
 def whole_compute(uses, kind: str, tp: int) -> list:
     """What a rank of a ``tp``-wide model axis computes whole, alike on
-    every model rank, in a ``kind`` step: sorted, the modules of
+    every model rank, in a ``kind`` step (train, prefill or decode, which
+    split alike): sorted, the modules of
     attention, MLP, Mamba2 and MoE leaves whose ``uses``
     (``train.sharded.compute_uses`` of the step's parameters) are
     ``WHOLE``; empty where the step is tensor-parallel.  The rules' own
@@ -232,26 +252,27 @@ def whole_compute(uses, kind: str, tp: int) -> list:
     axis."""
     if tp == 1:
         return ["a model axis of 1"]
-    if kind == "decode":
-        return ["decode (tensor-parallel decode is not ported)"]
     return sorted({"/".join(names[:-1]) for names, use, _ in uses
                    if use == WHOLE and names[-1] != "router"
                    and _TP_MODULES.intersection(names[:-1])})
 
 
 def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
-               fsdp: bool = False, n_micro: int = None,
+               fsdp: bool = False, n_micro: int = None, kv_model: bool = False,
                device="meta", seed: int = 0) -> Tuple[Callable, tuple, dict]:
     """``(step, args, meta)``: rank 0's step of ``(cfg, shape)`` over
     ``mesh`` (a ``DeviceMesh`` whose last axis is ``model``) and its
     arguments, on ``device``: the ``meta`` device's stand-ins, or random
-    inputs of the same shapes from ``seed`` on a real device."""
+    inputs of the same shapes from ``seed`` on a real device.  A decode
+    pair's caches are split as ``cache_shards`` splits them, with
+    ``kv_model`` and, for long_500k, ``shard_seq``."""
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamW, constant
     from repro_torch.train.sharded import (make_sharded_train_step,
                                            shard_train_state)
     from repro_torch.train.state import abstract_train_state
 
+    from repro_torch.serve.decode import make_serve_step
     from repro_torch.sharding.collectives import MeshGroups
     from repro_torch.train.sharded import compute_params, compute_uses
 
@@ -279,7 +300,11 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         step = make_sharded_train_step(model, opt, n, mesh, fsdp=fsdp,
                                        remat=True)
         return step, (state, batch), meta
-    params = model.init(seed)
+    # a decode pair over more than one rank makes only this rank's shards
+    # (``_random_leaves``): a whole deepseek-v3-671b MoE layer is 22.5 GB
+    shards_only = real and shape.kind == "decode" and dp * tp > 1
+    params = build_model(cfg, "meta").init(seed) if shards_only \
+        else model.init(seed)
     meta["tp_whole"] = whole_compute(compute_uses(params, cfg, tp),
                                      shape.kind, tp)
     if shape.kind == "prefill":
@@ -299,17 +324,28 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     lanes = _rows(shape.global_batch, dp)
     local = dataclasses.replace(shape, global_batch=lanes)
     caches, tokens, pos = decode_specs(model, cfg, local)
-    if real:
+    groups = shards = None
+    if dp * tp > 1:
+        # the reference's long-context mode: one lane, slots over data
+        kw = dict(mesh=mesh, kv_model=kv_model,
+                  shard_seq=shape.name == "long_500k")
+        groups = MeshGroups(mesh)
+        params = compute_params(params, cfg, groups)
+        if shards_only:
+            params = _random_leaves(params, device, seed)
+        shards = model.cache_shards(shape.global_batch, shape.seq_len, **kw)
+        caches = model.init_cache(shape.global_batch, shape.seq_len, **kw)
+    elif real:
         caches = model.init_cache(lanes, shape.seq_len)
+    if real:
         gen = torch.Generator(device=device).manual_seed(seed + 1)
         tokens = _random_like(tokens, gen, cfg.vocab, device)
         pos = torch.tensor(shape.seq_len // 2, dtype=torch.int32,
                            device=device)
+    serve = make_serve_step(model, groups, shards)
 
-    @torch.no_grad()
     def serve_step(params, caches, tokens, pos):
-        logits, caches = model.decode_step(params, caches, tokens, pos)
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        return serve(params, caches, tokens, pos)[0]
     return serve_step, (params, caches, tokens, pos), meta
 
 
@@ -376,14 +412,16 @@ def _measured(counter: WorkCounter, memory: dict, trace_s: float) -> dict:
 
 
 def trace_pair(cfg: ArchConfig, shape: ShapeConfig, layout: Layout, *,
-               fsdp: bool = False, n_micro: int = None) -> dict:
+               fsdp: bool = False, n_micro: int = None,
+               kv_model: bool = False) -> dict:
     """Rank 0's step of ``(cfg, shape)`` on ``layout`` traced on ``meta``
     inside an initialised process group of the layout's world: the row's
     measured fields, with ``kind``, ``dp``, ``tp`` (and ``n_micro``)."""
     t0 = time.perf_counter()
     mesh = _mesh(layout)
     step, args, meta = build_pair(cfg, shape, mesh, fsdp=fsdp,
-                                  n_micro=n_micro, device="meta")
+                                  n_micro=n_micro, kv_model=kv_model,
+                                  device="meta")
     counter, memory = count_step(step, args, mesh)
     return {**meta, **_measured(counter, memory, time.perf_counter() - t0),
             "tp_compute": not meta["tp_whole"]}
@@ -432,7 +470,9 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     world = world_of(layout)
     with process_group("fake", world):
         row.update(trace_pair(var.cfg, SHAPES[shape_name], layout,
-                              fsdp=var.fsdp and row["kind"] == "train"))
+                              fsdp=var.fsdp and row["kind"] == "train",
+                              kv_model=var.kv_model
+                              and row["kind"] == "decode"))
     total = row["flops"] * world
     row["model_flops_ratio"] = row["model_flops"] / total if total else 0.0
     if verbose:
@@ -451,7 +491,7 @@ def _sync(device) -> None:
 
 def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
                n_micro: int = None, seed: int = 0,
-               layout: Layout = None) -> dict:
+               layout: Layout = None, kv_model: bool = False) -> dict:
     """The dry-run's prediction for ``(cfg, shape)`` on ``layout`` (default
     the (1, 1) mesh, world size 1), beside the same step run for real on
     ``device`` (CUDA by default; raises without it).  The trace runs on
@@ -472,13 +512,15 @@ def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
     layout = layout or Layout(("data", "model"), (1, 1))
     world = world_of(layout)
     with process_group("fake", world):
-        pred = trace_pair(cfg, shape, layout, n_micro=n_micro)
+        pred = trace_pair(cfg, shape, layout, n_micro=n_micro,
+                          kv_model=kv_model)
     backend = "fake" if world > 1 \
         else "nccl" if device.type == "cuda" else "gloo"
     with process_group(backend, world):
         mesh = _mesh(layout, device.type)
         step, args, _ = build_pair(cfg, shape, mesh, n_micro=n_micro,
-                                   device=device, seed=seed)
+                                   kv_model=kv_model, device=device,
+                                   seed=seed)
         step(*args)                                      # warm-up
         _sync(device)
         before = launch_counts()

@@ -1,6 +1,7 @@
 """Sharded training over ``torch.distributed`` (``train/sharded.py``), held
 against the single-process fused step from the same parameters and
-batches.
+batches; with ``--serve``, tensor-parallel decode (``serve.decode.
+ShardedDecoder``) held against the whole graphed decode (``serve_compare``).
 
 One process per rank on one host; the ranks meet through a ``FileStore``
 (no TCP port).  On the CPU the backend is gloo, on GPUs NCCL with one rank
@@ -12,9 +13,13 @@ per GPU, or gloo with several ranks on one card (``--backend gloo``):
         --arch granite-moe-3b-a800m --reduced --device cpu --world 2
     PYTHONPATH=src python -m repro_torch.launch.sharded --arch qwen3-4b \\
         --reduced --world 2 --model 2 --backend gloo
+    PYTHONPATH=src python -m repro_torch.launch.sharded --serve \\
+        --arch gemma-2b --reduced --device cpu --world 2 --model 2 --kv-model
 
 Rank 0 prints each step's loss and gradient norm from both steps and the
-largest difference of the loss, the norm and every parameter leaf.
+largest difference of the loss, the norm and every parameter leaf; with
+``--serve``, each decode step's greedy tokens from both, the logits'
+largest difference and both steps' seconds.
 """
 from __future__ import annotations
 
@@ -35,7 +40,11 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.train import launch_counts
 from repro_torch.models.model import build_model
 from repro_torch.optim import AdamW, cosine_with_warmup
-from repro_torch.train.sharded import (make_sharded_train_step,
+from repro_torch.serve.decode import (ShardedDecoder, gather_lanes,
+                                      generate, greedy, lanes_of)
+from repro_torch.sharding import collectives, rules
+from repro_torch.train.sharded import (compute_params,
+                                       make_sharded_train_step,
                                        shard_train_state)
 from repro_torch.train.state import init_train_state
 from repro_torch.train.step import make_train_step
@@ -168,8 +177,7 @@ def compare(cfg, mesh, *, steps: int = 2, seq: int = 32, batch: int = 8,
         rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                "aux": float(m["aux"]), "seconds": secs,
                "tokens_per_s": tokens / secs,
-               "launches": {k: n - before[k]
-                            for k, n in launch_counts().items()}}
+               "launches": _launches_since(before)}
         if model.device.type == "cuda":
             rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         return state, rec
@@ -198,12 +206,100 @@ def compare(cfg, mesh, *, steps: int = 2, seq: int = 32, batch: int = 8,
     return out
 
 
+@torch.no_grad()
+def serve_compare(cfg, mesh, *, prompt_len: int = 16, n_new: int = 16,
+                  batch: int = 2, capacity: int = None,
+                  kv_model: bool = False, shard_seq: bool = False,
+                  seed: int = 0) -> List[Dict]:
+    """The same prompts (``batch`` x ``prompt_len`` tokens from ``seed``)
+    decoded whole and tensor-parallel over ``mesh`` from one seeded set of
+    parameters, on the mesh's device type.  The whole run is ``generate``
+    (its ``GraphDecoder``: a CUDA graph on the card); the sharded one,
+    eager through ``ShardedDecoder`` over its ``init_cache(..., mesh=,
+    kv_model=, shard_seq=)`` shards, is fed the tokens the whole run fed,
+    so each step's logits are the same function of the same history.
+    Returns one record a step (prefill included): both greedy tokens of
+    every lane, whether they match, the logits' largest |difference|
+    (gathered over the vocabulary and the lanes) and the whole logits'
+    largest |value|, and both steps' seconds and kernel launches (the
+    whole step's counted through its graph's replays)."""
+    device = mesh.device_type
+    model = build_model(cfg, device)
+    params = model.init(seed)
+    groups = collectives.MeshGroups(mesh)
+    gen = torch.Generator(device=str(model.device)).manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                           device=model.device, dtype=torch.int32)
+    cap = capacity or (prompt_len + n_new)
+    whole, seconds, launches = [], [], []
+
+    def timed(decoder, run):
+        before = launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        logits = run()
+        _sync(device)
+        seconds.append(time.perf_counter() - t0)
+        launches.append(_launches_since(before))
+        whole.append(logits.clone())
+        return logits
+    tokens = generate(model, params, prompt, n_new, cap, wrap=timed)
+    fed = torch.cat([prompt, tokens], dim=1)
+    kw = dict(mesh=mesh, kv_model=kv_model, shard_seq=shard_seq)
+    decoder = ShardedDecoder(
+        model, compute_params(params, cfg, groups),
+        model.init_cache(batch, cap, **kw), model.cache_shards(batch, cap,
+                                                               **kw),
+        groups)
+    del params
+    vocab = rules.vocab_splits(cfg, groups.n_model)
+    mine = lanes_of(batch, groups)
+    out = []
+    for t in range(prompt_len + n_new):
+        before = launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        logits = decoder.step(fed[mine, t], t)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        counted = _launches_since(before)
+        tok = gather_lanes(greedy(model, logits, groups), batch, groups)
+        if vocab:
+            logits = collectives.all_gather(logits, groups.model_group, -1)
+        logits = gather_lanes(logits, batch, groups)
+        want = torch.argmax(whole[t], dim=-1).int()
+        out.append({"step": t, "tokens": {"whole": want.tolist(),
+                                          "sharded": tok.tolist()},
+                    "tokens_match": bool(torch.equal(tok, want)),
+                    "max_abs_diff": float((logits - whole[t]).abs().max()),
+                    "max_abs_logit": float(whole[t].abs().max()),
+                    "seconds": {"whole": seconds[t], "sharded": secs},
+                    "launches": {"whole": launches[t], "sharded": counted}})
+    return out
+
+
+def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {k: n - before[k] for k, n in launch_counts().items()}
+
+
 def _rank_main(rank, world, store_path, args) -> None:
     init_rank(rank, world, store_path, args.device, args.backend)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     mesh = make_host_mesh(args.model, device_type=args.device)
+    if args.serve:
+        for rec in serve_compare(cfg, mesh, prompt_len=args.prompt_len,
+                                 n_new=args.n_new, batch=args.batch,
+                                 kv_model=args.kv_model,
+                                 shard_seq=args.shard_seq):
+            if rank == 0:
+                print(f"step {rec['step']} tokens match "
+                      f"{rec['tokens_match']} max|diff| "
+                      f"{rec['max_abs_diff']:.3e} of "
+                      f"{rec['max_abs_logit']:.3e} seconds "
+                      f"{rec['seconds']}", flush=True)
+        return
     for rec in compare(cfg, mesh, steps=args.steps, seq=args.seq,
                        batch=args.batch, n_micro=args.n_micro, lr=args.lr,
                        fsdp=args.fsdp):
@@ -232,6 +328,15 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                     help="default: nccl on cuda, gloo on cpu")
+    ap.add_argument("--serve", action="store_true",
+                    help="tensor-parallel decode against the whole one")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--n-new", type=int, default=16)
+    ap.add_argument("--kv-model", action="store_true",
+                    help="--serve: the caches' slots over the model axis "
+                         "where the KV heads do not divide it")
+    ap.add_argument("--shard-seq", action="store_true",
+                    help="--serve: one lane, its slots over the data axes")
     args = ap.parse_args()
     resolve_device(args.device)
     spawn(_rank_main, args.world, args)

@@ -152,29 +152,47 @@ def block_cache(cfg, kind: str, batch: int, capacity: int, dtype, device,
 
 
 def block_decode(p: dict, cfg, kind: str, x: torch.Tensor, cache: dict, pos,
-                 *, layer_is_local: bool = False):
-    """One-token decode.  x: (B,1,d).  Returns (x, new_cache)."""
+                 *, layer_is_local: bool = False, groups=None,
+                 capacity_groups=None, slot_offset: int = 0):
+    """One-token decode.  x: (B,1,d).  Returns (x, new_cache).  With a
+    mesh's ``groups``, ``p`` holds this model rank's compute shards and
+    ``cache`` its cache shards, and each module is tensor-parallel where
+    ``block_apply`` splits it, under the same rules; ``capacity_groups``
+    and ``slot_offset`` say how the attention or MLA cache's slots are
+    split (``layers.attention_decode``)."""
+    n = _n_model(groups)
     if kind in _MAMBA_KINDS:
         h = layers.norm_apply(p["norm"], x, cfg.norm)
-        y, new = ssm.mamba_decode(p["mamba"], cfg, h, cache)
+        split = rules.mamba_splits(cfg, n)
+        y, new = ssm.mamba_decode(p["mamba"], cfg, h, cache,
+                                  groups=groups if split else None)
         return x + y, new
     _refuse_unknown(kind)
     h = layers.norm_apply(p["norm1"], x, cfg.norm)
     if kind in _MLA_KINDS:
-        y, new = mla.mla_decode(p["attn"], cfg, h, cache, pos)
+        split = rules.mla_splits(cfg, n)
+        y, new = mla.mla_decode(p["attn"], cfg, h, cache, pos,
+                                groups=groups if split else None,
+                                capacity_groups=capacity_groups,
+                                slot_offset=slot_offset)
     else:
-        y, nk, nv = layers.attention_decode(p["attn"], cfg, h, cache["k"],
-                                            cache["v"], pos,
-                                            layer_is_local=layer_is_local)
+        split = rules.attention_splits(cfg, n)
+        y, nk, nv = layers.attention_decode(
+            p["attn"], cfg, h, cache["k"], cache["v"], pos,
+            layer_is_local=layer_is_local, groups=groups if split else None,
+            capacity_groups=capacity_groups, slot_offset=slot_offset)
         new = {"k": nk, "v": nv}
     x = x + y
     h = layers.norm_apply(p["norm2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h)[0], new
+    return x + _ffn(p, cfg, h, groups)[0], new
 
 
 def shared_block_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos, *,
-                        layer_is_local: bool = False):
+                        layer_is_local: bool = False, groups=None,
+                        capacity_groups=None, slot_offset: int = 0):
     """The attention blocks' one-token step (zamba2's shared block runs it
     with global attention).  Returns (x, {"k", "v"})."""
     return block_decode(p, cfg, BLOCK_ATTN_DENSE, x, cache, pos,
-                        layer_is_local=layer_is_local)
+                        layer_is_local=layer_is_local, groups=groups,
+                        capacity_groups=capacity_groups,
+                        slot_offset=slot_offset)

@@ -18,7 +18,10 @@ sharded step's and the dry-run's forward): given the mesh's ``groups``
 input enters through ``copy_to_region`` and the row-parallel product
 leaves through ``reduce_from_region``, one all-reduce over the model axis
 in each direction.  ``embed_apply`` and ``logits_apply`` take this rank's
-rows of the vocabulary.  Without ``groups`` every function computes whole.
+rows of the vocabulary.  ``attention_decode`` splits the heads as
+``attention_apply`` does and, where a cache's slots are split over ranks,
+runs as flash-decoding (``decode_weights``, ``collectives.
+combine_attention``).  Without ``groups`` every function computes whole.
 """
 from __future__ import annotations
 
@@ -247,15 +250,19 @@ class DecodePositions:
             self._rope[key] = rope_tables(self.pos[:, None], d, theta)
         return self._rope[key]
 
-    def slots(self, C: int, local: bool, window: int):
-        """(slot (B,), valid (B, C)) for a cache of C slots: a local layer's
+    def slots(self, C: int, local: bool, window: int, offset: int = 0,
+              n: int = None):
+        """(slot (B,), valid (B, n)) for a cache of C slots: a local layer's
         ring of ``window`` slots, or a global layer writing slot
-        ``min(pos, C - 1)``."""
-        key = (C, local, window)
+        ``min(pos, C - 1)``.  Slots are numbered over the whole cache; the
+        validity is of slots ``offset`` .. ``offset + n - 1`` (all C by
+        default), a rank's part of a cache whose capacity is split."""
+        n = C if n is None else n
+        key = (C, local, window, offset, n)
         if key not in self._slots:
             pos, posv = self.pos, self.pos[:, None]
             slot = pos % max(C, 1) if local else torch.clamp(pos, max=C - 1)
-            slots = torch.arange(C, device=pos.device)[None, :]
+            slots = torch.arange(offset, offset + n, device=pos.device)[None]
             if local:
                 filled = slots <= posv % C
                 valid = filled | (posv >= C)                 # ring fill
@@ -268,8 +275,81 @@ class DecodePositions:
         return self._slots[key]
 
 
+def write_slot(buf: torch.Tensor, pos: DecodePositions, slot: torch.Tensor,
+               new: torch.Tensor, offset: int = 0, split: bool = False,
+               drop=None) -> None:
+    """Writes each lane's ``new`` entry (B, ...) at slot ``slot`` (B,),
+    numbered over the whole cache, into ``buf`` (B, C, ...), which holds
+    slots ``offset`` .. ``offset + C - 1``.  Where the capacity is
+    ``split`` over ranks, or a lane's write is dropped (``drop`` (B,)
+    true), the write is a select on the device: a lane whose slot another
+    rank holds, or whose write is dropped, keeps its entry.  No host read
+    of the positions, so a CUDA graph can capture it."""
+    new = new.to(buf.dtype)
+    if not split and drop is None:
+        buf[pos.lanes, slot] = new
+        return
+    C = buf.shape[1]
+    i = slot - offset
+    keep = (i < 0) | (i >= C)
+    if drop is not None:
+        keep = keep | drop
+    i = torch.clamp(i, 0, C - 1)
+    keep = keep.reshape((-1,) + (1,) * (new.dim() - 1))
+    buf[pos.lanes, i] = torch.where(keep, buf[pos.lanes, i], new)
+
+
+def decode_weights(s: torch.Tensor, valid: torch.Tensor, split: bool):
+    """The attention weights of masked scores ``s`` (..., slots), ``valid``
+    broadcast to them: (w, None, None), the softmax with a fully masked
+    row's NaNs sent to 0 as the reference sends them, or, where the
+    capacity is ``split`` (flash-decoding), (exp(s - m), m, l) of this
+    rank's slots: m its row max (``collectives.MASKED_MAX`` where no slot
+    is valid) and l the sum, for ``collectives.combine_attention``."""
+    s = s.masked_fill(~valid, -math.inf)
+    if not split:
+        w = torch.softmax(s, dim=-1)
+        return torch.where(torch.isnan(w), 0.0, w), None, None
+    m = s.amax(dim=-1)
+    m = torch.where(m == -math.inf, collectives.MASKED_MAX, m)
+    e = torch.exp(s - m[..., None])
+    return e, m, e.sum(dim=-1)
+
+
+def slots_over_model(groups, capacity_groups) -> bool:
+    """Whether a cache's slots are split over the model axis of a mesh's
+    ``groups``: then every model rank's scores need every head."""
+    return bool(capacity_groups) and groups is not None and any(
+        g is groups.model_group for g in capacity_groups)
+
+
+def _decode_heads(a, groups, H: int):
+    """(first, H, m): this model rank's first query head and head count
+    (``attention_apply``'s split), and m > 1 where each head is computed by
+    m ranks (the axis a multiple of the heads)."""
+    if groups is None:
+        return 0, H, 1
+    if H == a.n_heads:                          # each head on m ranks
+        m = groups.n_model // H
+        return groups.model_rank // m, 1, m
+    return groups.model_rank * H, H, 1
+
+
+def _kv_read(first: int, H: int, G: int, kv_base: int):
+    """How query heads ``first`` .. ``first + H - 1`` read a cache whose
+    first KV head is global KV head ``kv_base`` (global head h reads KV
+    head h // G): (cache heads, query heads a cache head, None) where they
+    read a run of cache heads alike, else (None, 1, index) of each query
+    head's cache head."""
+    lo, hi = first // G - kv_base, (first + H - 1) // G - kv_base
+    if (lo == hi and H <= G) or (H % G == 0 and first % G == 0):
+        return slice(lo, hi + 1), H // (hi - lo + 1), None
+    return None, 1, torch.arange(first, first + H) // G - kv_base
+
+
 def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos, *, layer_is_local: bool):
+                     cache_v: torch.Tensor, pos, *, layer_is_local: bool,
+                     groups=None, capacity_groups=None, slot_offset: int = 0):
     """One-token decode.  x: (B, 1, d); cache_k/v: (B, C, KV, D) where C is
     the cache capacity (full length for global layers, the window for local
     ones).  ``pos``: an int, a (B,) tensor (the absolute position of each
@@ -278,37 +358,84 @@ def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
 
     Local (sliding-window) layers keep a ring buffer of ``window`` slots;
     global layers write slot ``min(pos, C - 1)``.  The caches are updated in
-    place (one lane's slot each) and returned: (out (B,1,d), k, v)."""
+    place (one lane's slot each) and returned: (out (B,1,d), k, v).
+
+    With a mesh's ``groups`` (``sharding.rules.attention_splits``), ``p``
+    holds this model rank's shards as ``attention_apply`` takes them and
+    the rank computes its query heads: column-parallel ``wq``, a
+    row-parallel ``wo`` summed over the model axis (scaled by 1/m where m
+    ranks compute each head).  The cache holds this rank's KV heads where
+    they divide the axis, else all of them: every rank then projects every
+    KV head and writes the same entry, so the replicas stay equal, and its
+    heads read their KV heads of it.
+
+    With ``capacity_groups`` the cache holds slots ``slot_offset`` ..
+    ``slot_offset + C - 1`` of a capacity split over those groups' ranks
+    (``sharding.rules.cache_shards``: over ``model`` under ``kv_model``,
+    over the data axes under ``shard_seq``), and the step is
+    flash-decoding: the rank that holds slot ``pos`` writes it, the scores
+    and the softmax's partial sums are taken over the local slots and
+    combined over ``capacity_groups`` (``collectives.combine_attention``).
+    The heads that the local slots serve are the rank's, or every head
+    where the capacity is split over the model axis (q gathered over it),
+    and the rank's heads are then taken for ``wo``."""
     a = cfg.attn
     B = x.shape[0]
+    hd = a.head_dim
     C = cache_k.shape[1]
+    split = bool(capacity_groups)
+    C_all = C * collectives.ranks_of(capacity_groups) if split else C
     if not isinstance(pos, DecodePositions):
         pos = DecodePositions(pos, B, x.device)
-    q = (x @ p["wq"]).reshape(B, 1, a.n_heads, a.head_dim)
-    k = (x @ p["wk"]).reshape(B, 1, a.n_kv_heads, a.head_dim)
-    v = (x @ p["wv"]).reshape(B, 1, a.n_kv_heads, a.head_dim)
+    wq, wo, wk, wv = p["wq"], p["wo"], p["wk"], p["wv"]
+    first, H, m = _decode_heads(a, groups, wq.shape[-1] // hd)
+    if m > 1:
+        wo = wo[..., first * hd:(first + 1) * hd, :] / m
+    every = slots_over_model(groups, capacity_groups)
+    if m > 1 and not every:
+        wq = wq[..., first * hd:(first + 1) * hd]
+    q = (x @ wq).reshape(B, 1, -1, hd)
+    k = (x @ wk).reshape(B, 1, -1, hd)
+    v = (x @ wv).reshape(B, 1, -1, hd)
     if a.qk_norm:
         q = rms_norm_weighted(q, p["q_norm"])
         k = rms_norm_weighted(k, p["k_norm"])
-    cos, sin = pos.rope(a.head_dim, a.rope_theta)
+    cos, sin = pos.rope(hd, a.rope_theta)
     q = rope_rotate(q, cos, sin)
     k = rope_rotate(k, cos, sin)
+    if every and m == 1:
+        q = collectives.all_gather(q, groups.model_group, dim=2)
     local = layer_is_local and a.window > 0
-    slot, valid = pos.slots(C, local, a.window)
-    cache_k[pos.lanes, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[pos.lanes, slot] = v[:, 0].to(cache_v.dtype)
-    G = a.n_heads // a.n_kv_heads
-    qg = q.reshape(B, 1, a.n_kv_heads, G, a.head_dim).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k.float())
-    s = s / math.sqrt(a.head_dim)
+    slot, valid = pos.slots(C_all, local, a.window, slot_offset, C)
+    write_slot(cache_k, pos, slot, k[:, 0], slot_offset, split)
+    write_slot(cache_v, pos, slot, v[:, 0], slot_offset, split)
+    KV, G = cache_k.shape[2], a.n_heads // a.n_kv_heads
+    kv_base = 0 if KV == a.n_kv_heads else groups.model_rank * KV
+    Hs, first_s = (a.n_heads, 0) if every else (q.shape[2], first)
+    heads, Gs, index = _kv_read(first_s, Hs, G, kv_base)
+    # only the KV heads read are widened to f32
+    sel = heads if index is None else index.to(x.device)
+    ck, cv = cache_k[:, :, sel].float(), cache_v[:, :, sel].float()
+    qg = q.reshape(B, 1, ck.shape[2], Gs, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, ck)
+    s = s / math.sqrt(hd)
     if a.logit_softcap:
         s = torch.tanh(s / a.logit_softcap) * a.logit_softcap
-    s = s.masked_fill(~valid[:, None, None, None, :], -math.inf)
-    w = torch.softmax(s, dim=-1)
-    w = torch.where(torch.isnan(w), 0.0, w)
-    o = torch.einsum("bkgqs,bskd->bqkgd", w, cache_v.float())
-    o = o.reshape(B, 1, a.n_heads * a.head_dim).to(x.dtype)
-    return o @ p["wo"], cache_k, cache_v
+    w, mx, l = decode_weights(s, valid[:, None, None, None, :], split)
+    if not split:
+        o = torch.einsum("bkgqs,bskd->bqkgd", w, cv)
+    else:
+        o = collectives.combine_attention(
+            mx, l, torch.einsum("bkgqs,bskd->bkgqd", w, cv),
+            capacity_groups).permute(0, 3, 1, 2, 4)
+    o = o.reshape(B, 1, Hs, hd)
+    if every:
+        o = o[:, :, first:first + H]
+    o = o.reshape(B, 1, H * hd).to(x.dtype)
+    y = o @ wo
+    if groups is not None:
+        y = collectives.all_reduce(y, [groups.model_group])
+    return y, cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -118,7 +118,8 @@ def mla_init_cache(cfg, batch: int, capacity: int, dtype, device) -> dict:
     }
 
 
-def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos):
+def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos, *,
+               groups=None, capacity_groups=None, slot_offset: int = 0):
     """Absorbed one-token decode.  x: (B,1,d); cache: the latent buffers
     {"ckv": (B,C,rank), "k_rope": (B,C,dr)}; ``pos``: an int, a (B,)
     tensor or the step's ``layers.DecodePositions``.
@@ -128,38 +129,64 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict, pos):
     the write, and then attends over every slot.  The write is a select on
     the device (no host read of ``pos``), so a CUDA graph can capture the
     step.  The caches are updated in place and returned: (out (B,1,d),
-    {"ckv", "k_rope"})."""
+    {"ckv", "k_rope"}).
+
+    With a mesh's ``groups`` (``sharding.rules.mla_splits``), ``p`` holds
+    this model rank's block of heads as ``mla_apply`` takes it and the
+    output is summed over the model axis; the latent is the same on every
+    rank.  With ``capacity_groups`` the cache holds slots ``slot_offset``
+    .. ``slot_offset + C - 1`` of a capacity split over those groups'
+    ranks (``layers.attention_decode``): the rank holding slot ``pos``
+    writes it, and the absorbed scores over the local slots are combined
+    over ``capacity_groups`` (``collectives.combine_attention``), over
+    every head where the capacity is split over the model axis (q gathered
+    over it), the rank's heads then taken for ``w_uv`` and ``wo``."""
     m = cfg.mla
-    H = cfg.attn.n_heads
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    H = p["w_uq"].shape[-1] // (dn + dr)
     B = x.shape[0]
     C = cache["ckv"].shape[1]
+    split = bool(capacity_groups)
+    C_all = C * collectives.ranks_of(capacity_groups) if split else C
     if not isinstance(pos, layers.DecodePositions):
         pos = layers.DecodePositions(pos, B, x.device)
     cos, sin = pos.rope(dr, cfg.attn.rope_theta)
 
     q_nope, q_rope = _project_q(p, cfg, x, cos, sin)      # (B,1,H,dn/dr)
     ckv_t, k_rope_t = _project_kv_latent(p, cfg, x, cos, sin)
-    slot, valid = pos.slots(C, False, 0)                  # (B,), (B, C)
-    dropped = (pos.pos >= C)[:, None]                     # (B, 1)
+    slot, valid = pos.slots(C_all, False, 0, slot_offset, C)  # (B,), (B, C)
+    dropped = pos.pos >= C_all                            # (B,)
     for name, new in (("ckv", ckv_t), ("k_rope", k_rope_t)):
-        buf = cache[name]
-        buf[pos.lanes, slot] = torch.where(dropped, buf[pos.lanes, slot],
-                                           new[:, 0].to(buf.dtype))
+        layers.write_slot(cache[name], pos, slot, new[:, 0], slot_offset,
+                          split, drop=dropped)
 
     # absorb W_uk into q: q_lat (B,1,H,rank)
     ckv = cache["ckv"].float()
     w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, dn).float()
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk)
+    q_rope = q_rope.float()
+    every = layers.slots_over_model(groups, capacity_groups)
+    if every:
+        q_lat = collectives.all_gather(q_lat, groups.model_group, dim=2)
+        q_rope = collectives.all_gather(q_rope, groups.model_group, dim=2)
     s = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
-         + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+         + torch.einsum("bqhd,bsd->bhqs", q_rope,
                         cache["k_rope"].float()))
     s = s / math.sqrt(dn + dr)
-    s = s.masked_fill(~valid[:, None, None, :], -math.inf)
-    w = torch.softmax(s, dim=-1)
-    w = torch.where(torch.isnan(w), 0.0, w)
-    ctx = torch.einsum("bhqs,bsr->bqhr", w, ckv)
+    w, mx, l = layers.decode_weights(s, valid[:, None, None, :], split)
+    if not split:
+        ctx = torch.einsum("bhqs,bsr->bqhr", w, ckv)
+    else:
+        ctx = collectives.combine_attention(
+            mx, l, torch.einsum("bhqs,bsr->bhqr", w, ckv),
+            capacity_groups).transpose(1, 2)
+    if every:
+        first = groups.model_rank * H
+        ctx = ctx[:, :, first:first + H]
     w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, dv).float()
     o = torch.einsum("bqhr,rhd->bqhd", ctx, w_uv)
     o = o.reshape(B, 1, H * dv).to(x.dtype)
-    return o @ p["wo"], {"ckv": cache["ckv"], "k_rope": cache["k_rope"]}
+    y = o @ p["wo"]
+    if groups is not None:
+        y = collectives.all_reduce(y, [groups.model_group])
+    return y, {"ckv": cache["ckv"], "k_rope": cache["k_rope"]}

@@ -8,6 +8,7 @@ Mamba2, zamba2-hybrid and the vision and audio stubs).
   loss(params, batch)        -> (scalar, metrics)
   init_cache(batch, capacity) -> caches
   decode_step(params, caches, tokens, pos) -> (logits, caches)
+  cache_shards(batch, capacity, mesh=) -> a rank's CacheShard per leaf
 
 Params keep the reference's tree: per segment a list of slots, each a dict
 whose leaves carry a leading ``count`` axis over the stacked layers, so JAX
@@ -112,6 +113,7 @@ class Model:
     device: torch.device
     init_cache: Callable = None
     decode_step: Callable = None
+    cache_shards: Callable = None
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -313,60 +315,124 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
 
     # ---------------- decode ----------------
 
-    def init_cache(batch_size: int, capacity: int, cache_dtype=None):
-        """Zero decode caches for ``batch_size`` lanes of ``capacity``
-        positions, in ``cache_dtype`` (default: the param dtype; the SSM
-        state is float32)."""
-        cdt = cache_dtype or dtype
-
+    def _caches(batch_size, capacity, cdt, dev):
         def stacked(one, count):
             return {k: v[None].repeat((count,) + (1,) * v.dim())
                     for k, v in one.items()}
         caches = []
         for seg in segs:
             entry = {"slots": [stacked(blocks.block_cache(
-                cfg, seg.kind, batch_size, capacity, cdt, device,
+                cfg, seg.kind, batch_size, capacity, cdt, dev,
                 layer_is_local=seg.locality[j]), seg.count)
                 for j in range(seg.inner)]}
             if seg.shared_after:
                 entry["shared"] = stacked(blocks.block_cache(
-                    cfg, BLOCK_ATTN_DENSE, batch_size, capacity, cdt,
-                    device), seg.count)
+                    cfg, BLOCK_ATTN_DENSE, batch_size, capacity, cdt, dev),
+                    seg.count)
             caches.append(entry)
         return caches
 
-    def decode_step(params, caches, tokens, pos):
+    def cache_shards(batch_size: int, capacity: int, cache_dtype=None, *,
+                     mesh, kv_model: bool = False, shard_seq: bool = False):
+        """This rank's ``sharding.rules.CacheShard`` of each leaf of
+        ``init_cache(batch_size, capacity)`` on ``mesh`` (a ``DeviceMesh``
+        or a ``Layout`` whose last axis is ``model``), the tree
+        ``decode_step`` reads the split of each cache's slots from."""
+        whole = _caches(batch_size, capacity, cache_dtype or dtype,
+                        torch.device("meta"))
+        return rules.cache_shards(whole, cfg, mesh, kv_model=kv_model,
+                                  shard_seq=shard_seq)
+
+    def init_cache(batch_size: int, capacity: int, cache_dtype=None, *,
+                   mesh=None, kv_model: bool = False,
+                   shard_seq: bool = False):
+        """Zero decode caches for ``batch_size`` lanes of ``capacity``
+        positions, in ``cache_dtype`` (default: the param dtype; the SSM
+        state is float32).  With a ``mesh``, this rank's shards of them
+        (``cache_shards``): the lanes over the data axes, KV heads over
+        ``model`` where they divide it, else with ``kv_model`` the slots,
+        with ``shard_seq`` (long context, one lane) the slots over the data
+        axes, and Mamba2's state by heads."""
+        cdt = cache_dtype or dtype
+        if mesh is None:
+            return _caches(batch_size, capacity, cdt, device)
+        whole = _caches(batch_size, capacity, cdt, torch.device("meta"))
+        return tree.tree_map(
+            lambda t, s: torch.zeros(s.shape, dtype=t.dtype, device=device),
+            whole, rules.cache_shards(whole, cfg, mesh, kv_model=kv_model,
+                                      shard_seq=shard_seq))
+
+    def _slot_split(shard_entry, groups):
+        """(capacity_groups, slot_offset) of one layer's cache leaves from
+        their ``CacheShard``s: the groups its slots are split over and
+        this rank's first slot, or (None, 0)."""
+        if not shard_entry:
+            return None, 0
+        for name in ("k", "ckv"):
+            s = shard_entry.get(name)
+            if s is None or not s.capacity_axes:
+                continue
+            C = s.shape[2]                       # (count, B, C, ...)
+            if s.capacity_axes == ("model",):
+                return [groups.model_group], groups.model_rank * C
+            if set(s.capacity_axes) != set(groups.data_axes):
+                raise ValueError(f"slots split over {s.capacity_axes}")
+            return groups.data_groups, groups.data_rank * C
+        return None, 0
+
+    def decode_step(params, caches, tokens, pos, groups=None, shards=None):
         """tokens: (B,) int; pos: an int or a (B,) tensor of absolute
         positions.  Returns (logits (B, vocab) f32, caches), the caches
         updated in place.  With ``pos`` a tensor on the caches' device the
         step copies nothing from the host and reads nothing back, so a
-        CUDA graph can capture it (``serve.decode.GraphDecoder``)."""
+        CUDA graph can capture it (``serve.decode.GraphDecoder``).
+
+        With a mesh's ``groups`` the step is tensor-parallel as ``forward``
+        is: ``params`` are this rank's compute shards (``train.sharded.
+        compute_params``), ``caches`` its ``init_cache(..., mesh=)`` shards
+        and ``shards`` their ``cache_shards``, ``tokens`` its lanes; each
+        block splits where ``block_apply`` does (``blocks.block_decode``),
+        an attention or MLA layer whose slots are split runs as
+        flash-decoding, and where the head is vocab-split the logits are
+        this model rank's slice of the vocabulary."""
         B = tokens.shape[0]
+        if shards is not None and groups is None:
+            raise ValueError("cache shards need the mesh's groups")
         pos = layers.DecodePositions(pos, B, tokens.device)
+        vocab = _vocab_groups(groups)
         x = layers.embed_apply(params["embed"], tokens[:, None],
-                               cfg.embed_scale, cfg.d_model)
-        for seg, slot_params, cache in zip(segs, params["segments"], caches):
+                               cfg.embed_scale, cfg.d_model, groups=vocab)
+        for i, (seg, slot_params, cache) in enumerate(
+                zip(segs, params["segments"], caches)):
             per_slot = [_unstack(sp, seg.count) for sp in slot_params]
+            seg_shards = shards[i] if shards is not None else {}
+            splits = [_slot_split(s, groups)
+                      for s in seg_shards.get("slots", [None] * seg.inner)]
+            shared_split = _slot_split(seg_shards.get("shared"), groups)
             for c in range(seg.count):
                 for j in range(seg.inner):
                     layer_cache = {k: v[c]
                                    for k, v in cache["slots"][j].items()}
                     x, new = blocks.block_decode(
                         per_slot[j][c], cfg, seg.kind, x, layer_cache, pos,
-                        layer_is_local=seg.locality[j])
+                        layer_is_local=seg.locality[j], groups=groups,
+                        capacity_groups=splits[j][0],
+                        slot_offset=splits[j][1])
                     _write_back(layer_cache, new)
                 if seg.shared_after:
                     layer_cache = {k: v[c] for k, v in cache["shared"].items()}
                     x, new = blocks.shared_block_decode(
-                        params["shared"], cfg, x, layer_cache, pos)
+                        params["shared"], cfg, x, layer_cache, pos,
+                        groups=groups, capacity_groups=shared_split[0],
+                        slot_offset=shared_split[1])
                     _write_back(layer_cache, new)
         h = layers.norm_apply(params["final_norm"], x, cfg.norm)
-        logits = layers.logits_apply(_head_w(params), h)[:, 0]
+        logits = layers.logits_apply(_head_w(params), h, vocab)[:, 0]
         return logits, caches
 
     return Model(cfg=cfg, init=init, forward=forward, loss=loss,
                  segments=segs, device=device, init_cache=init_cache,
-                 decode_step=decode_step)
+                 decode_step=decode_step, cache_shards=cache_shards)
 
 
 def _write_back(layer_cache: dict, new: dict) -> None:

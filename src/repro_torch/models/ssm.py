@@ -24,7 +24,8 @@ normalises the gated output over the whole d_inner by a sum of squares
 all-reduced over the model axis (the reference's norm as GSPMD splits it;
 kernel 2 reads whole rows, so the split path's gate norm is PyTorch ops);
 x enters through ``copy_to_region`` and the row-parallel ``w_out`` leaves
-through ``reduce_from_region``.
+through ``reduce_from_region``.  ``mamba_decode(..., groups=)`` steps the
+rank's heads the same way from its shard of the state.
 """
 from __future__ import annotations
 
@@ -190,17 +191,26 @@ def mamba_init_state(cfg, batch: int, dtype=torch.float32,
     }
 
 
-def mamba_decode(p: dict, cfg, x: torch.Tensor, state: dict):
+def mamba_decode(p: dict, cfg, x: torch.Tensor, state: dict, groups=None):
     """One-token decode.  x: (B,1,d); state: {"ssm", "conv"}.  Returns
-    (y (B,1,d), new_state)."""
+    (y (B,1,d), new_state).  With a mesh's ``groups``, ``p`` is as
+    ``mamba_apply`` takes it and ``state`` this rank's shard
+    (``sharding.rules.cache_shards``): its heads of the SSM state and the
+    [x_r | B | C] channels of the conv history.  The rank projects and
+    convolves
+    its heads' channels, steps its heads' recurrence, normalises the gate
+    over the whole d_inner (``_gate_norm_split``) and sums the row-parallel
+    ``w_out`` over the model axis."""
     s = cfg.ssm
     B, _, d = x.shape
-    di = s.d_inner(d)
-    H = s.n_heads(d)
+    if groups is not None:
+        p = _heads_of(p, cfg, groups.model_rank, groups.n_model)
+    di = p["w_out"].shape[-2]                  # this rank's d_inner
+    H = di // s.head_dim
     N = s.d_state
     gn = N_GROUPS * N
 
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["w_in"])     # (B,1,*)
+    z, xbc, dt_raw = _split_proj(cfg, x @ p["w_in"], di)  # (B,1,*)
     hist = torch.cat([state["conv"], xbc[:, 0][:, None]], dim=1)  # (B,K,C)
     # the reference's einsum: products summed in f32, rounded once
     out_dtype = torch.promote_types(hist.dtype, p["conv_w"].dtype)
@@ -218,5 +228,10 @@ def mamba_decode(p: dict, cfg, x: torch.Tensor, state: dict):
     y, new_ssm = ssd_decode_step(state["ssm"], xs, dt, A, Bm, Cm)
     y = y + p["D"][None, :, None] * xs
     y = y.reshape(B, 1, di).to(x.dtype)
-    y = layers.rms_norm_weighted(y * F.silu(z), p["gate_norm"])
-    return y @ p["w_out"], {"ssm": new_ssm, "conv": new_conv}
+    if groups is None:
+        y = layers.rms_norm_weighted(y * F.silu(z), p["gate_norm"])
+        return y @ p["w_out"], {"ssm": new_ssm, "conv": new_conv}
+    y = _gate_norm_split(y * F.silu(z), p["gate_norm"], s.d_inner(d),
+                         groups)
+    return collectives.all_reduce(y @ p["w_out"], [groups.model_group]), \
+        {"ssm": new_ssm, "conv": new_conv}

@@ -14,6 +14,12 @@ The port's counterpart is ``GraphDecoder``: one CUDA graph of
 place, so a step costs its kernels' device time and not the host's time to
 launch each of them.  ``prefill``, ``generate`` and ``RequestBatcher`` run
 their steps through one, freed when the call returns.
+
+Tensor-parallel decode over a mesh (``generate(..., groups=)``) runs
+eagerly through ``ShardedDecoder``: its steps all-reduce over gloo or NCCL
+groups, and ``GraphDecoder`` refuses groups rather than capture a gloo
+collective, which a CUDA graph cannot hold.  The greedy token of a
+vocab-split head is ``collectives.argmax_over_vocab``'s.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.kernels import build
+from repro_torch.sharding import collectives, rules
 
 # ``wrap(decoder, run)`` runs one step by calling ``run()`` and returns the
 # logits it gave: a caller's hook to time or record every step that really
@@ -50,10 +57,16 @@ class GraphDecoder:
     ``model.decode_step`` eagerly through the same buffers.
 
     ``close()`` (or leaving a ``with`` block) frees the graph and its pool.
+    Given a mesh's ``groups`` it raises: the tensor-parallel step's
+    collectives run through ``ShardedDecoder``, eagerly.
     """
 
     def __init__(self, model, params, caches, *,
-                 wrap: Optional[StepWrap] = None):
+                 wrap: Optional[StepWrap] = None, groups=None):
+        if groups is not None:
+            raise ValueError("GraphDecoder captures one process's step; "
+                             "the tensor-parallel step runs eagerly "
+                             "through ShardedDecoder")
         self.model, self.params, self.caches = model, params, caches
         batch = tree.leaves(caches)[0].shape[1]     # leaves: (count, B, ...)
         self.tokens = torch.zeros(batch, dtype=torch.int32,
@@ -117,16 +130,80 @@ class GraphDecoder:
         self.capture_seconds = time.perf_counter() - t0
 
 
-def make_serve_step(model):
+class ShardedDecoder:
+    """Decode steps of ``model`` tensor-parallel over a mesh's ``groups``
+    (``collectives.MeshGroups``): ``params`` this rank's compute shards
+    (``train.sharded.compute_params``), ``caches`` its ``init_cache(...,
+    mesh=)`` shards (updated in place) and ``shards`` their
+    ``cache_shards``.  Every step runs ``model.decode_step`` eagerly, on
+    every device: a CUDA graph cannot capture its gloo collectives, so
+    none is made.  ``step`` returns this rank's logits, its slice of the
+    vocabulary where the head is vocab-split."""
+
+    def __init__(self, model, params, caches, shards, groups, *,
+                 wrap: Optional[StepWrap] = None):
+        self.model, self.params, self.caches = model, params, caches
+        self.shards, self.groups, self.wrap = shards, groups, wrap
+        self.eager_steps = 0
+        self.last_step: Optional[str] = None
+
+    @torch.no_grad()
+    def step(self, tokens: torch.Tensor, pos) -> torch.Tensor:
+        def run() -> torch.Tensor:
+            self.eager_steps += 1
+            self.last_step = "eager"
+            logits, _ = self.model.decode_step(
+                self.params, self.caches, tokens, pos, groups=self.groups,
+                shards=self.shards)
+            return logits
+        return run() if self.wrap is None else self.wrap(self, run)
+
+
+def greedy(model, logits: torch.Tensor, groups=None) -> torch.Tensor:
+    """The greedy token (int32) of each row of ``logits``: the first
+    maximum, over the whole vocabulary where a mesh's ``groups`` hold it
+    split (``collectives.argmax_over_vocab``)."""
+    if groups is not None and rules.vocab_splits(model.cfg, groups.n_model):
+        return collectives.argmax_over_vocab(logits, groups).int()
+    return torch.argmax(logits, dim=-1).int()
+
+
+def make_serve_step(model, groups=None, shards=None):
     """serve_step(params, caches, tokens, pos) -> (next_tokens, caches).
 
-    Greedy sampling; ``pos`` is the absolute position of ``tokens``.
+    Greedy sampling; ``pos`` is the absolute position of ``tokens``.  With
+    a mesh's ``groups`` (and the caches' ``shards``) the step is
+    ``decode_step``'s tensor-parallel one and the token the first maximum
+    over the whole vocabulary.
     """
     @torch.no_grad()
     def serve_step(params, caches, tokens, pos):
-        logits, caches = model.decode_step(params, caches, tokens, pos)
-        return torch.argmax(logits, dim=-1).int(), caches
+        logits, caches = model.decode_step(params, caches, tokens, pos,
+                                           groups=groups, shards=shards)
+        return greedy(model, logits, groups), caches
     return serve_step
+
+
+def lanes_of(batch: int, groups) -> slice:
+    """This rank's lanes of a batch of ``batch`` over ``groups``' data
+    axes, as ``sharding.rules.batch_specs`` splits it: a 1 / n_data block
+    where the batch divides and is more than one lane, else all."""
+    n = groups.n_data
+    if batch > 1 and batch % n == 0:
+        rows = batch // n
+        return slice(groups.data_rank * rows, (groups.data_rank + 1) * rows)
+    return slice(0, batch)
+
+
+def gather_lanes(t: torch.Tensor, batch: int, groups) -> torch.Tensor:
+    """The rows of every data rank's ``t`` (its ``lanes_of`` rows on dim
+    0), in order: gathered over the data axes, the innermost first."""
+    mine = lanes_of(batch, groups)
+    if mine.stop - mine.start == batch:
+        return t
+    for g in reversed(groups.data_groups):
+        t = collectives.all_gather(t, g, dim=0)
+    return t
 
 
 def _feed(decoder: GraphDecoder, prompt: torch.Tensor, start_pos: int):
@@ -147,14 +224,27 @@ def prefill(model, params, caches, prompt: torch.Tensor, start_pos: int = 0):
 @torch.no_grad()
 def generate(model, params, prompt: torch.Tensor, n_new: int,
              capacity: Optional[int] = None, cache_dtype=None, *,
-             wrap: Optional[StepWrap] = None) -> torch.Tensor:
+             wrap: Optional[StepWrap] = None, groups=None,
+             kv_model: bool = False, shard_seq: bool = False
+             ) -> torch.Tensor:
     """Greedy generation: returns (B, n_new) new tokens (int32).  The
     prompt is prefilled even for ``n_new == 0``, which returns (B, 0), as
     the reference's scan over no steps does.  Every step, prefill
     included, goes through one ``GraphDecoder``; nothing reads a device
-    value on the host until the tokens are returned."""
+    value on the host until the tokens are returned.
+
+    With a mesh's ``groups`` the decode is tensor-parallel and eager
+    (``ShardedDecoder``): ``params`` are this rank's compute shards,
+    ``prompt`` the whole batch, the same on every rank, of which the rank
+    decodes its ``lanes_of``; the caches are its ``init_cache(...,
+    mesh=, kv_model=, shard_seq=)`` shards.  Every rank returns the tokens
+    of every lane."""
     B, S = prompt.shape
     cap = capacity or (S + n_new)
+    if groups is not None:
+        return _generate_sharded(model, params, prompt, n_new, cap,
+                                 cache_dtype, wrap, groups, kv_model,
+                                 shard_seq)
     caches = model.init_cache(B, cap, cache_dtype)
     with GraphDecoder(model, params, caches, wrap=wrap) as decoder:
         last_logits = _feed(decoder, prompt, 0)
@@ -167,6 +257,27 @@ def generate(model, params, prompt: torch.Tensor, n_new: int,
             toks.append(tok)
             tok = torch.argmax(decoder.step(tok, S + i), dim=-1).int()
     return torch.stack(toks, dim=1)
+
+
+def _generate_sharded(model, params, prompt, n_new, cap, cache_dtype, wrap,
+                      groups, kv_model, shard_seq) -> torch.Tensor:
+    B, S = prompt.shape
+    mine = prompt[lanes_of(B, groups)]
+    kw = dict(mesh=groups.mesh, kv_model=kv_model, shard_seq=shard_seq)
+    caches = model.init_cache(B, cap, cache_dtype, **kw)
+    shards = model.cache_shards(B, cap, cache_dtype, **kw)
+    decoder = ShardedDecoder(model, params, caches, shards, groups,
+                             wrap=wrap)
+    last_logits = _feed(decoder, mine, 0)
+    toks = []
+    tok = greedy(model, last_logits, groups)
+    for i in range(n_new):
+        toks.append(tok)
+        tok = greedy(model, decoder.step(tok, S + i), groups)
+    out = torch.stack(toks, dim=1) if toks else \
+        torch.empty((mine.shape[0], 0), dtype=torch.int32,
+                    device=prompt.device)
+    return gather_lanes(out, B, groups)
 
 
 class RequestBatcher:

@@ -59,6 +59,15 @@ class MeshGroups:
         self.data_rank = rank
 
 
+def ranks_of(groups: Sequence) -> int:
+    """The number of ranks over ``groups`` together: their sizes'
+    product."""
+    n = 1
+    for g in groups:
+        n *= dist.get_world_size(g)
+    return n
+
+
 def all_reduce(t: torch.Tensor, groups: Sequence,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Reduces ``t`` in place by ``op`` (a sum by default) over each group
@@ -145,3 +154,47 @@ def gather_from_region(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' ``x`` of ``group`` concatenated along the last dim, in
     rank order, forward; this rank's part of the gradient backward."""
     return _GatherFromRegion.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# decode: plain collectives, no autograd (decode has no backward)
+# ---------------------------------------------------------------------------
+
+# the stand-in for the row max of a rank whose slots are all masked: finite,
+# so exp(stand-in - max) is 0 beside a real max and 1 where every rank is
+# masked (whose rows then sum to 0 and give 0, as the whole step's NaN
+# weights do)
+MASKED_MAX = -1e30
+
+
+def combine_attention(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                      groups: Sequence) -> torch.Tensor:
+    """The softmax attention output over the slots of all the ranks of
+    ``groups`` from each rank's part over its own slots (flash-decoding):
+    ``m`` (...) the row max of its scores (``MASKED_MAX`` where it has no
+    valid slot), ``l`` (...) the sum of exp(score - m) and ``o`` (..., D)
+    the sum of exp(score - m) v.  Each part is rescaled to the max over the
+    ranks before the sums; a row with no valid slot anywhere gives 0.  The
+    result is the same on every rank of ``groups``."""
+    top = all_reduce(m.clone(), groups, op=dist.ReduceOp.MAX)
+    scale = torch.exp(m - top)
+    parts = torch.cat([(o * scale[..., None]), (l * scale)[..., None]], -1)
+    parts = all_reduce(parts.contiguous(), groups)
+    total = parts[..., -1:]
+    return torch.where(total > 0, parts[..., :-1] / total, 0.0)
+
+
+def argmax_over_vocab(logits: torch.Tensor, groups) -> torch.Tensor:
+    """The greedy token of each row of ``logits`` (..., V / n), this model
+    rank's slice of the vocabulary over ``groups``' (``MeshGroups``) model
+    axis: the global index of the first maximum, the lowest index winning
+    a tie across ranks as within one, as ``torch.argmax`` and
+    ``jnp.argmax`` pick.  int64, the same on every model rank."""
+    model = [groups.model_group]
+    n = logits.shape[-1]
+    idx = torch.argmax(logits, dim=-1)
+    best = torch.gather(logits, -1, idx[..., None])[..., 0]
+    top = all_reduce(best.clone(), model, op=dist.ReduceOp.MAX)
+    first = torch.where(best == top, idx + groups.model_rank * n,
+                        torch.iinfo(torch.int64).max)
+    return all_reduce(first, model, op=dist.ReduceOp.MIN)

@@ -373,6 +373,68 @@ def cache_specs(cache_shape: Any, data_axes: Tuple[str, ...],
     return map_with_path(one, cache_shape)
 
 
+@dataclass(frozen=True)
+class CacheShard:
+    """One decode-cache leaf as a rank holds it: its local ``shape`` and
+    the mesh axes its capacity (slot) dim is split over, ``()`` where every
+    rank holds all of its slots."""
+    shape: Tuple[int, ...]
+    capacity_axes: Tuple[str, ...] = ()
+
+
+# the capacity dim of each kind of cache leaf, from the end
+_CAPACITY_DIM = {"k": -3, "v": -3, "ckv": -2, "k_rope": -2}
+
+
+def cache_shards(cache_shape: Any, cfg, layout, *, kv_model: bool = False,
+                 shard_seq: bool = False) -> Any:
+    """Each leaf of ``cache_shape`` (the whole caches' tree of leaves with a
+    ``shape``) as a ``CacheShard`` of this rank on ``layout`` (a ``Layout``
+    or a ``DeviceMesh`` whose last axis is ``model``), read from
+    ``cache_specs``: every dim divided by the sizes of the axes its spec
+    names.
+
+    One named fallback, as ``compute_use``'s ``PARTIAL`` leaves are: a split
+    Mamba2's ``conv`` state (``mamba_splits``).  ``cache_specs`` splits
+    its concatenated [x | B | C] channels evenly over ``model``, but a rank
+    convolves [x_r | B | C] (``ssm._heads_of``), so it holds its heads'
+    x channels and all of B and C; an unsplit Mamba2 holds them whole.  A
+    leaf whose spec leaves a dim whole over ``model`` (KV heads that do
+    not divide the axis, without ``kv_model``; MLA's latent cache without
+    it) is held whole on every model rank."""
+    lay = layout_of(layout)
+    data_axes, data_size = data_axes_of(lay)
+    model_size = lay.size("model")
+    specs = cache_specs(cache_shape, data_axes, data_size, model_size,
+                        shard_seq=shard_seq, kv_model=kv_model)
+
+    def size(part) -> int:
+        n = 1
+        for axis in (part if isinstance(part, tuple) else (part,)):
+            n *= lay.size(axis)
+        return n
+
+    def one(names, leaf, spec):
+        shape = [d if p is None else d // size(p)
+                 for d, p in zip(leaf.shape, spec)]
+        last = names[-1] if names else ""
+        if last == "conv":
+            s = cfg.ssm
+            di, gn2 = s.d_inner(cfg.d_model), 2 * s.d_state
+            split = mamba_splits(cfg, model_size)
+            shape[-1] = (di // model_size if split else di) + gn2
+        axes: Tuple[str, ...] = ()
+        if last in _CAPACITY_DIM:
+            part = spec[len(spec) + _CAPACITY_DIM[last]]
+            if part is not None:
+                axes = part if isinstance(part, tuple) else (part,)
+        return CacheShard(tuple(shape), axes)
+    return tree.unflatten(cache_shape, [
+        one(path_names(k), leaf, spec) for (k, leaf), spec in zip(
+            tree.leaves_with_path(cache_shape),
+            tree.leaves(specs, is_leaf=is_spec))])
+
+
 # ---------------------------------------------------------------------------
 # Assembled bundles
 # ---------------------------------------------------------------------------

@@ -147,7 +147,8 @@ def compute_params(params, cfg, groups):
     every rank) over ``groups``' model axis: each leaf as the sharded step
     hands it to the forward, a copy of the rank's chunk where it is split
     (``compute_uses``), else the leaf itself.  For a forward without the
-    step, such as the dry-run's prefill."""
+    step, such as the dry-run's prefill, and for tensor-parallel decode,
+    which reads every leaf as the forward does (``model.decode_step``)."""
     leaves = tree.leaves(params)
     out = [t if dim is None else
            t.chunk(groups.n_model, dim)[groups.model_rank].clone()

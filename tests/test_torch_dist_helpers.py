@@ -1,7 +1,7 @@
 """The rank bodies of the port's multi-rank tests
 (``tests/test_torch_sharded_step.py``, ``tests/test_torch_moe_ep.py``,
 ``tests/test_torch_dryrun.py``, ``tests/test_torch_tensor_parallel.py``,
-``tests/test_torch_tp_ssm_mla_moe.py``).
+``tests/test_torch_tp_ssm_mla_moe.py``, ``tests/test_torch_tp_decode.py``).
 Holds no tests of its own and imports no JAX: ``launch.sharded.spawn``
 starts each rank in a new process, which imports this module by name.
 
@@ -376,3 +376,134 @@ def unsum_partial_grads():
             self.grad[-1] = self.compute[-1]
     sharded._Leaf.__init__ = mutated
     return lambda: setattr(sharded._Leaf, "__init__", init)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel decode (tests/test_torch_tp_decode.py)
+# ---------------------------------------------------------------------------
+
+def tp_decode_cfg(job):
+    """The port's reduced config of a decode job, its attention fields
+    replaced where the job says."""
+    cfg = get_arch(job["arch"]).reduced()
+    if job.get("attn"):
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, **job["attn"]))
+    return cfg
+
+
+def unscaled_combine():
+    """The mutation of flash-decoding that its tests must catch: the ranks'
+    partial sums added without rescaling each to the max over the ranks.
+    Returns the function that undoes it."""
+    from repro_torch.sharding import collectives
+    combine = collectives.combine_attention
+
+    def mutated(m, l, o, groups):
+        parts = torch.cat([o, l[..., None]], -1).contiguous()
+        parts = collectives.all_reduce(parts, groups)
+        total = parts[..., -1:]
+        return torch.where(total > 0, parts[..., :-1] / total, 0.0)
+    collectives.combine_attention = mutated
+    return lambda: setattr(collectives, "combine_attention", combine)
+
+
+def _cache_checks(cfg, caches, batch, capacity, groups, kv_model,
+                  shard_seq):
+    """(shapes, replicas): whether every leaf of this rank's ``caches``
+    has the local shape of ``cache_specs`` (each dim divided by the sizes
+    of the axes its spec names; a split Mamba2's ``conv`` holding [x_r | B
+    | C]), and whether each attention or MLA leaf held whole over
+    ``model`` is bitwise the same on every model rank."""
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import collectives, rules
+    lay = rules.layout_of(groups.mesh)
+    whole = build_model(cfg, "meta").init_cache(batch, capacity)
+    specs = rules.cache_specs(whole, groups.data_axes, groups.n_data,
+                              groups.n_model, shard_seq=shard_seq,
+                              kv_model=kv_model)
+
+    def axes(part):
+        return () if part is None else \
+            part if isinstance(part, tuple) else (part,)
+    shapes_ok, replicas_ok = True, True
+    for (k, leaf), spec, got in zip(
+            tree.leaves_with_path(whole),
+            tree.leaves(specs, is_leaf=rules.is_spec), tree.leaves(caches)):
+        want = []
+        for d, part in zip(leaf.shape, spec):
+            for a in axes(part):
+                d //= lay.size(a)
+            want.append(d)
+        name = rules.path_names(k)[-1]
+        if name == "conv" and rules.mamba_splits(cfg, groups.n_model):
+            s = cfg.ssm
+            want[-1] = s.d_inner(cfg.d_model) // groups.n_model \
+                + 2 * s.d_state
+        shapes_ok &= tuple(got.shape) == tuple(want)
+        if name in ("k", "v", "ckv", "k_rope") and not any(
+                "model" in axes(p) for p in spec):
+            parts = collectives.all_gather(got, groups.model_group, 0)
+            replicas_ok &= all(torch.equal(p, got)
+                               for p in parts.chunk(groups.n_model, 0))
+    return shapes_ok, replicas_ok
+
+
+def tp_decode(rank, world, store_path, sizes, job_dir, cases):
+    """Each case's ``serve.decode.generate`` tensor-parallel on the mesh of
+    ``sizes`` (data, model): every rank takes its compute shards of the
+    job's whole parameters and decodes its lanes of the prompt; rank 0
+    saves the tokens, each step's logits made whole (gathered over the
+    vocabulary and the lanes), and whether every rank's caches passed
+    ``_cache_checks`` after the last step, as ``decode_{case}_{mesh}.out``.
+    A job with ``mutate`` runs under ``unscaled_combine``.  On the (1, 2)
+    mesh rank 0 also saves ``argmax_over_vocab`` of constructed ties."""
+    import torch.distributed as dist
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.decode import gather_lanes, generate
+    from repro_torch.sharding import collectives, rules
+    from repro_torch.train.sharded import compute_params
+    init_rank(rank, world, store_path, "cpu")
+    g = collectives.MeshGroups(host_mesh(sizes))
+    job_dir = Path(job_dir)
+    name = mesh_name(*sizes)
+    for case in cases:
+        job = torch.load(job_dir / f"decode_{case}.in")
+        cfg = tp_decode_cfg(job)
+        model = build_model(cfg, "cpu")
+        prompt = job["prompt"]
+        B = prompt.shape[0]
+        steps, seen = [], {}
+
+        def record(decoder, run):
+            logits = run()
+            seen["decoder"] = decoder
+            full = logits
+            if rules.vocab_splits(cfg, g.n_model):
+                full = collectives.all_gather(logits, g.model_group, -1)
+            steps.append(gather_lanes(full, B, g))
+            return logits
+        undo = unscaled_combine() if job.get("mutate") else None
+        try:
+            tokens = generate(model, compute_params(job["params"], cfg, g),
+                              prompt, job["n_new"], job["capacity"],
+                              wrap=record, groups=g,
+                              kv_model=job["kv_model"],
+                              shard_seq=job["shard_seq"])
+        finally:
+            if undo is not None:
+                undo()
+        checks = torch.tensor([float(c) for c in _cache_checks(
+            cfg, seen["decoder"].caches, B, job["capacity"], g,
+            job["kv_model"], job["shard_seq"])])
+        dist.all_reduce(checks, op=dist.ReduceOp.MIN)
+        if rank == 0:
+            torch.save({"tokens": tokens, "logits": steps,
+                        "shapes_ok": bool(checks[0]),
+                        "replicas_equal": bool(checks[1])},
+                       job_dir / f"decode_{case}_{name}.out")
+    if sizes == (1, 2):
+        logits = torch.load(job_dir / "ties.in")[g.model_rank]
+        got = collectives.argmax_over_vocab(logits, g)
+        if rank == 0:
+            torch.save(got, job_dir / "ties.out")

@@ -174,6 +174,14 @@ def test_native_and_fsdp_variants():
 @pytest.mark.parametrize("variant", ["seqpar", "cachemodel",
                                      "flash+seqpar"])
 def test_tensor_parallel_variants_are_not_run(variant):
+    """"seqpar" is still not run; "cachemodel", which tensor-parallel
+    decode runs, now sets ``kv_model`` and runs."""
+    if variant == "cachemodel":
+        var = dryrun.apply_variant(get_arch("gemma-2b"), variant)
+        assert (var.kv_model, var.fsdp, var.not_run) == (True, False, "")
+        row = dryrun.pair_fields("gemma-2b", "train_4k", variant=variant)
+        assert "status" not in row
+        return
     row = dryrun.run_pair("gemma-2b", "train_4k", variant=variant,
                           verbose=False)
     assert row["status"] == "not_run"
@@ -359,20 +367,43 @@ def test_rank0_counts_of_a_tensor_parallel_fake_trace_equal_a_gloo_run(
             assert pred[k] == real[k], (arch, k)
 
 
-@pytest.mark.parametrize("kind", ["train", "prefill"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode",
+                                  "decode_kv_model"])
 def test_check_pair_over_a_fake_group_of_two(kind):
     """``check_pair`` at layout (1, 2): the real step runs as rank 0 of a
     fake group (as the card runs one rank's share of a tp 4 layout) and
-    counts what the trace predicts."""
-    shape = TRAIN if kind == "train" else ShapeConfig("p", 16, 2, "prefill")
+    counts what the trace predicts.  Decode: gemma-2b's one KV head held
+    whole, or with ``kv_model`` its slots split over the model axis."""
+    shape = {"train": TRAIN,
+             "prefill": ShapeConfig("p", 16, 2, "prefill")}.get(
+        kind, ShapeConfig("d", 16, 2, "decode"))
     out = dryrun.check_pair(get_arch("gemma-2b").reduced(), shape,
                             device="cpu", layout=dryrun.Layout(
                                 ("data", "model"), (1, 2)),
-                            n_micro=N_MICRO if kind == "train" else None)
+                            n_micro=N_MICRO if kind == "train" else None,
+                            kv_model=kind == "decode_kv_model")
     assert out["predicted"] == out["measured"] and out["equal"]
+    assert out["launches"] == {}
     assert out["tp_compute"] and out["tp_whole"] == []
     assert out["layout"] == {"data": 1, "model": 2}
     assert out["predicted"]["collectives"]["all-reduce"]["count"] > 0
+    assert not torch.distributed.is_initialized()
+
+
+def test_cachemodel_decode_row_is_tensor_parallel():
+    """At 16x16, decode_32k with "cachemodel" runs, tensor-parallel, and
+    its caches' slots split over ``model`` cut the peak below the
+    baseline's, where gemma-2b's one KV head is held whole on every model
+    rank; "seqpar" is still not run."""
+    rows = {v: dryrun.run_pair("gemma-2b", "decode_32k", variant=v,
+                               verbose=False)
+            for v in ("baseline", "cachemodel", "seqpar")}
+    for v in ("baseline", "cachemodel"):
+        assert rows[v]["status"] == "ok", rows[v]
+        assert rows[v]["tp_compute"] is True and rows[v]["tp_whole"] == []
+    assert rows["cachemodel"]["memory"]["peak_bytes"] < \
+        rows["baseline"]["memory"]["peak_bytes"] / 4
+    assert rows["seqpar"]["status"] == "not_run"
     assert not torch.distributed.is_initialized()
 
 
@@ -451,9 +482,7 @@ def test_whole_compute_names_what_is_not_split(arch, kind):
     cfg = get_arch(arch)
     params = build_model(cfg, "meta").init()
     whole = dryrun.whole_compute(compute_uses(params, cfg, 16), kind, 16)
-    if kind == "decode":
-        assert whole == ["decode (tensor-parallel decode is not ported)"]
-    elif arch == "granite-moe-3b-a800m":
+    if arch == "granite-moe-3b-a800m":
         # 24 heads neither divide 16 nor are divided by it; its 40
         # experts split over d_ff
         assert whole == ["segments/attn"], whole
@@ -470,7 +499,7 @@ def test_tp_compute_of_reduced_pairs_at_tp2():
     layout = dryrun.Layout(("data", "model"), (1, 2))
     for arch, kind, want in [("gemma-2b", "train", True),
                              ("gemma-2b", "prefill", True),
-                             ("gemma-2b", "decode", False),
+                             ("gemma-2b", "decode", True),
                              ("mamba2-780m", "train", True),
                              ("mamba2-780m", "prefill", True),
                              ("deepseek-v3-671b", "train", True),
@@ -513,8 +542,11 @@ def test_sweep_writes_rows_and_resumes(tmp_path, capsys):
     sweep.main(args + ["--table"])
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "| arch | decode_32k |"
+    # the decode step is tensor-parallel: its all-reduces over ``model``
+    assert ok["collective_bytes"] > 0
     assert lines[2] == "| gemma-2b | " + " / ".join([
-        f"{ok['flops']:.4g}", f"{ok['hbm_bytes']:.4g}", "0",
+        f"{ok['flops']:.4g}", f"{ok['hbm_bytes']:.4g}",
+        f"{ok['collective_bytes']:.4g}",
         f"{ok['memory']['peak_bytes']:.4g}", "fits",
         f"{ok['trace_s']} s"]) + " |"
     assert lines[3] == "| hubert-xlarge | skip |"
