@@ -1825,6 +1825,12 @@ RMS_CASES = [(shape, dt, dt) for shape in ((4, 32), (2, 17, 96),
     ((5, 1500), "bfloat16", "bfloat16"), ((3, 7, 2049), "float32", "float32"),
     ((9, 1), "float32", "float32"), ((11, 2560), "bfloat16", "float32"),
     ((6, 128), "float32", "bfloat16")]
+# train_tp's sequence-parallel residual norms, (label, tp, x shape): each
+# rank's block of the sequence, (micro-batch, S / tp, d)
+SEQPAR_NORMS = [("qwen3-4b train block norm", 2, (2, 512, 2560)),
+                ("mamba2-780m train block norm", 2, (2, 512, 1536)),
+                ("gemma-2b train block norm", 4, (2, 256, 2048)),
+                ("deepseek-v3-671b train block norm", 16, (2, 64, 7168))]
 # the port's paths: (label, x shape, dtype); decode rows are the batch of 8
 RMS_SHAPES = [
     ("qwen3-4b decode block norm", (8, 1, 2560), "bfloat16"),
@@ -1844,7 +1850,8 @@ RMS_SHAPES = [
     ("reduced configs (f32)", (2, 1024, 256), "float32"),
     ("qwen3-4b train q-norm, 16 heads a rank at tp 2", (2, 1024, 16, 128),
      "bfloat16"),
-]
+] + [(f"{label}, seqpar block at tp {tp}", shape, "bfloat16")
+     for label, tp, shape in SEQPAR_NORMS]
 RMS_MAIN = "qwen3-4b decode block norm"        # the kernels line's row
 
 
@@ -2020,7 +2027,8 @@ RMS_BWD_SHAPES = [
     ("reduced configs (f32)", (2, 1024, 256), "float32"),
     ("qwen3-4b train q-norm, 16 heads a rank at tp 2", (2, 1024, 16, 128),
      "bfloat16"),
-]
+] + [(f"{label}, seqpar block at tp {tp}", shape, "bfloat16")
+     for label, tp, shape in SEQPAR_NORMS]
 RMS_BWD_MAIN = "internvl2-2b train block norm"     # the kernels line's row
 
 
@@ -2510,6 +2518,9 @@ def phase_plan(ctx) -> None:
 
 REPLAY_BUDGET_S = 150.0         # the phase's share of the script's time
 REPLAY_CONFIG = "paper_scale"   # benchmarks/bench_cluster_sim.py:70
+# the fleet's seeds run on the card, cut from the config's 16 for train_tp's
+# sequence-parallel runs (the cut printed under ``reduced``)
+REPLAY_SEEDS = 8
 REPLAY_REL_TOL = 1e-6           # bench_cluster_sim.py REL_TOL (vector)
 REPLAY_ENGINES = ("fused", "segtree")
 
@@ -2628,13 +2639,14 @@ def phase_replay(ctx) -> None:
     # (what one run_monte_carlo call over those seeds does), each seed's
     # vector run beside it, until the next seed would pass the budget
     n_seeds = replay.CONFIGS[REPLAY_CONFIG][3]
+    cap = min(n_seeds, REPLAY_SEEDS)
     cpu0 = replay.fleet("cpu", config=REPLAY_CONFIG, seeds=[0])
     t_fleet = time.perf_counter()
     engines = {e: replay.fleet("cuda", config=REPLAY_CONFIG, seeds=[0],
                                plan_engine=e) for e in REPLAY_ENGINES}
     gcache = PlannerCache()
     batched, vector = [], []
-    while len(batched) < n_seeds:
+    while len(batched) < cap:
         s = len(batched)
         batched.append(replay.fleet("cuda", config=REPLAY_CONFIG, seeds=[s],
                                     plan_cache=gcache))
@@ -3075,8 +3087,9 @@ N_LAYERS = 4                    # gemma-2b has 18; the only reduction
 SSM_LAYERS = 16                 # mamba2-780m has 48: cut for the script's time
 HYBRID = dict(steps=2, seq=1024, batch=8, n_micro=4, dp=4)
 HYBRID_LAYERS = 12              # zamba2-1.2b has 38: two shared-block periods
-MOE_LAYERS = 4                  # granite-moe-3b-a800m has 32: cut (from 8) for
-                                # the script's time with train_tp
+MOE_LAYERS = 2                  # granite-moe-3b-a800m has 32: cut (from 8 to
+                                # 4, then to 2) for the script's time with
+                                # train_tp
 # The recovered gradient sums the redistributed micro-batches in another
 # order than the fault-free one; f32 accumulators over bf16 gradients of
 # magnitude <= max|g| differ by a few f32 ulps of that magnitude.
@@ -3855,6 +3868,18 @@ TP_PARAM_MEAN_ATOL = 1e-4
 # mutant's at each step, TP_PARAM_MEAN_ATOL 2x above the sound leaf mean
 # and 2.6x below the mutant's: each of the two parts them at both steps.
 TP_GNORM_RTOL = {"qwen3-4b": TP_RTOL, "mamba2-780m": 1e-2}
+# Each step also holds every leaf of the sharded state held whole over the
+# model axis (parameters, moments, master copies) bitwise equal on both
+# ranks (``launch.sharded._replicas_equal``).  The sequence-parallel steps
+# (TP_PATHS' "seqpar") are held to the same limits.  On the card (H100
+# 80GB HBM3, 700 W; PERF.md, "seqpar") the sound seqpar runs read as the
+# non-seqpar ones above, to the last bit of every number held, and a
+# mutation (the residual norms, which each rank runs on its rows, left
+# WHOLE, so their partial gradients go unsummed, in a copy of src/) read
+# qwen3-4b loss 2.3e-5 and 2.9e-4, grad-norm 2.8e-5 and 3.4e-4, leaf mean
+# 3.3e-6 and 9.9e-6: inside every limit above (AdamW's update hardly moves
+# with a gradient's scale, and bf16 parameters of 1.0 do not move by lr),
+# while its moments part between the ranks: the replica check fails it.
 TP_LR = 1e-3                    # launch.sharded.compare's default
 # (b) rank 0's real share of the dryrun phase's train_dist step (DIST,
 # remat) in a fake group: (arch, n_layers, model axis, config fields
@@ -3871,6 +3896,12 @@ TP_SHARES = [
      ["segments/attn"]),
     ("mamba2-780m", 4, 16, {}, {"ssd_scan": "3"}, []),
 ]
+# (b) under sequence parallelism ("seqpar"), as TP_SHARES' entries: the
+# residual norms and adds on each rank's block of the sequence, every
+# region's all-reduce an all-gather and a reduce-scatter over it
+TP_SEQPAR_SHARES = [TP_SHARES[0], TP_SHARES[1]]
+# the prediction's peak against the measured one for the seqpar shares
+TP_SEQPAR_PEAK_GAP = 0.01
 
 
 def _heads_recorder(counts):
@@ -3933,36 +3964,43 @@ def _tp_cfg(arch: str, n_layers: int, fields=None):
                                **(fields or {}))
 
 
+TP_PATHS = {"tp": False, "seqpar": True}     # train_tp (a)'s two steps
+
+
 def _tp_rank(rank: int, world: int, store_path: str, out_dir: str,
              arch: str, n_layers: int) -> None:
     """One rank of train_tp (a), in a process of its own: gloo on the card,
     mesh (1, world) of device type cuda; ``launch.sharded.compare`` of
-    TP_GLOO's sharded and fused steps of ``arch`` at ``n_layers``; writes
-    its records, the kernel heads and the launches by variant as
-    ``rank{rank}.json``."""
+    TP_GLOO's sharded and fused steps of ``arch`` at ``n_layers``, once
+    for each of TP_PATHS (the sharded step without and with sequence
+    parallelism); writes each run's records, kernel heads and launches by
+    variant as ``rank{rank}.json``."""
     import torch
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharded import compare, init_rank
     init_rank(rank, world, store_path, "cuda", backend="gloo")
-    heads = {}
-    undo = _heads_recorder(heads)
-    attention_variants_reset()
-    try:
-        recs = compare(_tp_cfg(arch, n_layers),
-                       make_host_mesh(world, device_type="cuda"), lr=TP_LR,
-                       **TP_GLOO)
-    finally:
-        undo()
+    runs = {}
+    for path, seqpar in TP_PATHS.items():
+        heads = {}
+        undo = _heads_recorder(heads)
+        attention_variants_reset()
+        try:
+            recs = compare(_tp_cfg(arch, n_layers),
+                           make_host_mesh(world, device_type="cuda"),
+                           lr=TP_LR, seqpar=seqpar, **TP_GLOO)
+        finally:
+            undo()
+        runs[path] = {"records": recs, "heads": heads,
+                      "by_variant": _by_variant()}
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps({
         "rank": rank, "cuda_device": torch.cuda.current_device(),
-        "backend": torch.distributed.get_backend(), "records": recs,
-        "heads": heads, "by_variant": _by_variant()}))
+        "backend": torch.distributed.get_backend(), "runs": runs}))
 
 
 def _tp_gloo(ctx, arch: str, n_layers: int) -> dict:
     """train_tp (a) on ``arch``: two ranks on the card over gloo
-    (``_tp_rank``), checked; returns the two ranks' launches of the
-    sharded steps."""
+    (``_tp_rank``), checked; returns {path: the two ranks' launches of its
+    sharded steps} for each of TP_PATHS."""
     import tempfile
     import torch
     from repro_torch.configs import get_arch
@@ -4003,68 +4041,84 @@ def _tp_gloo(ctx, arch: str, n_layers: int) -> dict:
         want_heads = {"flash_attention": {
             f"{a.n_heads}/{a.n_kv_heads}": calls,
             f"{a.n_heads // world}/{a.n_kv_heads // world}": calls}}
-    for rk in ranks:
-        for r in rk["records"]:
-            emit({"phase": "train_tp", "part": "gloo", "arch": arch,
-                  "rank": rk["rank"], **r, "nvidia_smi": ctx["smi"]})
-    launches = dict.fromkeys(sharded, 0)
-    for rk in ranks:
-        for r in rk["records"]:
-            f, sh = r["fused"], r["sharded"]
-            for name, want in (("fused", fused), ("sharded", sharded)):
-                if r[name]["launches"] != want:
+    # every rank's records first, so a failing check leaves them printed
+    for path in TP_PATHS:
+        for rk in ranks:
+            for r in rk["runs"][path]["records"]:
+                emit({"phase": "train_tp", "part": "gloo", "arch": arch,
+                      "path": path, "rank": rk["rank"], **r,
+                      "nvidia_smi": ctx["smi"]})
+    out = {}
+    for path in TP_PATHS:
+        launches = out[path] = dict.fromkeys(sharded, 0)
+        runs = [rk["runs"][path] for rk in ranks]
+        for rk, run in zip(ranks, runs):
+            label = f"train_tp {arch} {path} rank {rk['rank']}"
+            for r in run["records"]:
+                f, sh = r["fused"], r["sharded"]
+                for name, want in (("fused", fused), ("sharded", sharded)):
+                    if r[name]["launches"] != want:
+                        raise AssertionError(
+                            f"{label} step {r['step']}: {name} launches "
+                            f"{r[name]['launches']}, expected {want}")
+                for k in launches:
+                    launches[k] += sh["launches"][k]
+                d = r["max_abs_diff"]
+                leaf_mean = r["params_worst_leaf_mean_abs_diff"]
+                if not (d["loss"] <= TP_RTOL * abs(f["loss"])
+                        and d["grad_norm"] <= TP_GNORM_RTOL[arch]
+                        * abs(f["grad_norm"])
+                        and leaf_mean <= TP_PARAM_MEAN_ATOL
+                        and r["replicas_equal"]):
                     raise AssertionError(
-                        f"train_tp {arch} rank {rk['rank']} step "
-                        f"{r['step']}: {name} launches "
-                        f"{r[name]['launches']}, expected {want}")
-            for k in launches:
-                launches[k] += sh["launches"][k]
-            d = r["max_abs_diff"]
-            leaf_mean = r["params_worst_leaf_mean_abs_diff"]
-            if not (d["loss"] <= TP_RTOL * abs(f["loss"])
-                    and d["grad_norm"] <= TP_GNORM_RTOL[arch]
-                    * abs(f["grad_norm"])
-                    and leaf_mean <= TP_PARAM_MEAN_ATOL):
-                raise AssertionError(f"train_tp {arch} rank {rk['rank']} "
-                                     f"step {r['step']}: sharded off fused "
-                                     f"by {d}, worst leaf mean {leaf_mean}")
-        if rk["heads"] != want_heads:
-            raise AssertionError(f"train_tp {arch} rank {rk['rank']}: heads "
-                                 f"{rk['heads']}, expected {want_heads} "
-                                 f"(fused, sharded)")
-        _variants_check(f"train_tp {arch} rank {rk['rank']}",
-                        rk["by_variant"],
-                        {k: TP_GLOO["steps"] * (fused[k] + sharded[k])
-                         for k in ("flash_attention", "flash_attention_bwd",
-                                   "rmsnorm_bwd")})
-    emit({"phase": "train_tp", "part": "gloo", "arch": arch, "ok": True,
-          "seconds": secs,
-          "backend": [rk["backend"] for rk in ranks],
-          "cuda_device": [rk["cuda_device"] for rk in ranks],
-          "heads": [rk["heads"] for rk in ranks],
-          "by_variant": [rk["by_variant"] for rk in ranks],
-          "max_abs_diff": [[r["max_abs_diff"] for r in rk["records"]]
-                           for rk in ranks],
-          "relative_diff": [[{k: r["max_abs_diff"][k] / abs(r["fused"][k])
-                              for k in ("loss", "grad_norm")}
-                             for r in rk["records"]] for rk in ranks],
-          "params_worst_leaf_mean_abs_diff": [
-              [r["params_worst_leaf_mean_abs_diff"] for r in rk["records"]]
-              for rk in ranks],
-          "steady_step_s": {n: [[r[n]["seconds"] for r in rk["records"][1:]]
-                                for rk in ranks]
-                            for n in ("fused", "sharded")},
-          "peak_mem_gb": {n: [max(r[n]["peak_mem_gb"] for r in rk["records"])
-                              for rk in ranks] for n in ("fused", "sharded")},
-          "nvidia_smi": ctx["smi"]})
-    return launches
+                        f"{label} step {r['step']}: sharded off fused by "
+                        f"{d}, worst leaf mean {leaf_mean}, replicas equal "
+                        f"over the model axis {r['replicas_equal']}")
+            if run["heads"] != want_heads:
+                raise AssertionError(f"{label}: heads {run['heads']}, "
+                                     f"expected {want_heads} (fused, "
+                                     f"sharded)")
+            _variants_check(label, run["by_variant"],
+                            {k: TP_GLOO["steps"] * (fused[k] + sharded[k])
+                             for k in ("flash_attention",
+                                       "flash_attention_bwd",
+                                       "rmsnorm_bwd")})
+        recs = [run["records"] for run in runs]
+        emit({"phase": "train_tp", "part": "gloo", "arch": arch,
+              "path": path, "seqpar": TP_PATHS[path], "ok": True,
+              "seconds": secs,
+              "backend": [rk["backend"] for rk in ranks],
+              "cuda_device": [rk["cuda_device"] for rk in ranks],
+              "heads": [run["heads"] for run in runs],
+              "by_variant": [run["by_variant"] for run in runs],
+              "max_abs_diff": [[r["max_abs_diff"] for r in rr]
+                               for rr in recs],
+              "relative_diff": [[{k: r["max_abs_diff"][k]
+                                  / abs(r["fused"][k])
+                                  for k in ("loss", "grad_norm")}
+                                 for r in rr] for rr in recs],
+              "params_worst_leaf_mean_abs_diff": [
+                  [r["params_worst_leaf_mean_abs_diff"] for r in rr]
+                  for rr in recs],
+              "replicas_equal": [[r["replicas_equal"] for r in rr]
+                                 for rr in recs],
+              "steady_step_s": {n: [[r[n]["seconds"] for r in rr[1:]]
+                                    for rr in recs]
+                                for n in ("fused", "sharded")},
+              "peak_mem_gb": {n: [max(r[n]["peak_mem_gb"] for r in rr)
+                                  for rr in recs]
+                              for n in ("fused", "sharded")},
+              "nvidia_smi": ctx["smi"]})
+    return out
 
 
 def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
-              want_heads: dict, want_whole: list) -> dict:
+              want_heads: dict, want_whole: list, seqpar: bool = False,
+              peak_gap: float = DRYRUN_PEAK_GAP) -> dict:
     """train_tp (b): ``check_pair`` of ``arch``'s train_dist step at
-    ``n_layers`` on the (1, ``model``) layout, rank 0 of a fake group;
-    returns its counted run's launches."""
+    ``n_layers`` on the (1, ``model``) layout, rank 0 of a fake group,
+    sequence-parallel with ``seqpar``; the predicted peak within
+    ``peak_gap`` of the measured; returns its counted run's launches."""
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.dryrun import check_pair
@@ -4078,7 +4132,7 @@ def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
     attention_variants_reset()
     try:
         rec = check_pair(cfg, shape, device="cuda", n_micro=DIST["n_micro"],
-                         layout=layout)
+                         layout=layout, seqpar=seqpar)
     finally:
         undo()
     pred, meas = rec["predicted"], rec["measured"]
@@ -4088,6 +4142,7 @@ def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
             "n_layers": cfg.n_layers, "fields": fields,
             "shape": dataclasses.astuple(shape),
             "n_micro": DIST["n_micro"], "layout": rec["layout"],
+            "seqpar": rec["seqpar"],
             "tp_compute": rec["tp_compute"], "tp_whole": rec["tp_whole"],
             "flops": [pred["flops"], meas["flops"]],
             "hbm_bytes": [pred["hbm_bytes"], meas["hbm_bytes"]],
@@ -4105,15 +4160,18 @@ def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
     if arch == "gemma-2b":
         line["tp1_step_s"] = ctx.get("tp1_step_s")
     emit(line)
-    label = f"train_tp share {arch} at tp {model}"
+    label = f"train_tp share {arch} at tp {model}" \
+        + (" seqpar" if seqpar else "")
+    if rec["seqpar"] != seqpar:
+        raise AssertionError(f"{label}: seqpar {rec['seqpar']}")
     if not rec["equal"]:
         raise AssertionError(f"{label}: the prediction is not the run's: "
                              f"{line}")
     if rec["tp_whole"] != want_whole:
         raise AssertionError(f"{label}: computed whole {rec['tp_whole']}, "
                              f"expected {want_whole}: {line}")
-    if gap is None or abs(gap) > DRYRUN_PEAK_GAP:
-        raise AssertionError(f"{label}: peak gap {gap}")
+    if gap is None or abs(gap) > peak_gap:
+        raise AssertionError(f"{label}: peak gap {gap}, limit {peak_gap}")
     if {k: set(v) for k, v in heads.items()} != \
             {k: {v} for k, v in want_heads.items()}:
         raise AssertionError(f"{label}: heads {heads}, expected "
@@ -4122,19 +4180,38 @@ def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
     return rec["launches"]
 
 
+# the kernels every sequence-parallel run of train_tp must launch
+SEQPAR_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                  "rmsnorm_bwd", "ssd_scan")
+
+
 def phase_train_tp(ctx) -> None:
     """Tensor-parallel compute on the card: ``_tp_gloo`` (a) for each of
-    TP_GLOO_ARCHS, then ``_tp_share`` (b) for each of TP_SHARES.  The
-    phase's launches are the sharded steps' of both ranks and the shares'
-    counted runs."""
-    launches = {}
+    TP_GLOO_ARCHS, without and with sequence parallelism, then
+    ``_tp_share`` (b) for each of TP_SHARES and, sequence-parallel, each
+    of TP_SEQPAR_SHARES.  The launches are the sharded steps' of both ranks
+    and the shares' counted runs: the sequence-parallel ones under their
+    own path, "train_tp_seqpar", which must launch every one of
+    SEQPAR_KERNELS."""
+    launches = {"train_tp": {}, "train_tp_seqpar": {}}
+
+    def add(path, counts):
+        for k, n in counts.items():
+            launches[path][k] = launches[path].get(k, 0) + n
     for arch, n_layers in TP_GLOO_ARCHS.items():
-        for k, n in _tp_gloo(ctx, arch, n_layers).items():
-            launches[k] = launches.get(k, 0) + n
+        for path, counts in _tp_gloo(ctx, arch, n_layers).items():
+            add("train_tp_seqpar" if TP_PATHS[path] else "train_tp", counts)
     for share in TP_SHARES:
-        for k, n in _tp_share(ctx, *share).items():
-            launches[k] = launches.get(k, 0) + n
-    ctx["phase_launches"]["train_tp"] = launches
+        add("train_tp", _tp_share(ctx, *share))
+    for share in TP_SEQPAR_SHARES:
+        add("train_tp_seqpar", _tp_share(ctx, *share, seqpar=True,
+                                         peak_gap=TP_SEQPAR_PEAK_GAP))
+    missing = [k for k in SEQPAR_KERNELS
+               if not launches["train_tp_seqpar"].get(k)]
+    if missing:
+        raise AssertionError(f"train_tp: the sequence-parallel runs "
+                             f"launched no {missing}")
+    ctx["phase_launches"].update(launches)
     emit({"phase": "train_tp", "ok": True, "launches": launches})
 
 
@@ -5098,8 +5175,9 @@ def profile_step(cfg) -> dict:
 # keep the script within half its time limit with the train_dist, train_tp
 # and serve_tp phases (every layer is alike, so the trace shows the same
 # kernels a layer); granite-moe and hubert-xlarge left the phase for
-# serve_tp's time (their last traces: PERF.md, PRs 29 and 31)
-PROFILE_SSM_LAYERS = 12
+# serve_tp's time (their last traces: PERF.md); cut from 12 to 4 for
+# train_tp's sequence-parallel runs
+PROFILE_SSM_LAYERS = 4
 
 
 def phase_profile(ctx) -> None:
@@ -5417,6 +5495,76 @@ def phase_ab_rms_bwd(ctx) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_probe_peak(ctx) -> None:
+    """Where the dry-run's peak and the card's part: train_tp (b)'s gemma-2b
+    share (without and with sequence parallelism) run once more after its
+    warm-up under a ``WorkCounter`` that also reads
+    ``torch.cuda.memory_allocated()`` after every op; prints each side's
+    peak above the arguments, the op at each peak, and the ops at which
+    the card's bytes above the counter's move by more than 1 MB."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.counters import WorkCounter
+    from repro_torch.launch.dryrun import build_pair, process_group
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.sharding.rules import Layout
+
+    class Recorder(WorkCounter):
+        def __init__(self, mesh, base):
+            super().__init__(mesh)
+            self.base, self.rows = base, []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if not self._inside:
+                shapes = [tuple(t.shape) for t in
+                          (out if isinstance(out, (tuple, list)) else [out])
+                          if isinstance(t, torch.Tensor)]
+                self.rows.append((str(func.overloadpacket), shapes,
+                                  self.live - self.argument_bytes,
+                                  torch.cuda.memory_allocated() - self.base))
+            return out
+    arch, n_layers, model, fields = TP_SHARES[0][:4]
+    cfg = _tp_cfg(arch, n_layers, fields)
+    shape = ShapeConfig("train_dist", DIST["seq"], DIST["batch"], "train")
+    layout = Layout(("data", "model"), (1, model))
+    for seqpar in (False, True):
+        torch.cuda.empty_cache()
+        with process_group("fake", model):
+            mesh = _mesh(layout, "cuda")
+            step, args, _ = build_pair(cfg, shape, mesh,
+                                       n_micro=DIST["n_micro"],
+                                       seqpar=seqpar, device="cuda")
+            step(*args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rec = Recorder(mesh, torch.cuda.memory_allocated())
+            rec.arguments(*args)
+            with rec:
+                out = step(*args)
+            torch.cuda.synchronize()
+            del out, step, args
+        rows = rec.rows
+        i_pred = max(range(len(rows)), key=lambda i: rows[i][2])
+        i_meas = max(range(len(rows)), key=lambda i: rows[i][3])
+        jumps = []
+        for i in range(1, len(rows)):
+            d = (rows[i][3] - rows[i][2]) - (rows[i - 1][3] - rows[i - 1][2])
+            if abs(d) > 1 << 20:
+                jumps.append({"i": i, "op": rows[i][0], "shapes": rows[i][1],
+                              "jump": d, "gap": rows[i][3] - rows[i][2]})
+        emit({"phase": "probe_peak", "arch": arch, "seqpar": seqpar,
+              "ops": len(rows), "counter_peak_above": rec.peak
+              - rec.argument_bytes,
+              "card_peak_above": torch.cuda.max_memory_allocated()
+              - rec.base,
+              "at_counter_peak": {"i": i_pred, "row": rows[i_pred]},
+              "at_card_peak": {"i": i_meas, "row": rows[i_meas]},
+              "around_counter_peak": rows[max(0, i_pred - 8):i_pred + 3],
+              "jumps": jumps[:60], "n_jumps": len(jumps),
+              "nvidia_smi": ctx["smi"]})
+
+
 def phase_ab_attn_bwd(ctx) -> None:
     """Not in the default run: kernel 1's backward's graph time at
     deepseek-v3-671b's MLA shape and gemma-2b's, through the port that
@@ -5473,6 +5621,7 @@ def main() -> int:
            "ab_attn": phase_ab_attn, "ab_attn_bwd": phase_ab_attn_bwd,
            "probe_attn": phase_probe_attn,
            "probe_rms_bwd": phase_probe_rms_bwd,
+           "probe_peak": phase_probe_peak,
            "kernel_rms_bwd": phase_kernel_rmsnorm_bwd,
            "ab_rms_bwd": phase_ab_rms_bwd,
            "train": phase_train,

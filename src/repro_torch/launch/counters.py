@@ -12,7 +12,10 @@ torch's own dispatch instead of XLA's text).
   active is live from its op until it is freed; the stored state and the
   batch, registered by ``arguments``, are live from the start.  Each
   storage is rounded up to 512 bytes, as the CUDA caching allocator rounds
-  its blocks.
+  its blocks.  ``gather``'s backward scatter-adds the gradient into a
+  zeros tensor in place, but out of place while a dispatch mode is on
+  (``at::areAnyTensorSubclassLike``), as under this counter: its two
+  buffers count as the one the step holds without the counter.
 * **Collectives**, as the reference counts them: the **result bytes** of
   each ``c10d`` op (an all-gather's output, a reduce-scatter's shard, an
   all-reduce's tensor), grouped by kind and by mesh axis with a count and
@@ -128,6 +131,7 @@ class WorkCounter(TorchDispatchMode):
         self._storages: Dict[int, tuple] = {}
         self._arg_keys: set = set()
         self._inside = 0
+        self._zeros = None          # the storage of the last ``new_zeros``
         self._groups: Dict[str, tuple] = {}
         if mesh is not None and dist.is_initialized():
             for axis in mesh.mesh_dim_names:
@@ -167,6 +171,15 @@ class WorkCounter(TorchDispatchMode):
             if entry is not None:
                 self.live -= entry[1]
         return cb
+
+    def _reuse(self, key: int) -> None:
+        """The storage ``key`` stands for the next op's output (an op run
+        out of place only because a dispatch mode is on): its bytes leave
+        the live count now and not again when it is freed."""
+        entry = self._storages.get(key)
+        if entry is not None:
+            self.live -= entry[1]
+            self._storages[key] = (entry[0], 0)
 
     def arguments(self, *trees) -> None:
         """Registers the tensors of ``trees`` (DTensors by their local
@@ -229,7 +242,12 @@ class WorkCounter(TorchDispatchMode):
         if name in _FREE_NAMES:
             return out
         outs = _tensors(out)
+        if func is aten.scatter_add.default \
+                and id(args[0].untyped_storage()) == self._zeros:
+            self._reuse(self._zeros)
         self._track(outs)
+        self._zeros = id(outs[0].untyped_storage()) \
+            if func is aten.new_zeros.default else None
         if func in _FREE or func.is_view:
             return out
         nbytes = sum(_nbytes(t) for t in _tensors((args, kwargs))) + \

@@ -38,11 +38,15 @@ lists the modules a rank computes whole (``whole_compute``): attention,
 MLA or Mamba2 whose heads do not divide the axis (at 16x16, granite-moe's
 24 heads), an MLP or shared expert whose d_ff does not, and experts that
 divide neither way.  A pair whose peak exceeds ``HBM_BYTES`` is flagged
-``"fits": false``, not skipped.
+``"fits": false``, not skipped.  With the "seqpar" variant the train and
+prefill pairs are also sequence-parallel over the model axis (the residual
+split by sequence between the split regions, ``collectives.MeshGroups(...,
+seqpar=True)``); decode pairs run as without it, as the reference's decode
+does; each traced row says ``"seqpar"``, whether its step ran so.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b \\
         --shape train_4k [--multi-pod | --mesh DxM] \\
-        [--variant fsdp|cachemodel] [--json out.jsonl]
+        [--variant fsdp|cachemodel|seqpar] [--json out.jsonl]
 
 ``check_pair`` holds the prediction against the same step run for real on
 the card (or, for the tests, the CPU): at world size 1, or as rank 0 of a
@@ -75,11 +79,6 @@ from repro_torch.sharding.rules import WHOLE, Layout, data_axes_of
 
 # variant tokens of the reference that are the port's only path: recorded
 NATIVE = ("baseline", "", "flash", "fusednorm", "moe3d", "moesm")
-NOT_RUN = {
-    "seqpar": "sequence-parallel TP shards the residual stream over the "
-              "model axis; the port's tensor-parallel compute keeps it "
-              "whole on every model rank",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +86,7 @@ class Variant:
     cfg: ArchConfig
     fsdp: bool = False
     kv_model: bool = False          # decode caches' slots over ``model``
-    not_run: str = ""               # why the pair does not run, or ""
+    seqpar: bool = False            # train and prefill split by sequence
 
 
 def apply_variant(cfg: ArchConfig, variant: str) -> Variant:
@@ -99,9 +98,10 @@ def apply_variant(cfg: ArchConfig, variant: str) -> Variant:
     it (decode pairs, ``cache_specs(kv_model=True)``); "ep48" pads
     granite-moe's 40 experts to 48 with the capacity factor scaled to keep
     the FLOPs (and, as in the reference, is unknown for an arch without
-    MoE); "seqpar" needs sequence-parallel compute and gives a reason not
-    to run.  Any other token raises."""
-    fsdp, kv_model, not_run = False, False, []
+    MoE); "seqpar" splits the residual of the train and prefill steps by
+    sequence over the model axis (sequence parallelism).  Any other token
+    raises."""
+    fsdp, kv_model, seqpar = False, False, False
     for tok in variant.split("+"):
         if tok in NATIVE:
             continue
@@ -109,8 +109,8 @@ def apply_variant(cfg: ArchConfig, variant: str) -> Variant:
             fsdp = True
         elif tok == "cachemodel":
             kv_model = True
-        elif tok in NOT_RUN:
-            not_run.append(f"{tok}: {NOT_RUN[tok]}")
+        elif tok == "seqpar":
+            seqpar = True
         elif tok == "ep48" and cfg.moe is not None:
             m = cfg.moe
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -118,7 +118,7 @@ def apply_variant(cfg: ArchConfig, variant: str) -> Variant:
                 capacity_factor=m.capacity_factor * m.n_experts / 48))
         else:
             raise ValueError(f"unknown variant token {tok!r}")
-    return Variant(cfg, fsdp, kv_model, "; ".join(not_run))
+    return Variant(cfg, fsdp, kv_model, seqpar)
 
 
 def mesh_layout(multi_pod: bool = False, mesh: str = None
@@ -259,13 +259,16 @@ def whole_compute(uses, kind: str, tp: int) -> list:
 
 def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                fsdp: bool = False, n_micro: int = None, kv_model: bool = False,
-               device="meta", seed: int = 0) -> Tuple[Callable, tuple, dict]:
+               seqpar: bool = False, device="meta",
+               seed: int = 0) -> Tuple[Callable, tuple, dict]:
     """``(step, args, meta)``: rank 0's step of ``(cfg, shape)`` over
     ``mesh`` (a ``DeviceMesh`` whose last axis is ``model``) and its
     arguments, on ``device``: the ``meta`` device's stand-ins, or random
     inputs of the same shapes from ``seed`` on a real device.  A decode
     pair's caches are split as ``cache_shards`` splits them, with
-    ``kv_model`` and, for long_500k, ``shard_seq``."""
+    ``kv_model`` and, for long_500k, ``shard_seq``.  ``seqpar``: a train
+    or prefill step is sequence-parallel over the model axis (a decode
+    step ignores it); ``meta["seqpar"]`` says whether the step is."""
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamW, constant
     from repro_torch.train.sharded import (make_sharded_train_step,
@@ -281,14 +284,15 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     _, dp = data_axes_of(mesh)
     tp = int(mesh.mesh.shape[-1])
     model = build_model(cfg, device)
-    meta = {"kind": shape.kind, "dp": dp, "tp": tp}
+    seqpar = seqpar and shape.kind != "decode" and tp > 1
+    meta = {"kind": shape.kind, "dp": dp, "tp": tp, "seqpar": seqpar}
     if shape.kind == "train":
         opt = AdamW(lr=constant(3e-4))
         # only this rank's shards are made, never the whole state: a whole
         # state of deepseek-v3-671b's MoE layer would not fit on one card
         state = abstract_train_state(model, opt)
         meta["tp_whole"] = whole_compute(
-            compute_uses(state.params, cfg, tp), shape.kind, tp)
+            compute_uses(state.params, cfg, tp, seqpar), shape.kind, tp)
         state = shard_train_state(state, mesh, fsdp=fsdp)
         if real:
             state = _random_shards(state, device, seed)
@@ -298,7 +302,7 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         batch = _real_batch(cfg, specs, device, seed) if real else specs
         meta["n_micro"] = n
         step = make_sharded_train_step(model, opt, n, mesh, fsdp=fsdp,
-                                       remat=True)
+                                       remat=True, seqpar=seqpar)
         return step, (state, batch), meta
     # a decode pair over more than one rank makes only this rank's shards
     # (``_random_leaves``): a whole deepseek-v3-671b MoE layer is 22.5 GB
@@ -311,7 +315,7 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         specs = input_specs(cfg, dataclasses.replace(
             shape, global_batch=_rows(shape.global_batch, dp)), dp)
         batch = _real_batch(cfg, specs, device, seed) if real else specs
-        groups = MeshGroups(mesh) if tp > 1 else None
+        groups = MeshGroups(mesh, seqpar=seqpar) if tp > 1 else None
         if groups is not None:
             params = compute_params(params, cfg, groups)
 
@@ -413,15 +417,16 @@ def _measured(counter: WorkCounter, memory: dict, trace_s: float) -> dict:
 
 def trace_pair(cfg: ArchConfig, shape: ShapeConfig, layout: Layout, *,
                fsdp: bool = False, n_micro: int = None,
-               kv_model: bool = False) -> dict:
+               kv_model: bool = False, seqpar: bool = False) -> dict:
     """Rank 0's step of ``(cfg, shape)`` on ``layout`` traced on ``meta``
     inside an initialised process group of the layout's world: the row's
-    measured fields, with ``kind``, ``dp``, ``tp`` (and ``n_micro``)."""
+    measured fields, with ``kind``, ``dp``, ``tp``, ``seqpar`` (and
+    ``n_micro``)."""
     t0 = time.perf_counter()
     mesh = _mesh(layout)
     step, args, meta = build_pair(cfg, shape, mesh, fsdp=fsdp,
                                   n_micro=n_micro, kv_model=kv_model,
-                                  device="meta")
+                                  seqpar=seqpar, device="meta")
     counter, memory = count_step(step, args, mesh)
     return {**meta, **_measured(counter, memory, time.perf_counter() - t0),
             "tp_compute": not meta["tp_whole"]}
@@ -432,8 +437,7 @@ def pair_fields(arch: str, shape_name: str, *, multi_pod: bool = False,
     """The row's fields that need no trace: the reference's skip row for
     a pair ``supports_shape`` refuses; else the pair, its layout's ``dp``
     and ``tp`` (and ``n_micro``), the parameter counts and
-    ``model_flops``, with status ``not_run`` and its reason where the pair
-    needs a variant the port lacks."""
+    ``model_flops``."""
     cfg = get_arch(arch)
     shape = SHAPES[shape_name]
     mesh_name, layout = mesh_layout(multi_pod, mesh)
@@ -448,8 +452,6 @@ def pair_fields(arch: str, shape_name: str, *, multi_pod: bool = False,
            "kind": shape.kind, "dp": dp, "tp": tp, "variant": variant}
     if shape.kind == "train":
         row["n_micro"] = n_micro_for(shape, dp)
-    if var.not_run:
-        row.update(status="not_run", reason=var.not_run)
     row.update(param_count=var.cfg.param_count(),
                active_param_count=var.cfg.active_param_count(),
                model_flops=model_flops(var.cfg, shape))
@@ -472,7 +474,8 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
         row.update(trace_pair(var.cfg, SHAPES[shape_name], layout,
                               fsdp=var.fsdp and row["kind"] == "train",
                               kv_model=var.kv_model
-                              and row["kind"] == "decode"))
+                              and row["kind"] == "decode",
+                              seqpar=var.seqpar))
     total = row["flops"] * world
     row["model_flops_ratio"] = row["model_flops"] / total if total else 0.0
     if verbose:
@@ -491,7 +494,8 @@ def _sync(device) -> None:
 
 def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
                n_micro: int = None, seed: int = 0,
-               layout: Layout = None, kv_model: bool = False) -> dict:
+               layout: Layout = None, kv_model: bool = False,
+               seqpar: bool = False) -> dict:
     """The dry-run's prediction for ``(cfg, shape)`` on ``layout`` (default
     the (1, 1) mesh, world size 1), beside the same step run for real on
     ``device`` (CUDA by default; raises without it).  The trace runs on
@@ -506,21 +510,22 @@ def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
     predicted peak above the arguments beside ``max_memory_allocated``
     above the bytes allocated before the timed step (CUDA), and the timed
     step beside ``max(compute_s, memory_s)``, and the modules computed
-    whole (``tp_whole``)."""
+    whole (``tp_whole``); ``seqpar`` makes both sides sequence-parallel
+    (``build_pair``)."""
     from repro_torch.launch.train import launch_counts
     device = resolve_device(device)
     layout = layout or Layout(("data", "model"), (1, 1))
     world = world_of(layout)
     with process_group("fake", world):
         pred = trace_pair(cfg, shape, layout, n_micro=n_micro,
-                          kv_model=kv_model)
+                          kv_model=kv_model, seqpar=seqpar)
     backend = "fake" if world > 1 \
         else "nccl" if device.type == "cuda" else "gloo"
     with process_group(backend, world):
         mesh = _mesh(layout, device.type)
         step, args, _ = build_pair(cfg, shape, mesh, n_micro=n_micro,
-                                   kv_model=kv_model, device=device,
-                                   seed=seed)
+                                   kv_model=kv_model, seqpar=seqpar,
+                                   device=device, seed=seed)
         step(*args)                                      # warm-up
         _sync(device)
         before = launch_counts()
@@ -545,7 +550,7 @@ def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
         "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
         "layout": dict(zip(layout.axis_names, layout.sizes)),
         "n_micro": pred.get("n_micro"), "tp_compute": pred["tp_compute"],
-        "tp_whole": pred["tp_whole"],
+        "tp_whole": pred["tp_whole"], "seqpar": pred["seqpar"],
         "predicted": {k: pred[k] for k in ("flops", "hbm_bytes",
                                            "collective_bytes", "collectives",
                                            "kernel_calls")},
@@ -586,7 +591,7 @@ def main() -> None:
     if args.json:
         with open(args.json, "a") as f:
             f.write(json.dumps(res) + "\n")
-    sys.exit(0 if res.get("status") in ("ok", "skip", "not_run") else 1)
+    sys.exit(0 if res.get("status") in ("ok", "skip") else 1)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,8 @@ per GPU, or gloo with several ranks on one card (``--backend gloo``):
         --arch granite-moe-3b-a800m --reduced --device cpu --world 2
     PYTHONPATH=src python -m repro_torch.launch.sharded --arch qwen3-4b \\
         --reduced --world 2 --model 2 --backend gloo
+    PYTHONPATH=src python -m repro_torch.launch.sharded --arch gemma-2b \\
+        --reduced --device cpu --world 4 --model 4 --seqpar
     PYTHONPATH=src python -m repro_torch.launch.sharded --serve \\
         --arch gemma-2b --reduced --device cpu --world 2 --model 2 --kv-model
 
@@ -142,9 +144,36 @@ def _param_diff(sharded, whole) -> tuple:
     return float(worst[0]), float(worst[1]), not bool(worst[2])
 
 
+def _replicas_equal(state) -> bool:
+    """Whether every DTensor of the sharded train ``state`` (parameters,
+    moments, master copies) held whole over its mesh's model axis
+    (``Replicate`` there) is bitwise the same on every model rank, as the
+    step must keep it: its elementwise max and min over the model ranks
+    (two all-reduces a leaf, no all-gather) are equal.  A partial gradient
+    left unsummed over the model axis updates each replica by its own part,
+    and they part: in the moments at once, in a bf16 parameter once the
+    updates pass half its ulp."""
+    from torch.distributed.tensor import DTensor, Replicate
+    same = True
+    for p in tree.leaves(state):
+        if not isinstance(p, DTensor):
+            continue
+        mesh = p.device_mesh
+        if not isinstance(p.placements[-1], Replicate) \
+                or mesh.size(mesh.ndim - 1) == 1:
+            continue
+        group = mesh.get_group(mesh.ndim - 1)
+        t = p.to_local().float()
+        hi, lo = t.clone(), t.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        same &= bool(torch.equal(hi, lo))
+    return same
+
+
 def compare(cfg, mesh, *, steps: int = 2, seq: int = 32, batch: int = 8,
             n_micro: int = 2, lr: float = 1e-3, seed: int = 0,
-            fsdp: bool = False) -> List[Dict]:
+            fsdp: bool = False, seqpar: bool = False) -> List[Dict]:
     """``steps`` sharded steps over ``mesh`` and as many fused steps of one
     process, from the same parameters (seed ``seed``) and batches, on the
     mesh's device type (``cuda`` for NCCL or for gloo on a ``cuda`` mesh,
@@ -153,8 +182,11 @@ def compare(cfg, mesh, *, steps: int = 2, seq: int = 32, batch: int = 8,
     sharded, so the two states never share the device.  Returns one record
     a step: each step's metrics, seconds, tokens/s, kernel launches and
     (CUDA) peak GB, the largest |difference| of the loss, the gradient
-    norm and every parameter leaf, and the worst leaf's mean |difference|
-    (``_param_diff``)."""
+    norm and every parameter leaf, the worst leaf's mean |difference|
+    (``_param_diff``), and whether every leaf held whole over the model
+    axis is the same on every model rank (``_replicas_equal``).
+    ``seqpar``: the sharded step is also sequence-parallel over the model
+    axis."""
     device = mesh.device_type
     model = build_model(cfg, device)
     opt = AdamW(lr=cosine_with_warmup(lr, 2, steps))
@@ -191,7 +223,8 @@ def compare(cfg, mesh, *, steps: int = 2, seq: int = 32, batch: int = 8,
     # the same start again (the init is seeded), sharded
     state = shard_train_state(init_train_state(model, opt, seed), mesh,
                               fsdp=fsdp)
-    sharded = make_sharded_train_step(model, opt, n_micro, mesh, fsdp=fsdp)
+    sharded = make_sharded_train_step(model, opt, n_micro, mesh, fsdp=fsdp,
+                                      seqpar=seqpar)
     for rec, b, want in zip(out, batches, kept):
         state, rec["sharded"] = timed(sharded, state, b)
         diff, leaf_mean, equal = _param_diff(tree.leaves(state.params),
@@ -203,6 +236,7 @@ def compare(cfg, mesh, *, steps: int = 2, seq: int = 32, batch: int = 8,
             "params": diff}
         rec["params_worst_leaf_mean_abs_diff"] = leaf_mean
         rec["params_bitwise_equal"] = equal
+        rec["replicas_equal"] = _replicas_equal(state)
     return out
 
 
@@ -302,7 +336,7 @@ def _rank_main(rank, world, store_path, args) -> None:
         return
     for rec in compare(cfg, mesh, steps=args.steps, seq=args.seq,
                        batch=args.batch, n_micro=args.n_micro, lr=args.lr,
-                       fsdp=args.fsdp):
+                       fsdp=args.fsdp, seqpar=args.seqpar):
         if rank == 0:
             f, s = rec["fused"], rec["sharded"]
             print(f"step {rec['step']} loss {f['loss']:.6f} / "
@@ -320,6 +354,9 @@ def main() -> None:
     ap.add_argument("--model", type=int, default=1,
                     help="the model axis' size; data gets world // model")
     ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--seqpar", action="store_true",
+                    help="the residual split by sequence over the model "
+                         "axis too (sequence parallelism)")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--batch", type=int, default=8)

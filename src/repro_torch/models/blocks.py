@@ -18,7 +18,7 @@ from repro_torch.configs.base import (BLOCK_ATTN_DENSE, BLOCK_ATTN_MOE,
                                       BLOCK_HYBRID_SHARED, BLOCK_MAMBA,
                                       BLOCK_MLA_DENSE, BLOCK_MLA_MOE)
 from repro_torch.models import layers, mla, moe, ssm
-from repro_torch.sharding import rules
+from repro_torch.sharding import collectives, rules
 
 _MAMBA_KINDS = (BLOCK_MAMBA, BLOCK_HYBRID_SHARED)
 _MLA_KINDS = (BLOCK_MLA_DENSE, BLOCK_MLA_MOE)
@@ -78,26 +78,57 @@ def block_apply(p: dict, cfg, kind: str, x: torch.Tensor, positions, *,
     and the MoE FFN, expert-parallel where its experts divide the model
     axis (``experts_split``, ``moe.moe_apply_ep``), else split over d_ff
     where that divides it (``expert_ffn_splits``, ``moe.moe_apply_dff``);
-    a module the rules do not split computes whole."""
+    a module the rules do not split computes whole.
+
+    Under sequence parallelism (``groups.seqpar``) x is this rank's block
+    of the sequence (``positions`` the whole sequence's): the norms and the
+    residual adds run on the block, a split module gathers the sequence on
+    entry and leaves by a reduce-scatter over it, and a module computed
+    whole runs on the gathered sequence (``_whole``)."""
     n = _n_model(groups)
     if kind in _MAMBA_KINDS:
         h = layers.norm_apply(p["norm"], x, cfg.norm)
-        split = rules.mamba_splits(cfg, n)
-        return x + ssm.mamba_apply(p["mamba"], cfg, h,
-                                   groups=groups if split else None), None
+        return x + _module(groups, rules.mamba_splits(cfg, n), lambda h, g:
+                           ssm.mamba_apply(p["mamba"], cfg, h, groups=g),
+                           h), None
     h = layers.norm_apply(p["norm1"], x, cfg.norm)
     if kind in _MLA_KINDS:
-        split = rules.mla_splits(cfg, n)
-        x = x + mla.mla_apply(p["attn"], cfg, h, positions,
-                              groups=groups if split else None)
+        y = _module(groups, rules.mla_splits(cfg, n), lambda h, g:
+                    mla.mla_apply(p["attn"], cfg, h, positions, groups=g), h)
     else:
-        split = rules.attention_splits(cfg, n)
-        x = x + layers.attention_apply(
-            p["attn"], cfg, h, layer_is_local=layer_is_local,
-            positions=positions, groups=groups if split else None)
+        y = _module(groups, rules.attention_splits(cfg, n), lambda h, g:
+                    layers.attention_apply(p["attn"], cfg, h,
+                                           layer_is_local=layer_is_local,
+                                           positions=positions, groups=g),
+                    h)
+    x = x + y
     h = layers.norm_apply(p["norm2"], x, cfg.norm)
     y, aux = _ffn(p, cfg, h, groups)
     return x + y, aux
+
+
+def _module(groups, split: bool, fn, h: torch.Tensor) -> torch.Tensor:
+    """``fn(h, g)``, one module of a block on its normed input ``h``: with
+    ``g = groups`` where the rules ``split`` it (it enters and leaves
+    through ``collectives.enter_region`` / ``leave_region``), else with
+    ``g = None``, computed whole (``_whole``)."""
+    if split:
+        return fn(h, groups)
+    return _whole(groups, lambda h: (fn(h, None), None), h)[0]
+
+
+def _whole(groups, fn, h: torch.Tensor):
+    """``fn(h)`` -> (y, aux) of a module computed whole, alike on every
+    model rank.  Under ``groups.seqpar`` ``h`` is this rank's block of the
+    sequence: the module runs on the sequence gathered over the model axis
+    (whose gradient, whole and alike on every rank, gives this rank its
+    block) and this rank takes its block of y (whose gradient the ranks
+    gather)."""
+    if groups is None or not groups.seqpar:
+        return fn(h)
+    model = groups.model_group
+    y, aux = fn(collectives.gather_from_sequence(h, model, "block"))
+    return collectives.scatter_to_sequence(y, model), aux
 
 
 def _ffn(p: dict, cfg, h: torch.Tensor, groups=None):
@@ -109,10 +140,10 @@ def _ffn(p: dict, cfg, h: torch.Tensor, groups=None):
             return moe.moe_apply_ep(p["moe"], cfg, h, groups)
         if rules.expert_ffn_splits(cfg, n):
             return moe.moe_apply_dff(p["moe"], cfg, h, groups)
-        return moe.moe_apply(p["moe"], cfg, h)
-    split = rules.mlp_splits(cfg, n)
-    return layers.mlp_apply(p["mlp"], h, cfg.mlp_act, cfg.gated_mlp,
-                            groups=groups if split else None), None
+        return _whole(groups, lambda h: moe.moe_apply(p["moe"], cfg, h), h)
+    return _module(groups, rules.mlp_splits(cfg, n), lambda h, g:
+                   layers.mlp_apply(p["mlp"], h, cfg.mlp_act,
+                                    cfg.gated_mlp, groups=g), h), None
 
 
 def _n_model(groups) -> int:

@@ -17,7 +17,10 @@ sharded step's and the dry-run's forward): given the mesh's ``groups``
 ``wk``, ``wv``, ``w_in``, ``w_gate``; row-parallel ``wo``, ``w_out``); the
 input enters through ``copy_to_region`` and the row-parallel product
 leaves through ``reduce_from_region``, one all-reduce over the model axis
-in each direction.  ``embed_apply`` and ``logits_apply`` take this rank's
+in each direction; under sequence parallelism (``groups.seqpar``) the input
+is this rank's block of the sequence, gathered on entry, and the product
+leaves by a reduce-scatter over the sequence (``collectives.enter_region``,
+``leave_region``).  ``embed_apply`` and ``logits_apply`` take this rank's
 rows of the vocabulary.  ``attention_decode`` splits the heads as
 ``attention_apply`` does and, where a cache's slots are split over ranks,
 runs as flash-decoding (``decode_weights``, ``collectives.
@@ -90,16 +93,17 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str, gated: bool,
               groups=None):
     """With a mesh's ``groups``, ``p`` holds this model rank's columns of
     ``w_in`` / ``w_gate`` and rows of ``w_out``: the rank's part of d_ff,
-    summed over the model axis."""
+    summed over the model axis (under ``groups.seqpar``, x and the result
+    this rank's block of the sequence)."""
     if groups is not None:
-        x = collectives.copy_to_region(x, [groups.model_group])
+        x = collectives.enter_region(x, groups)
     h = x @ p["w_in"]
     a = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
     if gated:
         a = a * (x @ p["w_gate"])
     y = a @ p["w_out"]
     if groups is not None:
-        y = collectives.reduce_from_region(y, [groups.model_group])
+        y = collectives.leave_region(y, groups)
     return y
 
 
@@ -188,14 +192,15 @@ def attention_apply(p: dict, cfg, x: torch.Tensor, *, layer_is_local: bool,
     the axis, else ``wk`` / ``wv`` whole (``_kv_of_heads``).  The head
     counts come from the shards' shapes.  Where the axis is a multiple m of
     the query heads, ``p`` is whole: rank r computes head r // m, and each
-    of the head's m ranks adds 1/m of its output to the sum."""
+    of the head's m ranks adds 1/m of its output to the sum.  Under
+    ``groups.seqpar`` x and the result are this rank's block of the
+    sequence, and ``positions`` the whole sequence's."""
     a = cfg.attn
-    B, S, _ = x.shape
     hd = a.head_dim
     wq, wo, wk, wv, index = p["wq"], p["wo"], p["wk"], p["wv"], None
     H = wq.shape[-1] // hd
     if groups is not None:
-        x = collectives.copy_to_region(x, [groups.model_group])
+        x = collectives.enter_region(x, groups)
         first = groups.model_rank * H
         if H == a.n_heads:                       # each head on m ranks
             m = groups.n_model // H
@@ -204,6 +209,7 @@ def attention_apply(p: dict, cfg, x: torch.Tensor, *, layer_is_local: bool,
             wq, wo = wq[..., cols], wo[..., cols, :] / m
         if wk.shape[-1] == a.n_kv_heads * hd:
             wk, wv, index = _kv_of_heads(wk, wv, a, first, H)
+    B, S, _ = x.shape
     KV = wk.shape[-1] // hd
     q = (x @ wq).reshape(B, S, H, hd)
     k = (x @ wk).reshape(B, S, KV, hd)
@@ -220,7 +226,7 @@ def attention_apply(p: dict, cfg, x: torch.Tensor, *, layer_is_local: bool,
                             softcap=a.logit_softcap)
     y = o.reshape(B, S, H * hd) @ wo
     if groups is not None:
-        y = collectives.reduce_from_region(y, [groups.model_group])
+        y = collectives.leave_region(y, groups)
     return y
 
 
@@ -453,7 +459,9 @@ def embed_apply(p: dict, tokens: torch.Tensor, scale: bool, d: int,
                 groups=None):
     """With a mesh's ``groups``, ``p["w"]`` is this model rank's rows of the
     vocabulary: each token is looked up where its row lies, zeros
-    elsewhere, summed over the model axis (then scaled, as whole)."""
+    elsewhere, summed over the model axis (then scaled, as whole); under
+    ``groups.seqpar`` the sum is a reduce-scatter over the sequence, which
+    leaves this rank's block of it."""
     if groups is None:
         x = F.embedding(tokens.long(), p["w"])
     else:
@@ -461,8 +469,8 @@ def embed_apply(p: dict, tokens: torch.Tensor, scale: bool, d: int,
         local = tokens.long() - groups.model_rank * n
         owned = (local >= 0) & (local < n)
         x = F.embedding(torch.where(owned, local, 0), p["w"])
-        x = collectives.reduce_from_region(
-            x.masked_fill(~owned[..., None], 0), [groups.model_group])
+        x = collectives.leave_region(x.masked_fill(~owned[..., None], 0),
+                                     groups)
     if scale:
         # sqrt(d) rounded to x's dtype, as the reference's
         # ``jnp.asarray(sqrt(d), x.dtype)``; filled on the device, so a
@@ -475,7 +483,9 @@ def logits_apply(head_w: torch.Tensor, x: torch.Tensor,
                  groups=None) -> torch.Tensor:
     """head_w: (vocab, d) (tied layout); returns f32 logits.  With a mesh's
     ``groups``, ``head_w`` is this model rank's rows of the vocabulary and
-    the logits its slice, x entering through ``copy_to_region``."""
+    the logits its slice, x entering through ``collectives.enter_region``
+    (under ``groups.seqpar`` x is this rank's block of the sequence and
+    the logits are the whole sequence's)."""
     if groups is not None:
-        x = collectives.copy_to_region(x, [groups.model_group])
+        x = collectives.enter_region(x, groups)
     return x.float() @ head_w.float().T

@@ -18,8 +18,11 @@ head-major columns of ``w_uq``, ``w_uk``, ``w_uv`` and rows of ``wo``, and
 down-projections and their norms are computed alike on every rank (the
 named fallback of a split MLA, as in Megatron's: 7168 x (1536 + 576) of
 deepseek-v3-671b's ~187 M attention weights a layer), x enters through
-``copy_to_region`` and the row-parallel product leaves through
-``reduce_from_region``.  The head counts come from the shards' shapes.
+``collectives.enter_region`` and the row-parallel product leaves through
+``leave_region``: one all-reduce each way, or under sequence parallelism
+the sequence gathered on entry (the down-projections computed on the whole
+sequence) and a reduce-scatter over it on exit.  The head counts come from
+the shards' shapes.
 """
 from __future__ import annotations
 
@@ -85,13 +88,14 @@ def mla_apply(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     """Full-sequence (train / prefill).  x: (B,S,d); positions: (S,).
     With a mesh's ``groups``, ``p`` holds this model rank's block of heads
     (see the module docstring) and the output is summed over the model
-    axis."""
+    axis (under ``groups.seqpar``, x and the output this rank's block of
+    the sequence)."""
     m = cfg.mla
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     H = p["w_uq"].shape[-1] // (dn + dr)
-    B, S, _ = x.shape
     if groups is not None:
-        x = collectives.copy_to_region(x, [groups.model_group])
+        x = collectives.enter_region(x, groups)
+    B, S, _ = x.shape
     cos, sin = layers.rope_tables(positions[None], dr, cfg.attn.rope_theta)
 
     q_nope, q_rope = _project_q(p, cfg, x, cos, sin)
@@ -104,7 +108,7 @@ def mla_apply(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     o = ops.flash_attention(q, k, v, causal=True)
     y = o.reshape(B, S, H * dv) @ p["wo"]
     if groups is not None:
-        y = collectives.reduce_from_region(y, [groups.model_group])
+        y = collectives.leave_region(y, groups)
     return y
 
 

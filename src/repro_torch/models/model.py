@@ -232,14 +232,53 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         return groups if groups is not None and rules.vocab_splits(
             cfg, groups.n_model) else None
 
-    def _embed_inputs(params, batch, vocab):
+    def _embed_inputs(params, batch, vocab, seq):
+        """The first block's input: whole, or with ``seq`` (the mesh's
+        groups under sequence parallelism) this rank's block of the
+        sequence, the vision prefix's included.  A vocab-parallel
+        embedding of tokens alone leaves by its reduce-scatter over the
+        sequence (``layers.embed_apply``); anything else is split after
+        it is made whole."""
         if cfg.modality == "audio_stub":
-            return batch["frames"].to(dtype)
-        x = layers.embed_apply(params["embed"], batch["tokens"],
-                               cfg.embed_scale, cfg.d_model, groups=vocab)
-        if cfg.modality == "vision_stub":
-            x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
+            x = batch["frames"].to(dtype)
+        elif seq is not None and vocab is not None \
+                and cfg.modality != "vision_stub":
+            return layers.embed_apply(params["embed"], batch["tokens"],
+                                      cfg.embed_scale, cfg.d_model,
+                                      groups=vocab)
+        else:
+            if vocab is not None and vocab.seqpar:
+                vocab = vocab.with_seqpar(False)
+            x = layers.embed_apply(params["embed"], batch["tokens"],
+                                   cfg.embed_scale, cfg.d_model,
+                                   groups=vocab)
+            if cfg.modality == "vision_stub":
+                x = torch.cat([batch["prefix_embeds"].to(x.dtype), x],
+                              dim=1)
+        if seq is not None:
+            x = collectives.scatter_to_sequence(x, seq.model_group)
         return x
+
+    def _seq_len(batch) -> int:
+        """The whole sequence's length: the audio frames, or the tokens
+        after the vision prefix."""
+        if cfg.modality == "audio_stub":
+            return batch["frames"].shape[1]
+        n = batch["tokens"].shape[1]
+        if cfg.modality == "vision_stub":
+            n += batch["prefix_embeds"].shape[1]
+        return n
+
+    def _to_head(h, vocab, seq):
+        """The head's input: under sequence parallelism the ranks' blocks
+        gathered over the sequence, where the head is whole (a vocabulary
+        that does not divide the axis) with the gradient's block taken, as
+        for a module computed whole; a vocab-parallel head gathers them
+        itself (``layers.logits_apply``)."""
+        if seq is not None and vocab is None:
+            return collectives.gather_from_sequence(h, seq.model_group,
+                                                    "block")
+        return h
 
     def forward(params, batch, *, remat: bool = False, groups=None,
                 last_logits_only: bool = False):
@@ -253,20 +292,40 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         With ``last_logits_only`` (serving prefill) only the last
         position's logits are made, (B, 1, vocab), gathered whole over the
         model axis, and extras is ``{"aux"}`` alone (no MTP logits), as in
-        the reference."""
+        the reference.
+
+        With groups whose ``seqpar`` is set (sequence parallelism), the
+        residual between the blocks is this rank's block of the sequence
+        (``sharding.rules.seq_splits``: a sequence the axis does not divide
+        raises): the embedding (or the frames, or the tokens after the
+        vision prefix) is split, every block's norms and residual adds and
+        the final norm run on the block, and the head's input is gathered
+        over the sequence, so the logits and the losses are the whole
+        sequence's as without it.  The MTP block takes the split pre-norm
+        output.  With ``last_logits_only`` only the last position, which
+        lies on the last model rank, is brought to the head."""
         vocab = _vocab_groups(groups)
-        x = _embed_inputs(params, batch, vocab)
-        S = x.shape[1]
+        seq = groups if groups is not None and groups.seqpar else None
+        S = _seq_len(batch)
+        if seq is not None:
+            rules.seq_splits(S, seq.n_model)
+        x = _embed_inputs(params, batch, vocab, seq)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         x, aux = _run_segments(params, x, positions, remat, groups)
         h = layers.norm_apply(params["final_norm"], x, cfg.norm)
         if last_logits_only:
-            logits = layers.logits_apply(_head_w(params), h[:, -1:], vocab)
+            logits = layers.logits_apply(
+                _head_w(params), _to_head(h[:, -1:], vocab, seq), vocab)
+            if seq is not None:
+                # each rank's last row was gathered: the last is the last
+                # rank's, the sequence's last position
+                logits = logits[:, -1:]
             if vocab is not None:
                 logits = collectives.gather_from_region(logits,
                                                         vocab.model_group)
             return logits, {"aux": aux}
-        logits = layers.logits_apply(_head_w(params), h, vocab)
+        logits = layers.logits_apply(_head_w(params), _to_head(h, vocab, seq),
+                                     vocab)
         extras = {"aux": aux}
         if cfg.mtp:
             # the MTP block on the last layer's (pre-norm) output; its aux
@@ -274,8 +333,8 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
             hm, _ = blocks.block_apply(params["mtp"]["block"], cfg, mtp_kind,
                                        x, positions, groups=groups)
             hm = layers.norm_apply(params["mtp"]["norm"], hm, cfg.norm)
-            extras["mtp_logits"] = layers.logits_apply(_head_w(params), hm,
-                                                       vocab)
+            extras["mtp_logits"] = layers.logits_apply(
+                _head_w(params), _to_head(hm, vocab, seq), vocab)
         return logits, extras
 
     def loss(params, batch, *, remat: bool = False, groups=None):
@@ -394,10 +453,14 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         block splits where ``block_apply`` does (``blocks.block_decode``),
         an attention or MLA layer whose slots are split runs as
         flash-decoding, and where the head is vocab-split the logits are
-        this model rank's slice of the vocabulary."""
+        this model rank's slice of the vocabulary.  Decode ignores
+        ``groups.seqpar``: the reference's decode does not split the
+        residual by sequence."""
         B = tokens.shape[0]
         if shards is not None and groups is None:
             raise ValueError("cache shards need the mesh's groups")
+        if groups is not None and groups.seqpar:
+            groups = groups.with_seqpar(False)
         pos = layers.DecodePositions(pos, B, tokens.device)
         vocab = _vocab_groups(groups)
         x = layers.embed_apply(params["embed"], tokens[:, None],

@@ -42,6 +42,11 @@ the model ranks.  Both paths run the shared expert as a tensor-parallel
 MLP where its d_ff divides the axis (``sharding.rules.
 shared_expert_splits``).  A block takes these paths when the model's
 forward is given a mesh's groups (``blocks.block_apply(..., groups=)``).
+Under sequence parallelism (``groups.seqpar``) both take this rank's block
+of the sequence: the router runs on the tokens gathered over the model
+axis (so the capacity, and which assignments drop, are those of the
+unsplit layer), and the experts' partial sums (with a split shared
+expert's) leave by one reduce-scatter over the sequence.
 """
 from __future__ import annotations
 
@@ -197,6 +202,9 @@ def moe_apply_ep(p: dict, cfg, x: torch.Tensor, mesh):
     the global token count, the same on every rank.
 
     Capacity comes from this rank's token count, as in ``_moe_local``.
+    Under ``g.seqpar`` x is this rank's block of the sequence and y its
+    block of the result; the tokens are gathered over the model axis
+    before the router, so the capacity is the unsplit layer's.
 
     Gradients: the model ranks' sum is the identity backward (each rank's
     loss reads the whole sum), while the dispatched tokens and the combine
@@ -234,7 +242,8 @@ def moe_apply_dff(p: dict, cfg, x: torch.Tensor, mesh):
     comes from the router's statistics summed over the data ranks.  The
     gradients of the dispatched tokens and of the combine weights, which
     each rank reads for its part of d_ff, are summed over the model
-    ranks."""
+    ranks.  Under ``g.seqpar`` x and y are this rank's blocks of the
+    sequence, as ``moe_apply_ep`` takes them."""
     g = mesh if isinstance(mesh, collectives.MeshGroups) \
         else collectives.MeshGroups(mesh)
     m = cfg.moe
@@ -249,16 +258,37 @@ def moe_apply_dff(p: dict, cfg, x: torch.Tensor, mesh):
 def _over_model(p: dict, cfg, x: torch.Tensor, g):
     """(y, aux) of the routed experts of ``cfg`` that ``p`` holds, their
     parts summed over ``g``'s model ranks, plus the shared expert; the aux
-    loss from the router's statistics summed over the data ranks."""
+    loss from the router's statistics summed over the data ranks.
+
+    Under ``g.seqpar`` x is this rank's block of the sequence: the router
+    reads the tokens gathered over the model axis, computed alike on every
+    model rank (the gather's gradient this rank's block of it), the
+    experts' partial sums, and a split shared expert's, leave by one
+    reduce-scatter over the sequence, and a shared expert computed whole
+    is added by its block."""
+    model = [g.model_group]
+    if g.seqpar:
+        x = collectives.gather_from_sequence(x, g.model_group, "block")
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     r = route(p["router"], cfg, xt)
-    model = [g.model_group]
-    y = _experts(p, cfg, collectives.copy_to_region(xt, model), r,
-                 collectives.copy_to_region(r.weight, model))
-    y = collectives.reduce_from_region(y, model)
-    return _add_shared(p, cfg, xt, y, g).reshape(B, S, d), \
-        _global_aux(r, cfg, g)
+    xin = collectives.copy_to_region(xt, model)
+    y = _experts(p, cfg, xin, r, collectives.copy_to_region(r.weight, model))
+    if not g.seqpar:
+        y = collectives.reduce_from_region(y, model)
+        return _add_shared(p, cfg, xt, y, g).reshape(B, S, d), \
+            _global_aux(r, cfg, g)
+    shared = cfg.moe.n_shared_experts
+    split = shared and rules.shared_expert_splits(cfg, g.n_model)
+    if split:
+        y = y + layers.mlp_apply(p["shared"], xin, cfg.mlp_act, True)
+    y = collectives.reduce_scatter_to_sequence(y.reshape(B, S, d),
+                                               g.model_group)
+    if shared and not split:
+        y = y + collectives.scatter_to_sequence(layers.mlp_apply(
+            p["shared"], xt, cfg.mlp_act, True).reshape(B, S, d),
+            g.model_group)
+    return y, _global_aux(r, cfg, g)
 
 
 def _global_aux(r: Routing, cfg, g) -> torch.Tensor:

@@ -23,9 +23,12 @@ every head reads them), convolves those channels, scans its heads, and
 normalises the gated output over the whole d_inner by a sum of squares
 all-reduced over the model axis (the reference's norm as GSPMD splits it;
 kernel 2 reads whole rows, so the split path's gate norm is PyTorch ops);
-x enters through ``copy_to_region`` and the row-parallel ``w_out`` leaves
-through ``reduce_from_region``.  ``mamba_decode(..., groups=)`` steps the
-rank's heads the same way from its shard of the state.
+x enters through ``collectives.enter_region`` and the row-parallel
+``w_out`` leaves through ``leave_region`` (under sequence parallelism the
+sequence gathered before ``w_in``, since the causal conv and the scan need
+all of it, and reduce-scattered after ``w_out``).  ``mamba_decode(...,
+groups=)`` steps the rank's heads the same way from its shard of the
+state.
 """
 from __future__ import annotations
 
@@ -143,12 +146,13 @@ def _gate_norm_split(y: torch.Tensor, scale: torch.Tensor, d: int, groups,
 def mamba_apply(p: dict, cfg, x: torch.Tensor, groups=None) -> torch.Tensor:
     """Full-sequence forward.  x: (B,S,d) -> (B,S,d).  With a mesh's
     ``groups``, ``p`` is as the module docstring says and the output is
-    summed over the model axis."""
+    summed over the model axis (under ``groups.seqpar``, x and the output
+    this rank's block of the sequence)."""
     s = cfg.ssm
-    B, S, d = x.shape
     if groups is not None:
-        x = collectives.copy_to_region(x, [groups.model_group])
+        x = collectives.enter_region(x, groups)
         p = _heads_of(p, cfg, groups.model_rank, groups.n_model)
+    B, S, d = x.shape
     di = p["w_out"].shape[-2]                  # this rank's d_inner
     H = di // s.head_dim
     N = s.d_state
@@ -170,8 +174,7 @@ def mamba_apply(p: dict, cfg, x: torch.Tensor, groups=None) -> torch.Tensor:
         return y @ p["w_out"]
     y = _gate_norm_split(y * F.silu(z), p["gate_norm"], s.d_inner(d),
                          groups)
-    return collectives.reduce_from_region(y @ p["w_out"],
-                                          [groups.model_group])
+    return collectives.leave_region(y @ p["w_out"], groups)
 
 
 def mamba_init_state(cfg, batch: int, dtype=torch.float32,

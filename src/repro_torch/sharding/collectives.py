@@ -24,25 +24,39 @@ moved to the front: the sharded step gathers its stored-split leaves and
 sums their partial gradients through them, not through DTensor's
 ``redistribute`` (whose Shard-to-Replicate kills a gloo rank on CUDA
 tensors, ``launch/gloo_probe.py``).
+
+Sequence parallelism (Megatron-LM's, Korthikanti et al. 2022; the
+reference's "seqpar"): between the split regions each model rank holds its
+block of the sequence (dim 1) of the residual.  ``scatter_to_sequence``
+takes the block, ``gather_from_sequence`` gathers the blocks and
+``reduce_scatter_to_sequence`` sums the ranks' partial results into each
+rank's block, each with the backward its docstring states.  A split module
+enters and leaves through ``enter_region`` and ``leave_region``: the
+all-reduce of ``copy_to_region`` / ``reduce_from_region`` in each direction
+becomes an all-gather and a reduce-scatter over the sequence.
 """
 from __future__ import annotations
 
+import copy
 from typing import Sequence
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.work import uncounted
-from repro_torch.sharding.rules import data_axes_of, layout_of
+from repro_torch.sharding.rules import data_axes_of, layout_of, seq_splits
 
 
 class MeshGroups:
     """The groups of ``mesh`` and this rank's place in them: ``n_data`` and
     ``data_rank`` over the data axes together (the first axis outermost, as
     a dim split over ``("pod", "data")`` is), ``n_model`` and
-    ``model_rank`` on the model axis."""
+    ``model_rank`` on the model axis.  ``seqpar``: the forward is also
+    sequence-parallel over the model axis (the residual split by sequence
+    between the split regions); it holds only where the axis has more than
+    one rank, so at one model rank nothing changes."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, seqpar: bool = False):
         lay = layout_of(mesh)
         if lay.axis_names[-1:] != ("model",):
             raise ValueError(f"mesh axes {lay.axis_names}: the last must be "
@@ -57,6 +71,13 @@ class MeshGroups:
         for a in self.data_axes:
             rank = rank * lay.size(a) + mesh.get_local_rank(a)
         self.data_rank = rank
+        self.seqpar = bool(seqpar) and self.n_model > 1
+
+    def with_seqpar(self, seqpar: bool) -> "MeshGroups":
+        """These groups with ``seqpar`` set as given (a copy)."""
+        out = copy.copy(self)
+        out.seqpar = bool(seqpar) and self.n_model > 1
+        return out
 
 
 def ranks_of(groups: Sequence) -> int:
@@ -154,6 +175,112 @@ def gather_from_region(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' ``x`` of ``group`` concatenated along the last dim, in
     rank order, forward; this rank's part of the gradient backward."""
     return _GatherFromRegion.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the residual's sequence (dim 1) over the model axis
+# ---------------------------------------------------------------------------
+
+def _block(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of ``t`` along dim 1 over ``group``, contiguous."""
+    n = dist.get_world_size(group)
+    seq_splits(t.shape[1], n)
+    size = t.shape[1] // n
+    rank = dist.get_rank(group)
+    return t[:, rank * size:(rank + 1) * size].contiguous()
+
+
+def _gather_seq(t: torch.Tensor, group) -> torch.Tensor:
+    return all_gather(t, group, 1).contiguous()
+
+
+class _ScatterToSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _block(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.group), None
+
+
+class _GatherFromSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, grad):
+        ctx.group, ctx.grad = group, grad
+        return _gather_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "reduce_scatter":
+            return reduce_scatter(g, ctx.group, 1), None, None
+        return _block(g, ctx.group), None, None
+
+
+class _ReduceScatterToSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        seq_splits(x.shape[1], dist.get_world_size(group))
+        return reduce_scatter(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.group), None
+
+
+GATHER_GRADS = ("reduce_scatter", "block")
+
+
+def scatter_to_sequence(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (B, S, ...), the same on every rank of ``group``: this rank's
+    block of the sequence, (B, S / n, ...), forward; the ranks' gradients
+    of their blocks gathered along the sequence backward (the whole
+    gradient, on every rank).  Raises where n does not divide S
+    (``sharding.rules.seq_splits``)."""
+    return _ScatterToSequence.apply(x, group)
+
+
+def gather_from_sequence(x: torch.Tensor, group,
+                         grad: str = "reduce_scatter") -> torch.Tensor:
+    """The ranks' blocks ``x`` (B, S / n, ...) of ``group`` concatenated
+    along the sequence in rank order, (B, S, ...), forward.  Backward, by
+    ``grad``: ``"reduce_scatter"``, the ranks' gradients summed and this
+    rank's block taken (a split module: each rank's gradient is its part's
+    partial sum); ``"block"``, this rank's block of its gradient (a module
+    computed whole: the gradient is whole and alike on every rank)."""
+    if grad not in GATHER_GRADS:
+        raise ValueError(f"grad {grad!r}: one of {GATHER_GRADS}")
+    return _GatherFromSequence.apply(x, group, grad)
+
+
+def reduce_scatter_to_sequence(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' partial results ``x`` (B, S, ...) of ``group`` summed,
+    and this rank's block of the sequence taken, (B, S / n, ...), forward;
+    the ranks' gradients of their blocks gathered along the sequence
+    backward (the sum's whole gradient, on every rank)."""
+    return _ReduceScatterToSequence.apply(x, group)
+
+
+def enter_region(x: torch.Tensor, groups) -> torch.Tensor:
+    """The input of a module split over ``groups``' (``MeshGroups``) model
+    axis: ``copy_to_region``, or under ``groups.seqpar`` (``x`` this rank's
+    block of the sequence) ``gather_from_sequence`` with the gradient
+    reduce-scattered."""
+    if groups.seqpar:
+        return gather_from_sequence(x, groups.model_group, "reduce_scatter")
+    return copy_to_region(x, [groups.model_group])
+
+
+def leave_region(y: torch.Tensor, groups) -> torch.Tensor:
+    """The output of a module split over ``groups``' model axis, each
+    rank's ``y`` a partial sum: ``reduce_from_region``, or under
+    ``groups.seqpar`` ``reduce_scatter_to_sequence`` (this rank's block of
+    the sum)."""
+    if groups.seqpar:
+        return reduce_scatter_to_sequence(y, groups.model_group)
+    return reduce_from_region(y, [groups.model_group])
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ rule indexes from the end of the shape.  Optimizer state (mu/nu/master)
 additionally gets ZeRO-1 sharding of its largest unsharded dim over the
 data axes.  ``compute_use`` says how the forward uses a leaf's model-axis
 split: column- or row-parallel, vocab- or expert-parallel, held whole
-and read in part by each rank, or whole.
+and read in part by each rank, or whole; ``seq_splits`` whether sequence
+parallelism splits a sequence over the axis.
 
 A leaf's spec is a plain tuple with one entry per tensor dim, of the form
 of JAX's ``PartitionSpec``: ``None`` (replicated), an axis name, or a tuple
@@ -205,11 +206,35 @@ def mamba_splits(cfg, model_size: int) -> bool:
         and cfg.ssm.n_heads(cfg.d_model) % model_size == 0
 
 
-def compute_use(names: Tuple[str, ...], cfg, model_size: int) -> str:
+def seq_splits(seq_len: int, model_size: int) -> bool:
+    """Whether sequence parallelism splits a sequence of ``seq_len``
+    positions (a vision prefix included) over a model axis of
+    ``model_size``: each rank holds ``seq_len // model_size`` of them.
+    Raises ``ValueError`` where the axis does not divide the sequence;
+    such a sequence never runs unsplit instead (GSPMD would pad it)."""
+    if seq_len % model_size:
+        raise ValueError(f"a sequence of {seq_len} positions does not "
+                         f"divide over a model axis of {model_size}")
+    return model_size > 1
+
+
+# the norms on the residual stream: each block's, zamba2's shared block's,
+# the final one and the MTP head's (``scale``, and LayerNorm's ``bias``)
+RESIDUAL_NORMS = ("norm1", "norm2", "norm", "final_norm")
+
+
+def compute_use(names: Tuple[str, ...], cfg, model_size: int,
+                seqpar: bool = False) -> str:
     """How the forward of ``cfg`` uses the leaf at ``names`` over a model
     axis of ``model_size``, by the predicates above (which the forward
     asks too); a split leaf's ``param_spec`` puts the model axis on the dim
-    its use names, so it is stored as it is computed:
+    its use names, so it is stored as it is computed.  With ``seqpar``
+    (sequence parallelism, a model axis of more than one rank) every norm
+    on the residual stream (``RESIDUAL_NORMS``: the blocks' ``norm1``,
+    ``norm2`` and Mamba2's ``norm``, zamba2's shared block's, ``final_norm``,
+    the MTP block's and ``mtp/norm``; ``scale`` and LayerNorm's ``bias``)
+    runs on this rank's block of the sequence, so it is ``PARTIAL``; every
+    other leaf's use is as without it:
 
     * ``COLUMN``: ``wq``, ``wk`` / ``wv`` where the KV heads divide the
       axis, an MLP's ``w_in`` / ``w_gate`` (the shared experts' too), the
@@ -239,10 +264,13 @@ def compute_use(names: Tuple[str, ...], cfg, model_size: int) -> str:
       model rank: attention, MLA or Mamba2 whose heads the predicates
       refuse, an MLP or shared expert whose d_ff does not divide the axis,
       a vocabulary that does not, routed experts that divide neither way,
-      the MoE router, norms."""
+      the MoE router, norms (but the residual's under ``seqpar``)."""
     last = names[-1] if names else ""
     parent = names[-2] if len(names) > 1 else ""
     grand = names[-3] if len(names) > 2 else ""
+    if seqpar and model_size > 1 and last in ("scale", "bias") \
+            and parent in RESIDUAL_NORMS:
+        return PARTIAL
     if parent == "moe" and last in EXPERT_LEAVES:
         if experts_split(cfg, model_size):
             return EXPERT

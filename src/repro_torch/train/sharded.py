@@ -33,9 +33,14 @@ tensor and expert parallelism over the model axis.
   ``reduce_scatter_tensor``, not by DTensor's ``redistribute`` (whose
   Shard-to-Replicate kills a gloo rank on CUDA tensors,
   ``launch/gloo_probe.py``); the data axes (ZeRO-1, ``fsdp``) stay
-  DTensor's.  The kernels take raw pointers, so no ``DTensor`` reaches
-  them.  Each rank takes its rows
-  of every micro-batch (dim 1 of the stacked batch) by ``batch_specs``;
+  DTensor's.  With ``seqpar`` (sequence parallelism) the residual between
+  the split regions is each model rank's block of the sequence
+  (``models.model``'s forward): each region's all-reduce becomes an
+  all-gather and a reduce-scatter over the sequence, and the norms on the
+  residual, which each rank runs on its rows, are ``PARTIAL`` too.  The
+  kernels take raw pointers, so no ``DTensor`` reaches them.  Each rank
+  takes its rows of every micro-batch (dim 1 of the stacked batch) by
+  ``batch_specs``;
   with more than one data rank each cross-entropy is the rank's share of
   the micro-batch's global mean.
 * **Update.**  The accumulated gradients are reduce-scattered over the data
@@ -126,17 +131,18 @@ def full_train_state(state: TrainState) -> TrainState:
         state)
 
 
-def compute_uses(params_shape, cfg, n_model: int) -> List[Tuple]:
+def compute_uses(params_shape, cfg, n_model: int,
+                 seqpar: bool = False) -> List[Tuple]:
     """``(names, use, dim)`` of each leaf of ``params_shape`` (in leaf
-    order) over a model axis of ``n_model``: its ``compute_use`` and the
-    dim it reaches the forward split along over the model axis, else
-    None."""
+    order) over a model axis of ``n_model``: its ``compute_use`` (with
+    ``seqpar``) and the dim it reaches the forward split along over the
+    model axis, else None."""
     out = []
     for (k, leaf), spec in zip(
             tree.leaves_with_path(params_shape),
             tree.leaves(param_specs(params_shape, n_model), is_leaf=is_spec)):
         names = path_names(k)
-        use = compute_use(names, cfg, n_model)
+        use = compute_use(names, cfg, n_model, seqpar)
         out.append((names, use,
                     spec.index("model") if use in SPLIT_USES else None))
     return out
@@ -150,10 +156,10 @@ def compute_params(params, cfg, groups):
     step, such as the dry-run's prefill, and for tensor-parallel decode,
     which reads every leaf as the forward does (``model.decode_step``)."""
     leaves = tree.leaves(params)
+    uses = compute_uses(params, cfg, groups.n_model, groups.seqpar)
     out = [t if dim is None else
            t.chunk(groups.n_model, dim)[groups.model_rank].clone()
-           for t, (_, _, dim) in zip(leaves, compute_uses(params, cfg,
-                                                          groups.n_model))]
+           for t, (_, _, dim) in zip(leaves, uses)]
     return tree.unflatten(params, out)
 
 
@@ -189,8 +195,8 @@ class _Leaf:
 
 
 def make_sharded_train_step(model, optimizer: AdamW, n_micro: int, mesh, *,
-                            fsdp: bool = False,
-                            remat: bool = False) -> Callable:
+                            fsdp: bool = False, remat: bool = False,
+                            seqpar: bool = False) -> Callable:
     """The sharded counterpart of ``make_train_step``: ``step(state, batch)
     -> (state, metrics)`` on a ``shard_train_state`` state over ``mesh``
     (a ``DeviceMesh`` whose last axis is ``model``).  ``batch`` is the
@@ -198,14 +204,17 @@ def make_sharded_train_step(model, optimizer: AdamW, n_micro: int, mesh, *,
     micro_batch, ...)); the metrics are the global micro-batches' means,
     as the single-process step reports them.  ``remat`` recomputes each
     layer's activations in the backward (``model.loss(..., remat=True)``,
-    as ``train.step.make_train_step`` passes it)."""
+    as ``train.step.make_train_step`` passes it).  ``seqpar`` splits the
+    residual by sequence over the model axis (``collectives.MeshGroups``);
+    at one model rank it changes nothing."""
     check_world(mesh)
-    groups = collectives.MeshGroups(mesh)
+    groups = collectives.MeshGroups(mesh, seqpar=seqpar)
     shapes = abstract_train_state(model, optimizer)
     specs = train_state_specs(shapes, mesh, fsdp=fsdp)
     leaves: List[_Leaf] = [
         _Leaf(use, dim, p, o, mesh, groups) for (_, use, dim), p, o in zip(
-            compute_uses(shapes.params, model.cfg, groups.n_model),
+            compute_uses(shapes.params, model.cfg, groups.n_model,
+                         groups.seqpar),
             tree.leaves(specs.params, is_leaf=is_spec),
             tree.leaves(specs.opt.mu, is_leaf=is_spec))]
     if model.cfg.moe is not None and not (

@@ -1,7 +1,8 @@
 """The rank bodies of the port's multi-rank tests
 (``tests/test_torch_sharded_step.py``, ``tests/test_torch_moe_ep.py``,
 ``tests/test_torch_dryrun.py``, ``tests/test_torch_tensor_parallel.py``,
-``tests/test_torch_tp_ssm_mla_moe.py``, ``tests/test_torch_tp_decode.py``).
+``tests/test_torch_tp_ssm_mla_moe.py``, ``tests/test_torch_tp_decode.py``,
+``tests/test_torch_seqpar.py``, ``tests/test_torch_seqpar_ssm_mla_moe.py``).
 Holds no tests of its own and imports no JAX: ``launch.sharded.spawn``
 starts each rank in a new process, which imports this module by name.
 
@@ -30,6 +31,19 @@ def reduced(arch, **moe):
     return cfg
 
 
+def job_cfg(job):
+    """A step job's reduced config: ``job["moe"]`` replaced into its MoE
+    config, ``job["attn"]`` (if any) into its attention config and
+    ``job["vocab"]`` (if any) as its vocabulary."""
+    cfg = reduced(job["arch"], **job.get("moe", {}))
+    if job.get("attn"):
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, **job["attn"]))
+    if job.get("vocab"):
+        cfg = dataclasses.replace(cfg, vocab=job["vocab"])
+    return cfg
+
+
 def mesh_name(*sizes):
     return "x".join(str(n) for n in sizes)
 
@@ -42,8 +56,11 @@ def host_mesh(sizes):
 
 def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
     """Each case's steps through ``make_sharded_train_step`` on the mesh of
-    ``sizes`` ((data, model) or (pod, data, model)); rank 0 saves every
-    step's metrics and the gathered parameters as ``{case}_{mesh}.out``."""
+    ``sizes`` ((data, model) or (pod, data, model)), sequence-parallel
+    where the job says ``seqpar``; rank 0 saves every step's metrics and
+    the gathered parameters as ``{case}_{mesh}.out``.  A job's
+    ``mutate``: True, ``unsum_partial_grads``; "norms",
+    ``unsum_norm_grads``."""
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamW, cosine_with_warmup
     from repro_torch.train.sharded import (full_train_state,
@@ -55,7 +72,7 @@ def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
     job_dir = Path(job_dir)
     for case in cases:
         job = torch.load(job_dir / f"{case}.in")
-        cfg = reduced(job["arch"], **job["moe"])
+        cfg = job_cfg(job)
         model = build_model(cfg, "cpu")
         opt = AdamW(lr=cosine_with_warmup(*job["lr"]))
         params = job["params"]
@@ -63,10 +80,13 @@ def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
             TrainState(params, opt.init(params),
                        torch.zeros((), dtype=torch.int32)), mesh,
             fsdp=job["fsdp"])
-        undo = unsum_partial_grads() if job.get("mutate") else None
+        mutate = job.get("mutate")
+        undo = unsum_partial_grads() if mutate is True \
+            else unsum_norm_grads() if mutate == "norms" else None
         try:
             step = make_sharded_train_step(model, opt, job["n_micro"], mesh,
-                                           fsdp=job["fsdp"])
+                                           fsdp=job["fsdp"],
+                                           seqpar=job.get("seqpar", False))
         finally:
             if undo is not None:
                 undo()
@@ -376,6 +396,170 @@ def unsum_partial_grads():
             self.grad[-1] = self.compute[-1]
     sharded._Leaf.__init__ = mutated
     return lambda: setattr(sharded._Leaf, "__init__", init)
+
+
+def unsum_norm_grads():
+    """The mutation of the sequence-parallel step that its tests must
+    catch: the norms on the residual (``rules.RESIDUAL_NORMS``), which
+    each rank runs on its block of the sequence, used as without
+    ``seqpar`` (``WHOLE``), so their partial gradients are left unsummed
+    over the model axis.  Returns the function that undoes it."""
+    from repro_torch.sharding import rules
+    from repro_torch.train import sharded
+    uses = sharded.compute_uses
+
+    def mutated(params_shape, cfg, n_model, seqpar=False):
+        return [(names, rules.WHOLE if seqpar and use == rules.PARTIAL
+                 and names[-2] in rules.RESIDUAL_NORMS else use, dim)
+                for names, use, dim in uses(params_shape, cfg, n_model,
+                                            seqpar)]
+    sharded.compute_uses = mutated
+    return lambda: setattr(sharded, "compute_uses", uses)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (tests/test_torch_seqpar.py)
+# ---------------------------------------------------------------------------
+
+def seqpar_regions(job, groups, whole_grad: str = "block"):
+    """The sequence-parallel region functions on this rank of ``groups``'
+    model axis (``groups.seqpar``), each forward and backward: (1)
+    ``scatter_to_sequence`` of the whole ``x``, (2)
+    ``gather_from_sequence`` of x's block, gradient reduce-scattered, read
+    by each rank through its own probe (a split module), (3) the same with
+    the gradient's block (a module computed whole, one probe), (4)
+    ``reduce_scatter_to_sequence`` of the partials (rank + 1) x; and a
+    layer of them, ``layer``: x split, an RMSNorm on the block, an MLP split
+    over d_ff between ``enter_region`` and ``leave_region``, the residual
+    add, a product computed whole between ``gather_from_sequence(...,
+    whole_grad)`` and ``scatter_to_sequence``, the residual add, objective
+    sum(out * probe).  Returns each output gathered whole over the
+    sequence and each gradient whole (x's and the whole product's as they
+    are, the norm's summed over the model ranks, the split MLP's gathered);
+    keys "{part}/y" and "{part}/d{leaf}"."""
+    from repro_torch.models import layers
+    from repro_torch.sharding import collectives as c
+    model, n, r = groups.model_group, groups.n_model, groups.model_rank
+    x, probe, probes = job["x"], job["probe"], job["probes"]
+    size = x.shape[1] // n
+    mine = slice(r * size, (r + 1) * size)
+
+    def gather(t, dim=1):
+        return c.all_gather(t.detach().contiguous(), model, dim)
+    out = {}
+    # (1) scatter
+    xw = x.clone().requires_grad_(True)
+    y = c.scatter_to_sequence(xw, model)
+    (y * probe[:, mine]).sum().backward()
+    out.update({"scatter/y": gather(y), "scatter/dx": xw.grad})
+    # (2), (3) gather, the gradient reduce-scattered or this rank's block
+    for grad, p in (("reduce_scatter", probes[r]), ("block", probe)):
+        xb = x[:, mine].clone().requires_grad_(True)
+        y = c.gather_from_sequence(xb, model, grad)
+        (y * p).sum().backward()
+        out.update({f"gather_{grad}/y": y.detach(),
+                    f"gather_{grad}/dx": gather(xb.grad)})
+    # (4) reduce-scatter of partial sums
+    xp = (x * (r + 1)).clone().requires_grad_(True)
+    y = c.reduce_scatter_to_sequence(xp, model)
+    (y * probe[:, mine]).sum().backward()
+    out.update({"reduce_scatter/y": gather(y), "reduce_scatter/dx": xp.grad})
+    # the layer
+    f = job["w_in"].shape[-1] // n
+    leaves = {"x": x, "scale": job["scale"],
+              "w_in": job["w_in"][:, r * f:(r + 1) * f],
+              "w_out": job["w_out"][r * f:(r + 1) * f], "w": job["w"]}
+    leaves = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+    xb = c.scatter_to_sequence(leaves["x"], model)
+    h = layers.rms_norm_weighted(xb, leaves["scale"])
+    a = torch.nn.functional.silu(c.enter_region(h, groups) @ leaves["w_in"])
+    res = xb + c.leave_region(a @ leaves["w_out"], groups)
+    z = c.gather_from_sequence(res, model, whole_grad) @ leaves["w"]
+    y = res + c.scatter_to_sequence(z, model)
+    (y * probe[:, mine]).sum().backward()
+    out["layer/y"] = gather(y)
+    for k, t in leaves.items():
+        g = t.grad
+        if k == "scale":
+            g = c.all_reduce(g.clone(), [model])
+        elif k in ("w_in", "w_out"):
+            g = gather(g, -1 if k == "w_in" else 0)
+        out[f"layer/d{k}"] = g
+    return out
+
+
+def seqpar_region_ranks(rank, world, store_path, job_dir):
+    """``seqpar_regions`` on a (1, world) mesh, sound and with the whole
+    product's gather reduce-scattering its gradient (the mutation a split
+    module's backward would be); rank 0 saves both as
+    ``regions_{world}.out``."""
+    from repro_torch.sharding import collectives
+    init_rank(rank, world, store_path, "cpu")
+    groups = collectives.MeshGroups(make_host_mesh(world), seqpar=True)
+    job = torch.load(Path(job_dir) / "regions.in")
+    res = {"sound": seqpar_regions(job, groups),
+           "mutant": seqpar_regions(job, groups, "reduce_scatter")}
+    if rank == 0:
+        torch.save(res, Path(job_dir) / f"regions_{world}.out")
+
+
+def seqpar_compare(rank, world, store_path, job_dir, arch, mutate):
+    """``launch.sharded.compare`` of reduced ``arch``'s sequence-parallel
+    sharded step against the fused one on a (1, world) mesh, under
+    ``unsum_norm_grads`` where ``mutate``; rank 0 saves the records as
+    ``compare_{arch}_{mutate}.out``."""
+    from repro_torch.launch.sharded import compare
+    init_rank(rank, world, store_path, "cpu")
+    undo = unsum_norm_grads() if mutate else None
+    try:
+        recs = compare(reduced(arch), make_host_mesh(world), steps=2,
+                       seq=32, batch=4, n_micro=2, seqpar=True)
+    finally:
+        if undo is not None:
+            undo()
+    if rank == 0:
+        torch.save(recs, Path(job_dir) / f"compare_{arch}_{mutate}.out")
+
+
+def seqpar_forwards(rank, world, store_path, job_dir, cases):
+    """Each case's forward on a (1, world) mesh, sequence-parallel, from
+    this rank's compute shards of the job's whole parameters: the logits
+    (and MTP logits) gathered over the vocabulary where it is split, and
+    ``last_logits_only``'s; and whether a sequence one position longer,
+    which the axis does not divide, raises ``ValueError``.  Rank 0 saves
+    each as ``prefill_{case}_{world}.out``."""
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import collectives, rules
+    from repro_torch.train.sharded import compute_params
+    init_rank(rank, world, store_path, "cpu")
+    g = collectives.MeshGroups(make_host_mesh(world), seqpar=True)
+    job_dir = Path(job_dir)
+    for case in cases:
+        job = torch.load(job_dir / f"prefill_{case}.in")
+        cfg = job_cfg(job)
+        model = build_model(cfg, "cpu")
+        params = compute_params(job["params"], cfg, g)
+        vocab = rules.vocab_splits(cfg, g.n_model)
+        with torch.no_grad():
+            logits, extras = model.forward(params, job["batch"], groups=g)
+            last, _ = model.forward(params, job["batch"], groups=g,
+                                    last_logits_only=True)
+        res = {"last": last, "aux": extras["aux"]}
+        for k, v in (("logits", logits),
+                     ("mtp_logits", extras.get("mtp_logits"))):
+            if v is not None:
+                res[k] = collectives.all_gather(v, g.model_group, -1) \
+                    if vocab else v
+        longer = {k: torch.cat([v, v[:, -1:]], 1) if k != "prefix_embeds"
+                  else v for k, v in job["batch"].items()}
+        try:
+            with torch.no_grad():
+                model.forward(params, longer, groups=g)
+            res["indivisible"] = None
+        except ValueError as e:
+            res["indivisible"] = str(e)
+        if rank == 0:
+            torch.save(res, job_dir / f"prefill_{case}_{world}.out")
 
 
 # ---------------------------------------------------------------------------

@@ -149,7 +149,7 @@ def test_ep48_config_matches_reference():
     var = dryrun.apply_variant(get_arch("granite-moe-3b-a800m"),
                                "flash+ep48")
     assert _cfg_fields(var.cfg) == dataclasses.asdict(jcfg)
-    assert var.cfg.moe.n_experts == 48 and not var.fsdp and not var.not_run
+    assert var.cfg.moe.n_experts == 48 and not var.fsdp and not var.seqpar
 
 
 @pytest.mark.parametrize("arch,variant", [("gemma-2b", "bogus"),
@@ -167,25 +167,23 @@ def test_unknown_variant_token_raises_as_reference(arch, variant):
 def test_native_and_fsdp_variants():
     cfg = get_arch("gemma-2b")
     var = dryrun.apply_variant(cfg, "baseline+flash+fusednorm+moe3d+moesm")
-    assert (var.cfg, var.fsdp, var.not_run) == (cfg, False, "")
+    assert (var.cfg, var.fsdp, var.kv_model, var.seqpar) == \
+        (cfg, False, False, False)
     assert dryrun.apply_variant(cfg, "fsdp").fsdp
 
 
 @pytest.mark.parametrize("variant", ["seqpar", "cachemodel",
                                      "flash+seqpar"])
 def test_tensor_parallel_variants_are_not_run(variant):
-    """"seqpar" is still not run; "cachemodel", which tensor-parallel
-    decode runs, now sets ``kv_model`` and runs."""
-    if variant == "cachemodel":
-        var = dryrun.apply_variant(get_arch("gemma-2b"), variant)
-        assert (var.kv_model, var.fsdp, var.not_run) == (True, False, "")
-        row = dryrun.pair_fields("gemma-2b", "train_4k", variant=variant)
-        assert "status" not in row
-        return
-    row = dryrun.run_pair("gemma-2b", "train_4k", variant=variant,
-                          verbose=False)
-    assert row["status"] == "not_run"
-    assert "tensor-parallel" in row["reason"]
+    """Both tensor-parallel variants now run: "cachemodel", which
+    tensor-parallel decode runs, sets ``kv_model``; "seqpar" (alone or with
+    a native token), which sequence parallelism runs, sets ``seqpar``.
+    Neither row has a status before its trace."""
+    var = dryrun.apply_variant(get_arch("gemma-2b"), variant)
+    seqpar = "seqpar" in variant
+    assert (var.kv_model, var.seqpar, var.fsdp) == (not seqpar, seqpar, False)
+    row = dryrun.pair_fields("gemma-2b", "train_4k", variant=variant)
+    assert "status" not in row
     assert not torch.distributed.is_initialized()
 
 
@@ -394,7 +392,8 @@ def test_cachemodel_decode_row_is_tensor_parallel():
     """At 16x16, decode_32k with "cachemodel" runs, tensor-parallel, and
     its caches' slots split over ``model`` cut the peak below the
     baseline's, where gemma-2b's one KV head is held whole on every model
-    rank; "seqpar" is still not run."""
+    rank; with "seqpar" the decode pair runs as without it (the reference
+    does not split decode by sequence) and its row says so."""
     rows = {v: dryrun.run_pair("gemma-2b", "decode_32k", variant=v,
                                verbose=False)
             for v in ("baseline", "cachemodel", "seqpar")}
@@ -403,7 +402,11 @@ def test_cachemodel_decode_row_is_tensor_parallel():
         assert rows[v]["tp_compute"] is True and rows[v]["tp_whole"] == []
     assert rows["cachemodel"]["memory"]["peak_bytes"] < \
         rows["baseline"]["memory"]["peak_bytes"] / 4
-    assert rows["seqpar"]["status"] == "not_run"
+    assert rows["seqpar"]["status"] == "ok"
+    assert rows["seqpar"]["seqpar"] is False
+    assert rows["baseline"]["seqpar"] is False
+    for k in ("flops", "hbm_bytes", "collectives", "kernel_calls", "memory"):
+        assert rows["seqpar"][k] == rows["baseline"][k], k
     assert not torch.distributed.is_initialized()
 
 
