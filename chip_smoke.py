@@ -25,7 +25,9 @@ Phases, each printing one JSON line:
                     = 64 and 128 beside its 80 (what padding 80 to 128
                     columns in P V costs); the train_tp phase's local
                     shapes (qwen3-4b's 16 / 4 heads at tp 2, gemma-2b's
-                    2 / 1 at tp 4) checked on "wgmma"
+                    2 / 1 at tp 4; at tp 16 MLA's 8 / 8, granite-moe's
+                    uneven block of 2 / 1 and gpt3-13b's of 3 / 3 at D =
+                    128, the last three also timed) checked on "wgmma"
   kernel:flash_attention_bwd
                     the backward's wgmma kernels' ptxas lines (no spills,
                     no serialised wgmma, each setmaxnreg split at the
@@ -41,7 +43,8 @@ Phases, each printing one JSON line:
                     it took ("wgmma" or "cuda_core"); then the train
                     phases' shapes (deepseek-v3-671b's MLA, gemma-2b,
                     qwen3-4b, zamba2-1.2b, granite-moe, hubert-xlarge
-                    bidirectional at D = 80, internvl2-2b), each on
+                    bidirectional at D = 80, internvl2-2b, and the tp-16
+                    shares' MLA, granite-moe and gpt3-13b blocks), each on
                     "wgmma" and bit for bit the same over two calls, timed
                     (graph, device, back to back, each kernel's device
                     time) beside the bound, the plain version and SDPA's
@@ -241,13 +244,28 @@ Phases, each printing one JSON line:
                     4, and at tp 16 deepseek-v3-671b (one dense-prefix
                     and one MoE layer with the MTP block; MLA at 8 of 128
                     heads), granite-moe-3b-a800m (4 layers; experts split
-                    over d_ff, 32 of 512 columns a rank) and mamba2-780m
-                    (4 layers; kernel 6 at 3 heads): FLOPs, bytes,
+                    over d_ff, 32 of 512 columns a rank; 24 heads in
+                    uneven blocks, kernel 1 at rank 0's 2 / 1),
+                    mamba2-780m (4 layers; kernel 6 at 3 heads) and
+                    gpt3-13b (2 of 40 layers; LayerNorm, GELU, kernel 1
+                    at rank 0's 3 / 3 heads, D = 128): FLOPs, bytes,
                     collectives, kernel calls and launches equal to the
-                    meta prediction, the peak within DRYRUN_PEAK_GAP, the
-                    modules computed whole (tp_whole) exactly TP_SHARES'
-                    list (granite-moe's 24 heads only), the kernels'
-                    heads, all "wgmma" / "bulk", the step time
+                    meta prediction, the peak within DRYRUN_PEAK_GAP, no
+                    module computed whole (tp_whole exactly TP_SHARES'
+                    list), the kernels' heads, all "wgmma" / "bulk", the
+                    step time; then gemma-2b, deepseek-v3-671b and
+                    granite-moe sequence-parallel (TP_SEQPAR_SHARES),
+                    the peak within TP_SEQPAR_PEAK_GAP
+  serve_tp          tensor-parallel decode: (a) two gloo ranks on the card
+                    (SERVE_TP_RUNS: qwen3-4b, gemma-2b with and without
+                    its slots over the model axis), each step's tokens
+                    and logits against the whole graphed decode's; (b)
+                    rank 0's share of decode pairs at 16x16
+                    (SERVE_TP_SHARES: qwen3-4b, deepseek-v3-671b,
+                    mamba2-780m and gemma3-12b at long_500k, granite-moe
+                    with "cachemodel", its 24 heads uneven and q projected
+                    whole) through check_pair, counts equal to the
+                    prediction, the peak within SERVE_TP_PEAK_GAP
   serve             launch.serve on qwen3-4b at full width and full depth:
                     a static batch (8 prompts of 128 tokens, 64 new each)
                     and the continuous batcher (16 requests over 8 lanes,
@@ -453,6 +471,12 @@ GEMMA_TP_ATTN_SHAPE = (2, 1024, 1024, 2, 1, 256, 256, True, 0, 0.0, 0,
 # heads, [q_nope, q_rope] and [k_nope, k_rope] each a new contiguous cat
 MLA_TP_ATTN_SHAPE = (2, 1024, 1024, 8, 8, 192, 128, True, 0, 0.0, 0,
                      "bfloat16")
+# rank 0's uneven head block at tp 16 (train_tp's shares): granite-moe's 2
+# of 24 heads (both over KV head 0) and gpt3-13b's 3 of 40 (MHA, D = 128)
+GRANITE_TP_ATTN_SHAPE = (2, 1024, 1024, 2, 1, 64, 64, True, 0, 0.0, 0,
+                         "bfloat16")
+GPT3_TP_ATTN_SHAPE = (2, 1024, 1024, 3, 3, 128, 128, True, 0, 0.0, 0,
+                      "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # The attention backward kernel against its plain version: float32 sums
 # over up to 1000 keys and 8 heads of O(1) products, in another order than
@@ -477,7 +501,11 @@ BWD_SHAPES = {
     "internvl2-2b B=2 S=1280 H=16 KV=8 D=128 causal bf16":
         INTERNVL_ATTN_SHAPE,
     "deepseek-v3-671b MLA at tp 16 B=2 S=1024 H=KV=8 D=192 Dv=128 causal "
-    "bf16": MLA_TP_ATTN_SHAPE}
+    "bf16": MLA_TP_ATTN_SHAPE,
+    "granite-moe-3b-a800m at tp 16 B=2 S=1024 H=2 KV=1 D=64 causal bf16":
+        GRANITE_TP_ATTN_SHAPE,
+    "gpt3-13b at tp 16 B=2 S=1024 H=KV=3 D=128 causal bf16":
+        GPT3_TP_ATTN_SHAPE}
 # The backward's variant (kernels.flash_attention_bwd.variant: "wgmma" at
 # bf16 with (D, Dv) in WGMMA_WIDTHS and 16-byte aligned q, k, v, o, dO,
 # else "cuda_core"), each case with the variant it must take: bf16 at every
@@ -830,7 +858,8 @@ def phase_kernel(ctx) -> None:
          [GEMMA_SHAPE, ZAMBA2_ATTN_SHAPE, QWEN3_ATTN_SHAPE,
           GRANITE_ATTN_SHAPE, INTERNVL_ATTN_SHAPE, MLA_ATTN_SHAPE,
           MLA_FORWARD_SHAPE, HUBERT_ATTN_SHAPE, QWEN3_TP_ATTN_SHAPE,
-          GEMMA_TP_ATTN_SHAPE, MLA_TP_ATTN_SHAPE]] + \
+          GEMMA_TP_ATTN_SHAPE, MLA_TP_ATTN_SHAPE, GRANITE_TP_ATTN_SHAPE,
+          GPT3_TP_ATTN_SHAPE]] + \
         [(c, layout, want) for layout, c, want in ATTN_LAYOUT_CASES]
     worst, ran = 0.0, {}
     for case, layout, expect in cases:
@@ -874,7 +903,11 @@ def phase_kernel(ctx) -> None:
               "internvl2-2b B=2 S=1280 H=16 KV=8 D=128 causal bf16":
                   INTERNVL_ATTN_SHAPE,
               "deepseek-v3-671b MLA at tp 16 B=2 S=1024 H=KV=8 D=192 "
-              "Dv=128 causal bf16 (train_tp share)": MLA_TP_ATTN_SHAPE}
+              "Dv=128 causal bf16 (train_tp share)": MLA_TP_ATTN_SHAPE,
+              "granite-moe-3b-a800m at tp 16 B=2 S=1024 H=2 KV=1 D=64 "
+              "causal bf16 (train_tp share)": GRANITE_TP_ATTN_SHAPE,
+              "gpt3-13b at tp 16 B=2 S=1024 H=KV=3 D=128 causal bf16 "
+              "(train_tp share)": GPT3_TP_ATTN_SHAPE}
     for i, (label, case) in enumerate(shapes.items()):
         q, k, v = attn_inputs(case, seed=1)
         causal = case[7]
@@ -3891,15 +3924,19 @@ TP_SHARES = [
     # rank) and the MTP block: MLA at 8 of 128 heads
     ("deepseek-v3-671b", 2, 16, {"n_dense_prefix": 1},
      {"flash_attention": "8/8"}, []),
-    # 40 experts split over d_ff, 32 of 512 columns a rank; 24 heads whole
-    ("granite-moe-3b-a800m", 4, 16, {}, {"flash_attention": "24/8"},
-     ["segments/attn"]),
+    # 40 experts split over d_ff, 32 of 512 columns a rank; 24 heads in
+    # uneven blocks (rules.head_block): rank 0 heads 0 and 1, over KV head 0
+    ("granite-moe-3b-a800m", 4, 16, {}, {"flash_attention": "2/1"}, []),
     ("mamba2-780m", 4, 16, {}, {"ssd_scan": "3"}, []),
+    # the paper's GPT-3 13B (LayerNorm, the GELU MLP split over d_ff, a
+    # vocabulary of 50257 held whole): rank 0 heads 0-2 of 40, MHA at D =
+    # 128; depth cut 40 -> 2
+    ("gpt3-13b", 2, 16, {}, {"flash_attention": "3/3"}, []),
 ]
 # (b) under sequence parallelism ("seqpar"), as TP_SHARES' entries: the
 # residual norms and adds on each rank's block of the sequence, every
 # region's all-reduce an all-gather and a reduce-scatter over it
-TP_SEQPAR_SHARES = [TP_SHARES[0], TP_SHARES[1]]
+TP_SEQPAR_SHARES = [TP_SHARES[0], TP_SHARES[1], TP_SHARES[2]]
 # the prediction's peak against the measured one for the seqpar shares
 TP_SEQPAR_PEAK_GAP = 0.01
 
@@ -4252,6 +4289,9 @@ SERVE_TP_SHARES = [
     ("mamba2-780m", None, "long_500k", False, {}),
     # one period of the 5:1 local:global pattern
     ("gemma3-12b", 6, "long_500k", False, {}),
+    # 24 heads in uneven blocks, the slots split over model ("cachemodel"):
+    # every rank projects all 24 heads' q (wq held whole), no gather
+    ("granite-moe-3b-a800m", 2, "decode_32k", True, {}),
 ]
 SERVE_TP_PEAK_GAP = 0.01
 # kernel 2 at the phase's shapes: (label, x shape) in bf16

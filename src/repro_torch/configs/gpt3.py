@@ -2,8 +2,10 @@
 ``repro/configs/gpt3.py``; shapes follow Brown et al. 2020 table 2.1.
 
 The port's planner slice feeds these to the cost model
-(``core/costmodel.TaskModel.from_arch``); no model path of the port runs
-them yet.
+(``core/costmodel.TaskModel.from_arch``); the model path runs them as any
+dense config (LayerNorm, the GELU MLP, a tied embedding), and at a model
+axis of 16 gpt3-13b's 40 heads split in uneven blocks
+(``sharding.rules.head_block``).
 """
 from repro_torch.configs.base import ArchConfig, AttnConfig, register
 

@@ -23,26 +23,31 @@ port.
   and the greedy token over the vocabulary.
 
 Every pair is tensor-parallel over the model axis as the sharded step is
-(``train/sharded.py``): attention, MLA and Mamba2 split by heads, MLPs and
-shared experts by d_ff, the embedding, head and cross-entropy by the
-vocabulary, the routed experts by blocks where they divide the axis and
-else by d_ff; a decode step whose cache slots are split runs its attention
-as flash-decoding over them.  A row says ``"tp_compute": true``
-where every attention, MLP, Mamba2 and MoE leaf of the pair's parameters
-has a split use (``train.sharded.compute_uses``, which the step and the
-prefill hand the forward its shards by) or the fallback its rule names
-(``PARTIAL``: KV heads held whole, MLA's down-projections and their norms,
-Mamba2's concatenated input projection and conv); a vocabulary that does
-not divide is the embedding's and head's fallback.  Else ``"tp_whole"``
-lists the modules a rank computes whole (``whole_compute``): attention,
-MLA or Mamba2 whose heads do not divide the axis (at 16x16, granite-moe's
-24 heads), an MLP or shared expert whose d_ff does not, and experts that
-divide neither way.  A pair whose peak exceeds ``HBM_BYTES`` is flagged
-``"fits": false``, not skipped.  With the "seqpar" variant the train and
-prefill pairs are also sequence-parallel over the model axis (the residual
-split by sequence between the split regions, ``collectives.MeshGroups(...,
-seqpar=True)``); decode pairs run as without it, as the reference's decode
-does; each traced row says ``"seqpar"``, whether its step ran so.
+(``train/sharded.py``): attention (in uneven blocks of heads where the
+axis does not divide them, ``sharding.rules.head_block``), MLA and Mamba2
+split by heads, MLPs and shared experts by d_ff, the embedding, head and
+cross-entropy by the vocabulary, the routed experts by blocks where they
+divide the axis and else by d_ff; a decode step whose cache slots are
+split runs its attention as flash-decoding over them.  A row says
+``"tp_compute": true`` where every attention, MLP, Mamba2 and MoE leaf of
+the pair's parameters has a split use (``train.sharded.compute_uses``,
+which the step and the prefill hand the forward its shards by) or the
+fallback its rule names
+(``PARTIAL``: KV heads held whole, every leaf of an attention whose
+heads the axis does not divide (at 16x16, granite-moe's 24 and gpt3-13b's
+40 in uneven blocks), MLA's down-projections and their norms, Mamba2's
+concatenated input projection and conv); a vocabulary that does not
+divide is the embedding's and head's fallback.  Else ``"tp_whole"`` lists
+the modules a rank computes whole (``whole_compute``): attention with
+fewer heads than ranks that do not divide the axis, MLA or Mamba2 whose
+heads do not divide it, an MLP or shared expert whose d_ff does not, and
+experts that divide neither way; no registered config at 16x16 has one.
+A pair whose peak exceeds ``HBM_BYTES`` is flagged ``"fits": false``, not
+skipped.  With the "seqpar" variant the train and prefill pairs are also
+sequence-parallel over the model axis (the residual split by sequence
+between the split regions, ``collectives.MeshGroups(..., seqpar=True)``);
+decode pairs run as without it, as the reference's decode does; each
+traced row says ``"seqpar"``, whether its step ran so.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b \\
         --shape train_4k [--multi-pod | --mesh DxM] \\

@@ -57,7 +57,8 @@ def table(path: str) -> str:
             r = json.loads(line)
             rows[(r["arch"], r["shape"])] = r
     shapes = [s for s in SHAPE_ORDER if any(k[1] == s for k in rows)]
-    archs = [a for a in ARCH_ORDER if any(k[0] == a for k in rows)]
+    archs = [a for a in ARCH_ORDER if any(k[0] == a for k in rows)] + \
+        sorted({k[0] for k in rows} - set(ARCH_ORDER))
     out = ["| arch | " + " | ".join(shapes) + " |",
            "|---|" + "---|" * len(shapes)]
     for arch in archs:

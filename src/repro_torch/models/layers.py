@@ -14,10 +14,12 @@ Tensor parallelism over a mesh's model axis (Megatron's layout, the
 sharded step's and the dry-run's forward): given the mesh's ``groups``
 (``sharding.collectives.MeshGroups``), ``attention_apply`` and
 ``mlp_apply`` take this model rank's shards (column-parallel ``wq``,
-``wk``, ``wv``, ``w_in``, ``w_gate``; row-parallel ``wo``, ``w_out``); the
-input enters through ``copy_to_region`` and the row-parallel product
-leaves through ``reduce_from_region``, one all-reduce over the model axis
-in each direction; under sequence parallelism (``groups.seqpar``) the input
+``wk``, ``wv``, ``w_in``, ``w_gate``; row-parallel ``wo``, ``w_out``; an
+attention whose heads the axis does not divide reads its
+``rules.head_block`` of whole leaves); the input enters through
+``copy_to_region`` and the row-parallel product leaves through
+``reduce_from_region``, one all-reduce over the model axis in each
+direction; under sequence parallelism (``groups.seqpar``) the input
 is this rank's block of the sequence, gathered on entry, and the product
 leaves by a reduce-scatter over the sequence (``collectives.enter_region``,
 ``leave_region``).  ``embed_apply`` and ``logits_apply`` take this rank's
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.sharding import collectives
+from repro_torch.sharding.rules import head_block
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -181,32 +184,42 @@ def _kv_of_heads(wk, wv, a, first: int, n: int):
     return wk[..., cols], wv[..., cols], index
 
 
+def _q_heads(wq, wo, a, first: int, n: int, m: int):
+    """``wq``'s columns and ``wo``'s rows of query heads ``first`` ..
+    ``first + n - 1`` where the leaves are held whole, ``wo`` scaled by
+    1 / ``m`` where m ranks compute each head; column- and row-parallel
+    shards, which hold the block already, as they are."""
+    if wq.shape[-1] != a.n_heads * a.head_dim:
+        return wq, wo
+    cols = slice(first * a.head_dim, (first + n) * a.head_dim)
+    wq, wo = wq[..., cols], wo[..., cols, :]
+    return wq, (wo / m if m > 1 else wo)
+
+
 def attention_apply(p: dict, cfg, x: torch.Tensor, *, layer_is_local: bool,
                     positions: torch.Tensor, groups=None) -> torch.Tensor:
     """Full-sequence (train / prefill) attention for one layer.
     x: (B, S, d_model); positions: (S,) absolute positions.
 
-    With a mesh's ``groups`` (``sharding.rules.attention_splits``), ``p``
-    holds this model rank's block of query heads: its columns of ``wq``,
-    rows of ``wo`` and columns of ``wk`` / ``wv`` where the KV heads divide
-    the axis, else ``wk`` / ``wv`` whole (``_kv_of_heads``).  The head
-    counts come from the shards' shapes.  Where the axis is a multiple m of
-    the query heads, ``p`` is whole: rank r computes head r // m, and each
-    of the head's m ranks adds 1/m of its output to the sum.  Under
+    With a mesh's ``groups`` (``sharding.rules.attention_splits``), the
+    rank computes its ``rules.head_block`` of query heads.  Where the axis
+    divides them ``p`` holds that block: its columns of ``wq`` and rows of
+    ``wo``, and columns of ``wk`` / ``wv`` where the KV heads divide the
+    axis too, else ``wk`` / ``wv`` whole (``_kv_of_heads``).  Where it does
+    not, every leaf is whole (``PARTIAL``) and the rank slices its heads:
+    either blocks that differ by one head (granite-moe's 24 over 16), or,
+    where the axis is a multiple m of the heads, head r // m on rank r,
+    each of the head's m ranks adding 1/m of its output to the sum.  Under
     ``groups.seqpar`` x and the result are this rank's block of the
     sequence, and ``positions`` the whole sequence's."""
     a = cfg.attn
     hd = a.head_dim
     wq, wo, wk, wv, index = p["wq"], p["wo"], p["wk"], p["wv"], None
-    H = wq.shape[-1] // hd
+    H = a.n_heads
     if groups is not None:
         x = collectives.enter_region(x, groups)
-        first = groups.model_rank * H
-        if H == a.n_heads:                       # each head on m ranks
-            m = groups.n_model // H
-            H, first = 1, groups.model_rank // m
-            cols = slice(first * hd, (first + 1) * hd)
-            wq, wo = wq[..., cols], wo[..., cols, :] / m
+        first, H, m = head_block(a.n_heads, groups.n_model, groups.model_rank)
+        wq, wo = _q_heads(wq, wo, a, first, H, m)
         if wk.shape[-1] == a.n_kv_heads * hd:
             wk, wv, index = _kv_of_heads(wk, wv, a, first, H)
     B, S, _ = x.shape
@@ -329,18 +342,6 @@ def slots_over_model(groups, capacity_groups) -> bool:
         g is groups.model_group for g in capacity_groups)
 
 
-def _decode_heads(a, groups, H: int):
-    """(first, H, m): this model rank's first query head and head count
-    (``attention_apply``'s split), and m > 1 where each head is computed by
-    m ranks (the axis a multiple of the heads)."""
-    if groups is None:
-        return 0, H, 1
-    if H == a.n_heads:                          # each head on m ranks
-        m = groups.n_model // H
-        return groups.model_rank // m, 1, m
-    return groups.model_rank * H, H, 1
-
-
 def _kv_read(first: int, H: int, G: int, kv_base: int):
     """How query heads ``first`` .. ``first + H - 1`` read a cache whose
     first KV head is global KV head ``kv_base`` (global head h reads KV
@@ -368,12 +369,12 @@ def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
 
     With a mesh's ``groups`` (``sharding.rules.attention_splits``), ``p``
     holds this model rank's shards as ``attention_apply`` takes them and
-    the rank computes its query heads: column-parallel ``wq``, a
-    row-parallel ``wo`` summed over the model axis (scaled by 1/m where m
-    ranks compute each head).  The cache holds this rank's KV heads where
-    they divide the axis, else all of them: every rank then projects every
-    KV head and writes the same entry, so the replicas stay equal, and its
-    heads read their KV heads of it.
+    the rank computes its ``rules.head_block`` of query heads: its
+    columns of ``wq``, its rows of ``wo`` summed over the model axis
+    (scaled by 1/m where m ranks compute each head).  The cache holds
+    this rank's KV heads where they divide the axis, else all of them:
+    every rank then projects every KV head and writes the same entry, so
+    the replicas stay equal, and its heads read their KV heads of it.
 
     With ``capacity_groups`` the cache holds slots ``slot_offset`` ..
     ``slot_offset + C - 1`` of a capacity split over those groups' ranks
@@ -383,8 +384,11 @@ def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
     and the softmax's partial sums are taken over the local slots and
     combined over ``capacity_groups`` (``collectives.combine_attention``).
     The heads that the local slots serve are the rank's, or every head
-    where the capacity is split over the model axis (q gathered over it),
-    and the rank's heads are then taken for ``wo``."""
+    where the capacity is split over the model axis, and the rank's heads
+    are then taken for ``wo``: q is gathered over the axis where ``wq`` is
+    column-parallel, and projected whole where ``wq`` is held whole (the
+    axis a multiple of the heads, or uneven blocks, whose q's differ in
+    size from rank to rank)."""
     a = cfg.attn
     B = x.shape[0]
     hd = a.head_dim
@@ -394,12 +398,14 @@ def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
     if not isinstance(pos, DecodePositions):
         pos = DecodePositions(pos, B, x.device)
     wq, wo, wk, wv = p["wq"], p["wo"], p["wk"], p["wv"]
-    first, H, m = _decode_heads(a, groups, wq.shape[-1] // hd)
-    if m > 1:
-        wo = wo[..., first * hd:(first + 1) * hd, :] / m
+    first, H, m = (0, a.n_heads, 1) if groups is None else \
+        head_block(a.n_heads, groups.n_model, groups.model_rank)
     every = slots_over_model(groups, capacity_groups)
-    if m > 1 and not every:
-        wq = wq[..., first * hd:(first + 1) * hd]
+    # wq held whole (PARTIAL): with every slot's heads needed, project all
+    whole_q = groups is not None and wq.shape[-1] == a.n_heads * hd
+    wq_block, wo = _q_heads(wq, wo, a, first, H, m)
+    if not (every and whole_q):
+        wq = wq_block
     q = (x @ wq).reshape(B, 1, -1, hd)
     k = (x @ wk).reshape(B, 1, -1, hd)
     v = (x @ wv).reshape(B, 1, -1, hd)
@@ -409,7 +415,7 @@ def attention_decode(p: dict, cfg, x: torch.Tensor, cache_k: torch.Tensor,
     cos, sin = pos.rope(hd, a.rope_theta)
     q = rope_rotate(q, cos, sin)
     k = rope_rotate(k, cos, sin)
-    if every and m == 1:
+    if every and not whole_q:
         q = collectives.all_gather(q, groups.model_group, dim=2)
     local = layer_is_local and a.window > 0
     slot, valid = pos.slots(C_all, local, a.window, slot_offset, C)

@@ -139,16 +139,40 @@ COLUMN, ROW, VOCAB, EXPERT, PARTIAL, WHOLE = (
 SPLIT_USES = (COLUMN, ROW, VOCAB, EXPERT)
 
 
+def head_block(n_heads: int, n_model: int, rank: int) -> Tuple[int, int, int]:
+    """``(first, n, m)``: the query heads ``first`` .. ``first + n - 1``
+    that model rank ``rank`` of ``n_model`` computes, each of them on ``m``
+    ranks alike.  Where the axis is a multiple of the heads (gemma-2b's 8
+    over 16) a rank takes one head, ``m = n_model // n_heads``; else the
+    heads are split as ``torch.tensor_split`` splits ``range(n_heads)``:
+    equal blocks where the axis divides them, and where it does not
+    (granite-moe's 24 over 16) the first ``n_heads % n_model`` ranks take
+    one head more, so rank 0 holds the largest block.  Raises
+    ``ValueError`` where there are fewer heads than ranks and they do not
+    divide the axis (``attention_splits`` leaves such a layer whole)."""
+    if n_model % n_heads == 0:
+        m = n_model // n_heads
+        return rank // m, 1, m
+    if n_heads < n_model:
+        raise ValueError(f"{n_heads} heads do not split over a model axis "
+                         f"of {n_model}")
+    q, r = divmod(n_heads, n_model)
+    return rank * q + min(rank, r), q + (rank < r), 1
+
+
 def attention_splits(cfg, model_size: int) -> bool:
     """Whether a (non-MLA) attention layer is tensor-parallel over a model
-    axis of ``model_size`` > 1: where its query heads divide the axis each
-    rank computes its block of heads; where the axis is a multiple of them
-    (gemma-2b's 8 heads over 16), each head is computed by ``model_size //
-    n_heads`` ranks alike (``layers.attention_apply``)."""
+    axis of ``model_size`` > 1, each rank computing its ``head_block``:
+    where the query heads are at least as many as the ranks (in blocks
+    that differ by one head where the axis does not divide them), or the
+    axis is a multiple of them (gemma-2b's 8 heads over 16: each head
+    computed by ``model_size // n_heads`` ranks alike;
+    ``layers.attention_apply``).  Fewer heads than ranks that do not
+    divide the axis (3 at 4) are computed whole."""
     if model_size == 1 or cfg.attn is None or cfg.mla is not None:
         return False
     h = cfg.attn.n_heads
-    return h % model_size == 0 or model_size % h == 0
+    return h >= model_size or model_size % h == 0
 
 
 def mlp_splits(cfg, model_size: int) -> bool:
@@ -252,19 +276,23 @@ def compute_use(names: Tuple[str, ...], cfg, model_size: int,
       where the KV heads do not divide the axis (each rank reads the KV
       heads its query heads use, the reference's KV replication),
       ``q_norm`` / ``k_norm`` of a split attention, every attention leaf
-      where the axis is a multiple of the query heads (each rank slices
-      its head); in a split MLA, ``w_dq``, ``w_dkv``, ``q_norm`` and
-      ``kv_norm``, the low-rank down-projections and their norms computed
+      where the axis does not divide the query heads: a multiple of them
+      (each rank slices its head) or uneven blocks (granite-moe's 24 heads
+      or gpt3-13b's 40 over 16, whose ``wq`` / ``wo`` shards of 1.5 or 2.5
+      heads are no block of heads: each rank slices its ``head_block`` of
+      the whole leaves); in a split MLA, ``w_dq``, ``w_dkv``, ``q_norm``
+      and ``kv_norm``, the low-rank down-projections and their norms computed
       whole on every rank (the named fallback of a split MLA, as in
       Megatron's); in a split Mamba2, ``w_in``, ``conv_w`` and ``conv_b``
       (their last dims are the concatenation [z | x | B | C | dt], so a
       stored shard is not a block of heads: each rank reads its heads'
       columns and all of B and C) and ``dt_bias``, ``A_log``, ``D``;
     * ``WHOLE``: everything else, gathered and computed alike on every
-      model rank: attention, MLA or Mamba2 whose heads the predicates
-      refuse, an MLP or shared expert whose d_ff does not divide the axis,
-      a vocabulary that does not, routed experts that divide neither way,
-      the MoE router, norms (but the residual's under ``seqpar``)."""
+      model rank: attention with fewer heads than ranks that do not
+      divide the axis, MLA or Mamba2 whose heads do not divide it, an MLP
+      or shared expert whose d_ff does not, a vocabulary that does not,
+      routed experts that divide neither way, the MoE router, norms (but
+      the residual's under ``seqpar``)."""
     last = names[-1] if names else ""
     parent = names[-2] if len(names) > 1 else ""
     grand = names[-3] if len(names) > 2 else ""

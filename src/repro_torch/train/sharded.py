@@ -22,7 +22,9 @@ tensor and expert parallelism over the model axis.
   rank's shard, with no gather.  ``PARTIAL`` leaves are held whole and
   read by the rank's heads only, so their gradients are partial sums over
   the model ranks, summed once a step in f32: ``wk`` / ``wv`` whose KV
-  heads do not divide the axis, the norms of a split attention, a split
+  heads do not divide the axis, the norms of a split attention, every
+  leaf of an attention whose query heads the axis does not divide (one
+  head on several ranks, or uneven blocks: ``rules.head_block``), a split
   MLA's down-projections and their norms, a split Mamba2's ``w_in``,
   ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log`` and ``D``.  Everything
   else (modules whose heads or d_ff do not divide, norms, the router) is

@@ -2,7 +2,8 @@
 (``tests/test_torch_sharded_step.py``, ``tests/test_torch_moe_ep.py``,
 ``tests/test_torch_dryrun.py``, ``tests/test_torch_tensor_parallel.py``,
 ``tests/test_torch_tp_ssm_mla_moe.py``, ``tests/test_torch_tp_decode.py``,
-``tests/test_torch_seqpar.py``, ``tests/test_torch_seqpar_ssm_mla_moe.py``).
+``tests/test_torch_seqpar.py``, ``tests/test_torch_seqpar_ssm_mla_moe.py``,
+``tests/test_torch_tp_uneven_heads.py``).
 Holds no tests of its own and imports no JAX: ``launch.sharded.spawn``
 starts each rank in a new process, which imports this module by name.
 
@@ -60,7 +61,8 @@ def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
     where the job says ``seqpar``; rank 0 saves every step's metrics and
     the gathered parameters as ``{case}_{mesh}.out``.  A job's
     ``mutate``: True, ``unsum_partial_grads``; "norms",
-    ``unsum_norm_grads``."""
+    ``unsum_norm_grads``; "floor_blocks", ``floor_kv_blocks`` (around the
+    steps, since it acts in the forward)."""
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamW, cosine_with_warmup
     from repro_torch.train.sharded import (full_train_state,
@@ -90,14 +92,21 @@ def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
         finally:
             if undo is not None:
                 undo()
+        undo = floor_kv_blocks(sizes[-1], rank % sizes[-1]) \
+            if mutate == "floor_blocks" else None
         out = []
-        for batch in job["batches"]:
-            state, metrics = step(state, batch)
-            full = full_train_state(state)
-            out.append({"metrics": {k: v.clone() for k, v in
-                                    metrics.items()},
-                        "params": dict(tree.leaves_with_path(full.params)),
-                        "step": int(state.step)})
+        try:
+            for batch in job["batches"]:
+                state, metrics = step(state, batch)
+                full = full_train_state(state)
+                out.append({"metrics": {k: v.clone() for k, v in
+                                        metrics.items()},
+                            "params": dict(tree.leaves_with_path(
+                                full.params)),
+                            "step": int(state.step)})
+        finally:
+            if undo is not None:
+                undo()
         if rank == 0:
             torch.save(out, job_dir / f"{case}_{mesh_name(*sizes)}.out")
 
@@ -396,6 +405,22 @@ def unsum_partial_grads():
             self.grad[-1] = self.compute[-1]
     sharded._Leaf.__init__ = mutated
     return lambda: setattr(sharded._Leaf, "__init__", init)
+
+
+def floor_kv_blocks(n_model, model_rank):
+    """The mutation of uneven head blocks that their tests must catch: each
+    rank's query heads are still ``rules.head_block``'s (``tensor_split``'s
+    blocks, the larger ones first), but the KV heads it projects and reads
+    for them are those of the floor convention's block, which starts at
+    head ``model_rank * (n_heads // n_model)``.  Returns the function that
+    undoes it."""
+    from repro_torch.models import layers
+    kv = layers._kv_of_heads
+
+    def mutated(wk, wv, a, first, n):
+        return kv(wk, wv, a, model_rank * (a.n_heads // n_model), n)
+    layers._kv_of_heads = mutated
+    return lambda: setattr(layers, "_kv_of_heads", kv)
 
 
 def unsum_norm_grads():

@@ -485,15 +485,12 @@ def test_whole_compute_names_what_is_not_split(arch, kind):
     cfg = get_arch(arch)
     params = build_model(cfg, "meta").init()
     whole = dryrun.whole_compute(compute_uses(params, cfg, 16), kind, 16)
-    if arch == "granite-moe-3b-a800m":
-        # 24 heads neither divide 16 nor are divided by it; its 40
-        # experts split over d_ff
-        assert whole == ["segments/attn"], whole
-    else:
-        # MLA, its MTP block and DeepSeek's shared experts, Mamba2 and
-        # zamba2's Mamba2 layers are split: their PARTIAL leaves (MLA's
-        # down-projections, Mamba2's input projection) are not listed
-        assert whole == [], whole
+    # MLA, its MTP block and DeepSeek's shared experts, Mamba2 and
+    # zamba2's Mamba2 layers are split, and granite-moe's 24 heads in
+    # uneven blocks (its 40 experts over d_ff): their PARTIAL leaves (MLA's
+    # down-projections, Mamba2's input projection, the uneven attention's
+    # every leaf) are not listed
+    assert whole == [], whole
     assert dryrun.whole_compute(compute_uses(params, cfg, 1), kind, 1) == \
         ["a model axis of 1"]
 

@@ -15,11 +15,12 @@ regions is each model rank's block of the sequence.
 * (c) The sequence-parallel sharded step, two steps from the reference's
   parameters and batches at meshes (1, 2), (1, 4), (2, 2) and (2, 1, 2):
   reduced gemma-2b (MQA, a tied vocab-parallel embedding), qwen3-4b
-  (qk-norm), qwen3-4b at 3 / 1 heads (attention computed whole at tp 2
-  and 4), internvl2-2b with a vocabulary of 1021 (the vision prefix, a
-  vocabulary that divides no axis) and hubert-xlarge (LayerNorm, frames),
-  each against the non-seqpar sharded step, the single-process step and
-  the reference's jitted step.  ``test_torch_seqpar_ssm_mla_moe.py`` runs
+  (qk-norm), qwen3-4b at 3 / 1 heads (attention split in uneven blocks
+  of 2 and 1 at tp 2 and computed whole at tp 4), internvl2-2b with a
+  vocabulary of 1021 (the vision prefix, a vocabulary that divides no
+  axis) and hubert-xlarge (LayerNorm, frames), each against the
+  non-seqpar sharded step, the single-process step and the reference's
+  jitted step.  ``test_torch_seqpar_ssm_mla_moe.py`` runs
   the Mamba2, zamba2, MLA and MoE cases and the mutation through the
   functions here.
 * (d) The forward with ``last_logits_only`` (the dry-run's prefill), and
@@ -285,16 +286,20 @@ def test_seqpar_step_matches_reference(steps, mesh, case):
 
 
 def test_attention_whole_case_computes_whole():
-    """The 3-head case's attention is computed whole at tp 2 and 4 (its
-    heads neither divide the axis nor are divided by it), so its step runs
-    the whole module's entry and exit."""
+    """The 3-head case's heads neither divide the axis nor are divided by
+    it: at tp 2 they split in uneven blocks (2, 1: ``rules.head_block``),
+    at tp 4 there are fewer heads than ranks and the attention is computed
+    whole, so its step runs the whole module's entry and exit."""
     cfg = job_cfg(step_job(DENSE_CASES["qwen3-4b-attn-whole"]))
     params = build_model(cfg, "meta").init()
     from repro_torch.train.sharded import compute_uses
+    want = {2: [], 4: ["segments/attn"]}
     for tp in TPS:
-        assert not rules.attention_splits(cfg, tp)
+        assert rules.attention_splits(cfg, tp) is (tp == 2)
         assert dryrun.whole_compute(compute_uses(params, cfg, tp, True),
-                                    "train", tp) == ["segments/attn"]
+                                    "train", tp) == want[tp]
+    assert [rules.head_block(3, 2, r) for r in range(2)] == \
+        [(0, 2, 1), (2, 1, 1)]
 
 
 # ---------------------------------------------------------------------------

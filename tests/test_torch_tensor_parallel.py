@@ -318,7 +318,9 @@ PRODUCTION_USES = [
     ("gemma-2b", ("mlp", "w_out"), rules.ROW),
     ("gemma-2b", ("embed", "w"), rules.VOCAB),
     ("granite-3-8b", ("embed", "w"), rules.WHOLE),   # vocab 49155
-    ("granite-moe-3b-a800m", ("attn", "wq"), rules.WHOLE),   # 24 heads
+    # 24 heads in uneven blocks (2 on ranks 0-7, 1 on 8-15): wq's stored
+    # shards of 1.5 heads are no block, so it is held whole
+    ("granite-moe-3b-a800m", ("attn", "wq"), rules.PARTIAL),
     ("deepseek-v3-671b", ("attn", "wo"), rules.ROW),         # MLA, 128 heads
     ("deepseek-v3-671b", ("mlp", "w_in"), rules.COLUMN),
     ("hubert-xlarge", ("head", "w"), rules.WHOLE),   # vocab 504
