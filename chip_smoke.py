@@ -59,8 +59,9 @@ Phases, each printing one JSON line:
                     plain step at every step of the churn walk's schedule,
                     in both types; times (back to back and ``graph_ms``)
                     beside each bound: kernel 3 at four shapes
-                    (CONV3_SHAPES) and both its variants by band, kernels
-                    4 and 5 at n=1024 and per scan step of that schedule
+                    (CONV3_SHAPES), kernels 4 and 5 at n=1024 and per scan
+                    step of that schedule (kernel 3's variants by band:
+                    phase ab)
   kernel:ssd_scan   the Mamba2 SSD scan kernel against its plain version
                     on the card (atol = rtol = 1e-4): the reference's test
                     cases, the token-serial recurrence, chunk invariance, a
@@ -255,7 +256,13 @@ Phases, each printing one JSON line:
                     list), the kernels' heads, all "wgmma" / "bulk", the
                     step time; then gemma-2b, deepseek-v3-671b and
                     granite-moe sequence-parallel (TP_SEQPAR_SHARES),
-                    the peak within TP_SEQPAR_PEAK_GAP
+                    the peak within TP_SEQPAR_PEAK_GAP.  Sequence
+                    parallelism over a sequence the model axis does not
+                    divide (its blocks padded as GSPMD pads them): (a)'s
+                    qwen3-4b also at 1023 positions ("seqpar_pad", rank 1
+                    holding 511 rows and one pad row), and granite-moe's
+                    seqpar share at 1000 positions (TP_SEQPAR_PAD_SHARES:
+                    blocks of 63, rank 15 holding 55 rows and 8 pad rows)
   serve_tp          tensor-parallel decode: (a) two gloo ranks on the card
                     (SERVE_TP_RUNS: qwen3-4b, gemma-2b with and without
                     its slots over the model axis), each step's tokens
@@ -935,11 +942,14 @@ def phase_kernel(ctx) -> None:
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": cuda_ms(sdpa), "variant": fa.variant(q, k, v),
                "bitwise_repeat": True,
-               "device_ms": device_ms(kernel),
-               "library_device_ms": device_ms(sdpa),
                "graph_ms": graph_ms(kernel),
                "library_graph_ms": graph_ms(sdpa)}
         if i == 0:
+            # the profiler's device times for the kernels line's shape
+            # only: the other shapes' were cut for train_tp's padded
+            # sequence-parallel runs (graph_ms is the time to trust)
+            rec.update(device_ms=device_ms(kernel),
+                       library_device_ms=device_ms(sdpa))
             ctx["kernels"]["flash_attention"] = rec
         emit({"phase": "kernel:flash_attention", "shape": label, **rec,
               "nvidia_smi": ctx["smi"]})
@@ -1431,7 +1441,9 @@ def conv3_times(smi) -> list:
                 "variant": pick and pick(n + 1, ref._clamp_band(band, n)),
                 "max_abs_err": err, "graph_ms": graph_ms(fn),
                 "ms": cuda_ms(fn, iters=50),
-                "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+                # two calls after the check's: the plain version takes
+                # up to 170 ms a call here
+                "plain_ms": cuda_ms(plain, iters=2, warmup=0),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "nvidia_smi": smi})
     return recs
@@ -1442,7 +1454,9 @@ def conv3_variant_sweep() -> dict:
     float32 and float64: the measurement behind ``maxplus.WIDE_MIN``
     (Fig. 11's 128 workers, the churn walk's rows of 1033, n = 4096), at
     the bands around its crossover (half of PR 19's ten since PR 33, for
-    serve_tp's time)."""
+    serve_tp's time).  Only phase ab runs it, which leaves its time to
+    train_tp's padded sequence-parallel runs: the crossover it measures
+    is settled."""
     import numpy as np
     import torch
     from repro_torch.kernels import maxplus
@@ -1526,8 +1540,6 @@ def phase_kernel_maxplus(ctx) -> None:
             ctx["kernels"]["maxplus_conv"] = {
                 k: v for k, v in rec.items()
                 if k not in ("dtype", "nvidia_smi")}
-    emit({"phase": "kernel:maxplus", "variant_sweep": conv3_variant_sweep(),
-          "wide_min": maxplus.WIDE_MIN, "nvidia_smi": ctx["smi"]})
     for dtype in ("float32", "float64"):
         dt = getattr(torch, dtype)
         for kernel, (shape, args) in shapes.items():
@@ -1536,7 +1548,7 @@ def phase_kernel_maxplus(ctx) -> None:
             plain = getattr(ref, kernel)
             err = (fn(*t_args) - plain(*t_args)).abs().max().item()
             kernel_ms = cuda_ms(lambda: fn(*t_args), iters=50)
-            plain_ms = cuda_ms(lambda: plain(*t_args), iters=50)
+            plain_ms = cuda_ms(lambda: plain(*t_args), iters=5, warmup=1)
             bound_ms, bound_by = maxplus_bound(kernel, dtype, *args)
             rec = {"name": kernel, "route": "cuda",
                    "source": "src/repro_torch/csrc/maxplus.cu",
@@ -1575,7 +1587,8 @@ def phase_kernel_maxplus(ctx) -> None:
                "replaces": MAXPLUS_REPLACES["maxplus_scan_chunk"],
                "launches": None, "max_abs_err": err,
                "ms": cuda_ms(run_kernel, iters=20) / per,
-               "plain_ms": cuda_ms(run_plain, iters=2, warmup=1) / per,
+               # one run after the check's (1.4-1.6 s a run)
+               "plain_ms": cuda_ms(run_plain, iters=1, warmup=0) / per,
                "graph_ms": graph_ms(run_kernel, n=5) / per,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None,
@@ -3939,6 +3952,13 @@ TP_SHARES = [
 TP_SEQPAR_SHARES = [TP_SHARES[0], TP_SHARES[1], TP_SHARES[2]]
 # the prediction's peak against the measured one for the seqpar shares
 TP_SEQPAR_PEAK_GAP = 0.01
+# (b) sequence-parallel at a sequence the model axis does not divide:
+# granite-moe's share at TP_SEQPAR_PAD_SEQ positions, blocks of 63 rows
+# over 16 ranks (sharding.rules.seq_block), rank 15 holding 55 rows and 8
+# pad rows; rank 0, whose share runs, holds 63 real rows and the padded
+# collectives' whole buffers
+TP_SEQPAR_PAD_SHARES = [TP_SHARES[2]]
+TP_SEQPAR_PAD_SEQ = 1000
 
 
 def _heads_recorder(counts):
@@ -4001,7 +4021,18 @@ def _tp_cfg(arch: str, n_layers: int, fields=None):
                                **(fields or {}))
 
 
-TP_PATHS = {"tp": False, "seqpar": True}     # train_tp (a)'s two steps
+# train_tp (a)'s sharded steps: each path's sequence parallelism, and
+# where it is not TP_GLOO's its positions and the archs it runs for:
+# "seqpar_pad" at 1023 positions, which the two ranks do not divide (rank
+# 1 holds 511 rows and one pad row), for qwen3-4b only
+TP_PATHS = {"tp": False, "seqpar": True, "seqpar_pad": True}
+TP_PATH_SEQ = {"seqpar_pad": 1023}
+TP_PATH_ARCHS = {"seqpar_pad": ("qwen3-4b",)}
+
+
+def _tp_paths(arch: str) -> list:
+    """The paths of TP_PATHS that train_tp (a) runs for ``arch``."""
+    return [p for p in TP_PATHS if arch in TP_PATH_ARCHS.get(p, (arch,))]
 
 
 def _tp_rank(rank: int, world: int, store_path: str, out_dir: str,
@@ -4009,22 +4040,25 @@ def _tp_rank(rank: int, world: int, store_path: str, out_dir: str,
     """One rank of train_tp (a), in a process of its own: gloo on the card,
     mesh (1, world) of device type cuda; ``launch.sharded.compare`` of
     TP_GLOO's sharded and fused steps of ``arch`` at ``n_layers``, once
-    for each of TP_PATHS (the sharded step without and with sequence
-    parallelism); writes each run's records, kernel heads and launches by
+    for each of its ``_tp_paths`` (the sharded step without and with
+    sequence parallelism, at TP_PATH_SEQ's positions where a path has
+    them); writes each run's records, kernel heads and launches by
     variant as ``rank{rank}.json``."""
     import torch
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharded import compare, init_rank
     init_rank(rank, world, store_path, "cuda", backend="gloo")
     runs = {}
-    for path, seqpar in TP_PATHS.items():
+    for path in _tp_paths(arch):
         heads = {}
         undo = _heads_recorder(heads)
         attention_variants_reset()
         try:
             recs = compare(_tp_cfg(arch, n_layers),
                            make_host_mesh(world, device_type="cuda"),
-                           lr=TP_LR, seqpar=seqpar, **TP_GLOO)
+                           lr=TP_LR, seqpar=TP_PATHS[path],
+                           **{**TP_GLOO, "seq": TP_PATH_SEQ.get(
+                               path, TP_GLOO["seq"])})
         finally:
             undo()
         runs[path] = {"records": recs, "heads": heads,
@@ -4037,7 +4071,7 @@ def _tp_rank(rank: int, world: int, store_path: str, out_dir: str,
 def _tp_gloo(ctx, arch: str, n_layers: int) -> dict:
     """train_tp (a) on ``arch``: two ranks on the card over gloo
     (``_tp_rank``), checked; returns {path: the two ranks' launches of its
-    sharded steps} for each of TP_PATHS."""
+    sharded steps} for each of its ``_tp_paths``."""
     import tempfile
     import torch
     from repro_torch.configs import get_arch
@@ -4078,15 +4112,16 @@ def _tp_gloo(ctx, arch: str, n_layers: int) -> dict:
         want_heads = {"flash_attention": {
             f"{a.n_heads}/{a.n_kv_heads}": calls,
             f"{a.n_heads // world}/{a.n_kv_heads // world}": calls}}
+    paths = _tp_paths(arch)
     # every rank's records first, so a failing check leaves them printed
-    for path in TP_PATHS:
+    for path in paths:
         for rk in ranks:
             for r in rk["runs"][path]["records"]:
                 emit({"phase": "train_tp", "part": "gloo", "arch": arch,
                       "path": path, "rank": rk["rank"], **r,
                       "nvidia_smi": ctx["smi"]})
     out = {}
-    for path in TP_PATHS:
+    for path in paths:
         launches = out[path] = dict.fromkeys(sharded, 0)
         runs = [rk["runs"][path] for rk in ranks]
         for rk, run in zip(ranks, runs):
@@ -4122,7 +4157,8 @@ def _tp_gloo(ctx, arch: str, n_layers: int) -> dict:
                                        "rmsnorm_bwd")})
         recs = [run["records"] for run in runs]
         emit({"phase": "train_tp", "part": "gloo", "arch": arch,
-              "path": path, "seqpar": TP_PATHS[path], "ok": True,
+              "path": path, "seqpar": TP_PATHS[path],
+              "seq": TP_PATH_SEQ.get(path, TP_GLOO["seq"]), "ok": True,
               "seconds": secs,
               "backend": [rk["backend"] for rk in ranks],
               "cuda_device": [rk["cuda_device"] for rk in ranks],
@@ -4151,17 +4187,20 @@ def _tp_gloo(ctx, arch: str, n_layers: int) -> dict:
 
 def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
               want_heads: dict, want_whole: list, seqpar: bool = False,
-              peak_gap: float = DRYRUN_PEAK_GAP) -> dict:
+              peak_gap: float = DRYRUN_PEAK_GAP, seq: int = None) -> dict:
     """train_tp (b): ``check_pair`` of ``arch``'s train_dist step at
     ``n_layers`` on the (1, ``model``) layout, rank 0 of a fake group,
-    sequence-parallel with ``seqpar``; the predicted peak within
-    ``peak_gap`` of the measured; returns its counted run's launches."""
+    sequence-parallel with ``seqpar``, at ``seq`` positions (default
+    DIST's); the predicted peak within ``peak_gap`` of the measured; a
+    seqpar share's blocks and pad rows ``sharding.rules.seq_block``'s;
+    returns its counted run's launches."""
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.dryrun import check_pair
-    from repro_torch.sharding.rules import Layout
+    from repro_torch.sharding.rules import Layout, seq_block
     cfg = _tp_cfg(arch, n_layers, fields)
-    shape = ShapeConfig("train_dist", DIST["seq"], DIST["batch"], "train")
+    seq = seq or DIST["seq"]
+    shape = ShapeConfig("train_dist", seq, DIST["batch"], "train")
     layout = Layout(("data", "model"), (1, model))
     heads = {}
     torch.cuda.empty_cache()
@@ -4179,7 +4218,8 @@ def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
             "n_layers": cfg.n_layers, "fields": fields,
             "shape": dataclasses.astuple(shape),
             "n_micro": DIST["n_micro"], "layout": rec["layout"],
-            "seqpar": rec["seqpar"],
+            "seqpar": rec["seqpar"], "seq_block": rec["seq_block"],
+            "seq_pad": rec["seq_pad"],
             "tp_compute": rec["tp_compute"], "tp_whole": rec["tp_whole"],
             "flops": [pred["flops"], meas["flops"]],
             "hbm_bytes": [pred["hbm_bytes"], meas["hbm_bytes"]],
@@ -4199,8 +4239,13 @@ def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
     emit(line)
     label = f"train_tp share {arch} at tp {model}" \
         + (" seqpar" if seqpar else "")
+    label += f" at {seq} positions"
     if rec["seqpar"] != seqpar:
         raise AssertionError(f"{label}: seqpar {rec['seqpar']}")
+    if seqpar and (rec["seq_block"], rec["seq_pad"]) != (
+            seq_block(seq, model), model * seq_block(seq, model) - seq):
+        raise AssertionError(f"{label}: blocks {rec['seq_block']}, pad "
+                             f"{rec['seq_pad']}")
     if not rec["equal"]:
         raise AssertionError(f"{label}: the prediction is not the run's: "
                              f"{line}")
@@ -4224,12 +4269,13 @@ SEQPAR_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
 
 def phase_train_tp(ctx) -> None:
     """Tensor-parallel compute on the card: ``_tp_gloo`` (a) for each of
-    TP_GLOO_ARCHS, without and with sequence parallelism, then
-    ``_tp_share`` (b) for each of TP_SHARES and, sequence-parallel, each
-    of TP_SEQPAR_SHARES.  The launches are the sharded steps' of both ranks
-    and the shares' counted runs: the sequence-parallel ones under their
-    own path, "train_tp_seqpar", which must launch every one of
-    SEQPAR_KERNELS."""
+    TP_GLOO_ARCHS, without and with sequence parallelism (qwen3-4b also
+    at a sequence the ranks do not divide), then ``_tp_share`` (b) for
+    each of TP_SHARES and, sequence-parallel, each of TP_SEQPAR_SHARES and
+    of TP_SEQPAR_PAD_SHARES at TP_SEQPAR_PAD_SEQ positions.  The launches
+    are the sharded steps' of both ranks and the shares' counted runs:
+    the sequence-parallel ones under their own path, "train_tp_seqpar",
+    which must launch every one of SEQPAR_KERNELS."""
     launches = {"train_tp": {}, "train_tp_seqpar": {}}
 
     def add(path, counts):
@@ -4243,6 +4289,10 @@ def phase_train_tp(ctx) -> None:
     for share in TP_SEQPAR_SHARES:
         add("train_tp_seqpar", _tp_share(ctx, *share, seqpar=True,
                                          peak_gap=TP_SEQPAR_PEAK_GAP))
+    for share in TP_SEQPAR_PAD_SHARES:
+        add("train_tp_seqpar", _tp_share(ctx, *share, seqpar=True,
+                                         peak_gap=TP_SEQPAR_PEAK_GAP,
+                                         seq=TP_SEQPAR_PAD_SEQ))
     missing = [k for k in SEQPAR_KERNELS
                if not launches["train_tp_seqpar"].get(k)]
     if missing:
@@ -4380,6 +4430,8 @@ def _serve_tp_gloo(ctx) -> dict:
                                for run in runs],
               "tokens_match": match,
               "steps_tokens_match": [sum(m) for m in match],
+              "whole_tokens_as_rank0": [run["records"][0].get(
+                  "whole_as_rank0") for run in runs],
               "seconds": {n: [[r["seconds"][n] for r in run["records"]]
                               for run in runs]
                           for n in ("whole", "sharded")},
@@ -5234,12 +5286,18 @@ def phase_profile(ctx) -> None:
 def phase_ab(ctx) -> None:
     """Not in the default run: kernel 3 at CONV3_SHAPES and the churn walk
     on the segtree and batched engines, through the port that ``--src``
-    names.  Run once per tree, in turns, to compare two trees on one
-    card."""
+    names, and both variants of kernel 3 by row length and band
+    (``conv3_variant_sweep``).  Run once per tree, in turns, to compare
+    two trees on one card."""
     import statistics
+    from repro_torch.kernels import maxplus
     from repro_torch.launch import plan
     for rec in conv3_times(ctx["smi"]):
         emit({"phase": "ab", "src": ctx["src"], **rec})
+    emit({"phase": "ab", "src": ctx["src"],
+          "variant_sweep": conv3_variant_sweep(),
+          "wide_min": getattr(maxplus, "WIDE_MIN", None),
+          "nvidia_smi": ctx["smi"]})
     for engine in ("segtree", "batched"):
         recs = plan.churn("cuda", engine)
         emit({"phase": "ab", "src": ctx["src"], "engine": engine,

@@ -14,6 +14,7 @@ import os
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch import bridge, tree
 
@@ -79,3 +80,10 @@ def restore(directory: str, like: Any, step: Optional[int] = None) -> Any:
         new = [bridge.to_tensor(data[key], leaf.dtype, leaf.device)
                for key, leaf in tree.leaves_with_path(like)]
     return tree.unflatten(like, new)
+
+
+def checkpoint_nbytes(state: Any) -> int:
+    """The bytes of every leaf of ``state`` (tensors, numpy arrays or
+    scalars); copied from repro/checkpoint/persistent.py:98."""
+    return sum(t.numel() * t.element_size() if isinstance(t, torch.Tensor)
+               else np.asarray(t).nbytes for t in tree.leaves(state))

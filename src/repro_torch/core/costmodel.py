@@ -149,6 +149,29 @@ def achieved_flops(task: TaskModel, x: int,
     return 0.0 if p is None else p.agg_flops
 
 
+# ``best_plan``, ``min_feasible_workers_reference`` and ``flops_ratio``:
+# copied from repro/core/costmodel.py:167, :171 and :182
+def best_plan(task: TaskModel, x: int, hw: Hardware = A800):
+    return _best_plan(task, x, hw)
+
+
+def min_feasible_workers_reference(task: TaskModel, hw: Hardware = A800,
+                                   upper: int = 4096) -> int:
+    """Scalar reference: linear scan from x=1 (kept for property tests)."""
+    x = 1
+    while x <= upper:
+        if _best_plan(task, x, hw) is not None:
+            return x
+        x += 1
+    return upper
+
+
+def flops_ratio(task: TaskModel, x: int, hw: Hardware = A800) -> float:
+    """Achieved fraction of the x workers' theoretical peak (Fig. 4)."""
+    t = achieved_flops(task, x, hw)
+    return t / (x * hw.peak_flops) if x else 0.0
+
+
 # ---------------------------------------------------------------------------
 # Vectorized engine: T(t, ·) for all worker counts in one sweep
 # ---------------------------------------------------------------------------
@@ -170,6 +193,15 @@ class ThroughputCurve:
     t_iter: np.ndarray                 # (n+1,) float64
     mem: np.ndarray                    # (n+1,) float64
     configs: Tuple[Tuple[int, int, int], ...]   # (tp, pp, micro_b)
+
+    def plan(self, x: int) -> Optional[PlanPoint]:
+        """PlanPoint at worker count x (None if infeasible); copied from
+        repro/core/costmodel.py:212."""
+        if x <= 0 or x > self.n or self.cfg[x] < 0:
+            return None
+        tp, pp, _ = self.configs[int(self.cfg[x])]
+        return PlanPoint(int(self.dp[x]), tp, pp, float(self.t_iter[x]),
+                         float(self.flops[x]), float(self.mem[x]))
 
     def min_feasible(self) -> Optional[int]:
         """Smallest x with a feasible plan, or None if none up to n."""

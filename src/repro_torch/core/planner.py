@@ -162,6 +162,40 @@ def _maxplus_vals_fast(prev: np.ndarray, g: np.ndarray) -> np.ndarray:
 ENGINES = ("batched", "fused", "segtree", "chain", "reference")
 
 
+_ENGINE_DESCRIPTIONS = {
+    "batched": "level-synchronous stacked dyadic tree; value-only "
+               "rebuilds + lazy traceback (default)",
+    "fused": "one-program engine: whole-table value rebuild as one "
+             "program of maxplus_scan_step launches over a static step "
+             "table (cached per schedule signature; one CUDA graph on "
+             "the card)",
+    "segtree": "per-node dyadic segment tree, O(log m) churn "
+               "invalidation, one kernel call per merge",
+    "chain": "prefix/suffix DP chains; the preserved churn-rebuild "
+             "baseline",
+    "reference": "non-incremental per-scenario solves (scalar "
+                 "solve_reference by default); the ground-truth path",
+}
+
+_BACKEND_DESCRIPTIONS = {
+    "cuda": "the Hopper max-plus kernels (kernels/maxplus.py), launched "
+            "for PlanTable(device=) on a CUDA device",
+    "plain": "the plain PyTorch versions (kernels/ref.py), run for a CPU "
+             "device; float64 or float32 by PlanTable(dtype=)",
+}
+
+
+def engines() -> Dict[str, Dict[str, str]]:
+    """The planner's engine/backend registry (repro/core/planner.py:459):
+    ``{"engine": {name: description}, "backend": {...}}``.  The ``engine``
+    axis is the reference's (``ENGINES``, ``PlanTable(engine=)``).  The
+    port has no backend switch: its ``backend`` axis describes the
+    routing of the max-plus convolutions, the kernel for CUDA tensors and
+    the plain version for CPU ones."""
+    return {"engine": dict(_ENGINE_DESCRIPTIONS),
+            "backend": dict(_BACKEND_DESCRIPTIONS)}
+
+
 def resolve_engine(engine: Optional[str] = None) -> str:
     """Validate an engine name from ``ENGINES`` (``None`` = "batched")."""
     if engine is not None and engine not in ENGINES:

@@ -101,6 +101,12 @@ def restore_tier(dp_degree: int, inmemory_available: bool = True,
     return "persistent"
 
 
+def migration_source(dp_degree: int, inmemory_available: bool) -> str:
+    """Back-compat alias for :func:`restore_tier` (no replica loss);
+    copied from repro/core/transition.py:102."""
+    return restore_tier(dp_degree, inmemory_available)
+
+
 def migrate_seconds(state_bytes: float, source: str) -> float:
     bw = {"dp_replica": BW_DP_REPLICA, "inmemory": BW_INMEMORY,
           "persistent": BW_PERSISTENT}[source]

@@ -203,6 +203,20 @@ def _route(cuda_fn, plain_fn, x, *args):
     raise ValueError(f"max-plus: no kernel for device {x.device}")
 
 
+def maxplus_conv_np(prev: np.ndarray, g: np.ndarray,
+                    band: Optional[int] = None) -> np.ndarray:
+    """Float32 numpy oracle with the kernel's exact candidate arithmetic
+    (f32 adds, order-free max); copied from
+    repro/kernels/maxplus.py:111."""
+    prev32 = np.asarray(prev, dtype=np.float32)
+    g32 = np.asarray(g, dtype=np.float32)
+    n = prev32.shape[0] - 1
+    b = n if band is None else max(0, min(int(band), n))
+    pad = np.concatenate([np.full(b, -np.inf, dtype=np.float32), prev32])
+    win = np.lib.stride_tricks.sliding_window_view(pad, b + 1)
+    return (win + g32[b::-1][None, :]).max(axis=1)
+
+
 def maxplus_conv(prev, g, band=None) -> torch.Tensor:
     """``out[j] = max_{0 <= k <= min(j, band)} prev[j-k] + g[k]``: the
     kernel for CUDA tensors, the plain version for CPU tensors."""

@@ -45,9 +45,12 @@ experts that divide neither way; no registered config at 16x16 has one.
 A pair whose peak exceeds ``HBM_BYTES`` is flagged ``"fits": false``, not
 skipped.  With the "seqpar" variant the train and prefill pairs are also
 sequence-parallel over the model axis (the residual split by sequence
-between the split regions, ``collectives.MeshGroups(..., seqpar=True)``);
-decode pairs run as without it, as the reference's decode does; each
-traced row says ``"seqpar"``, whether its step ran so.
+between the split regions, ``collectives.MeshGroups(..., seqpar=True)``),
+padded as GSPMD pads a sequence the axis does not divide; decode pairs
+run as without it, as the reference's decode does; each traced row says
+``"seqpar"``, whether its step ran so, and a seqpar row ``"seq_block"``,
+each rank's rows (``sharding.rules.seq_block``), and ``"seq_pad"``, the
+pad rows of the last ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b \\
         --shape train_4k [--multi-pod | --mesh DxM] \\
@@ -80,7 +83,8 @@ from repro_torch.launch.inputs import (batch_struct, decode_specs,
 from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, IB_BW, NVLINK_BW,
                                      PEAK_FLOPS_BF16, _mesh,
                                      production_layout)
-from repro_torch.sharding.rules import WHOLE, Layout, data_axes_of
+from repro_torch.sharding.rules import (WHOLE, Layout, data_axes_of,
+                                        seq_block)
 
 # variant tokens of the reference that are the port's only path: recorded
 NATIVE = ("baseline", "", "flash", "fusednorm", "moe3d", "moesm")
@@ -291,6 +295,13 @@ def build_pair(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     model = build_model(cfg, device)
     seqpar = seqpar and shape.kind != "decode" and tp > 1
     meta = {"kind": shape.kind, "dp": dp, "tp": tp, "seqpar": seqpar}
+    if seqpar:
+        # each model rank's rows of the residual, and the pad rows of the
+        # last ranks where tp does not divide the sequence
+        S = shape.seq_len + (cfg.n_prefix_embeds
+                             if cfg.modality == "vision_stub" else 0)
+        meta["seq_block"] = seq_block(S, tp)
+        meta["seq_pad"] = tp * meta["seq_block"] - S
     if shape.kind == "train":
         opt = AdamW(lr=constant(3e-4))
         # only this rank's shards are made, never the whole state: a whole
@@ -556,6 +567,7 @@ def check_pair(cfg: ArchConfig, shape: ShapeConfig, *, device="cuda",
         "layout": dict(zip(layout.axis_names, layout.sizes)),
         "n_micro": pred.get("n_micro"), "tp_compute": pred["tp_compute"],
         "tp_whole": pred["tp_whole"], "seqpar": pred["seqpar"],
+        "seq_block": pred.get("seq_block"), "seq_pad": pred.get("seq_pad"),
         "predicted": {k: pred[k] for k in ("flops", "hbm_bytes",
                                            "collective_bytes", "collectives",
                                            "kernel_calls")},

@@ -251,20 +251,26 @@ def serve_compare(cfg, mesh, *, prompt_len: int = 16, n_new: int = 16,
     (its ``GraphDecoder``: a CUDA graph on the card); the sharded one,
     eager through ``ShardedDecoder`` over its ``init_cache(..., mesh=,
     kv_model=, shard_seq=)`` shards, is fed the tokens the whole run fed,
-    so each step's logits are the same function of the same history.
+    so each step's logits are the same function of the same history (rank
+    0's whole run, broadcast to every rank).
     Returns one record a step (prefill included): both greedy tokens of
     every lane, whether they match, the logits' largest |difference|
     (gathered over the vocabulary and the lanes) and the whole logits'
-    largest |value|, and both steps' seconds and kernel launches (the
-    whole step's counted through its graph's replays)."""
+    largest |value|, whether this rank's own whole run took rank 0's
+    tokens, and both steps' seconds and kernel launches (the whole step's
+    counted through its graph's replays).  ``shard_seq`` with
+    more than one lane that the data axes divide raises ``ValueError``
+    before anything runs (``sharding.rules.cache_shards``)."""
     device = mesh.device_type
+    cap = capacity or (prompt_len + n_new)
+    kw = dict(mesh=mesh, kv_model=kv_model, shard_seq=shard_seq)
+    shards = build_model(cfg, "meta").cache_shards(batch, cap, **kw)
     model = build_model(cfg, device)
     params = model.init(seed)
     groups = collectives.MeshGroups(mesh)
     gen = torch.Generator(device=str(model.device)).manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                            device=model.device, dtype=torch.int32)
-    cap = capacity or (prompt_len + n_new)
     whole, seconds, launches = [], [], []
 
     def timed(decoder, run):
@@ -278,13 +284,19 @@ def serve_compare(cfg, mesh, *, prompt_len: int = 16, n_new: int = 16,
         whole.append(logits.clone())
         return logits
     tokens = generate(model, params, prompt, n_new, cap, wrap=timed)
+    # every rank feeds the sharded decoder rank 0's whole run and holds it
+    # against rank 0's logits: two processes' whole runs on one card can
+    # round apart in the last bits and so take another greedy token at a
+    # near tie, and ranks fed other tokens would sum parts of other
+    # histories
+    own = tokens.clone()
+    for t in [tokens] + whole:
+        dist.broadcast(t, src=0)
+    as_rank0 = bool(torch.equal(own, tokens))
     fed = torch.cat([prompt, tokens], dim=1)
-    kw = dict(mesh=mesh, kv_model=kv_model, shard_seq=shard_seq)
-    decoder = ShardedDecoder(
-        model, compute_params(params, cfg, groups),
-        model.init_cache(batch, cap, **kw), model.cache_shards(batch, cap,
-                                                               **kw),
-        groups)
+    decoder = ShardedDecoder(model, compute_params(params, cfg, groups),
+                             model.init_cache(batch, cap, **kw), shards,
+                             groups)
     del params
     vocab = rules.vocab_splits(cfg, groups.n_model)
     mine = lanes_of(batch, groups)
@@ -305,6 +317,7 @@ def serve_compare(cfg, mesh, *, prompt_len: int = 16, n_new: int = 16,
         out.append({"step": t, "tokens": {"whole": want.tolist(),
                                           "sharded": tok.tolist()},
                     "tokens_match": bool(torch.equal(tok, want)),
+                    "whole_as_rank0": as_rank0,
                     "max_abs_diff": float((logits - whole[t]).abs().max()),
                     "max_abs_logit": float(whole[t].abs().max()),
                     "seconds": {"whole": seconds[t], "sharded": secs},
@@ -345,7 +358,7 @@ def _rank_main(rank, world, store_path, args) -> None:
                   flush=True)
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--reduced", action="store_true",
@@ -373,10 +386,28 @@ def main() -> None:
                     help="--serve: the caches' slots over the model axis "
                          "where the KV heads do not divide it")
     ap.add_argument("--shard-seq", action="store_true",
-                    help="--serve: one lane, its slots over the data axes")
-    args = ap.parse_args()
+                    help="--serve: the slots over the data axes (long "
+                         "context): one lane, or a --batch the data axes "
+                         "do not divide; else it raises")
+    args = ap.parse_args(argv)
     resolve_device(args.device)
+    if args.serve and args.shard_seq:
+        _refuse_shard_seq(args)
     spawn(_rank_main, args.world, args)
+
+
+def _refuse_shard_seq(args) -> None:
+    """Raises ``ValueError`` before any rank starts where ``--shard-seq``
+    would split the lanes and the slots over the same data axes
+    (``sharding.rules.cache_shards`` on the CLI's layout)."""
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    layout = rules.Layout(("data", "model"),
+                          (args.world // args.model, args.model))
+    build_model(cfg, "meta").cache_shards(
+        args.batch, args.prompt_len + args.n_new, mesh=layout,
+        kv_model=args.kv_model, shard_seq=True)
 
 
 if __name__ == "__main__":

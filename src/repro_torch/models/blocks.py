@@ -25,6 +25,20 @@ _MLA_KINDS = (BLOCK_MLA_DENSE, BLOCK_MLA_MOE)
 _ATTN_KINDS = (BLOCK_ATTN_DENSE, BLOCK_ATTN_MOE) + _MLA_KINDS
 
 
+# ``has_attn``, ``has_mla`` and ``has_moe``: copied from
+# repro/models/blocks.py:23-31
+def has_attn(kind: str) -> bool:
+    return kind in (BLOCK_ATTN_DENSE, BLOCK_ATTN_MOE)
+
+
+def has_mla(kind: str) -> bool:
+    return kind in (BLOCK_MLA_DENSE, BLOCK_MLA_MOE)
+
+
+def has_moe(kind: str) -> bool:
+    return kind in (BLOCK_ATTN_MOE, BLOCK_MLA_MOE)
+
+
 def _refuse_unknown(kind: str) -> None:
     if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
@@ -127,7 +141,8 @@ def _whole(groups, fn, h: torch.Tensor):
     if groups is None or not groups.seqpar:
         return fn(h)
     model = groups.model_group
-    y, aux = fn(collectives.gather_from_sequence(h, model, "block"))
+    y, aux = fn(collectives.gather_from_sequence(h, model, "block",
+                                                 groups.seq_len))
     return collectives.scatter_to_sequence(y, model), aux
 
 

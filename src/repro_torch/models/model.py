@@ -277,7 +277,7 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         itself (``layers.logits_apply``)."""
         if seq is not None and vocab is None:
             return collectives.gather_from_sequence(h, seq.model_group,
-                                                    "block")
+                                                    "block", seq.seq_len)
         return h
 
     def forward(params, batch, *, remat: bool = False, groups=None,
@@ -295,31 +295,43 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         the reference.
 
         With groups whose ``seqpar`` is set (sequence parallelism), the
-        residual between the blocks is this rank's block of the sequence
-        (``sharding.rules.seq_splits``: a sequence the axis does not divide
-        raises): the embedding (or the frames, or the tokens after the
+        residual between the blocks is this rank's block of the sequence,
+        ``sharding.rules.seq_block`` rows, padded where the axis does not
+        divide the sequence (the gathers trim to ``groups.seq_len``, set
+        here): the embedding (or the frames, or the tokens after the
         vision prefix) is split, every block's norms and residual adds and
         the final norm run on the block, and the head's input is gathered
         over the sequence, so the logits and the losses are the whole
         sequence's as without it.  The MTP block takes the split pre-norm
-        output.  With ``last_logits_only`` only the last position, which
-        lies on the last model rank, is brought to the head."""
+        output.  With ``last_logits_only`` only the last position is
+        brought to the head: every rank brings its row at the position's
+        offset in its block, and the owner's (rank (S - 1) // c) is
+        kept."""
+        S = _seq_len(batch)
+        if groups is not None and groups.seqpar:
+            groups = groups.with_seq_len(S)
         vocab = _vocab_groups(groups)
         seq = groups if groups is not None and groups.seqpar else None
-        S = _seq_len(batch)
-        if seq is not None:
-            rules.seq_splits(S, seq.n_model)
         x = _embed_inputs(params, batch, vocab, seq)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         x, aux = _run_segments(params, x, positions, remat, groups)
         h = layers.norm_apply(params["final_norm"], x, cfg.norm)
         if last_logits_only:
-            logits = layers.logits_apply(
-                _head_w(params), _to_head(h[:, -1:], vocab, seq), vocab)
-            if seq is not None:
-                # each rank's last row was gathered: the last is the last
-                # rank's, the sequence's last position
-                logits = logits[:, -1:]
+            if seq is None:
+                logits = layers.logits_apply(_head_w(params), h[:, -1:],
+                                             vocab)
+            else:
+                # position S - 1 is row (S - 1) % c of rank (S - 1) // c:
+                # each rank's row at that offset, gathered untrimmed (n
+                # blocks of one row), and the owner's kept
+                c = rules.seq_block(S, seq.n_model)
+                owner, row = divmod(S - 1, c)
+                tail = seq.with_seq_len(seq.n_model)
+                tail_vocab = tail if vocab is not None else None
+                logits = layers.logits_apply(
+                    _head_w(params),
+                    _to_head(h[:, row:row + 1], tail_vocab, tail),
+                    tail_vocab)[:, owner:owner + 1]
             if vocab is not None:
                 logits = collectives.gather_from_region(logits,
                                                         vocab.model_group)

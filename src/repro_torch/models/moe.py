@@ -261,14 +261,16 @@ def _over_model(p: dict, cfg, x: torch.Tensor, g):
     loss from the router's statistics summed over the data ranks.
 
     Under ``g.seqpar`` x is this rank's block of the sequence: the router
-    reads the tokens gathered over the model axis, computed alike on every
-    model rank (the gather's gradient this rank's block of it), the
-    experts' partial sums, and a split shared expert's, leave by one
-    reduce-scatter over the sequence, and a shared expert computed whole
-    is added by its block."""
+    reads the tokens gathered over the model axis and trimmed to
+    ``g.seq_len`` (never a pad row, so the capacity and the drops are the
+    unsplit layer's), computed alike on every model rank (the gather's
+    gradient this rank's block of it), the experts' partial sums, and a
+    split shared expert's, leave by one reduce-scatter over the sequence,
+    and a shared expert computed whole is added by its block."""
     model = [g.model_group]
     if g.seqpar:
-        x = collectives.gather_from_sequence(x, g.model_group, "block")
+        x = collectives.gather_from_sequence(x, g.model_group, "block",
+                                             g.seq_len)
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     r = route(p["router"], cfg, xt)

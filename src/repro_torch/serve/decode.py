@@ -138,10 +138,14 @@ class ShardedDecoder:
     ``cache_shards``.  Every step runs ``model.decode_step`` eagerly, on
     every device: a CUDA graph cannot capture its gloo collectives, so
     none is made.  ``step`` returns this rank's logits, its slice of the
-    vocabulary where the head is vocab-split."""
+    vocabulary where the head is vocab-split.  A shard whose spec names a
+    mesh axis twice raises ``ValueError`` (``rules.check_spec``): no rank
+    holds such a cache, as ``cache_shards`` refuses to make one."""
 
     def __init__(self, model, params, caches, shards, groups, *,
                  wrap: Optional[StepWrap] = None):
+        for shard in tree.leaves(shards):
+            rules.check_spec(shard.spec)
         self.model, self.params, self.caches = model, params, caches
         self.shards, self.groups, self.wrap = shards, groups, wrap
         self.eager_steps = 0
@@ -238,7 +242,11 @@ def generate(model, params, prompt: torch.Tensor, n_new: int,
     ``prompt`` the whole batch, the same on every rank, of which the rank
     decodes its ``lanes_of``; the caches are its ``init_cache(...,
     mesh=, kv_model=, shard_seq=)`` shards.  Every rank returns the tokens
-    of every lane."""
+    of every lane.  ``shard_seq`` (long context) takes one lane, or a
+    batch the data axes do not divide: else the lanes and the slots would
+    both be split over the data axes, and ``init_cache`` raises
+    ``ValueError`` naming the axis, as JAX refuses the reference's same
+    spec."""
     B, S = prompt.shape
     cap = capacity or (S + n_new)
     if groups is not None:

@@ -33,7 +33,14 @@ takes the block, ``gather_from_sequence`` gathers the blocks and
 rank's block, each with the backward its docstring states.  A split module
 enters and leaves through ``enter_region`` and ``leave_region``: the
 all-reduce of ``copy_to_region`` / ``reduce_from_region`` in each direction
-becomes an all-gather and a reduce-scatter over the sequence.
+becomes an all-gather and a reduce-scatter over the sequence.  A sequence
+of S positions that the n ranks do not divide is padded as GSPMD pads it
+(``sharding.rules.seq_block``): each rank holds c = ceil(S / n) rows, rank
+r positions [r c, min((r + 1) c, S)) and pad rows after them.  The scatter
+and the reduce-scatter pad to n c rows and the gathers trim the n blocks
+back to S (``MeshGroups.seq_len``), so no module between them ever reads a
+pad row; backward, each pads or trims the gradient as the mirror image,
+with zero rows, so a pad row's gradient is exactly zero.
 """
 from __future__ import annotations
 
@@ -44,7 +51,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.work import uncounted
-from repro_torch.sharding.rules import data_axes_of, layout_of, seq_splits
+from repro_torch.sharding.rules import data_axes_of, layout_of, seq_block
+
+# the value of the rows the forward pads a block with: any finite value
+# gives the same results, since the gathers trim them and their gradient is
+# zero (tests/test_torch_seqpar_pad.py fills them large to show it)
+PAD_FILL = 0.0
 
 
 class MeshGroups:
@@ -54,7 +66,10 @@ class MeshGroups:
     ``model_rank`` on the model axis.  ``seqpar``: the forward is also
     sequence-parallel over the model axis (the residual split by sequence
     between the split regions); it holds only where the axis has more than
-    one rank, so at one model rank nothing changes."""
+    one rank, so at one model rank nothing changes.  ``seq_len``: the
+    whole sequence's length, which the gathers over the sequence trim the
+    padded blocks to (``with_seq_len``; None, the blocks' whole
+    concatenation)."""
 
     def __init__(self, mesh, seqpar: bool = False):
         lay = layout_of(mesh)
@@ -72,11 +87,18 @@ class MeshGroups:
             rank = rank * lay.size(a) + mesh.get_local_rank(a)
         self.data_rank = rank
         self.seqpar = bool(seqpar) and self.n_model > 1
+        self.seq_len = None
 
     def with_seqpar(self, seqpar: bool) -> "MeshGroups":
         """These groups with ``seqpar`` set as given (a copy)."""
         out = copy.copy(self)
         out.seqpar = bool(seqpar) and self.n_model > 1
+        return out
+
+    def with_seq_len(self, seq_len) -> "MeshGroups":
+        """These groups with ``seq_len`` set as given (a copy)."""
+        out = copy.copy(self)
+        out.seq_len = seq_len
         return out
 
 
@@ -181,53 +203,79 @@ def gather_from_region(x: torch.Tensor, group) -> torch.Tensor:
 # sequence parallelism: the residual's sequence (dim 1) over the model axis
 # ---------------------------------------------------------------------------
 
-def _block(t: torch.Tensor, group) -> torch.Tensor:
-    """This rank's block of ``t`` along dim 1 over ``group``, contiguous."""
+def _pad_seq(t: torch.Tensor, n: int, fill: float = 0.0) -> torch.Tensor:
+    """``t`` (B, S, ...) with rows of ``fill`` after its S up to n blocks
+    of ``seq_block(S, n)`` rows; ``t`` itself where n divides S."""
+    extra = n * seq_block(t.shape[1], n) - t.shape[1]
+    if not extra:
+        return t
+    return torch.cat([t, t.new_full((t.shape[0], extra) + t.shape[2:],
+                                    fill)], 1)
+
+
+def _block(t: torch.Tensor, group, fill: float = 0.0) -> torch.Tensor:
+    """This rank's block of ``t`` (B, S, ...) along dim 1 over ``group``,
+    ``seq_block(S, n)`` rows, its rows past S of ``fill``; contiguous."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    S = t.shape[1]
+    c = seq_block(S, n)
+    lo, hi = min(r * c, S), min((r + 1) * c, S)
+    mine = t[:, lo:hi]
+    if hi - lo < c:
+        mine = torch.cat([mine, t.new_full(
+            (t.shape[0], c - (hi - lo)) + t.shape[2:], fill)], 1)
+    return mine.contiguous()
+
+
+def _gather_seq(t: torch.Tensor, group, seq_len) -> torch.Tensor:
+    """The ranks' blocks ``t`` concatenated along dim 1, trimmed to
+    ``seq_len`` rows (None: all of them).  Raises where the blocks are not
+    ``seq_block(seq_len, n)`` rows."""
     n = dist.get_world_size(group)
-    seq_splits(t.shape[1], n)
-    size = t.shape[1] // n
-    rank = dist.get_rank(group)
-    return t[:, rank * size:(rank + 1) * size].contiguous()
-
-
-def _gather_seq(t: torch.Tensor, group) -> torch.Tensor:
-    return all_gather(t, group, 1).contiguous()
+    if seq_len is not None and seq_block(seq_len, n) != t.shape[1]:
+        raise ValueError(f"blocks of {t.shape[1]} rows over {n} ranks do "
+                         f"not hold a sequence of {seq_len}")
+    out = all_gather(t, group, 1)
+    if seq_len is not None and seq_len < out.shape[1]:
+        out = out[:, :seq_len]
+    return out.contiguous()
 
 
 class _ScatterToSequence(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
-        return _block(x, group)
+        ctx.group, ctx.seq_len = group, x.shape[1]
+        return _block(x, group, PAD_FILL)
 
     @staticmethod
     def backward(ctx, g):
-        return _gather_seq(g, ctx.group), None
+        return _gather_seq(g, ctx.group, ctx.seq_len), None
 
 
 class _GatherFromSequence(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, grad):
+    def forward(ctx, x, group, grad, seq_len):
         ctx.group, ctx.grad = group, grad
-        return _gather_seq(x, group)
+        return _gather_seq(x, group, seq_len)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.grad == "reduce_scatter":
-            return reduce_scatter(g, ctx.group, 1), None, None
-        return _block(g, ctx.group), None, None
+            g = _pad_seq(g, dist.get_world_size(ctx.group))
+            return reduce_scatter(g, ctx.group, 1), None, None, None
+        return _block(g, ctx.group), None, None, None
 
 
 class _ReduceScatterToSequence(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
-        seq_splits(x.shape[1], dist.get_world_size(group))
-        return reduce_scatter(x, group, 1)
+        ctx.group, ctx.seq_len = group, x.shape[1]
+        return reduce_scatter(_pad_seq(x, dist.get_world_size(group),
+                                       PAD_FILL), group, 1)
 
     @staticmethod
     def backward(ctx, g):
-        return _gather_seq(g, ctx.group), None
+        return _gather_seq(g, ctx.group, ctx.seq_len), None
 
 
 GATHER_GRADS = ("reduce_scatter", "block")
@@ -235,41 +283,46 @@ GATHER_GRADS = ("reduce_scatter", "block")
 
 def scatter_to_sequence(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` (B, S, ...), the same on every rank of ``group``: this rank's
-    block of the sequence, (B, S / n, ...), forward; the ranks' gradients
-    of their blocks gathered along the sequence backward (the whole
-    gradient, on every rank).  Raises where n does not divide S
-    (``sharding.rules.seq_splits``)."""
+    block of the sequence, (B, c, ...) with c = ``seq_block(S, n)`` (its
+    rows past S padding), forward; the ranks' gradients of their blocks
+    gathered along the sequence and trimmed to S backward (the whole
+    gradient, on every rank)."""
     return _ScatterToSequence.apply(x, group)
 
 
 def gather_from_sequence(x: torch.Tensor, group,
-                         grad: str = "reduce_scatter") -> torch.Tensor:
-    """The ranks' blocks ``x`` (B, S / n, ...) of ``group`` concatenated
-    along the sequence in rank order, (B, S, ...), forward.  Backward, by
-    ``grad``: ``"reduce_scatter"``, the ranks' gradients summed and this
-    rank's block taken (a split module: each rank's gradient is its part's
-    partial sum); ``"block"``, this rank's block of its gradient (a module
-    computed whole: the gradient is whole and alike on every rank)."""
+                         grad: str = "reduce_scatter",
+                         seq_len: int = None) -> torch.Tensor:
+    """The ranks' blocks ``x`` (B, c, ...) of ``group`` concatenated along
+    the sequence in rank order and trimmed to ``seq_len`` rows (None: n c),
+    (B, seq_len, ...), forward.  Backward, the gradient padded back to n c
+    rows with zeros, then by ``grad``: ``"reduce_scatter"``, the ranks'
+    gradients summed and this rank's block taken (a split module: each
+    rank's gradient is its part's partial sum); ``"block"``, this rank's
+    block of its gradient (a module computed whole: the gradient is whole
+    and alike on every rank)."""
     if grad not in GATHER_GRADS:
         raise ValueError(f"grad {grad!r}: one of {GATHER_GRADS}")
-    return _GatherFromSequence.apply(x, group, grad)
+    return _GatherFromSequence.apply(x, group, grad, seq_len)
 
 
 def reduce_scatter_to_sequence(x: torch.Tensor, group) -> torch.Tensor:
-    """The ranks' partial results ``x`` (B, S, ...) of ``group`` summed,
-    and this rank's block of the sequence taken, (B, S / n, ...), forward;
-    the ranks' gradients of their blocks gathered along the sequence
-    backward (the sum's whole gradient, on every rank)."""
+    """The ranks' partial results ``x`` (B, S, ...) of ``group`` padded to
+    n blocks of c = ``seq_block(S, n)`` rows, summed, and this rank's block
+    taken, (B, c, ...), forward; the ranks' gradients of their blocks
+    gathered along the sequence and trimmed to S backward (the sum's whole
+    gradient, on every rank)."""
     return _ReduceScatterToSequence.apply(x, group)
 
 
 def enter_region(x: torch.Tensor, groups) -> torch.Tensor:
     """The input of a module split over ``groups``' (``MeshGroups``) model
     axis: ``copy_to_region``, or under ``groups.seqpar`` (``x`` this rank's
-    block of the sequence) ``gather_from_sequence`` with the gradient
-    reduce-scattered."""
+    block of the sequence) ``gather_from_sequence`` to ``groups.seq_len``
+    with the gradient reduce-scattered."""
     if groups.seqpar:
-        return gather_from_sequence(x, groups.model_group, "reduce_scatter")
+        return gather_from_sequence(x, groups.model_group, "reduce_scatter",
+                                    groups.seq_len)
     return copy_to_region(x, [groups.model_group])
 
 

@@ -11,7 +11,8 @@ additionally gets ZeRO-1 sharding of its largest unsharded dim over the
 data axes.  ``compute_use`` says how the forward uses a leaf's model-axis
 split: column- or row-parallel, vocab- or expert-parallel, held whole
 and read in part by each rank, or whole; ``seq_splits`` whether sequence
-parallelism splits a sequence over the axis.
+parallelism splits a sequence over the axis and ``seq_block`` each rank's
+rows of it, padded where the axis does not divide it.
 
 A leaf's spec is a plain tuple with one entry per tensor dim, of the form
 of JAX's ``PartitionSpec``: ``None`` (replicated), an axis name, or a tuple
@@ -233,13 +234,25 @@ def mamba_splits(cfg, model_size: int) -> bool:
 def seq_splits(seq_len: int, model_size: int) -> bool:
     """Whether sequence parallelism splits a sequence of ``seq_len``
     positions (a vision prefix included) over a model axis of
-    ``model_size``: each rank holds ``seq_len // model_size`` of them.
-    Raises ``ValueError`` where the axis does not divide the sequence;
-    such a sequence never runs unsplit instead (GSPMD would pad it)."""
-    if seq_len % model_size:
-        raise ValueError(f"a sequence of {seq_len} positions does not "
-                         f"divide over a model axis of {model_size}")
+    ``model_size``: at more than one rank it always does, padded as GSPMD
+    pads a dim the axis does not divide (``seq_block``, ``seq_rows``)."""
     return model_size > 1
+
+
+def seq_block(seq_len: int, model_size: int) -> int:
+    """The rows of the residual each of ``model_size`` model ranks holds
+    under sequence parallelism, ceil(seq_len / model_size): GSPMD's
+    layout of a dim the axis does not divide, rank r holding positions
+    [r c, min((r + 1) c, seq_len)) and zero rows after them."""
+    return -(-seq_len // model_size)
+
+
+def seq_rows(seq_len: int, model_size: int, rank: int) -> int:
+    """The real (not padding) rows of model rank ``rank``'s block of
+    ``seq_block`` rows: 0 for a rank past the sequence's end (3 positions
+    at 4 ranks: rank 3)."""
+    c = seq_block(seq_len, model_size)
+    return max(0, min(c, seq_len - rank * c))
 
 
 # the norms on the residual stream: each block's, zamba2's shared block's,
@@ -433,9 +446,11 @@ def cache_specs(cache_shape: Any, data_axes: Tuple[str, ...],
 class CacheShard:
     """One decode-cache leaf as a rank holds it: its local ``shape`` and
     the mesh axes its capacity (slot) dim is split over, ``()`` where every
-    rank holds all of its slots."""
+    rank holds all of its slots; ``spec``, the leaf's ``cache_specs``
+    entry, names no axis twice (``check_spec``)."""
     shape: Tuple[int, ...]
     capacity_axes: Tuple[str, ...] = ()
+    spec: Spec = ()
 
 
 # the capacity dim of each kind of cache leaf, from the end
@@ -457,7 +472,13 @@ def cache_shards(cache_shape: Any, cfg, layout, *, kv_model: bool = False,
     x channels and all of B and C; an unsplit Mamba2 holds them whole.  A
     leaf whose spec leaves a dim whole over ``model`` (KV heads that do
     not divide the axis, without ``kv_model``; MLA's latent cache without
-    it) is held whole on every model rank."""
+    it) is held whole on every model rank.
+
+    A spec that names an axis on two dims raises ``ValueError``
+    (``check_spec``), as JAX's ``NamedSharding`` raises
+    ``DuplicateSpecError`` for the reference's same spec: ``shard_seq``
+    with more than one lane, which the data axes divide, puts them on the
+    lanes and on the slots of a k/v or latent cache."""
     lay = layout_of(layout)
     data_axes, data_size = data_axes_of(lay)
     model_size = lay.size("model")
@@ -471,6 +492,7 @@ def cache_shards(cache_shape: Any, cfg, layout, *, kv_model: bool = False,
         return n
 
     def one(names, leaf, spec):
+        check_spec(spec)
         shape = [d if p is None else d // size(p)
                  for d, p in zip(leaf.shape, spec)]
         last = names[-1] if names else ""
@@ -484,7 +506,7 @@ def cache_shards(cache_shape: Any, cfg, layout, *, kv_model: bool = False,
             part = spec[len(spec) + _CAPACITY_DIM[last]]
             if part is not None:
                 axes = part if isinstance(part, tuple) else (part,)
-        return CacheShard(tuple(shape), axes)
+        return CacheShard(tuple(shape), axes, spec)
     return tree.unflatten(cache_shape, [
         one(path_names(k), leaf, spec) for (k, leaf), spec in zip(
             tree.leaves_with_path(cache_shape),
@@ -523,19 +545,33 @@ def train_state_specs(state_shape, mesh, *, fsdp: bool = False) -> Any:
     return type(state_shape)(params=pspecs, opt=opt, step=())
 
 
+def check_spec(spec: Spec) -> None:
+    """Raises ``ValueError`` where ``spec`` names a mesh axis on more than
+    one dim (a dim split over several axes counts each), naming the axis,
+    the dims and the spec: no layout holds such a leaf, and JAX refuses it
+    with ``DuplicateSpecError``."""
+    dims: dict = {}
+    for d, part in enumerate(spec):
+        for axis in (part if isinstance(part, tuple) else (part,)):
+            if axis is not None:
+                dims.setdefault(axis, []).append(d)
+    for axis, ds in dims.items():
+        if len(ds) > 1:
+            raise ValueError(f"axis {axis!r} shards dims {ds} of {spec}")
+
+
 def to_placements(spec: Spec, mesh) -> list:
     """DTensor placements of ``spec`` over ``mesh``'s dims, in mesh order:
     ``Shard(d)`` on each mesh dim that tensor dim ``d`` is split over,
     ``Replicate()`` elsewhere.  A dim split over several axes, such as
     ``("pod", "data")``, is sharded on each of them in mesh order, the
-    first outermost, as JAX splits it."""
+    first outermost, as JAX splits it.  A spec that names an axis twice
+    raises (``check_spec``)."""
     from torch.distributed.tensor import Replicate, Shard
+    check_spec(spec)
     out = []
     for axis in layout_of(mesh).axis_names:
         dims = [d for d, part in enumerate(spec)
                 if part == axis or (isinstance(part, tuple) and axis in part)]
-        if len(dims) > 1:
-            raise ValueError(f"axis {axis!r} shards dims {dims} of {spec}")
         out.append(Shard(dims[0]) if dims else Replicate())
     return out
-

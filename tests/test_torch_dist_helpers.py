@@ -3,7 +3,9 @@
 ``tests/test_torch_dryrun.py``, ``tests/test_torch_tensor_parallel.py``,
 ``tests/test_torch_tp_ssm_mla_moe.py``, ``tests/test_torch_tp_decode.py``,
 ``tests/test_torch_seqpar.py``, ``tests/test_torch_seqpar_ssm_mla_moe.py``,
-``tests/test_torch_tp_uneven_heads.py``).
+``tests/test_torch_tp_uneven_heads.py``, ``tests/test_torch_seqpar_pad.py``,
+``tests/test_torch_remat_fsdp_tp.py``,
+``tests/test_torch_shard_seq_refusal.py``).
 Holds no tests of its own and imports no JAX: ``launch.sharded.spawn``
 starts each rank in a new process, which imports this module by name.
 
@@ -58,11 +60,18 @@ def host_mesh(sizes):
 def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
     """Each case's steps through ``make_sharded_train_step`` on the mesh of
     ``sizes`` ((data, model) or (pod, data, model)), sequence-parallel
-    where the job says ``seqpar``; rank 0 saves every step's metrics and
-    the gathered parameters as ``{case}_{mesh}.out``.  A job's
-    ``mutate``: True, ``unsum_partial_grads``; "norms",
-    ``unsum_norm_grads``; "floor_blocks", ``floor_kv_blocks`` (around the
-    steps, since it acts in the forward)."""
+    where the job says ``seqpar``, with ``remat`` where it says so; rank 0
+    saves every step's metrics and the gathered parameters as
+    ``{case}_{mesh}.out``, with the MoE assignments dropped at capacity
+    over every rank (``count_drops``) where the job says ``count_drops``.
+    A job's ``mutate``: True, ``unsum_partial_grads``; "norms",
+    ``unsum_norm_grads``; "floor_blocks", ``floor_kv_blocks``;
+    "router_pad", ``router_reads_padding`` (the last two around the
+    steps, since they act in the forward).  A job's ``pad_fill``: the
+    value of the seqpar blocks' pad rows forward (``collectives.
+    PAD_FILL``)."""
+    import torch.distributed as dist
+    from repro_torch.sharding import collectives
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamW, cosine_with_warmup
     from repro_torch.train.sharded import (full_train_state,
@@ -88,15 +97,23 @@ def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
         try:
             step = make_sharded_train_step(model, opt, job["n_micro"], mesh,
                                            fsdp=job["fsdp"],
-                                           seqpar=job.get("seqpar", False))
+                                           seqpar=job.get("seqpar", False),
+                                           remat=job.get("remat", False))
         finally:
             if undo is not None:
                 undo()
-        undo = floor_kv_blocks(sizes[-1], rank % sizes[-1]) \
-            if mutate == "floor_blocks" else None
+        undos = [floor_kv_blocks(sizes[-1], rank % sizes[-1])] \
+            if mutate == "floor_blocks" else [router_reads_padding()] \
+            if mutate == "router_pad" else []
+        drops = []
+        if job.get("count_drops"):
+            undos.append(count_drops(drops))
+        fill = collectives.PAD_FILL
+        collectives.PAD_FILL = job.get("pad_fill", fill)
         out = []
         try:
             for batch in job["batches"]:
+                drops.clear()
                 state, metrics = step(state, batch)
                 full = full_train_state(state)
                 out.append({"metrics": {k: v.clone() for k, v in
@@ -104,11 +121,46 @@ def sharded_steps(rank, world, store_path, sizes, job_dir, cases):
                             "params": dict(tree.leaves_with_path(
                                 full.params)),
                             "step": int(state.step)})
+                if job.get("count_drops"):
+                    n = torch.tensor(sum(drops))
+                    dist.all_reduce(n)
+                    out[-1]["drops"] = int(n)
         finally:
-            if undo is not None:
+            collectives.PAD_FILL = fill
+            for undo in undos:
                 undo()
         if rank == 0:
             torch.save(out, job_dir / f"{case}_{mesh_name(*sizes)}.out")
+
+
+def count_drops(drops):
+    """Wraps ``moe.route`` to append, for each routing, the assignments
+    to the experts held here that the capacity dropped to ``drops``;
+    returns the function that undoes it."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def counted(router, cfg, xt):
+        r = route(router, cfg, xt)
+        drops.append(int((r.held & ~r.keep).sum()))
+        return r
+    moe.route = counted
+    return lambda: setattr(moe, "route", route)
+
+
+def router_reads_padding():
+    """The mutation of the padded sequence parallelism that its tests must
+    catch: every gather over the sequence whose gradient is the block (a
+    module computed whole, and the MoE router's tokens) keeps the pad
+    rows, so the router routes them.  Returns the function that undoes
+    it."""
+    from repro_torch.sharding import collectives
+    gather = collectives.gather_from_sequence
+
+    def mutated(x, group, grad="reduce_scatter", seq_len=None):
+        return gather(x, group, grad, None if grad == "block" else seq_len)
+    collectives.gather_from_sequence = mutated
+    return lambda: setattr(collectives, "gather_from_sequence", gather)
 
 
 def moe_ep(rank, world, store_path, model_size, job_dir):
@@ -550,9 +602,9 @@ def seqpar_forwards(rank, world, store_path, job_dir, cases):
     """Each case's forward on a (1, world) mesh, sequence-parallel, from
     this rank's compute shards of the job's whole parameters: the logits
     (and MTP logits) gathered over the vocabulary where it is split, and
-    ``last_logits_only``'s; and whether a sequence one position longer,
-    which the axis does not divide, raises ``ValueError``.  Rank 0 saves
-    each as ``prefill_{case}_{world}.out``."""
+    ``last_logits_only``'s; and the same of a sequence one position
+    longer, which the axis does not divide (its blocks padded), under
+    "longer/".  Rank 0 saves each as ``prefill_{case}_{world}.out``."""
     from repro_torch.models.model import build_model
     from repro_torch.sharding import collectives, rules
     from repro_torch.train.sharded import compute_params
@@ -565,26 +617,85 @@ def seqpar_forwards(rank, world, store_path, job_dir, cases):
         model = build_model(cfg, "cpu")
         params = compute_params(job["params"], cfg, g)
         vocab = rules.vocab_splits(cfg, g.n_model)
-        with torch.no_grad():
-            logits, extras = model.forward(params, job["batch"], groups=g)
-            last, _ = model.forward(params, job["batch"], groups=g,
-                                    last_logits_only=True)
-        res = {"last": last, "aux": extras["aux"]}
-        for k, v in (("logits", logits),
-                     ("mtp_logits", extras.get("mtp_logits"))):
-            if v is not None:
-                res[k] = collectives.all_gather(v, g.model_group, -1) \
-                    if vocab else v
-        longer = {k: torch.cat([v, v[:, -1:]], 1) if k != "prefix_embeds"
-                  else v for k, v in job["batch"].items()}
-        try:
+        res = {}
+        for prefix, batch in (("", job["batch"]),
+                              ("longer/", longer_batch(job["batch"]))):
             with torch.no_grad():
-                model.forward(params, longer, groups=g)
-            res["indivisible"] = None
-        except ValueError as e:
-            res["indivisible"] = str(e)
+                logits, extras = model.forward(params, batch, groups=g)
+                last, _ = model.forward(params, batch, groups=g,
+                                        last_logits_only=True)
+            res.update({prefix + "last": last, prefix + "aux": extras["aux"]})
+            for k, v in (("logits", logits),
+                         ("mtp_logits", extras.get("mtp_logits"))):
+                if v is not None:
+                    res[prefix + k] = collectives.all_gather(
+                        v, g.model_group, -1) if vocab else v
         if rank == 0:
             torch.save(res, job_dir / f"prefill_{case}_{world}.out")
+
+
+def seqpar_variants(rank, world, store_path, job_dir, seq):
+    """A bf16 sequence-parallel forward and backward of reduced gemma-2b
+    (64-wide heads) on a (1, world) mesh at ``seq`` tokens, 2 rows, from
+    this rank's compute shards: records the ``variant`` each kernel-1,
+    1-bwd and 2-bwd call's inputs select, the sequence length kernel 1
+    sees and the (rows, positions) 2-bwd sees; rank 0 saves them as
+    ``variants.out``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm_bwd as rb
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import collectives
+    from repro_torch.train.sharded import compute_params
+    init_rank(rank, world, store_path, "cpu")
+    g = collectives.MeshGroups(make_host_mesh(world), seqpar=True)
+    cfg = reduced("gemma-2b")
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16",
+                              attn=dataclasses.replace(cfg.attn,
+                                                       head_dim=64))
+    model = build_model(cfg, "cpu")
+    params = tree.tree_map(
+        lambda t: t.detach().clone().requires_grad_(t.is_floating_point()),
+        compute_params(model.init(0), cfg, g))
+    seen = {k: [] for k in ("flash_attention", "flash_attention_bwd",
+                            "rmsnorm_bwd", "attention_seq", "rmsnorm_rows")}
+    fwd, bwd, norm_bwd = (ops.flash_attention_fwd, ops.flash_attention_bwd,
+                          ops.rmsnorm_bwd)
+
+    def rec_fwd(q, k, v, **kw):
+        seen["flash_attention"].append(fa.variant(q, k, v))
+        seen["attention_seq"].append(q.shape[1])
+        return fwd(q, k, v, **kw)
+
+    def rec_bwd(q, k, v, o, lse, do, **kw):
+        seen["flash_attention_bwd"].append(fb.variant(q, k, v, o, do))
+        return bwd(q, k, v, o, lse, do, **kw)
+
+    def rec_norm_bwd(x, scale, gr, **kw):
+        seen["rmsnorm_bwd"].append(rb.variant(x, gr, scale))
+        seen["rmsnorm_rows"].append(tuple(x.shape[:2]))
+        return norm_bwd(x, scale, gr, **kw)
+    ops.flash_attention_fwd, ops.flash_attention_bwd, ops.rmsnorm_bwd = \
+        rec_fwd, rec_bwd, rec_norm_bwd
+    try:
+        tokens = torch.randint(0, cfg.vocab, (2, seq),
+                               generator=torch.Generator().manual_seed(1),
+                               dtype=torch.int32)
+        loss, _ = model.loss(params, {"tokens": tokens}, groups=g)
+        loss.backward()
+    finally:
+        ops.flash_attention_fwd, ops.flash_attention_bwd, \
+            ops.rmsnorm_bwd = fwd, bwd, norm_bwd
+    if rank == 0:
+        torch.save(seen, Path(job_dir) / "variants.out")
+
+
+def longer_batch(batch):
+    """``batch`` one position longer: its last token (or frame, label and
+    mask entry) repeated; a vision prefix as it is."""
+    return {k: torch.cat([v, v[:, -1:]], 1) if k != "prefix_embeds" else v
+            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -716,3 +827,67 @@ def tp_decode(rank, world, store_path, sizes, job_dir, cases):
         got = collectives.argmax_over_vocab(logits, g)
         if rank == 0:
             torch.save(got, job_dir / "ties.out")
+
+
+def shard_seq_refusal(rank, world, store_path, sizes, job_dir, cases):
+    """Each case's ``shard_seq`` decode on the mesh of ``sizes`` (data,
+    model): ``generate`` of its two lanes and ``launch.sharded.
+    serve_compare`` with two lanes, whose ``ValueError`` messages are
+    kept (None where nothing raised), and ``generate`` of its first lane
+    alone, whose tokens are kept; rank 0 saves them as
+    ``refusal_{case}_{mesh}.out``."""
+    from repro_torch.launch.sharded import serve_compare
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.decode import generate
+    from repro_torch.sharding import collectives
+    from repro_torch.train.sharded import compute_params
+    init_rank(rank, world, store_path, "cpu")
+    mesh = host_mesh(sizes)
+    g = collectives.MeshGroups(mesh)
+    for case in cases:
+        job = torch.load(Path(job_dir) / f"refusal_{case}.in")
+        cfg = tp_decode_cfg(job)
+        model = build_model(cfg, "cpu")
+        params = compute_params(job["params"], cfg, g)
+        prompt = job["prompt"]
+
+        def message(fn):
+            try:
+                fn()
+            except ValueError as e:
+                return str(e)
+            return None
+        out = {"generate": message(lambda: generate(
+                   model, params, prompt, job["n_new"], job["capacity"],
+                   groups=g, shard_seq=True)),
+               "serve_compare": message(lambda: serve_compare(
+                   cfg, mesh, prompt_len=prompt.shape[1],
+                   n_new=job["n_new"], batch=prompt.shape[0],
+                   shard_seq=True))}
+        out["one_lane"] = generate(model, params, prompt[:1], job["n_new"],
+                                   job["capacity"], groups=g,
+                                   shard_seq=True)
+        if rank == 0:
+            torch.save(out, Path(job_dir)
+                       / f"refusal_{case}_{mesh_name(*sizes)}.out")
+
+
+def serve_compare_ranks(rank, world, store_path, job_dir, arch):
+    """``launch.sharded.serve_compare`` of reduced ``arch`` on a (1, world)
+    mesh, with the whole run of every rank but 0 handing back other
+    tokens than it fed itself (each token one higher): the divergence two
+    processes' whole runs can show at a near tie.  Every rank saves its
+    records as ``serve_{rank}.out``."""
+    from repro_torch.launch import sharded
+    init_rank(rank, world, store_path, "cpu")
+    generate = sharded.generate
+    cfg = reduced(arch)
+    if rank:
+        sharded.generate = lambda *a, **kw: (generate(*a, **kw) + 1) \
+            % cfg.vocab
+    try:
+        recs = sharded.serve_compare(cfg, make_host_mesh(world),
+                                     prompt_len=6, n_new=6, batch=2)
+    finally:
+        sharded.generate = generate
+    torch.save(recs, Path(job_dir) / f"serve_{rank}.out")

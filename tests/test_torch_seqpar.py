@@ -25,8 +25,10 @@ regions is each model rank's block of the sequence.
   functions here.
 * (d) The forward with ``last_logits_only`` (the dry-run's prefill), and
   the whole logits: ``tests/test_torch_seqpar_prefill.py``.
-* (e) A sequence the model axis does not divide raises (``seq_splits``;
-  the forward's raise in ``tests/test_torch_seqpar_prefill.py``).
+* (e) A sequence the model axis does not divide is padded as GSPMD pads
+  it (``seq_block``, ``seq_rows``; the forward in
+  ``tests/test_torch_seqpar_prefill.py``, the steps in
+  ``tests/test_torch_seqpar_pad.py``).
 * (f) The dry-run: seqpar train and prefill pairs trace and count what the
   real step counts as rank 0 of a fake group at (1, 4); the train pair's
   peak is below the non-seqpar pair's; a decode pair counts what it counts
@@ -430,9 +432,16 @@ def test_compute_use_marks_the_residual_norms_partial(arch):
 
 @pytest.mark.parametrize("seq_len,model", [(30, 4), (17, 2), (4353, 16)])
 def test_seq_splits_raises_with_both_sizes(seq_len, model):
-    with pytest.raises(ValueError) as e:
-        rules.seq_splits(seq_len, model)
-    assert str(seq_len) in str(e.value) and str(model) in str(e.value)
+    """A sequence the axis does not divide no longer raises: it splits,
+    each rank holding ceil(S / n) rows (GSPMD's padded layout), the first
+    ranks all real rows and the last the rest, every position held
+    once."""
+    assert rules.seq_splits(seq_len, model)
+    c = rules.seq_block(seq_len, model)
+    assert c == math.ceil(seq_len / model) and model * c > seq_len
+    rows = [rules.seq_rows(seq_len, model, r) for r in range(model)]
+    assert sum(rows) == seq_len and rows[0] == c and rows[-1] < c
+    assert rows == sorted(rows, reverse=True)
 
 
 def test_seq_splits_of_every_shape_and_the_vision_prefix():

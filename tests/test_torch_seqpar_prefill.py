@@ -7,8 +7,10 @@ the last model rank) against the port's whole forward and the reference's,
 for reduced gemma-2b (a tied vocab-parallel head), internvl2-2b with a
 vocabulary of 1021 (the vision prefix; a head computed whole),
 hubert-xlarge (frames), deepseek-v3-671b (MLA, MoE, the MTP block),
-mamba2-780m and zamba2-1.2b; and a sequence one position longer, which the
-model axis does not divide, raises ``ValueError`` with both sizes.
+mamba2-780m and zamba2-1.2b; and the same of a sequence one position
+longer, which the model axis does not divide: each rank holds ceil(S / n)
+rows, the last rank's padded (``sharding.rules.seq_block``), and the
+forward matches the whole one and the reference's all the same.
 
 Tolerances (tests/test_torch_helpers.py): logits and the aux loss at
 F32_ATOL / F32_RTOL.
@@ -24,7 +26,9 @@ from repro.models.model import build_model as jbuild  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.launch.sharded import spawn  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from test_torch_dist_helpers import job_cfg, seqpar_forwards  # noqa: E402
+from repro_torch.sharding import rules  # noqa: E402
+from test_torch_dist_helpers import (job_cfg, longer_batch,  # noqa: E402
+                                     seqpar_forwards)
 from test_torch_helpers import (F32_ATOL, F32_RTOL,  # noqa: E402
                                 assert_close, to_torch_tree)
 from test_torch_seqpar import (SPAWN_TIMEOUT, TPS, jcfg_of,  # noqa: E402
@@ -62,19 +66,25 @@ def prefill(tmp_path_factory):
         tbatch = {k: bridge.to_tensor(np.asarray(v)) for k, v in batch.items()}
         torch.save({**job, "params": params, "batch": tbatch},
                    job_dir / f"prefill_{case}.in")
-        jlogits, jextras = jmodel.forward(jparams, batch)
-        jlast, _ = jmodel.forward(jparams, batch, last_logits_only=True)
-        ref[case] = {"logits": np.asarray(jlogits), "last": np.asarray(jlast),
-                     "aux": np.asarray(jextras["aux"])}
-        if "mtp_logits" in jextras:
-            ref[case]["mtp_logits"] = np.asarray(jextras["mtp_logits"])
         model = build_model(job_cfg(job), "cpu")
-        with torch.no_grad():
-            logits, extras = model.forward(params, tbatch)
-        whole[case] = {"logits": logits, "last": logits[:, -1:],
-                       "aux": extras["aux"]}
-        if "mtp_logits" in extras:
-            whole[case]["mtp_logits"] = extras["mtp_logits"]
+        ref[case], whole[case] = {}, {}
+        for prefix, tb in (("", tbatch), ("longer/", longer_batch(tbatch))):
+            jb = {k: v.numpy() for k, v in tb.items()}
+            jlogits, jextras = jmodel.forward(jparams, jb)
+            jlast, _ = jmodel.forward(jparams, jb, last_logits_only=True)
+            ref[case].update({prefix + "logits": np.asarray(jlogits),
+                              prefix + "last": np.asarray(jlast),
+                              prefix + "aux": np.asarray(jextras["aux"])})
+            if "mtp_logits" in jextras:
+                ref[case][prefix + "mtp_logits"] = \
+                    np.asarray(jextras["mtp_logits"])
+            with torch.no_grad():
+                logits, extras = model.forward(params, tb)
+            whole[case].update({prefix + "logits": logits,
+                                prefix + "last": logits[:, -1:],
+                                prefix + "aux": extras["aux"]})
+            if "mtp_logits" in extras:
+                whole[case][prefix + "mtp_logits"] = extras["mtp_logits"]
     ranks = {}
     for tp in TPS:
         spawn(seqpar_forwards, tp, str(job_dir), list(PREFILL_CASES),
@@ -84,20 +94,36 @@ def prefill(tmp_path_factory):
     return {"ranks": ranks, "whole": whole, "ref": ref}
 
 
-@pytest.mark.parametrize("case", list(PREFILL_CASES))
-@pytest.mark.parametrize("tp", TPS)
-def test_seqpar_forward_matches_whole_and_reference(prefill, tp, case):
+def _forward_matches(prefill, tp, case, prefix):
     got = prefill["ranks"][tp][case]
     for want in (prefill["whole"][case], prefill["ref"][case]):
-        for k in want:
+        keys = [k for k in want if k.startswith(prefix)
+                and "/" not in k[len(prefix):]]
+        assert keys
+        for k in keys:
             assert_close(got[k], want[k], F32_ATOL, F32_RTOL)
-    assert tuple(got["last"].shape) == \
+    assert tuple(got[prefix + "last"].shape) == \
         (PREFILL_BATCH, 1, job_cfg(step_job(PREFILL_CASES[case])).vocab)
 
 
 @pytest.mark.parametrize("case", list(PREFILL_CASES))
 @pytest.mark.parametrize("tp", TPS)
+def test_seqpar_forward_matches_whole_and_reference(prefill, tp, case):
+    _forward_matches(prefill, tp, case, "")
+
+
+@pytest.mark.parametrize("case", list(PREFILL_CASES))
+@pytest.mark.parametrize("tp", TPS)
 def test_indivisible_sequence_raises_in_the_forward(prefill, tp, case):
-    msg = prefill["ranks"][tp][case]["indivisible"]
-    assert msg is not None and "does not divide" in msg
-    assert f"model axis of {tp}" in msg
+    """A sequence one position longer, which the axis does not divide, no
+    longer raises: its blocks are padded as GSPMD pads them, the last
+    position lies on rank (S - 1) // c, and the whole logits,
+    ``last_logits_only``'s and the aux loss match the whole forward's and
+    the reference's."""
+    cfg = job_cfg(step_job(PREFILL_CASES[case]))
+    S = PREFILL_SEQ + 1 + (cfg.n_prefix_embeds
+                           if cfg.modality == "vision_stub" else 0)
+    c = rules.seq_block(S, tp)
+    assert S % tp and tp * c > S
+    assert rules.seq_rows(S, tp, tp - 1) == S - (tp - 1) * c
+    _forward_matches(prefill, tp, case, "longer/")
