@@ -74,6 +74,20 @@ Phases, each printing one JSON line:
                     split-TF32 tensor-core bound, each pass's ptxas line
                     (no performance note) and its HGMMA count in the
                     built SASS
+  kernel:ssd_scan_bwd
+                    the SSD scan's backward kernel (6-bwd, the analytic
+                    VJP of the scan) against ref.ssd_scan_bwd on the card:
+                    the kernel:ssd_scan cases with and without the final
+                    state's cotangent, the large-dt chunk (finite) and the
+                    five training shapes of SSD_SHAPES, the reference's
+                    four cases within atol = rtol = 1e-4 elementwise, the
+                    wider ones each gradient within 1e-4 of its largest
+                    |value| (SSD_BWD_TOL), two calls bitwise equal, with
+                    times (per call, in a CUDA graph, each pass's device
+                    time at mamba2-780m's shape) beside the plain
+                    backward's and the bound of ``kernels.work.
+                    ssd_bwd_work`` at the f32 peak, in split TF32, and in
+                    split TF32 without the forward's recomputed products
   kernel:rmsnorm    the RMSNorm kernel against its plain version on the card
                     (atol 2e-2 bf16, 1e-5 f32): the reference's test cases,
                     every decode and training shape of the port's models
@@ -180,11 +194,15 @@ Phases, each printing one JSON line:
                     attention of each backward pass (every one of them
                     "wgmma" in a bf16 phase), kernel 2 once per RMSNorm of
                     a forward and its backward kernel once per RMSNorm of
-                    each backward pass (every one of them "bulk")
+                    each backward pass (every one of them "bulk"), kernel
+                    6 once per Mamba2 layer of a forward and 6-bwd once
+                    per Mamba2 layer of each backward pass; no plain SSD
+                    version runs on the card (``PlainSsdCounter``, in
+                    train_tp too)
   train_ssm         the same on mamba2-780m at full width (depth cut 48 ->
                     16 for the script's time: its two restores of the
                     state take most of the phase): every layer through
-                    the SSD scan kernel
+                    the SSD scan kernel and its backward kernel
   train_hybrid      zamba2-1.2b at full width (depth cut 38 -> 12, two
                     applications of the shared attention block): two fused
                     steps through both kernels
@@ -322,9 +340,9 @@ Phases, each printing one JSON line:
                     where the batcher's greedy tokens must equal
                     generate()'s
   profile           device time by kernel over one traced steady step of
-                    the train and train_moe phases' configurations,
-                    mamba2-780m at 12 of 48 layers and hubert-xlarge at 12
-                    of 48 (cut for the script's time), and the idle share
+                    the train phase's configuration, mamba2-780m at 4 of 48
+                    layers and zamba2-1.2b at 6 of 38 (cut for the
+                    script's time), and the idle share
 
 Then a line with the card's name and power limit, a line with every
 kernel's numbers, and the result line.  Any failure exits non-zero before
@@ -339,7 +357,8 @@ Phases ``probe_attn`` and ``probe_rms_bwd`` time configurations of kernel
 1's "wgmma" forward and of 2-bwd's "bulk" variant (stages, stage bytes,
 cluster size, blocks an SM, the column sums' split), each built from an
 edited copy of the source, in turns with the shipped build
-(``kernel_rms_bwd`` runs the kernel phase's 2-bwd part alone).
+(``kernel_rms_bwd`` runs the kernel phase's 2-bwd part alone,
+``kernel_ssd_bwd`` its 6-bwd part).
 """
 from __future__ import annotations
 
@@ -958,6 +977,7 @@ def phase_kernel(ctx) -> None:
                        ("flash_attention_bwd", phase_kernel_flash_bwd),
                        ("maxplus", phase_kernel_maxplus),
                        ("ssd_scan", phase_kernel_ssd),
+                       ("ssd_scan_bwd", phase_kernel_ssd_bwd),
                        ("rmsnorm", phase_kernel_rmsnorm),
                        ("rmsnorm_bwd", phase_kernel_rmsnorm_bwd)):
         t0 = time.perf_counter()
@@ -1686,11 +1706,11 @@ def ssd_bound(case):
     return _bound(ssd_work(case), "float32")
 
 
-def ssd_bound_tc(case):
-    """Least time for the kernel's own work: three TF32 tensor-core
-    products (split TF32) for every f32 multiply-add, against the same
-    bytes."""
-    ops, nbytes = ssd_work(case)
+def split_tf32_bound(work):
+    """Least time for ``work`` = (operations, bytes) computed to f32
+    accuracy on the tensor cores: three TF32 products (split TF32) for
+    every f32 multiply-add, against the same bytes."""
+    ops, nbytes = work
     return max(3 * ops / PEAK_OPS_PER_S["tfloat32"],
                nbytes / HBM_BYTES_PER_S) * 1e3
 
@@ -1699,29 +1719,28 @@ SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_carry_kernel",
               "ssd_y_kernel")
 
 
-def ssd_pass_ms(args, chunk, calls: int = 5) -> dict:
-    """Device time per call of each pass of the scan, from one
-    torch.profiler trace of a few calls (after a warm call; a trace of one
-    call has dropped its first kernel on this card)."""
-    import re
+def pass_device_ms(name, call, passes, calls: int = 5) -> dict:
+    """Device time per call of each of ``passes`` (kernel names) that
+    ``call()`` launches, from one torch.profiler trace of a few calls
+    after a warm one (a trace of one call has dropped its first kernel on
+    this card); every pass must show."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-    ssd_scan_cuda(*args, chunk=chunk)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            ssd_scan_cuda(*args, chunk=chunk)
+            call()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        m = re.search(r"(ssd_[a-z]+_kernel)", e.key)
+        m = next((p for p in passes if p in e.key), None)
         if e.device_type == DeviceType.CUDA and m:
-            out[m.group(1)] = e.self_device_time_total / 1e3 / calls
-    if sorted(out) != sorted(SSD_PASSES):
-        raise AssertionError(f"ssd_scan: the trace shows passes {out}")
+            out[m] = e.self_device_time_total / 1e3 / calls
+    if sorted(out) != sorted(passes):
+        raise AssertionError(f"{name}: the trace shows passes {out}")
     return out
 
 
@@ -1802,9 +1821,10 @@ def phase_kernel_ssd(ctx) -> None:
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": None,
                "graph_ms": graph_ms(kernel),
-               "bound_tc_ms": ssd_bound_tc(case)}
+               "bound_tc_ms": split_tf32_bound(ssd_work(case))}
         if label == "mamba2-780m":
-            rec["pass_device_ms"] = ssd_pass_ms(args, chunk)
+            rec["pass_device_ms"] = pass_device_ms("ssd_scan", kernel,
+                                                    SSD_PASSES)
         emit({"phase": "kernel:ssd_scan", "shape": f"{label} B={case[0]} "
               f"S={case[1]} H={case[2]} P={case[3]} G={case[4]} "
               f"N={case[5]} chunk={case[6]}", **rec,
@@ -1848,6 +1868,149 @@ def phase_kernel_ssd(ctx) -> None:
     emit({"phase": "kernel:ssd_scan", "cases": len(cases) + 3,
           "tol": SSD_TOL, "large_dt_chunk_sum_max": sums.max().item(),
           "max_abs_err_all_cases": worst})
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's backward, 6-bwd (every Mamba2 layer of a training pass)
+# ---------------------------------------------------------------------------
+
+# 6-bwd at mamba2's widths (SSD_CASES past the reference's four, and
+# SSD_SHAPES): each gradient's largest |error| against the plain backward
+# over its own largest |value|.  The two sum in other orders (the plain
+# version's einsums against the kernel's 16-deep slices), each term of a
+# gradient's scale, which reaches 1e3 for ddt: an element near zero then
+# differs by more than SSD_TOL of itself (3.1e-4 at a scale of 1.7e3, a
+# relative 1.8e-7, on an H100), so each gradient is held to
+# SSD_TOL of its scale.  The reference's four cases and the large-dt case
+# keep atol = rtol = SSD_TOL elementwise.
+SSD_BWD_TOL = {"dx": SSD_TOL, "ddt": SSD_TOL, "dA": SSD_TOL, "dBm": SSD_TOL,
+               "dCm": SSD_TOL}
+SSD_BWD_NAMES = tuple(SSD_BWD_TOL)
+SSD_BWD_PASSES = ("bwd_acum_kernel", "bwd_cb_kernel", "bwd_state_kernel",
+                  "bwd_carry_kernel", "bwd_dcb_kernel", "bwd_dcbsum_kernel",
+                  "bwd_dx_kernel", "bwd_dbc_kernel", "bwd_dbcsum_kernel",
+                  "bwd_dt_kernel")
+
+
+def ssd_cotangents(case, with_gfin: bool, seed: int):
+    """gy (B,S,H,P) and gfin (B,H,P,N) or None, standard normal drawn on
+    the card."""
+    import torch
+    B, S, H, P, G, N = case[:6]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gy = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    gfin = torch.randn((B, H, P, N), generator=gen, device="cuda") \
+        if with_gfin else None
+    return gy, gfin
+
+
+def _ssd_bwd_err(label, got, want, scaled: bool) -> dict:
+    """Each gradient's largest |difference| from the plain backward's:
+    within atol = rtol = SSD_TOL elementwise, or with ``scaled`` within
+    SSD_BWD_TOL of the gradient's largest |value|; finite, float32, of the
+    input's shape.  Returns {name: (max abs err, max abs err / largest
+    |value|)}."""
+    import torch
+    out = {}
+    for name, a, b in zip(SSD_BWD_NAMES, got, want):
+        if a.dtype != torch.float32 or a.shape != b.shape \
+                or not torch.isfinite(a).all():
+            raise AssertionError(f"ssd_scan_bwd {label} {name}: got "
+                                 f"{a.dtype} {tuple(a.shape)}, finite "
+                                 f"{bool(torch.isfinite(a).all())}")
+        d = (a - b).abs()
+        scale = b.abs().max().item()
+        rel = d.max().item() / max(scale, 1e-30)
+        if scaled:
+            ok = rel <= SSD_BWD_TOL[name]
+        else:
+            ok = (d - SSD_TOL * b.abs()).max().item() <= SSD_TOL
+        if not ok:
+            raise AssertionError(
+                f"ssd_scan_bwd {label} {name}: max abs err "
+                f"{d.max().item():.3e} at a largest |value| of {scale:.4e} "
+                f"(relative {rel:.3e}) over the tolerance")
+        out[name] = (d.max().item(), rel)
+    return out
+
+
+def phase_kernel_ssd_bwd(ctx) -> None:
+    """6-bwd against the plain backward (``ref.ssd_scan_bwd``) on the card:
+    SSD_CASES with and without the final state's cotangent, SSD_LARGE_DT
+    (a chunk whose dt sum overflows exp: the gradient stays finite) and the
+    five SSD_SHAPES (the training paths drop the final state); two calls
+    bitwise equal; times beside the plain backward's and three bounds:
+    ``bound_ms`` (every operation at the f32 CUDA-core peak),
+    ``bound_tc_ms`` (the same operations in split TF32) and
+    ``bound_tc_vjp_ms`` (split TF32 without ``recompute_ops``, the
+    operations that re-form what the forward had formed)."""
+    import torch
+    from repro_torch.kernels import ref, work
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    phase = "kernel:ssd_scan_bwd"
+    print("ssd_scan_bwd library_ms: null — no PyTorch call computes the SSD "
+          "scan's gradient", flush=True)
+    cases = [("reference case" if i < 4 else "wide case", c, g)
+             for i, c in enumerate(SSD_CASES) for g in (True, False)]
+    cases += [("large dt", SSD_LARGE_DT, True)]
+    cases += [(label, c, False) for label, c in SSD_SHAPES.items()]
+    worst = {}
+    for i, (label, case, with_gfin) in enumerate(cases):
+        x, dt, A, Bm, Cm = ssd_inputs(case, seed=40 + i)
+        if label == "large dt":
+            A = -torch.ones(case[2], device="cuda")
+        args = (x, dt, A, Bm, Cm, *ssd_cotangents(case, with_gfin, 60 + i))
+        chunk = case[-1]
+        scaled = label not in ("reference case", "large dt")
+        kernel = lambda: sb.ssd_scan_bwd_cuda(*args, chunk=chunk)  # noqa
+        before = sb.LAUNCHES.count
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if sb.LAUNCHES.count != before + 2:
+            raise AssertionError(f"{phase} {case}: launches "
+                                 f"{sb.LAUNCHES.count - before}, not 2")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{phase} {case}: two calls differ")
+        plain = lambda: ref.ssd_scan_bwd(*args, chunk=chunk)  # noqa: E731
+        errs = _ssd_bwd_err(f"{label} {case}", got, plain(), scaled)
+        for name, (_, rel) in errs.items():
+            worst[name] = max(worst.get(name, 0.0), rel)
+        del got, again
+        if label not in SSD_SHAPES:
+            continue
+        ops, nbytes = work.ssd_bwd_work(*case, with_gfin)
+        recompute = work.ssd_bwd_recompute_ops(*case)
+        bound_ms, bound_by = _bound((ops, nbytes), "float32")
+        rec = {"name": "ssd_scan_bwd", "route": "cuda",
+               "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+               "replaces": "src/repro/kernels/ops.py:71 (_ssd_bwd, jax.vjp "
+                           "through the pure-jnp ref.ssd_scan: no TPU "
+                           "kernel)",
+               "launches": None,
+               "max_abs_err": max(e for e, _ in errs.values()),
+               "rel_err": {k: r for k, (_, r) in errs.items()},
+               "tol": SSD_BWD_TOL, "bitwise_repeat": True,
+               "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=5,
+                                                          warmup=1),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "graph_ms": graph_ms(kernel),
+               "bound_tc_ms": split_tf32_bound((ops, nbytes)),
+               "recompute_ops": recompute,
+               "bound_tc_vjp_ms": split_tf32_bound((ops - recompute,
+                                                    nbytes))}
+        if label == "mamba2-780m":
+            rec["pass_device_ms"] = pass_device_ms("ssd_scan_bwd", kernel,
+                                                    SSD_BWD_PASSES)
+        emit({"phase": phase, "shape": f"{label} B={case[0]} S={case[1]} "
+              f"H={case[2]} P={case[3]} G={case[4]} N={case[5]} "
+              f"chunk={case[6]} gfin={with_gfin}", **rec,
+              "nvidia_smi": ctx["smi"]})
+        if label == "mamba2-780m":                # the train_ssm path
+            ctx["kernels"]["ssd_scan_bwd"] = rec
+        torch.cuda.empty_cache()
+    emit({"phase": phase, "cases": len(cases), "tol": SSD_TOL,
+          "scaled_tol": SSD_BWD_TOL, "worst_relative_err": worst})
 
 
 # ---------------------------------------------------------------------------
@@ -3179,9 +3342,9 @@ def launches_per_pass(cfg, mtp: bool = True, backward: bool = True,
     FFN (router, dispatch, expert products) is PyTorch ops, as the
     reference's is XLA, so it counts as a dense layer.  The backward
     launches the attention backward kernel once per attention of the
-    forward and the RMSNorm backward kernel once per RMSNorm; the SSD
-    scan's backward recomputes through the plain version and launches
-    nothing.  On one rank of a model axis of ``tp``, ``split_gate_norms``
+    forward, the RMSNorm backward kernel once per RMSNorm and the SSD
+    scan's backward (6-bwd) once per SSD scan.  On one rank of a model
+    axis of ``tp``, ``split_gate_norms``
     of the norms are PyTorch ops: kernel 2 and its backward launch that
     many fewer times a pass."""
     a = cfg.attn
@@ -3202,6 +3365,7 @@ def launches_per_pass(cfg, mtp: bool = True, backward: bool = True,
     out["rmsnorm"] -= split_gate_norms(cfg, tp)
     out["flash_attention_bwd"] = out["flash_attention"] if backward else 0
     out["rmsnorm_bwd"] = out["rmsnorm"] if backward else 0
+    out["ssd_scan_bwd"] = out["ssd_scan"] if backward else 0
     return out
 
 
@@ -3212,6 +3376,7 @@ def launches_per_decode_step(cfg, tp: int = 1) -> dict:
     in the reference); on one rank of a model axis of ``tp``, less the
     split Mamba2 layers' gate norms (``split_gate_norms``)."""
     return {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
+            "ssd_scan_bwd": 0,
             "rmsnorm": launches_per_pass(cfg, mtp=False, tp=tp)["rmsnorm"],
             "rmsnorm_bwd": 0}
 
@@ -3281,6 +3446,41 @@ def attention_variants_check(phase: str, total: int,
     return by
 
 
+class PlainSsdCounter:
+    """Within a ``with`` block, counts the calls of the SSD scan's plain
+    versions (``ref.ssd_scan``, ``ref.ssd_scan_bwd``) on CUDA tensors: a
+    card path runs kernel 6 and 6-bwd, never these, so ``check`` raises
+    on any."""
+
+    def __enter__(self) -> "PlainSsdCounter":
+        from repro_torch.kernels import ref
+        self._ref = ref
+        self._saved = {n: getattr(ref, n) for n in ("ssd_scan",
+                                                    "ssd_scan_bwd")}
+        self.calls = dict.fromkeys(self._saved, 0)
+
+        def counted(name):
+            fn = self._saved[name]
+
+            def call(x, *args, **kwargs):
+                self.calls[name] += bool(x.is_cuda)
+                return fn(x, *args, **kwargs)
+            return call
+        for name in self._saved:
+            setattr(ref, name, counted(name))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for name, fn in self._saved.items():
+            setattr(self._ref, name, fn)
+
+    def check(self, label: str) -> dict:
+        if any(self.calls.values()):
+            raise AssertionError(f"{label}: the plain SSD versions ran on "
+                                 f"the card: {self.calls}")
+        return self.calls
+
+
 def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
               step_fields=None, final_fields=None) -> dict:
     """launch.train.train() on ``cfg`` with ``opts``; every step's launches
@@ -3325,10 +3525,11 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
         counter.count = 0
     attention_variants_reset()
     t0 = time.perf_counter()
-    result = train(cfg, **opts, ckpt_dir=str(ckpt_dir),
-                   ckpt_every=opts["steps"] if checkpoint else 0,
-                   verify_recovery="inject_fail" in opts, device="cuda",
-                   on_step=on_step, log=lambda s: None)
+    with PlainSsdCounter() as plain:
+        result = train(cfg, **opts, ckpt_dir=str(ckpt_dir),
+                       ckpt_every=opts["steps"] if checkpoint else 0,
+                       verify_recovery="inject_fail" in opts, device="cuda",
+                       on_step=on_step, log=lambda s: None)
     launches = {k: c.count for k, c in KERNEL_LAUNCHES.items()}
     secs = time.perf_counter() - t0
     ctx["phase_launches"][phase] = launches
@@ -3362,7 +3563,8 @@ def run_train(ctx, phase, cfg, reduced, opts, checkpoint: bool,
                phase, launches["flash_attention_bwd"], variant,
                backward=True),
            "rmsnorm_bwd_by_variant": rms_bwd_variants_check(
-               phase, launches["rmsnorm_bwd"])}
+               phase, launches["rmsnorm_bwd"]),
+           "plain_ssd_calls_on_card": plain.check(phase)}
     rec = next((r for r in result.history if r["kind"] == "recovered"), None)
     if rec is not None:
         tol = RECOVERY_RTOL * rec["grad_sum_max_abs"]
@@ -3416,8 +3618,9 @@ def phase_train_ssm(ctx) -> None:
     launches = run_train(ctx, "train_ssm", cfg,
                          {"n_layers": [full.n_layers, SSM_LAYERS]}, TRAIN,
                          checkpoint=True)
-    if "ssd_scan" in ctx["kernels"]:
-        ctx["kernels"]["ssd_scan"]["launches"] = launches["ssd_scan"]
+    for name in ("ssd_scan", "ssd_scan_bwd"):
+        if name in ctx["kernels"]:
+            ctx["kernels"][name]["launches"] = launches[name]
 
 
 def phase_train_hybrid(ctx) -> None:
@@ -4054,15 +4257,17 @@ def _tp_rank(rank: int, world: int, store_path: str, out_dir: str,
         undo = _heads_recorder(heads)
         attention_variants_reset()
         try:
-            recs = compare(_tp_cfg(arch, n_layers),
-                           make_host_mesh(world, device_type="cuda"),
-                           lr=TP_LR, seqpar=TP_PATHS[path],
-                           **{**TP_GLOO, "seq": TP_PATH_SEQ.get(
-                               path, TP_GLOO["seq"])})
+            with PlainSsdCounter() as plain:
+                recs = compare(_tp_cfg(arch, n_layers),
+                               make_host_mesh(world, device_type="cuda"),
+                               lr=TP_LR, seqpar=TP_PATHS[path],
+                               **{**TP_GLOO, "seq": TP_PATH_SEQ.get(
+                                   path, TP_GLOO["seq"])})
         finally:
             undo()
         runs[path] = {"records": recs, "heads": heads,
-                      "by_variant": _by_variant()}
+                      "by_variant": _by_variant(),
+                      "plain_ssd_calls_on_card": plain.calls}
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps({
         "rank": rank, "cuda_device": torch.cuda.current_device(),
         "backend": torch.distributed.get_backend(), "runs": runs}))
@@ -4146,6 +4351,10 @@ def _tp_gloo(ctx, arch: str, n_layers: int) -> dict:
                         f"{label} step {r['step']}: sharded off fused by "
                         f"{d}, worst leaf mean {leaf_mean}, replicas equal "
                         f"over the model axis {r['replicas_equal']}")
+            if any(run["plain_ssd_calls_on_card"].values()):
+                raise AssertionError(f"{label}: the plain SSD versions ran "
+                                     f"on the card: "
+                                     f"{run['plain_ssd_calls_on_card']}")
             if run["heads"] != want_heads:
                 raise AssertionError(f"{label}: heads {run['heads']}, "
                                      f"expected {want_heads} (fused, "
@@ -4207,8 +4416,10 @@ def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
     undo = _heads_recorder(heads)
     attention_variants_reset()
     try:
-        rec = check_pair(cfg, shape, device="cuda", n_micro=DIST["n_micro"],
-                         layout=layout, seqpar=seqpar)
+        with PlainSsdCounter() as plain:
+            rec = check_pair(cfg, shape, device="cuda",
+                             n_micro=DIST["n_micro"], layout=layout,
+                             seqpar=seqpar)
     finally:
         undo()
     pred, meas = rec["predicted"], rec["measured"]
@@ -4233,13 +4444,15 @@ def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
                 rec["peak_above_arguments"]["measured"]],
             "peak_gap_pct": None if gap is None else 100.0 * gap,
             "step_s": rec["step_s"], "roofline_s": rec["roofline_s"],
-            "trace_s": rec["trace_s"], "nvidia_smi": ctx["smi"]}
+            "trace_s": rec["trace_s"],
+            "plain_ssd_calls_on_card": plain.calls, "nvidia_smi": ctx["smi"]}
     if arch == "gemma-2b":
         line["tp1_step_s"] = ctx.get("tp1_step_s")
     emit(line)
     label = f"train_tp share {arch} at tp {model}" \
         + (" seqpar" if seqpar else "")
     label += f" at {seq} positions"
+    plain.check(label)
     if rec["seqpar"] != seqpar:
         raise AssertionError(f"{label}: seqpar {rec['seqpar']}")
     if seqpar and (rec["seq_block"], rec["seq_pad"]) != (
@@ -4264,7 +4477,7 @@ def _tp_share(ctx, arch: str, n_layers: int, model: int, fields: dict,
 
 # the kernels every sequence-parallel run of train_tp must launch
 SEQPAR_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
-                  "rmsnorm_bwd", "ssd_scan")
+                  "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
 def phase_train_tp(ctx) -> None:
@@ -5270,13 +5483,18 @@ def profile_step(cfg) -> dict:
 # serve_tp's time (their last traces: PERF.md); cut from 12 to 4 for
 # train_tp's sequence-parallel runs
 PROFILE_SSM_LAYERS = 4
+# zamba2-1.2b's: one shared-block period (6 Mamba2 layers, then the shared
+# attention block), half train_hybrid's depth, for the script's time
+PROFILE_HYBRID_LAYERS = 6
 
 
 def phase_profile(ctx) -> None:
     from repro_torch.configs import get_arch
     for cfg in (dataclasses.replace(get_arch("gemma-2b"), n_layers=N_LAYERS),
                 dataclasses.replace(get_arch("mamba2-780m"),
-                                    n_layers=PROFILE_SSM_LAYERS)):
+                                    n_layers=PROFILE_SSM_LAYERS),
+                dataclasses.replace(get_arch("zamba2-1.2b"),
+                                    n_layers=PROFILE_HYBRID_LAYERS)):
         t0 = time.perf_counter()
         rec = profile_step(cfg)
         emit({"phase": "profile", **rec,
@@ -5721,6 +5939,7 @@ def main() -> int:
            "probe_rms_bwd": phase_probe_rms_bwd,
            "probe_peak": phase_probe_peak,
            "kernel_rms_bwd": phase_kernel_rmsnorm_bwd,
+           "kernel_ssd_bwd": phase_kernel_ssd_bwd,
            "ab_rms_bwd": phase_ab_rms_bwd,
            "train": phase_train,
            "train_ssm": phase_train_ssm, "train_hybrid": phase_train_hybrid,

@@ -14,20 +14,23 @@ stored.  RMSNorm's backward is a kernel as well, the analytic VJP of the
 reference's ``rmsnorm_fused`` (``repro/models/layers.py:_rmsnorm_fused_bwd``):
 the forward saves (x, scale) and the backward (``rmsnorm_bwd``) computes
 dx and dscale from them and the cotangent without re-running the
-forward.  The SSD scan's backward recomputes through the plain version,
-exactly as the reference's custom VJP ``_ssd_bwd`` differentiates through
-``ref.ssd_scan``.
+forward.  The SSD scan's backward is a kernel too ("6-bwd",
+``ssd_scan_bwd``: the CUDA kernel for CUDA tensors, the plain version for
+CPU tensors), the analytic VJP of the scan: the forward saves only its
+inputs, as the reference's custom VJP ``_ssd_bwd`` does, and the backward
+recomputes the chunk states it needs inside the kernel, never the plain
+scan.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd
 
 
 class FlashAttention(torch.autograd.Function):
@@ -71,15 +74,10 @@ class SsdScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_y, g_state):
-        inputs = tuple(t.detach().requires_grad_(True)
-                       for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            outs = ref.ssd_scan(*inputs, chunk=ctx.chunk)
-            pairs = [(o, g) for o, g in zip(outs, (g_y, g_state))
-                     if g is not None]
-            grads = torch.autograd.grad([o for o, _ in pairs], inputs,
-                                        [g for _, g in pairs],
-                                        allow_unused=True)
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        if g_y is None:
+            g_y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grads = ssd_scan_bwd(x, dt, A, Bm, Cm, g_y, g_state, chunk=ctx.chunk)
         return (*grads, None)
 
 

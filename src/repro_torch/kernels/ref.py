@@ -1,13 +1,14 @@
 """Plain PyTorch versions of the port's kernels (counterpart of
 ``repro/kernels/ref.py``).
 
-They are what the CPU runs, what ``chip_smoke.py`` holds each kernel
-against on the card, and what the kernels' backward passes recompute
-through.  ``simple_attention`` and ``blocked_attention`` port the jnp
-oracles of ``repro/models/layers.py``; ``flash_attention_lse`` and
+They are what the CPU runs and what ``chip_smoke.py`` holds each kernel
+against on the card.  ``simple_attention`` and ``blocked_attention`` port
+the jnp oracles of ``repro/models/layers.py``; ``flash_attention_lse`` and
 ``flash_attention_bwd`` have the mathematics of
 ``repro/models/flash_vjp.py`` (``_fwd_blocked``, ``_bwd_blocked``);
-``ssd_scan`` ports ``repro/models/ssm.py:ssd_chunked``; ``rmsnorm`` is the
+``ssd_scan`` ports ``repro/models/ssm.py:ssd_chunked`` and
+``ssd_scan_bwd`` is its analytic VJP (the reference differentiates
+``ssd_scan`` with ``jax.vjp``); ``rmsnorm`` is the
 one of ``repro/kernels/ref.py`` and ``rmsnorm_bwd`` its analytic backward
 (``repro/models/layers.py:_rmsnorm_fused_bwd``).
 """
@@ -255,6 +256,113 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
         * torch.exp(acum)[..., None]
     y = (y_diag + y_off).reshape(Bsz, nc * L, H, P)[:, :S]
     return y, carry
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, gy, gfin=None, *, chunk: int = 128):
+    """(dx, ddt, dA, dBm, dCm), all f32: the exact gradient of
+    ``ssd_scan`` at (x, dt, A, Bm, Cm) for the cotangents ``gy`` of y
+    (B,S,H,P) and ``gfin`` of the final state (B,H,P,N), or None for a
+    dropped final state.  The analytic VJP in the passes of
+    ``csrc/ssd_scan_bwd.cu``, with acum the in-chunk inclusive cumsum of
+    a = dt A, e = exp(acum), f_s = exp(acum[L-1] - acum[s]) dt_s:
+
+    1. the forward's C.B^T, each chunk's own state and the carry S_prev;
+    2. local_c = sum_l e_l gy_l (x) C_l, the gradient y's inter-chunk
+       term sends to the state entering chunk c;
+    3. a reverse carry: dS_out of the last chunk is gfin, and
+       dS_out(c-1) = exp(acum_c[L-1]) dS_out(c) + local_c;
+    4. per chunk and head: dW = gy.x^T on s <= l, dCB = dW decay dt_s,
+       dx, dB, dC, and the gradient of acum taken into dt's and A's in
+       its stable form (no sum of terms that cancel): the reverse cumsum
+       of d acum at token j is sum_{l>=j} gy_l.y_off_l
+       + sum_{l>=j, s<j} dW[l,s] W[l,s] + sum_{s<j} f_s r_s
+       + exp(acum[L-1]) <dS_out, S_prev>, r_s = x_s.(dS_out B_s).
+
+    Head h reads group h // (H/G), so dBm and dCm sum the group's heads.
+    No exp of a positive difference is formed, so the gradient is finite
+    where the reference's is NaN (see ``ssd_scan``).  Tokens past S take
+    dt = 0, as in the forward."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    L = min(chunk, S)
+    nc = -(-S // L)
+    pad = nc * L - S
+    x, dt, Bm, Cm, gy = (t.float() for t in (x, dt, Bm, Cm, gy))
+    if pad:
+        x, gy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                 for t in (x, gy))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                  for t in (Bm, Cm))
+    xc = x.reshape(Bsz, nc, L, H, P)
+    gyc = gy.reshape(Bsz, nc, L, H, P)
+    dtc = dt.reshape(Bsz, nc, L, H)
+    Bh = torch.repeat_interleave(Bm.reshape(Bsz, nc, L, G, N), rep, dim=3)
+    Ch = torch.repeat_interleave(Cm.reshape(Bsz, nc, L, G, N), rep, dim=3)
+
+    # 1. the forward's quantities
+    acum = torch.cumsum(dtc * A[None, None, None, :], dim=2)   # (B,c,L,H)
+    at = acum[:, :, -1, :]                                      # (B,c,H)
+    diff = acum[:, :, :, None, :] - acum[:, :, None, :, :]     # (B,c,L,L,H)
+    tri = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
+    tri5 = tri[None, None, :, :, None]
+    decay = torch.exp(diff.masked_fill(~tri5, -math.inf))      # [l, s]
+    cb = torch.einsum("bclhn,bcshn->bclsh", Ch, Bh)
+    e = torch.exp(acum)
+    f = torch.exp(at[:, :, None, :] - acum) * dtc
+    states = torch.einsum("bcshn,bcshp->bchpn", Bh * f[..., None], xc)
+    carry = torch.zeros((Bsz, H, P, N), dtype=x.dtype, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * torch.exp(at[:, c])[..., None, None] + states[:, c]
+    prev = torch.stack(prev, dim=1)                             # (B,c,H,P,N)
+
+    # 2. the inter-chunk term's gradient of each chunk's incoming state
+    local = torch.einsum("bclhp,bclhn->bchpn", gyc * e[..., None], Ch)
+
+    # 3. the reverse carry: dso[:, c] is the gradient of the state leaving
+    # chunk c (entering c + 1)
+    g = torch.zeros_like(carry) if gfin is None else gfin.float()
+    dso = []
+    for c in reversed(range(nc)):
+        dso.append(g)
+        g = g * torch.exp(at[:, c])[..., None, None] + local[:, c]
+    dso = torch.stack(dso[::-1], dim=1)                         # (B,c,H,P,N)
+
+    # 4. per chunk and head
+    dw = torch.einsum("bclhp,bcshp->bclsh", gyc, xc) * tri5
+    dcb = dw * decay * dtc[:, :, None, :, :]
+    z = dw * decay * cb                         # d(dt_s) from W, per (l, s)
+    q = z * dtc[:, :, None, :, :]               # d(acum) pairs dW W
+    gint = torch.einsum("bclsh,bclhp->bcshp", cb * decay, gyc)
+    u = torch.einsum("bcshn,bchpn->bcshp", Bh, dso)
+    dx = gint * dtc[..., None] + u * f[..., None]
+    r = (xc * u).sum(dim=-1)                                    # (B,c,L,H)
+    dC = torch.einsum("bclsh,bcshn->bclhn", dcb, Bh) + e[..., None] * \
+        torch.einsum("bclhp,bchpn->bclhn", gyc, prev)
+    dB = torch.einsum("bclsh,bclhn->bcshn", dcb, Ch) + f[..., None] * \
+        torch.einsum("bcshp,bchpn->bcshn", xc, dso)
+    ddt = z.sum(dim=2) + torch.exp(at[:, :, None, :] - acum) * r
+
+    # the reverse cumsum of d acum, in its stable form
+    o = e * (gyc * torch.einsum("bclhn,bchpn->bclhp", Ch, prev)).sum(-1)
+    rev_o = torch.flip(torch.cumsum(torch.flip(o, (2,)), dim=2), (2,))
+    qex = torch.cumsum(q, dim=3) - q            # [l, j]: sum_{s<j} q[l, s]
+    t = (qex * tri5).sum(dim=2)                 # [j]: sum_{l>=j}
+    fr = f * r
+    kc = torch.exp(at) * (dso * prev).sum(dim=(-1, -2))        # (B,c,H)
+    da = rev_o + t + (torch.cumsum(fr, dim=2) - fr) + kc[:, :, None, :]
+    ddt = ddt + A[None, None, None, :] * da
+    dA = (dtc * da).sum(dim=(0, 1, 2))
+
+    def tokens(v):                              # (B,c,L,...) -> (B,S,...)
+        return v.reshape((Bsz, nc * L) + v.shape[3:])[:, :S]
+
+    def grouped(v):                             # sum the group's heads
+        return tokens(v.reshape(Bsz, nc, L, G, rep, N).sum(dim=4))
+    return tokens(dx), tokens(ddt), dA, grouped(dB), grouped(dC)
 
 
 # ---------------------------------------------------------------------------

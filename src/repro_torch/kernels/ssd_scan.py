@@ -5,7 +5,9 @@
 ``ssd_scan_cuda`` launches the kernel and takes CUDA tensors only.
 ``ssd_scan_fwd`` is the entry the model reaches (through ``ops.SsdScan``):
 it launches the kernel for CUDA tensors and runs the plain version
-(``ref.ssd_scan``) for CPU tensors, and for nothing else.
+(``ref.ssd_scan``) for CPU tensors, and for nothing else.  Its gradient is
+the kernel 6-bwd (``ssd_scan_bwd.py``), which ``ops.SsdScan.backward``
+calls: no backward re-runs the plain scan on a CUDA tensor.
 """
 from __future__ import annotations
 

@@ -6,11 +6,11 @@ These formulas are the kernels' roofline bounds (``chip_smoke.py`` divides
 them by the card's rates) and what the dry-run (``launch.dryrun``) counts
 for a kernel's call in place of the aten ops that carry it: ``counted``
 wraps each kernel's entry (``flash_attention_fwd``, ``flash_attention_bwd``,
-``rmsnorm_fwd``, ``rmsnorm_bwd``, ``ssd_scan_fwd``), and while a counter
-(``launch.counters.WorkCounter``) is active it notes the call and the
-formula's work, ignores the aten ops inside the call (the plain version's
-on the CPU, the wrapper's allocations on the card) and then sees the
-call's outputs.  So a trace on the ``meta`` device, a run on the CPU and a
+``rmsnorm_fwd``, ``rmsnorm_bwd``, ``ssd_scan_fwd``, ``ssd_scan_bwd``), and
+while a counter (``launch.counters.WorkCounter``) is active it notes the
+call and the formula's work, ignores the aten ops inside the call (the
+plain version's on the CPU, the wrapper's allocations on the card) and
+then sees the call's outputs.  So a trace on the ``meta`` device, a run on the CPU and a
 run on the card count the same work.
 
 Operations are counted as ``torch.utils.flop_counter`` counts a product,
@@ -107,6 +107,42 @@ def ssd_work(B, S, H, P, G, N, chunk) -> Tuple[float, int]:
     return ops, nbytes
 
 
+def ssd_bwd_work(B, S, H, P, G, N, chunk,
+                 with_gfin: bool) -> Tuple[float, int]:
+    """6-bwd: the multiply-adds of the analytic VJP over each chunk's live
+    tokens n -- per group C.B^T, and dCB times B and C (causal halves);
+    per head dW = gy.x^T and the weights times gy (causal halves), the
+    chunk's own state, local, dS_out.B and the state terms of dB, then,
+    for chunks after the first, the state term of dC and S_prev.C -- and
+    x, dt, A, Bm, Cm, gy (and gfin where given) read once, dx, ddt, dA,
+    dBm, dCm written once (f32)."""
+    L = min(chunk, S)
+    ops = 0.0
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        pairs = n * (n + 1) / 2
+        ops += 2.0 * B * (3 * G * pairs * N + 2 * H * pairs * P
+                          + H * n * N * P * (6 if c0 else 4))
+    nbytes = 4 * (2 * (2 * B * S * H * P + B * S * H + H
+                       + 2 * B * S * G * N)
+                  + (B * H * P * N if with_gfin else 0))
+    return ops, nbytes
+
+
+def ssd_bwd_recompute_ops(B, S, H, P, G, N, chunk) -> float:
+    """The part of ``ssd_bwd_work``'s operations that recomputes what the
+    forward had formed (6-bwd takes only the scan's inputs): C.B^T per
+    group, each chunk's own state and, for chunks after the first,
+    S_prev.C -- kernel 6's work less its (L,L)x(L,P) product."""
+    L = min(chunk, S)
+    ops = 0.0
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        ops += 2.0 * B * (G * n * (n + 1) / 2 * N
+                          + H * n * N * P * (2 if c0 else 1))
+    return ops
+
+
 # ---- the wrappers' formulas, from the arguments of their calls ----------
 
 def _attention_args(q, k, v):
@@ -138,6 +174,12 @@ def rmsnorm_bwd_call(x, scale, g, *, eps=1e-6):
 def ssd_scan_call(x, dt, A, Bm, Cm, *, chunk=128):
     B, S, H, P = x.shape
     return ssd_work(B, S, H, P, Bm.shape[2], Bm.shape[3], chunk)
+
+
+def ssd_scan_bwd_call(x, dt, A, Bm, Cm, gy, gfin=None, *, chunk=128):
+    B, S, H, P = x.shape
+    return ssd_bwd_work(B, S, H, P, Bm.shape[2], Bm.shape[3], chunk,
+                        gfin is not None)
 
 
 def counted(name: str, formula: Callable) -> Callable:

@@ -46,7 +46,8 @@ from repro_torch.core.kvstore import KVStore
 from repro_torch.core.resumption import run_iteration_with_failure
 from repro_torch.data.pipeline import SyntheticLM, stack_microbatches
 from repro_torch.kernels import (flash_attention, flash_attention_bwd,
-                                 rmsnorm, rmsnorm_bwd, ssd_scan)
+                                 rmsnorm, rmsnorm_bwd, ssd_scan,
+                                 ssd_scan_bwd)
 from repro_torch.models.model import build_model
 from repro_torch.optim import AdamW, cosine_with_warmup
 from repro_torch.train.state import TrainState, init_train_state
@@ -58,6 +59,7 @@ from repro_torch.train.step import (finalize_step, make_grad_fn,
 KERNEL_LAUNCHES = {"flash_attention": flash_attention.LAUNCHES,
                    "flash_attention_bwd": flash_attention_bwd.LAUNCHES,
                    "ssd_scan": ssd_scan.LAUNCHES,
+                   "ssd_scan_bwd": ssd_scan_bwd.LAUNCHES,
                    "rmsnorm": rmsnorm.LAUNCHES,
                    "rmsnorm_bwd": rmsnorm_bwd.LAUNCHES}
 

@@ -233,12 +233,15 @@ def test_config_fields_match_reference_arithmetic(shape, multi_pod):
 
 def _entry_cases():
     from repro_torch.kernels import (flash_attention, flash_attention_bwd,
-                                     rmsnorm, rmsnorm_bwd, ssd_scan)
+                                     rmsnorm, rmsnorm_bwd, ssd_scan,
+                                     ssd_scan_bwd)
     gen = torch.Generator().manual_seed(0)
     r = lambda *s: torch.randn(s, generator=gen)  # noqa: E731
     q, k, v = r(1, 8, 2, 16), r(1, 8, 1, 16), r(1, 8, 1, 16)
     o, lse = flash_attention.flash_attention_fwd(q, k, v, with_lse=True)
     x, scale = r(3, 16), r(16)
+    scan = (r(1, 8, 2, 4), r(1, 8, 2).abs(), -r(2).abs(), r(1, 8, 1, 4),
+            r(1, 8, 1, 4))
     return {
         "flash_attention": (flash_attention.flash_attention_fwd,
                             (q, k, v), dict(with_lse=True, window=3),
@@ -249,14 +252,16 @@ def _entry_cases():
         "rmsnorm": (rmsnorm.rmsnorm_fwd, (x, scale), {}, rmsnorm.LAUNCHES),
         "rmsnorm_bwd": (rmsnorm_bwd.rmsnorm_bwd, (x, scale, r(3, 16)), {},
                         rmsnorm_bwd.LAUNCHES),
-        "ssd_scan": (ssd_scan.ssd_scan_fwd,
-                     (r(1, 8, 2, 4), r(1, 8, 2).abs(), -r(2).abs(),
-                      r(1, 8, 1, 4), r(1, 8, 1, 4)), dict(chunk=4),
-                     ssd_scan.LAUNCHES)}
+        "ssd_scan": (ssd_scan.ssd_scan_fwd, scan, dict(chunk=4),
+                     ssd_scan.LAUNCHES),
+        "ssd_scan_bwd": (ssd_scan_bwd.ssd_scan_bwd,
+                         (*scan, r(1, 8, 2, 4), r(1, 2, 4, 4)),
+                         dict(chunk=4), ssd_scan_bwd.LAUNCHES)}
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd",
-                                  "rmsnorm", "rmsnorm_bwd", "ssd_scan"])
+                                  "rmsnorm", "rmsnorm_bwd", "ssd_scan",
+                                  "ssd_scan_bwd"])
 def test_kernel_entry_counts_one_formula_on_meta_and_cpu(name):
     from repro_torch.launch.counters import WorkCounter
     entry, args, kwargs, launches = _entry_cases()[name]
@@ -264,7 +269,8 @@ def test_kernel_entry_counts_one_formula_on_meta_and_cpu(name):
                "flash_attention_bwd": work.flash_attention_bwd_call,
                "rmsnorm": work.rmsnorm_call,
                "rmsnorm_bwd": work.rmsnorm_bwd_call,
-               "ssd_scan": work.ssd_scan_call}[name]
+               "ssd_scan": work.ssd_scan_call,
+               "ssd_scan_bwd": work.ssd_scan_bwd_call}[name]
     ops, nbytes = formula(*args, **kwargs)
     before = launches.count
     outs = {}

@@ -421,7 +421,8 @@ def test_training_loop_recovers_an_injected_failure(tmp_path):
             assert np.isfinite(r["loss"]) and r["aux"] > 0
         assert r["launches"] == {"flash_attention": 0,
                                  "flash_attention_bwd": 0, "ssd_scan": 0,
-                                 "rmsnorm": 0, "rmsnorm_bwd": 0}
+                                 "ssd_scan_bwd": 0, "rmsnorm": 0,
+                                 "rmsnorm_bwd": 0}
 
 
 def test_init_matches_reference_tree_shapes_and_dtypes():

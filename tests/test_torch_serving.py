@@ -270,7 +270,8 @@ def test_serve_launcher_on_the_cpu():
     assert b["steps"] == 6 + 4 and len(b["outs"]) == 3
     assert all(o.shape == (4,) for o in b["outs"])
     zero = {"flash_attention": [0], "flash_attention_bwd": [0],
-            "ssd_scan": [0], "rmsnorm": [0], "rmsnorm_bwd": [0]}
+            "ssd_scan": [0], "ssd_scan_bwd": [0], "rmsnorm": [0],
+            "rmsnorm_bwd": [0]}
     assert b["launches_per_step"] == zero == c["launches_per_step"]
     assert b["all_logits_finite"] and c["all_logits_finite"]
     stats = c["slo_stats"]

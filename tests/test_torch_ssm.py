@@ -182,5 +182,6 @@ def test_training_loop_recovers_an_injected_failure(tmp_path):
         assert r["loss"] is None or np.isfinite(r["loss"])
         assert r["launches"] == {"flash_attention": 0,
                                  "flash_attention_bwd": 0, "ssd_scan": 0,
-                                 "rmsnorm": 0, "rmsnorm_bwd": 0}
+                                 "ssd_scan_bwd": 0, "rmsnorm": 0,
+                                 "rmsnorm_bwd": 0}
     assert int(result.state.step) == 3
