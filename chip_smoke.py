@@ -87,7 +87,9 @@ Phases, each printing one JSON line:
                     time at mamba2-780m's shape) beside the plain
                     backward's and the bound of ``kernels.work.
                     ssd_bwd_work`` at the f32 peak, in split TF32, and in
-                    split TF32 without the forward's recomputed products
+                    split TF32 without the forward's recomputed products;
+                    each pass's ptxas line (no performance note) and the
+                    HGMMA count of each product pass in the built SASS
   kernel:rmsnorm    the RMSNorm kernel against its plain version on the card
                     (atol 2e-2 bf16, 1e-5 f32): the reference's test cases,
                     every decode and training shape of the port's models
@@ -358,7 +360,9 @@ Phases ``probe_attn`` and ``probe_rms_bwd`` time configurations of kernel
 cluster size, blocks an SM, the column sums' split), each built from an
 edited copy of the source, in turns with the shipped build
 (``kernel_rms_bwd`` runs the kernel phase's 2-bwd part alone,
-``kernel_ssd_bwd`` its 6-bwd part).
+``kernel_ssd_bwd`` its 6-bwd part, ``kernel_ssd`` its kernel-6 part,
+whose records carry a digest of each case's outputs: run on two trees in
+turns, equal digests show kernel 6 bitwise unchanged).
 """
 from __future__ import annotations
 
@@ -1694,6 +1698,16 @@ def _ssd_err(name, got, want) -> float:
     return worst
 
 
+def out_digest(*tensors) -> str:
+    """sha256 of the tensors' bytes: two runs on one card whose digests
+    agree gave bitwise-equal outputs (kernel 6 against a parent tree's)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def ssd_work(case):
     """(operations, bytes) of one scan (``kernels.work.ssd_work``)."""
     from repro_torch.kernels import work
@@ -1744,51 +1758,52 @@ def pass_device_ms(name, call, passes, calls: int = 5) -> dict:
     return out
 
 
-def ssd_ptxas_report(ctx) -> dict:
-    """The SSD passes' ptxas lines from this run's build (registers, stack
-    and spill bytes); a performance note such as C7518 (serialised wgmma)
-    fails the phase."""
-    entries = ctx.get("ptxas", {}).get("ssd_scan")
+def ssd_ptxas_report(ctx, lib: str = "ssd_scan",
+                     passes=SSD_PASSES) -> dict:
+    """The passes' ptxas lines from this run's build of ``lib`` (registers,
+    stack and spill bytes); a performance note such as C7518 (serialised
+    wgmma) fails the phase."""
+    entries = ctx.get("ptxas", {}).get(lib)
     if entries is None:
         return {"built_in_this_run": False}
     out = {}
     for name, rec in entries.items():
-        m = next((p for p in SSD_PASSES if p in name), None)
+        m = next((p for p in passes if p in name), None)
         if m is None:
             continue
         if rec["notes"]:
-            raise AssertionError(f"ssd_scan: ptxas notes for {m}: {rec}")
+            raise AssertionError(f"{lib}: ptxas notes for {m}: {rec}")
         out[m] = rec
     return {"built_in_this_run": True, "entries": out}
 
 
-def ssd_sass_report() -> dict:
+def ssd_sass_report(lib: str = "ssd_scan", passes=SSD_PASSES,
+                    elementwise=("ssd_carry_kernel",)) -> dict:
     """Tensor-core instructions of each pass in the built library's SASS
-    (cuobjdump, beside nvcc): the product passes must issue HGMMA."""
+    (cuobjdump, beside nvcc): every pass but the elementwise ones must
+    issue HGMMA."""
     import re
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(build.library_path("ssd_scan"))],
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(lib))],
                           capture_output=True, text=True, check=True).stdout
     counts, cur = {}, None
     for ln in sass.splitlines():
-        m = re.search(r"Function : .*(ssd_[a-z]+_kernel)", ln)
+        m = re.search(r"Function : .*((?:ssd|bwd)_[a-z]+_kernel)", ln)
         if m:
             cur = counts.setdefault(m.group(1), {"instructions": 0,
                                                  "HGMMA": 0})
             continue
-        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
                      ln)
         if m and cur is not None:
             cur["instructions"] += 1
             cur["HGMMA"] += m.group(1) == "HGMMA"
-    for name in SSD_PASSES:
-        if name == "ssd_carry_kernel":        # elementwise: no products
+    for name in passes:
+        if name in elementwise:
             continue
         if counts.get(name, {}).get("HGMMA", 0) == 0:
-            raise AssertionError(f"ssd_scan: {name} issues no HGMMA: "
-                                 f"{counts}")
+            raise AssertionError(f"{lib}: {name} issues no HGMMA: {counts}")
     return counts
 
 
@@ -1821,7 +1836,8 @@ def phase_kernel_ssd(ctx) -> None:
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": None,
                "graph_ms": graph_ms(kernel),
-               "bound_tc_ms": split_tf32_bound(ssd_work(case))}
+               "bound_tc_ms": split_tf32_bound(ssd_work(case)),
+               "out_sha256": out_digest(*got)}
         if label == "mamba2-780m":
             rec["pass_device_ms"] = pass_device_ms("ssd_scan", kernel,
                                                     SSD_PASSES)
@@ -1886,10 +1902,16 @@ def phase_kernel_ssd(ctx) -> None:
 SSD_BWD_TOL = {"dx": SSD_TOL, "ddt": SSD_TOL, "dA": SSD_TOL, "dBm": SSD_TOL,
                "dCm": SSD_TOL}
 SSD_BWD_NAMES = tuple(SSD_BWD_TOL)
+# the kernels of csrc/ssd_scan_bwd.cu in launch order (a CPU test parses
+# the source's __global__ names against it); all but the elementwise and
+# serial ones run their products on wgmma
 SSD_BWD_PASSES = ("bwd_acum_kernel", "bwd_cb_kernel", "bwd_state_kernel",
                   "bwd_carry_kernel", "bwd_dcb_kernel", "bwd_dcbsum_kernel",
                   "bwd_dx_kernel", "bwd_dbc_kernel", "bwd_dbcsum_kernel",
-                  "bwd_dt_kernel")
+                  "bwd_dasum_kernel")
+SSD_BWD_ELEMENTWISE = ("bwd_acum_kernel", "bwd_carry_kernel",
+                       "bwd_dcbsum_kernel", "bwd_dbcsum_kernel",
+                       "bwd_dasum_kernel")
 
 
 def ssd_cotangents(case, with_gfin: bool, seed: int):
@@ -1943,7 +1965,9 @@ def phase_kernel_ssd_bwd(ctx) -> None:
     ``bound_ms`` (every operation at the f32 CUDA-core peak),
     ``bound_tc_ms`` (the same operations in split TF32) and
     ``bound_tc_vjp_ms`` (split TF32 without ``recompute_ops``, the
-    operations that re-form what the forward had formed)."""
+    operations that re-form what the forward had formed); at mamba2-780m's
+    shape each pass's device time beside each product pass's share of
+    ``bound_tc_ms``."""
     import torch
     from repro_torch.kernels import ref, work
     from repro_torch.kernels import ssd_scan_bwd as sb
@@ -1951,6 +1975,10 @@ def phase_kernel_ssd_bwd(ctx) -> None:
     phase = "kernel:ssd_scan_bwd"
     print("ssd_scan_bwd library_ms: null — no PyTorch call computes the SSD "
           "scan's gradient", flush=True)
+    emit({"phase": phase,
+          "ptxas": ssd_ptxas_report(ctx, "ssd_scan_bwd", SSD_BWD_PASSES),
+          "sass": ssd_sass_report("ssd_scan_bwd", SSD_BWD_PASSES,
+                                  SSD_BWD_ELEMENTWISE)})
     cases = [("reference case" if i < 4 else "wide case", c, g)
              for i, c in enumerate(SSD_CASES) for g in (True, False)]
     cases += [("large dt", SSD_LARGE_DT, True)]
@@ -2002,6 +2030,9 @@ def phase_kernel_ssd_bwd(ctx) -> None:
         if label == "mamba2-780m":
             rec["pass_device_ms"] = pass_device_ms("ssd_scan_bwd", kernel,
                                                     SSD_BWD_PASSES)
+            rec["pass_bound_tc_ms"] = {
+                name: split_tf32_bound((ops, 0)) for name, ops in
+                work.ssd_bwd_pass_ops(*case).items()}
         emit({"phase": phase, "shape": f"{label} B={case[0]} S={case[1]} "
               f"H={case[2]} P={case[3]} G={case[4]} N={case[5]} "
               f"chunk={case[6]} gfin={with_gfin}", **rec,
@@ -5939,6 +5970,7 @@ def main() -> int:
            "probe_rms_bwd": phase_probe_rms_bwd,
            "probe_peak": phase_probe_peak,
            "kernel_rms_bwd": phase_kernel_rmsnorm_bwd,
+           "kernel_ssd": phase_kernel_ssd,
            "kernel_ssd_bwd": phase_kernel_ssd_bwd,
            "ab_rms_bwd": phase_ab_rms_bwd,
            "train": phase_train,

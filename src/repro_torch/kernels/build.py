@@ -1,7 +1,8 @@
 """Builds the port's CUDA sources (``repro_torch/csrc/*.cu``) with nvcc into
 shared libraries with a plain C interface, loaded through ctypes.
 
-Each library is named after a hash of its source, so an edited source is
+Each library is named after a hash of its source and of the headers
+(``csrc/*.cuh``) the source includes, so an edited source or header is
 rebuilt on its next use and a stale library is never loaded.  Builds go to
 ``build/repro_torch_kernels/`` at the root of the checkout and happen at
 first use, never at import.
@@ -12,6 +13,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -84,9 +86,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src)
+    for header in sorted(set(re.findall(rb'#include "(\w+\.cuh)"', src))):
+        h.update((CSRC / header.decode()).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

@@ -10,6 +10,18 @@ the kernel for CUDA tensors and runs the plain version
 (``ref.ssd_scan_bwd``) for CPU tensors, and for nothing else.  One call is
 ten passes on the current stream (``csrc/ssd_scan_bwd.cu`` lists them)
 and counts one launch on ``LAUNCHES``.
+
+The kernel is bound by operations, most of them the (L, P, N) products
+of each chunk.  Its five product passes (C.B^T, the chunk states and
+local terms, dCB with S_prev.C, dx's two products, and the two terms of
+dB and dC) run on ``wgmma`` tf32 in split TF32, as kernel 6's: each f32
+operand is split into hi = tf32(a) and lo = tf32(a - hi) and every
+k-step is lo.hi + hi.lo, then + hi.hi, because one TF32 pass keeps ~3
+decimal digits and misses the plain version's 1e-4 (the test file
+emulates both on dB's state term).  The tensor cores truncate as they
+accumulate, so every 32-deep K slice starts a fresh sum, added to the
+running one with f32 adds.  The carries and the sums over heads, head
+blocks and chunks are elementwise.
 """
 from __future__ import annotations
 
@@ -19,9 +31,10 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref, work
+# the widths kernel 6 takes, which its backward takes too
+from repro_torch.kernels.ssd_scan import MAX_CHUNK, MAX_D_STATE
 
-MAX_CHUNK = 128
-HSPLIT = 4          # csrc/ssd_scan_bwd.cu's head blocks of dB's and dC's pass
+HSPLIT = 8          # csrc/ssd_scan_bwd.cu's head blocks of dB's and dC's pass
 
 LAUNCHES = build.LaunchCounter()
 
@@ -34,18 +47,20 @@ ARGTYPES = [_P] * 19 + [_I] * 7 + [_P]
 
 def scratch_shapes(B, S, H, P, G, N, L):
     """The kernel's float32 scratch for one call with chunk length L, in
-    the order the C entry takes it: ``vec`` six (B, H, nc, L) vectors
-    (acum, exp(acum), f, da, ddt's direct terms, r), ``cb`` C.B^T per
-    (batch, chunk, group), ``st`` each chunk's state, then the state
-    entering it, ``ds`` local_c, then the gradient of the state leaving
-    chunk c, ``dcb`` dCB per head, ``dcbg`` dCB summed over each group's
-    heads (none where each group has one head), ``part`` dC's and dB's
-    tiles of each of up to HSPLIT blocks of a group's heads."""
-    nc = -(-S // L)
-    return {"vec": (6, B, H, nc, L), "cb": (B, nc, G, L, L),
-            "st": (B, H, nc, P, N), "ds": (B, H, nc, P, N),
-            "dcb": (B, nc, H, L, L),
-            "dcbg": (B, nc, G, L, L) if H != G else (0,),
+    the order the C entry takes it: ``vec`` five (B, H, nc, L) vectors
+    (acum, exp(acum), f, da, dt da), ``cb`` C.B^T per
+    (batch, chunk, group) with rows padded to Lr = L rounded up to 4,
+    ``st`` each chunk's state, then the state entering it, ``ds``
+    local_c, then the gradient of the state leaving chunk c (both with a
+    chunk's heads together), ``dcb`` dCB per head, ``dcbg`` dCB summed
+    over each group's heads (none where each group has one head),
+    ``part`` dC's and dB's tiles of each of up to HSPLIT blocks of a
+    group's heads."""
+    nc, Lr = -(-S // L), -(-L // 4) * 4
+    return {"vec": (5, B, H, nc, L), "cb": (B, nc, G, L, Lr),
+            "st": (B, nc, H, P, N), "ds": (B, nc, H, P, N),
+            "dcb": (B, nc, H, L, Lr),
+            "dcbg": (B, nc, G, L, Lr) if H != G else (0,),
             "part": (2, min(H // G, HSPLIT), B, nc, G, L, N)}
 
 
@@ -89,9 +104,10 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, gy, gfin=None, *, chunk: int = 128):
                          f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)}, gy "
                          f"{tuple(gy.shape)} disagree")
     L = min(chunk, S)
-    if G < 1 or H % G or L > MAX_CHUNK or chunk < 1:
-        raise ValueError(f"ssd_scan_bwd_cuda: needs H % G == 0 and a chunk "
-                         f"of 1..{MAX_CHUNK}; got H={H} G={G} chunk={chunk}")
+    if G < 1 or H % G or N > MAX_D_STATE or L > MAX_CHUNK or chunk < 1:
+        raise ValueError(f"ssd_scan_bwd_cuda: needs H % G == 0, N <= "
+                         f"{MAX_D_STATE} and a chunk of 1..{MAX_CHUNK}; got "
+                         f"H={H} G={G} N={N} chunk={chunk}")
     if x.numel() == 0 or Bm.numel() == 0:
         return tuple(torch.zeros(t.shape, dtype=torch.float32,
                                  device=x.device)

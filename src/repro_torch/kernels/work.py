@@ -25,7 +25,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -127,6 +127,29 @@ def ssd_bwd_work(B, S, H, P, G, N, chunk,
                        + 2 * B * S * G * N)
                   + (B * H * P * N if with_gfin else 0))
     return ops, nbytes
+
+
+def ssd_bwd_pass_ops(B, S, H, P, G, N, chunk) -> Dict[str, float]:
+    """``ssd_bwd_work``'s operations by the pass of ``csrc/ssd_scan_bwd.cu``
+    that runs them: C.B^T in ``bwd_cb_kernel``, the chunk states and
+    local terms in ``bwd_state_kernel``, dW and S_prev.C in
+    ``bwd_dcb_kernel``, the weights times gy and dS_out.B in
+    ``bwd_dx_kernel``, both terms of dB and dC in ``bwd_dbc_kernel``."""
+    L = min(chunk, S)
+    out = dict.fromkeys(("bwd_cb_kernel", "bwd_state_kernel",
+                         "bwd_dcb_kernel", "bwd_dx_kernel",
+                         "bwd_dbc_kernel"), 0.0)
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        pairs = n * (n + 1) / 2
+        lpn, later = H * n * N * P, 1 if c0 else 0
+        out["bwd_cb_kernel"] += 2.0 * B * G * pairs * N
+        out["bwd_state_kernel"] += 2.0 * B * 2 * lpn
+        out["bwd_dcb_kernel"] += 2.0 * B * (H * pairs * P + later * lpn)
+        out["bwd_dx_kernel"] += 2.0 * B * (H * pairs * P + lpn)
+        out["bwd_dbc_kernel"] += 2.0 * B * (2 * G * pairs * N
+                                            + (1 + later) * lpn)
+    return out
 
 
 def ssd_bwd_recompute_ops(B, S, H, P, G, N, chunk) -> float:

@@ -7,7 +7,9 @@ through the pure-jnp ``ref.ssd_scan``) and against autograd through the
 port's plain scan; a mutant without the inter-chunk state term fails;
 the op's backward on a CUDA tensor reaches the kernel's wrapper and never
 the plain scan.  The CUDA kernel itself is held against the plain
-version by the ``gpu`` test below and by ``chip_smoke.py``.
+version by the ``gpu`` test below and by ``chip_smoke.py``; on the CPU,
+the split-TF32 arithmetic of its products is emulated in torch, and the
+C source is parsed against the wrapper and ``chip_smoke.py``.
 
 Tolerance: atol = rtol = 1e-4 (``SSD_TOL``), the reference's own for this
 kernel (tests/test_kernels.py:105): the analytic backward and the
@@ -227,23 +229,28 @@ def test_meta_tensors_give_the_outputs_shapes_only():
 
 
 def test_scratch_shapes():
-    """The wrapper's scratch at mamba2-780m's training shape: six vectors,
-    C.B^T, the chunk states and their gradients (~25 MB each), dCB per
-    head (~50 MB) and its sum over the group's 48 heads; none where each
-    group has one head."""
+    """The wrapper's scratch at mamba2-780m's training shape: five vectors,
+    C.B^T, the chunk states and their gradients (~25 MB each, a chunk's
+    heads together), dCB per head (~50 MB) and its sum over the group's
+    48 heads, dC's and dB's tiles of 8 head blocks; none where each group
+    has one head; rows of the (L, L) tiles padded to a multiple of 4."""
     nbytes = {k: 4 * int(np.prod(v)) for k, v in
               tsb.scratch_shapes(2, 1024, 48, 64, 1, 128, 128).items()}
-    assert nbytes == {"vec": 6 * 2 * 48 * 8 * 128 * 4,
+    assert nbytes == {"vec": 5 * 2 * 48 * 8 * 128 * 4,
                       "cb": 2 * 8 * 128 * 128 * 4,
                       "st": 2 * 48 * 8 * 64 * 128 * 4,
                       "ds": 2 * 48 * 8 * 64 * 128 * 4,
                       "dcb": 2 * 8 * 48 * 128 * 128 * 4,
                       "dcbg": 2 * 8 * 128 * 128 * 4,
-                      "part": 2 * 4 * 2 * 8 * 128 * 128 * 4}
+                      "part": 2 * 8 * 2 * 8 * 128 * 128 * 4}
     assert tsb.scratch_shapes(2, 37, 4, 8, 2, 4, 16)["dcbg"] == (
         2, 3, 2, 16, 16)
     small = tsb.scratch_shapes(2, 37, 2, 8, 2, 4, 16)
     assert small["dcbg"] == (0,) and small["part"] == (2, 1, 2, 3, 2, 16, 4)
+    ragged = tsb.scratch_shapes(1, 100, 6, 8, 2, 4, 50)
+    assert ragged["cb"] == (1, 2, 2, 50, 52) and ragged["st"] == (
+        1, 2, 6, 8, 4) and ragged["dcb"] == (1, 2, 6, 50, 52) and \
+        ragged["part"] == (2, 3, 1, 2, 2, 50, 4)
 
 
 @pytest.mark.parametrize("case", SSD_CASES + EXTRA_CASES, ids=str)
@@ -263,10 +270,30 @@ def test_recomputed_operations_are_kernel_6s_less_its_diagonal_product(
     assert 0 < recompute < work.ssd_bwd_work(*case, False)[0]
 
 
+@pytest.mark.parametrize("case", SSD_CASES + EXTRA_CASES + [
+    (2, 1024, 48, 64, 1, 128, 128)], ids=str)
+def test_the_passes_operations_add_up_to_the_kernels(case):
+    """``work.ssd_bwd_pass_ops`` (each product pass's share of 6-bwd's
+    operations, whose bounds chip_smoke reports beside the passes' device
+    times) sums to ``work.ssd_bwd_work``'s operations and names kernels of
+    the source."""
+    import re
+    from repro_torch.kernels import build, work
+    per_pass = work.ssd_bwd_pass_ops(*case)
+    assert sum(per_pass.values()) == pytest.approx(
+        work.ssd_bwd_work(*case, False)[0], rel=1e-12)
+    assert all(v > 0 for v in per_pass.values())
+    src = (build.CSRC / "ssd_scan_bwd.cu").read_text()
+    assert set(per_pass) <= set(re.findall(r"void(?: __launch_bounds__"
+                                           r"\([^)]*\))?\s+(\w+_kernel)\(",
+                                           src))
+
+
 def test_argtypes_and_head_blocks_match_the_c_source():
     """The ctypes signature against the C entry's parameters (a pointer
     each for the inputs, outputs and scratch_shapes' tensors in its order,
-    then seven ints and the stream) and HSPLIT against the source's."""
+    then seven ints and the stream), HSPLIT (pass 8's head blocks) and the
+    largest d_state against the source's."""
     import ctypes
     import re
     from repro_torch.kernels import build
@@ -281,6 +308,103 @@ def test_argtypes_and_head_blocks_match_the_c_source():
     assert params[19:] == ["B", "S", "H", "P", "G", "N", "L", "stream"]
     assert int(re.search(r"constexpr int HSPLIT = (\d+);", src).group(1)) \
         == tsb.HSPLIT
+    assert int(re.search(r"constexpr int NMAX = (\d+);", src).group(1)) \
+        == tsb.MAX_D_STATE
+
+
+def test_a_changed_header_renames_the_ssd_libraries(tmp_path, monkeypatch):
+    """``build.library_path`` hashes a source with the ``csrc/*.cuh``
+    headers it includes: editing ``ssd_tf32.cuh`` (in a temporary copy of
+    ``csrc``) renames both SSD libraries, so neither loads a stale build,
+    and leaves a source that does not include it alone."""
+    import shutil
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = ("ssd_scan", "ssd_scan_bwd", "rmsnorm")
+    before = {n: build.library_path(n) for n in names}
+    header = csrc / "ssd_tf32.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert after["ssd_scan"] != before["ssd_scan"]
+    assert after["ssd_scan_bwd"] != before["ssd_scan_bwd"]
+    assert after["rmsnorm"] == before["rmsnorm"]
+
+
+def test_the_passes_chip_smoke_times_are_the_sources_kernels():
+    """chip_smoke.SSD_BWD_PASSES (the passes whose device times it reports
+    at mamba2-780m's shape) against the source's ``__global__`` kernels and
+    their launch order in the C entry; each is read as text, so neither is
+    imported here."""
+    import ast
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import build
+    src = (build.CSRC / "ssd_scan_bwd.cu").read_text()
+    kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?"
+                         r"\s+(\w+)\(", src)
+    entry = src[src.index('extern "C" int repro_ssd_scan_bwd'):]
+    launched = re.findall(r"(\w+)<<<", entry)
+    smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    passes = ast.literal_eval(re.search(r"SSD_BWD_PASSES = (\(.*?\))",
+                                        smoke, re.S).group(1))
+    elementwise = ast.literal_eval(re.search(
+        r"SSD_BWD_ELEMENTWISE = (\(.*?\))", smoke, re.S).group(1))
+    assert len(kernels) == 10
+    assert list(passes) == launched and sorted(passes) == sorted(kernels)
+    assert set(elementwise) < set(passes)
+
+
+def _tf32(a):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, by bit operations: ``cvt.rna.tf32.f32``'s rounding,
+    which the kernel's ``tf32_rna`` splits its operands with."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _db_state_term(a, b, passes):
+    """a @ b (K = a group's heads x P) as pass 8 of ``csrc/ssd_scan_bwd.cu``
+    forms it, in float32: per 32-deep K slice a fresh sum of the split
+    products lo.hi + hi.lo, then + hi.hi (lo.lo dropped), or of hi.hi alone
+    (``passes`` 1), added to the running sum with f32 adds."""
+    tot = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], 32):
+        ak, bk = a[:, k0:k0 + 32], b[k0:k0 + 32]
+        a_hi, b_hi = _tf32(ak), _tf32(bk)
+        if passes == 1:
+            tot += a_hi @ b_hi
+            continue
+        a_lo, b_lo = _tf32(ak - a_hi), _tf32(bk - b_hi)
+        tot += (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+    return tot
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_split_tf32_holds_pass_8s_state_term_and_one_pass_does_not(passes):
+    """Why 6-bwd's products are split TF32: pass 8's dB state term at
+    mamba2-780m's widths (a chunk of 128 tokens, K = 48 heads x P = 64,
+    N = 128), the A operand f_s x_s scaled per head before it is split,
+    lands within SSD_TOL / 100 of its largest |value| from the float64
+    product with three TF32 products a k-step, and a single TF32 pass,
+    the mutant, lands past SSD_TOL."""
+    L, H, P, N = 128, 48, 64, 128
+    x = torch.from_numpy(randn(50, L, H, P))
+    ds = torch.from_numpy(randn(51, H, P, N))
+    dt = torch.from_numpy(np.log1p(np.exp(randn(52, L, H))))
+    A = -torch.exp(torch.from_numpy(randn(53, H)) * 0.3)
+    acum = torch.cumsum(dt * A, dim=0)
+    f = torch.exp(acum[-1] - acum) * dt                   # (L, H)
+    a = (f[:, :, None] * x).reshape(L, H * P)
+    b = ds.reshape(H * P, N)
+    want = a.double() @ b.double()
+    got = _db_state_term(a, b, passes)
+    rel = ((got.double() - want).abs().max() / want.abs().max()).item()
+    if passes == 3:
+        assert rel <= SSD_TOL / 100
+    else:
+        assert rel > SSD_TOL
 
 
 # the card: the reference's cases and the extra ones, the training shapes of
